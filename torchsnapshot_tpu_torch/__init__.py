@@ -1,0 +1,32 @@
+"""torchsnapshot_tpu_torch: the PyTorch/CUDA port of torchsnapshot_tpu.
+
+Takes, restores and reads snapshots of PyTorch state (``nn.Module``,
+``Optimizer``, nested tensors, RNG streams) in the same on-disk format
+as the JAX package, so a snapshot written by either package restores in
+the other.  On the GPU, small tensors coalesce into slabs that are
+packed and unpacked on the device by hand-written CUDA kernels
+(``csrc/``).  It imports ``torch`` and ``numpy``, never ``jax`` and
+nothing of ``torchsnapshot_tpu``.
+
+Entry points place new tensors on ``cuda`` unless the caller asks for
+the CPU.
+"""
+
+from . import knobs, obs  # noqa: F401
+from .event import Event  # noqa: F401
+from .event_handlers import register_event_handler, unregister_event_handler  # noqa: F401
+from .snapshot import Snapshot  # noqa: F401
+from .stateful import PyTreeState, RNGState, StateDict, Stateful  # noqa: F401
+
+__all__ = [
+    "Snapshot",
+    "PyTreeState",
+    "RNGState",
+    "StateDict",
+    "Stateful",
+    "Event",
+    "register_event_handler",
+    "unregister_event_handler",
+    "knobs",
+    "obs",
+]

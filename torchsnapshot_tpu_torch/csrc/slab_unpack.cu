@@ -1,0 +1,179 @@
+// K2, slab unpack: turn one device-resident uint8 slab into its member
+// tensors, casting each to its restore template's dtype and writing it
+// INTO the template's storage, in ONE launch.
+//
+// Replaces: torchsnapshot_tpu/ops/device_pack.py, ``_jitted_unpack``
+// (driven by ``unpack_slab_to_device``): per member, slice the slab at a
+// runtime byte offset, bitcast to the stored dtype and shape, cast to the
+// template dtype.  The JAX program returns new arrays; here the template
+// is updated in place (torch tensors are mutable), so the restore holds
+// one copy of the state on the device, not two.
+//
+// Cast pairs taken: identity for every dtype (a byte copy), any pair
+// among f16/bf16/f32/f64, any pair among the integer types.  The wrapper
+// routes every other pair to the host path before launch.  Float casts go
+// through float (and double for f64) exactly as torch's own copy kernel
+// does, so the result equals ``tensor.to(dtype)`` bit for bit.
+//
+// Bound on this card: memory bandwidth, (slab bytes + output bytes) /
+// 3.35 TB/s, after the one host-to-device copy of the slab.  Identity
+// members take the 16-byte vector byte copy; cast members convert one
+// element per thread step.  Members sit at arbitrary byte offsets in the
+// slab (no padding between them), so a member whose offset is not a
+// multiple of its element size is read with byte-wise loads.
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+
+#include <cstring>
+
+#include "slab_common.cuh"
+
+namespace {
+
+// Element codes shared with the Python wrapper (ops/device_pack.py).
+enum Code : int {
+  kBytes = 0,  // identity: copy ``n`` raw bytes
+  kF16 = 1, kBF16 = 2, kF32 = 3, kF64 = 4,
+  kI8 = 5, kI16 = 6, kI32 = 7, kI64 = 8,
+  kU8 = 9, kU16 = 10, kU32 = 11, kU64 = 12,
+};
+
+// One member, as rows of six int64 built by the wrapper.
+struct UnpackDesc {
+  long long src_off;      // byte offset of the member in the slab
+  long long dst;          // device address of the template's storage
+  long long n;            // bytes for kBytes, elements otherwise
+  long long src_code;
+  long long dst_code;
+  long long chunk_begin;  // index of the member's first chunk
+};
+
+constexpr long long kChunkBytes = 65536;
+constexpr long long kChunkElems = 8192;
+constexpr int kThreads = 256;
+
+__device__ __forceinline__ int code_size(int code) {
+  switch (code) {
+    case kI8: case kU8: return 1;
+    case kF16: case kBF16: case kI16: case kU16: return 2;
+    case kF32: case kI32: case kU32: return 4;
+    default: return 8;
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ T load(const uint8_t* p, long long i, bool aligned) {
+  if (aligned) return reinterpret_cast<const T*>(p)[i];
+  T v;
+  memcpy(&v, p + i * static_cast<long long>(sizeof(T)), sizeof(T));
+  return v;
+}
+
+__device__ __forceinline__ bool is_float(int code) { return code >= kF16 && code <= kF64; }
+
+__device__ __forceinline__ double load_float(const uint8_t* p, int code, long long i,
+                                             bool al) {
+  switch (code) {
+    case kF16: return __half2float(__ushort_as_half(load<unsigned short>(p, i, al)));
+    case kBF16:
+      return __bfloat162float(__ushort_as_bfloat16(load<unsigned short>(p, i, al)));
+    case kF32: return load<float>(p, i, al);
+    default: return load<double>(p, i, al);
+  }
+}
+
+__device__ __forceinline__ void store_float(long long dst, int code, long long i,
+                                            double x) {
+  switch (code) {
+    case kF16:
+      reinterpret_cast<__half*>(dst)[i] = __float2half_rn(static_cast<float>(x));
+      break;
+    case kBF16:
+      reinterpret_cast<__nv_bfloat16*>(dst)[i] =
+          __float2bfloat16_rn(static_cast<float>(x));
+      break;
+    case kF32: reinterpret_cast<float*>(dst)[i] = static_cast<float>(x); break;
+    default: reinterpret_cast<double*>(dst)[i] = x; break;
+  }
+}
+
+__device__ __forceinline__ long long load_int(const uint8_t* p, int code, long long i,
+                                              bool al) {
+  switch (code) {
+    case kI8: return load<signed char>(p, i, al);
+    case kI16: return load<short>(p, i, al);
+    case kI32: return load<int>(p, i, al);
+    case kI64: return load<long long>(p, i, al);
+    case kU8: return load<unsigned char>(p, i, al);
+    case kU16: return load<unsigned short>(p, i, al);
+    case kU32: return load<unsigned int>(p, i, al);
+    default: return static_cast<long long>(load<unsigned long long>(p, i, al));
+  }
+}
+
+__device__ __forceinline__ void store_int(long long dst, int code, long long i,
+                                          long long x) {
+  switch (code) {
+    case kI8: reinterpret_cast<signed char*>(dst)[i] = static_cast<signed char>(x); break;
+    case kI16: reinterpret_cast<short*>(dst)[i] = static_cast<short>(x); break;
+    case kI32: reinterpret_cast<int*>(dst)[i] = static_cast<int>(x); break;
+    case kI64: reinterpret_cast<long long*>(dst)[i] = x; break;
+    case kU8: reinterpret_cast<unsigned char*>(dst)[i] = static_cast<unsigned char>(x); break;
+    case kU16:
+      reinterpret_cast<unsigned short*>(dst)[i] = static_cast<unsigned short>(x);
+      break;
+    case kU32:
+      reinterpret_cast<unsigned int*>(dst)[i] = static_cast<unsigned int>(x);
+      break;
+    default:
+      reinterpret_cast<unsigned long long*>(dst)[i] = static_cast<unsigned long long>(x);
+      break;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+slab_unpack_kernel(const UnpackDesc* __restrict__ descs, int n,
+                   const uint8_t* __restrict__ slab) {
+  const long long c = blockIdx.x;
+  const UnpackDesc d = descs[find_member(descs, n, c)];
+  const uint8_t* src = slab + d.src_off;
+  const int sc = static_cast<int>(d.src_code);
+  const int dc = static_cast<int>(d.dst_code);
+  if (sc == kBytes) {
+    const long long lo = (c - d.chunk_begin) * kChunkBytes;
+    long long len = d.n - lo;
+    if (len > kChunkBytes) len = kChunkBytes;
+    block_copy_bytes(src + lo, reinterpret_cast<uint8_t*>(d.dst) + lo, len);
+    return;
+  }
+  const long long lo = (c - d.chunk_begin) * kChunkElems;
+  long long hi = lo + kChunkElems;
+  if (hi > d.n) hi = d.n;
+  const bool al = reinterpret_cast<uintptr_t>(src) % code_size(sc) == 0;
+  if (is_float(sc)) {
+    for (long long i = lo + threadIdx.x; i < hi; i += blockDim.x)
+      store_float(d.dst, dc, i, load_float(src, sc, i, al));
+  } else {
+    for (long long i = lo + threadIdx.x; i < hi; i += blockDim.x)
+      store_int(d.dst, dc, i, load_int(src, sc, i, al));
+  }
+}
+
+}  // namespace
+
+extern "C" long long tsnp_slab_unpack_chunk_bytes() { return kChunkBytes; }
+extern "C" long long tsnp_slab_unpack_chunk_elems() { return kChunkElems; }
+
+// descs: device array of ``n`` UnpackDesc; total_chunks: sum of the
+// members' chunk counts.  Launches on ``stream`` and returns
+// cudaGetLastError() (0 when nothing was launched).
+extern "C" int tsnp_slab_unpack(const void* descs, int n, long long total_chunks,
+                                const void* slab, void* stream) {
+  if (n <= 0 || total_chunks <= 0) return 0;
+  if (total_chunks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  slab_unpack_kernel<<<static_cast<unsigned>(total_chunks), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const UnpackDesc*>(descs), n, static_cast<const uint8_t*>(slab));
+  return static_cast<int>(cudaGetLastError());
+}

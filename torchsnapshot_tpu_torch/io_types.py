@@ -1,0 +1,133 @@
+"""Core I/O contracts: cost-annotated deferred work items + storage ABC.
+
+Counterpart of ``torchsnapshot_tpu/io_types.py``:
+
+- ``BufferStager``: deferred "produce the bytes" (device→host copy +
+  serialize), annotated with its peak host-memory cost so the scheduler
+  can admit work under a budget.
+- ``BufferConsumer``: the read-side dual — "consume these bytes"
+  (deserialize + place into the target tensor/object).
+- ``WriteReq``/``ReadReq`` bind a storage path to a stager/consumer;
+  ``ReadReq`` carries an optional byte range for ranged reads.
+- ``StoragePlugin``: async write/read/close against a backend.
+
+On the GPU the stager's device→host copy is a ``cudaMemcpyAsync`` into
+pinned host memory on a side copy stream, waited on by an event in a
+worker thread (see ``preparers/array.py``).
+"""
+
+from __future__ import annotations
+
+import abc
+import asyncio
+import concurrent.futures
+from concurrent.futures import Executor
+from dataclasses import dataclass, field
+from typing import Any, Callable, Coroutine, Generic, List, Optional, Tuple, TypeVar
+
+T = TypeVar("T")
+
+
+class Future(Generic[T]):
+    """A placeholder for a value produced after read execution completes."""
+
+    __slots__ = ("obj",)
+
+    def __init__(self, obj: Optional[T] = None) -> None:
+        self.obj = obj
+
+    def set(self, obj: T) -> None:
+        self.obj = obj
+
+
+class BufferStager(abc.ABC):
+    @abc.abstractmethod
+    async def stage_buffer(self, executor: Optional[Executor] = None) -> Any:
+        """Produce the bytes to write (bytes / memoryview / uint8 array).
+        Heavy host work runs on ``executor``."""
+
+    @abc.abstractmethod
+    def get_staging_cost_bytes(self) -> int:
+        """Peak host memory consumed while the staged buffer is alive."""
+
+
+class BufferConsumer(abc.ABC):
+    @abc.abstractmethod
+    async def consume_buffer(
+        self, buf: Any, executor: Optional[Executor] = None
+    ) -> None:
+        """Deserialize ``buf`` and place the result into its target."""
+
+    @abc.abstractmethod
+    def get_consuming_cost_bytes(self) -> int:
+        """Peak host memory consumed while the read buffer is alive."""
+
+
+@dataclass
+class WriteReq:
+    path: str
+    buffer_stager: BufferStager
+    # (sink, byte_range | None): after staging, each sink receives the
+    # crc32 of its slice of the staged buffer (None = whole buffer);
+    # preparers point these at manifest entry/shard ``crc32`` fields.
+    # The batcher re-ranges sinks when it folds requests into a slab.
+    checksum_sinks: Optional[
+        List[Tuple[Callable[[int], None], Optional[Tuple[int, int]]]]
+    ] = None
+    # receives the staged object's [crc32, adler32, size]
+    digest_sink: Optional[Callable[[List[int]], None]] = None
+
+
+@dataclass
+class ReadReq:
+    path: str
+    buffer_consumer: BufferConsumer
+    byte_range: Optional[List[int]] = None  # [start, end)
+
+
+@dataclass
+class WriteIO:
+    path: str
+    buf: Any  # bytes | memoryview | uint8 array
+    # fdatasync'd, with the directory chain fsync'd too: set for the
+    # commit-point write (.snapshot_metadata) only
+    durable: bool = False
+
+
+@dataclass
+class ReadIO:
+    path: str
+    byte_range: Optional[List[int]] = None
+    buf: Any = field(default=None)  # filled by the plugin
+
+
+def run_in_fresh_loop(coro: Coroutine) -> Any:
+    """Run ``coro`` to completion from sync code, also when the calling
+    thread already runs an event loop (then on a private loop in a
+    helper thread)."""
+    try:
+        asyncio.get_running_loop()
+    except RuntimeError:
+        return asyncio.run(coro)
+    with concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
+        return pool.submit(asyncio.run, coro).result()
+
+
+class StoragePlugin(abc.ABC):
+    @abc.abstractmethod
+    async def write(self, write_io: WriteIO) -> None: ...
+
+    @abc.abstractmethod
+    async def read(self, read_io: ReadIO) -> None: ...
+
+    async def close(self) -> None:
+        pass
+
+    def sync_write(self, write_io: WriteIO) -> None:
+        run_in_fresh_loop(self.write(write_io))
+
+    def sync_read(self, read_io: ReadIO) -> None:
+        run_in_fresh_loop(self.read(read_io))
+
+    def sync_close(self) -> None:
+        run_in_fresh_loop(self.close())

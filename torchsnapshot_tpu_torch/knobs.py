@@ -1,0 +1,124 @@
+"""Main-path knobs with env-var overrides and context-manager test hooks.
+
+PyTorch counterpart of ``torchsnapshot_tpu/knobs.py``: the same knob
+names and defaults, read from ``TORCHSNAPSHOT_TPU_TORCH_``-prefixed
+environment variables.  Only the knobs the take/restore main path reads
+are carried; the rest arrive with the modules that read them.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+from typing import Iterator, Optional
+
+_ENV_PREFIX = "TORCHSNAPSHOT_TPU_TORCH_"
+
+_MAX_CHUNK_SIZE_BYTES = "MAX_CHUNK_SIZE_BYTES"
+_SLAB_SIZE_THRESHOLD_BYTES = "SLAB_SIZE_THRESHOLD_BYTES"
+_SLAB_HOST_MEMBER_MAX_BYTES = "SLAB_HOST_MEMBER_MAX_BYTES"
+_MAX_PER_RANK_IO_CONCURRENCY = "MAX_PER_RANK_IO_CONCURRENCY"
+_DISABLE_BATCHING = "DISABLE_BATCHING"
+_PER_RANK_MEMORY_BUDGET_BYTES = "PER_RANK_MEMORY_BUDGET_BYTES"
+_ALLOW_PICKLE_OBJECTS = "ALLOW_PICKLE_OBJECTS"
+_STAGING_THREADS = "STAGING_THREADS"
+
+_DEFAULTS = {
+    # Arrays larger than this are chunked along dim 0 for pipelined I/O.
+    _MAX_CHUNK_SIZE_BYTES: 512 * 1024 * 1024,
+    # Host-staged members at or above this size skip slab packing (the
+    # pack would be a pure extra memcpy); CUDA members stay eligible at
+    # any size below the slab threshold, since the device pack turns N
+    # device-to-host copies into one.
+    _SLAB_HOST_MEMBER_MAX_BYTES: 4 * 1024 * 1024,
+    # Write requests smaller than this are coalesced into slabs.
+    _SLAB_SIZE_THRESHOLD_BYTES: 128 * 1024 * 1024,
+    # Concurrent storage operations per process.
+    _MAX_PER_RANK_IO_CONCURRENCY: 16,
+    _DISABLE_BATCHING: 0,
+    _PER_RANK_MEMORY_BUDGET_BYTES: 0,  # 0 = auto (see scheduler)
+    # Objects the safe codec cannot encode fall back to pickle only when
+    # this is on; reading a pickle payload always requires it.
+    _ALLOW_PICKLE_OBJECTS: 1,
+    # Threads for staging and consuming work.
+    _STAGING_THREADS: 4,
+}
+
+_OVERRIDES: dict = {}
+
+
+def _get_raw(name: str):
+    """One resolution chain for every knob: override → env → default."""
+    if name in _OVERRIDES:
+        return _OVERRIDES[name]
+    env = os.environ.get(_ENV_PREFIX + name)
+    if env is not None:
+        return env
+    return _DEFAULTS[name]
+
+
+def _get_int(name: str) -> int:
+    return int(_get_raw(name))
+
+
+def get_max_chunk_size_bytes() -> int:
+    return _get_int(_MAX_CHUNK_SIZE_BYTES)
+
+
+def get_slab_size_threshold_bytes() -> int:
+    return _get_int(_SLAB_SIZE_THRESHOLD_BYTES)
+
+
+def get_slab_host_member_max_bytes() -> int:
+    return _get_int(_SLAB_HOST_MEMBER_MAX_BYTES)
+
+
+def get_max_per_rank_io_concurrency() -> int:
+    return _get_int(_MAX_PER_RANK_IO_CONCURRENCY)
+
+
+def is_batching_disabled() -> bool:
+    return bool(_get_int(_DISABLE_BATCHING))
+
+
+def get_per_rank_memory_budget_bytes() -> Optional[int]:
+    v = _get_int(_PER_RANK_MEMORY_BUDGET_BYTES)
+    return v if v > 0 else None
+
+
+def is_pickle_allowed() -> bool:
+    return bool(_get_int(_ALLOW_PICKLE_OBJECTS))
+
+
+def get_staging_threads() -> int:
+    return max(1, _get_int(_STAGING_THREADS))
+
+
+@contextlib.contextmanager
+def _override(name: str, value) -> Iterator[None]:
+    had = name in _OVERRIDES
+    prev = _OVERRIDES.get(name)
+    _OVERRIDES[name] = value
+    try:
+        yield
+    finally:
+        if had:
+            _OVERRIDES[name] = prev
+        else:
+            _OVERRIDES.pop(name, None)
+
+
+def override_max_chunk_size_bytes(value: int):
+    return _override(_MAX_CHUNK_SIZE_BYTES, value)
+
+
+def override_slab_size_threshold_bytes(value: int):
+    return _override(_SLAB_SIZE_THRESHOLD_BYTES, value)
+
+
+def override_disable_batching(value: bool):
+    return _override(_DISABLE_BATCHING, int(value))
+
+
+def override_allow_pickle_objects(value: bool):
+    return _override(_ALLOW_PICKLE_OBJECTS, int(value))

@@ -1,0 +1,71 @@
+"""Minimal observability: named spans and counters.
+
+The take/restore path calls ``obs.span(name, **attrs)`` and
+``obs.counter(name).inc()`` under the same names as
+``torchsnapshot_tpu/obs``, so later tracing work can hang exporters on
+them.  In this slice a span records its wall time into a per-name total
+(``span_totals()``) and counters are plain locked integers; aggregation
+across ranks, goodput, Perfetto export and the metrics textfile are not
+ported yet.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import threading
+import time
+from typing import Dict, Iterator
+
+SLABS_PACKED = "slabs.packed"
+BYTES_STAGED = "bytes.staged"
+BYTES_WRITTEN = "bytes.written"
+BYTES_READ = "bytes.read"
+EVENT_HANDLER_ERRORS = "event_handler.errors"
+
+_LOCK = threading.Lock()
+_COUNTERS: Dict[str, int] = {}
+_SPAN_TOTALS: Dict[str, float] = {}
+
+
+class _Counter:
+    __slots__ = ("name",)
+
+    def __init__(self, name: str) -> None:
+        self.name = name
+
+    def inc(self, n: int = 1) -> None:
+        with _LOCK:
+            _COUNTERS[self.name] = _COUNTERS.get(self.name, 0) + n
+
+
+def counter(name: str) -> _Counter:
+    return _Counter(name)
+
+
+@contextlib.contextmanager
+def span(name: str, **attrs) -> Iterator[None]:
+    """Bracket a phase; its wall seconds add to ``span_totals()[name]``.
+    ``attrs`` are accepted for call-site parity with the JAX package."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        dt = time.perf_counter() - t0
+        with _LOCK:
+            _SPAN_TOTALS[name] = _SPAN_TOTALS.get(name, 0.0) + dt
+
+
+def counters() -> Dict[str, int]:
+    with _LOCK:
+        return dict(_COUNTERS)
+
+
+def span_totals() -> Dict[str, float]:
+    with _LOCK:
+        return dict(_SPAN_TOTALS)
+
+
+def reset() -> None:
+    with _LOCK:
+        _COUNTERS.clear()
+        _SPAN_TOTALS.clear()

@@ -1,0 +1,1 @@
+"""Device kernels of the PyTorch port and their plain versions."""

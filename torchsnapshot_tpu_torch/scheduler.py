@@ -1,0 +1,342 @@
+"""Budgeted async execution engine for write/read pipelines.
+
+Counterpart of ``torchsnapshot_tpu/scheduler.py``, same discipline:
+
+- Write path: ``ready_for_staging → staging → ready_for_io → io →
+  done``.  A request is admitted to staging iff its cost fits the
+  remaining host-memory budget, or nothing else is in flight (progress
+  for oversized items).  The budget is debited by the declared staging
+  cost, corrected to the staged size, and credited when the write lands.
+- Concurrent storage operations are capped per process.
+- Read path: admit reads under the consuming-cost budget and chain each
+  completed read into a consume task.
+
+The pipelines run on a dedicated event-loop thread; heavy work (device
+copies, checksums, deserialization) runs on a thread pool.  The codec,
+content-addressed store, striping and native digest engine of the JAX
+package are not ported in this slice.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import concurrent.futures
+import logging
+import os
+import threading
+import time
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Awaitable, List
+
+from . import knobs, obs
+from .io_types import ReadIO, ReadReq, StoragePlugin, WriteIO, WriteReq
+from .utils.checksums import adler32_fast, combine_piece_digests, crc32_fast
+
+logger = logging.getLogger(__name__)
+
+_MAX_PER_RANK_MEMORY_BUDGET_BYTES = 32 * 1024 * 1024 * 1024
+_AVAILABLE_MEMORY_MULTIPLIER = 0.6
+
+
+def _available_memory_bytes() -> int:
+    return os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+
+
+def get_process_memory_budget_bytes(local_process_count: int = 1) -> int:
+    """Host-memory budget for staging: the knob, else 60% of available
+    memory split over the host's processes, capped at 32 GiB."""
+    override = knobs.get_per_rank_memory_budget_bytes()
+    if override is not None:
+        return override
+    budget = int(
+        _available_memory_bytes() * _AVAILABLE_MEMORY_MULTIPLIER
+        / max(1, local_process_count)
+    )
+    return min(budget, _MAX_PER_RANK_MEMORY_BUDGET_BYTES)
+
+
+def _buf_nbytes(buf: Any) -> int:
+    return 0 if buf is None else memoryview(buf).cast("B").nbytes
+
+
+def apply_checksum_sinks(buf: Any, wr: WriteReq) -> None:
+    """Feed each sink the crc32 of its byte range of the staged buffer
+    and the digest sink the whole object's [crc32, adler32, size].  When
+    the sink ranges exactly tile the buffer (a slab), the object digest
+    folds from per-piece values instead of another pass."""
+    view = memoryview(buf).cast("B")
+    sinks = list(wr.checksum_sinks or ())
+    spans = [(0, view.nbytes) if rng is None else tuple(rng) for _, rng in sinks]
+    ordered = sorted(set(spans))
+    can_fold = (
+        wr.digest_sink is not None
+        and bool(spans)
+        and len(ordered) == len(spans)
+        and ordered[0][0] == 0
+        and ordered[-1][1] == view.nbytes
+        and all(a[1] == b[0] for a, b in zip(ordered, ordered[1:]))
+    )
+    pieces = {}
+    for (sink, _), span in zip(sinks, spans):
+        piece = view[span[0]:span[1]]
+        crc = crc32_fast(piece)
+        sink(crc)
+        if can_fold:
+            pieces[span] = (crc, adler32_fast(piece), span[1] - span[0])
+    if wr.digest_sink is None:
+        return
+    if can_fold:
+        wr.digest_sink(list(combine_piece_digests([pieces[s] for s in ordered])))
+    else:
+        wr.digest_sink([crc32_fast(view), adler32_fast(view), view.nbytes])
+
+
+class _LoopThread:
+    """A dedicated event-loop thread."""
+
+    def __init__(self, name: str) -> None:
+        self.loop = asyncio.new_event_loop()
+        self._thread = threading.Thread(
+            target=self.loop.run_forever, name=name, daemon=True
+        )
+        self._thread.start()
+
+    def submit(self, coro: Awaitable) -> concurrent.futures.Future:
+        return asyncio.run_coroutine_threadsafe(coro, self.loop)
+
+    def shutdown(self) -> None:
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self._thread.join()
+        self.loop.close()
+
+
+class _Budget:
+    def __init__(self, total: int) -> None:
+        self.total = total
+        self.used = 0
+
+    def fits(self, cost: int) -> bool:
+        return self.used + cost <= self.total
+
+
+class _WritePipeline:
+    __slots__ = ("write_req", "staging_cost", "buf", "buf_size")
+
+    def __init__(self, write_req: WriteReq) -> None:
+        self.write_req = write_req
+        self.staging_cost = write_req.buffer_stager.get_staging_cost_bytes()
+        self.buf = None
+        self.buf_size = 0
+
+
+async def _execute_write_pipelines(
+    pipelines: List[_WritePipeline],
+    storage: StoragePlugin,
+    budget: _Budget,
+    executor: ThreadPoolExecutor,
+    stats: dict,
+) -> None:
+    ready_for_staging = deque(pipelines)
+    ready_for_io: deque = deque()
+    staging_tasks: set = set()
+    io_tasks: set = set()
+    io_concurrency = knobs.get_max_per_rank_io_concurrency()
+    loop = asyncio.get_running_loop()
+
+    async def stage_one(p: _WritePipeline) -> _WritePipeline:
+        with obs.span("pipeline/staging", path=p.write_req.path):
+            p.buf = await p.write_req.buffer_stager.stage_buffer(executor)
+            p.buf_size = _buf_nbytes(p.buf)
+            wr = p.write_req
+            if wr.checksum_sinks or wr.digest_sink:
+                await loop.run_in_executor(
+                    executor, apply_checksum_sinks, p.buf, wr
+                )
+        return p
+
+    async def write_one(p: _WritePipeline) -> _WritePipeline:
+        with obs.span("pipeline/io", path=p.write_req.path, bytes=p.buf_size):
+            await storage.write(WriteIO(path=p.write_req.path, buf=p.buf))
+        return p
+
+    def admit(p: _WritePipeline) -> None:
+        budget.used += p.staging_cost
+        staging_tasks.add(asyncio.ensure_future(stage_one(p)))
+
+    try:
+        while ready_for_staging or staging_tasks or ready_for_io or io_tasks:
+            # admit every pending request that fits (largest first); when
+            # nothing fits and nothing is in flight, admit the largest
+            for _ in range(len(ready_for_staging)):
+                p = ready_for_staging.popleft()
+                if budget.fits(p.staging_cost):
+                    admit(p)
+                else:
+                    ready_for_staging.append(p)
+            if ready_for_staging and not (staging_tasks or io_tasks or ready_for_io):
+                admit(ready_for_staging.popleft())
+            while ready_for_io and len(io_tasks) < io_concurrency:
+                io_tasks.add(asyncio.ensure_future(write_one(ready_for_io.popleft())))
+            if not staging_tasks and not io_tasks:
+                continue
+            done, _ = await asyncio.wait(
+                staging_tasks | io_tasks, return_when=asyncio.FIRST_COMPLETED
+            )
+            for task in done:
+                p = task.result()
+                if task in staging_tasks:
+                    staging_tasks.discard(task)
+                    # correct the declared cost to the staged size
+                    budget.used -= p.staging_cost - p.buf_size
+                    obs.counter(obs.BYTES_STAGED).inc(p.buf_size)
+                    ready_for_io.append(p)
+                else:
+                    io_tasks.discard(task)
+                    stats["bytes_written"] += p.buf_size
+                    obs.counter(obs.BYTES_WRITTEN).inc(p.buf_size)
+                    budget.used -= p.buf_size
+                    p.buf = None
+    except BaseException:
+        for t in staging_tasks | io_tasks:
+            t.cancel()
+        raise
+
+
+def sync_execute_write_reqs(
+    write_reqs: List[WriteReq],
+    storage: StoragePlugin,
+    memory_budget_bytes: int,
+    rank: int,
+) -> int:
+    """Stage and write every request under the memory budget; returns
+    the bytes written.  Largest-first staging keeps the budget packed
+    and starts the biggest device copies earliest."""
+    executor = ThreadPoolExecutor(
+        max_workers=knobs.get_staging_threads(), thread_name_prefix="tsnp-torch-staging"
+    )
+    pipelines = sorted(
+        (_WritePipeline(wr) for wr in write_reqs),
+        key=lambda p: p.staging_cost,
+        reverse=True,
+    )
+    stats = {"bytes_written": 0}
+    loop_thread = _LoopThread("tsnp-torch-write-loop")
+    t0 = time.monotonic()
+    try:
+        loop_thread.submit(
+            _execute_write_pipelines(
+                pipelines, storage, _Budget(memory_budget_bytes), executor, stats
+            )
+        ).result()
+    finally:
+        executor.shutdown(wait=True)
+        loop_thread.shutdown()
+    dt = max(time.monotonic() - t0, 1e-9)
+    logger.info(
+        "rank %d: wrote %.3f GB in %.2fs (%.2f GB/s)",
+        rank, stats["bytes_written"] / 1e9, dt, stats["bytes_written"] / 1e9 / dt,
+    )
+    return stats["bytes_written"]
+
+
+class _ReadPipeline:
+    __slots__ = ("read_req", "consuming_cost", "buf")
+
+    def __init__(self, read_req: ReadReq) -> None:
+        self.read_req = read_req
+        self.consuming_cost = read_req.buffer_consumer.get_consuming_cost_bytes()
+        self.buf = None
+
+
+async def _execute_read_pipelines(
+    pipelines: List[_ReadPipeline],
+    storage: StoragePlugin,
+    budget: _Budget,
+    executor: ThreadPoolExecutor,
+) -> None:
+    ready_for_io = deque(pipelines)
+    io_tasks: set = set()
+    consume_tasks: set = set()
+    io_concurrency = knobs.get_max_per_rank_io_concurrency()
+
+    async def read_one(p: _ReadPipeline) -> _ReadPipeline:
+        rr = p.read_req
+        with obs.span("pipeline/io", path=rr.path, op="read"):
+            read_io = ReadIO(path=rr.path, byte_range=rr.byte_range)
+            await storage.read(read_io)
+            p.buf = read_io.buf
+        return p
+
+    async def consume_one(p: _ReadPipeline) -> _ReadPipeline:
+        with obs.span("pipeline/consume", path=p.read_req.path):
+            await p.read_req.buffer_consumer.consume_buffer(p.buf, executor)
+            p.buf = None
+        return p
+
+    def admit(p: _ReadPipeline) -> None:
+        budget.used += p.consuming_cost
+        io_tasks.add(asyncio.ensure_future(read_one(p)))
+
+    try:
+        while ready_for_io or io_tasks or consume_tasks:
+            for _ in range(len(ready_for_io)):
+                if len(io_tasks) >= io_concurrency:
+                    break
+                p = ready_for_io.popleft()
+                if budget.fits(p.consuming_cost):
+                    admit(p)
+                else:
+                    ready_for_io.append(p)
+            if ready_for_io and not io_tasks and not consume_tasks:
+                admit(ready_for_io.popleft())
+            if not io_tasks and not consume_tasks:
+                continue
+            done, _ = await asyncio.wait(
+                io_tasks | consume_tasks, return_when=asyncio.FIRST_COMPLETED
+            )
+            for task in done:
+                p = task.result()
+                if task in io_tasks:
+                    io_tasks.discard(task)
+                    obs.counter(obs.BYTES_READ).inc(_buf_nbytes(p.buf))
+                    consume_tasks.add(asyncio.ensure_future(consume_one(p)))
+                else:
+                    consume_tasks.discard(task)
+                    budget.used -= p.consuming_cost
+    except BaseException:
+        for t in io_tasks | consume_tasks:
+            t.cancel()
+        raise
+
+
+def sync_execute_read_reqs(
+    read_reqs: List[ReadReq],
+    storage: StoragePlugin,
+    memory_budget_bytes: int,
+    rank: int,
+) -> int:
+    """Execute read requests under the memory budget; returns the bytes
+    the consumers were declared to need."""
+    executor = ThreadPoolExecutor(
+        max_workers=knobs.get_staging_threads(), thread_name_prefix="tsnp-torch-consume"
+    )
+    pipelines = [_ReadPipeline(rr) for rr in read_reqs]
+    loop_thread = _LoopThread("tsnp-torch-read-loop")
+    t0 = time.monotonic()
+    try:
+        loop_thread.submit(
+            _execute_read_pipelines(
+                pipelines, storage, _Budget(memory_budget_bytes), executor
+            )
+        ).result()
+    finally:
+        executor.shutdown(wait=True)
+        loop_thread.shutdown()
+    total = sum(p.consuming_cost for p in pipelines)
+    dt = max(time.monotonic() - t0, 1e-9)
+    logger.info(
+        "rank %d: read %.3f GB in %.2fs (%.2f GB/s)",
+        rank, total / 1e9, dt, total / 1e9 / dt,
+    )
+    return total
