@@ -10,28 +10,48 @@ is no card or anything below fails.  In order:
 
 1. prints the card (``nvidia-smi`` name and power limit);
 2. builds the CUDA kernels (K1 slab pack, K2 slab unpack, K3 flash-
-   attention forward) and prints what ptxas reports for them;
+   attention forward, K4/K5 flash-attention backward dq and dk/dv), one
+   nvcc each, in parallel, and prints what ptxas reports for them;
 3. kernel phase: holds each kernel against its plain PyTorch version on
    the card at the main path's shapes and times both, plus one PyTorch
    library call computing the same function where there is one.
    Tolerances: K1 and K2 bitwise; K3 m atol 1e-3 and pv/l normalised
-   within 2e-2 (bf16 operands, another summation order);
-4. main path at full width: the repo's transformer (TransformerConfig
-   defaults, depth cut to 2 layers, bf16, ~0.67 B parameters) takes one
-   AdamW step, is snapshotted with ``Snapshot.take``, restored into a
-   differently seeded model and optimizer, and checked bitwise (every
-   tensor, the logits on a fixed batch, the step counter,
-   ``read_object``);
-5. runs ring attention (ring size 1, so K3) on q/k/v projected from the
-   restored layer-0 weights at s = 2048 and compares it with dense
-   attention computed in f32 (tolerance 2e-2).
+   within 2e-2 (bf16 operands, another summation order); K4/K5 dq, dk,
+   dv within 2e-2 of the largest plain value (ds and gpv enter the
+   tensor cores in bf16) and the argmax exactly on rows whose top two
+   scores are apart by more than the summation order can move them (the
+   ``kernels`` line carries each kernel's own outputs' absolute error);
+4. three paths, each with the launch counters set to 0 just before it
+   and read just after:
+   a. serving, at full width: the repo's transformer (TransformerConfig
+      defaults, depth cut to 2 layers, bf16, ~0.67 B parameters) takes
+      one AdamW step, is snapshotted with ``Snapshot.take``, restored
+      into a differently seeded model and optimizer, and checked
+      bitwise (every tensor, the logits on a fixed batch, the step
+      counter, ``read_object``); then ring attention (ring size 1, so
+      K3) on q/k/v projected from the restored layer-0 weights at
+      s = 2048 against dense attention computed in f32 (tolerance 2e-2);
+   b. ring-attention gradient: ``torch.autograd.grad`` of the bf16 ring
+      output on those q/k/v (K3 forward, K4/K5 backward) against f32
+      dense attention's autograd gradient (tolerance 3e-2 of the largest
+      gradient);
+   c. resumable training at full width, s = 2048, on a batch sized from
+      the measured step peak (plus a ballast tensor) so that the step
+      fills the card up to where half of the state's device copies fit
+      beside the next one: ``train_step``, a host clone of the state,
+      ``Snapshot.async_take`` (device copies within its budget, blocking
+      pinned copies past it), the next ``train_step`` at once (it
+      changes the state in place while the snapshot drains), ``wait()``,
+      restore into a differently seeded model and optimizer: every
+      tensor bitwise equal to the clone, and the step after the restore
+      gives the same loss bitwise.
 
-Launch counters are zeroed right before phase 4 and read right after
-phase 5: every kernel must have launched during the main path.  The
-line before the last is the card; the line before it the ``kernels``
-JSON; the last line ``{"ok": true, "device": ...}``.
+Every kernel must have launched on these paths, and each path on the
+kernels it runs.  The line before the last is the card; the line before
+it the ``kernels`` JSON; the last line ``{"ok": true, "device": ...}``.
 """
 
+import gc
 import json
 import os
 import subprocess
@@ -45,7 +65,13 @@ import torchsnapshot_tpu_torch as tts
 from torchsnapshot_tpu_torch import batcher
 from torchsnapshot_tpu_torch.batcher import BatchedBufferStager, batch_write_requests
 from torchsnapshot_tpu_torch.flatten import flatten
-from torchsnapshot_tpu_torch.models.transformer import TransformerConfig, TransformerLM
+from torchsnapshot_tpu_torch import host_offload
+from torchsnapshot_tpu_torch.models.transformer import (
+    TransformerConfig,
+    TransformerLM,
+    make_train_state,
+    train_step,
+)
 from torchsnapshot_tpu_torch.ops import device_pack, flash_attention, kernels
 from torchsnapshot_tpu_torch.parallel.ring_attention import dense_attention, ring_attention
 from torchsnapshot_tpu_torch.preparers import prepare_write
@@ -225,6 +251,95 @@ def phase_k3():
     )
 
 
+def causal_pairs(sq, sk, q_offset):
+    """(query, key) pairs a causal block sees: row i sees keys ≤ q_offset + i."""
+    return sum(min(sk, max(0, q_offset + i + 1)) for i in range(sq))
+
+
+def phase_k4_k5():
+    """K4 (dq, amax) and K5 (dk, dv) against their plain version at the
+    ring-attention shape (bh = 32, s = 2048, d = 128, bf16, causal), a
+    ragged case and a q_offset case; m is K3's, the cotangents random."""
+    g = torch.Generator(device="cuda").manual_seed(4)
+    bh, d = 32, 128
+    scale = 1.0 / d ** 0.5
+    mk = lambda *shape: torch.randn(shape, device="cuda", generator=g)  # noqa: E731
+    cases = [("main", SEQ, SEQ, 0), ("ragged", 2000, 1900, 0), ("q_offset", 1024, SEQ, 1024)]
+    errs = {}
+    for what, sq, sk, qo in cases:
+        q, k, v = (mk(bh, n, d).to(torch.bfloat16) for n in (sq, sk, sk))
+        _, m, _ = flash_attention.attend_partials(q, k, v, qo, 0, True, scale)
+        m = torch.where(torch.isfinite(m), m, 0.0).contiguous()
+        # the ring path hands the kernels a bf16-rounded gpv (pv is bf16)
+        gpv, gl = mk(bh, sq, d).to(torch.bfloat16).float(), mk(bh, sq)
+        got = flash_attention.flash_bwd(q, k, v, m, gpv, gl, qo, 0, True, scale)
+        want = flash_attention.flash_bwd_plain(q, k, v, m, gpv, gl, qo, 0, True, scale, sq, sk)
+        torch.cuda.synchronize()
+        case_errs = {}
+        for name, a, b in zip(("dq", "dk", "dv"), got[:3], want[:3]):
+            check(bool(torch.isfinite(a).all()), f"K4/K5 {what}: {name} not finite")
+            abs_err = float((a - b).abs().max())
+            rel = abs_err / max(float(b.abs().max()), 1e-30)
+            check(rel <= 2e-2, f"K4/K5 {what}: {name} relative error {rel} beyond 2e-2")
+            case_errs[name] = (abs_err, rel)
+        mask = flash_attention._visible(sq, sk, qo, 0, True, sq, sk, q.device)
+        top = flash_attention._scores(q, k, scale, mask).topk(2, dim=-1).values
+        clear = (top[..., 0] - top[..., 1] > 1e-2 * (1 + top[..., 0].abs())) | ~torch.isfinite(top[..., 1])
+        case_errs["amax_moved"] = int((got[3] != want[3]).sum())
+        check(torch.equal(got[3][clear], want[3][clear]), f"K4 {what}: argmax differs on clear rows")
+        print(f"K4/K5 {what} (sq={sq}, sk={sk}, q_offset={qo}): max abs err (max error / max |plain|) "
+              + ", ".join(f"{n} {case_errs[n][0]:.3e} ({case_errs[n][1]:.3e})" for n in ("dq", "dk", "dv"))
+              + f"; argmax: {case_errs['amax_moved']} of {bh * sq} rows differ, all within near-ties "
+              f"({int(clear.sum())} clear rows equal)")
+        errs[what] = case_errs
+        if what == "main":
+            main = (q, k, v, m, gpv, gl)
+        del q, k, v, got, want, mask, top
+    q, k, v, m, gpv, gl = main
+    outs = [torch.empty((bh, SEQ, d), device="cuda") for _ in range(3)]
+    amax = torch.empty((bh, SEQ), dtype=torch.int32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    ins = [t.data_ptr() for t in (q, k, v, m, gpv, gl)]
+    args = (bh, SEQ, SEQ, d, scale, 1, 0, 0, SEQ, SEQ, 1, stream)
+    lib_dq, lib_dkv = kernels.lib("flash_attention_bwd_dq"), kernels.lib("flash_attention_bwd_dkv")
+    # each kernel alone, as flash_bwd launches it
+    dq_ms = time_ms(lambda: lib_dq.tsnp_flash_bwd_dq(*ins, outs[0].data_ptr(), amax.data_ptr(), *args), iters=10)
+    dkv_ms = time_ms(lambda: lib_dkv.tsnp_flash_bwd_dkv(*ins, outs[1].data_ptr(), outs[2].data_ptr(), *args), iters=10)
+    plain_ms = time_ms(
+        lambda: flash_attention.flash_bwd_plain(q, k, v, m, gpv, gl, 0, 0, True, scale, SEQ, SEQ), iters=3
+    )
+    # yardstick for K4 + K5 together: SDPA's backward, graph retained
+    qs, ks, vs = (t.unsqueeze(0).detach().requires_grad_() for t in (q, k, v))  # [1, h, s, d]
+    out = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    go = torch.randn(out.shape, device="cuda", generator=g).to(out.dtype)
+    sdpa_bwd_ms = time_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), go, retain_graph=True), iters=10)
+    pairs = causal_pairs(SEQ, SEQ, 0) * bh
+    in_bytes = 3 * nbytes(q) + nbytes(m) + nbytes(gpv) + nbytes(gl)
+    main_errs = errs["main"]
+    records = []
+    # each record holds its own outputs' absolute error at the main shape
+    for name, source, line, ms, flop_per_pair, out_bytes, err, library_ms in (
+        ("flash_attention_bwd_dq", "flash_attention_bwd_dq.cu", 293, dq_ms, 6 * d,
+         nbytes(outs[0]) + nbytes(amax), main_errs["dq"][0], None),
+        ("flash_attention_bwd_dkv", "flash_attention_bwd_dkv.cu", 375, dkv_ms, 8 * d,
+         nbytes(outs[1]) + nbytes(outs[2]), max(main_errs["dk"][0], main_errs["dv"][0]), sdpa_bwd_ms),
+    ):
+        t_ops = flop_per_pair * pairs / BF16_FLOP_PER_S
+        t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S
+        records.append(kernel_record(
+            name, f"torchsnapshot_tpu_torch/csrc/{source}",
+            f"torchsnapshot_tpu/ops/flash_attention.py:{line}",
+            err, ms, plain_ms, max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", library_ms,
+        ))
+    # K4's other output: argmax rows that a near-tie moved at the main shape
+    records[0]["argmax_rows_moved"] = main_errs["amax_moved"]
+    print(f"K4 {dq_ms:.3f} ms, K5 {dkv_ms:.3f} ms, K4 + K5 {dq_ms + dkv_ms:.3f} ms; plain backward "
+          f"(both) {plain_ms:.3f} ms; SDPA backward (yardstick for K4 + K5) {sdpa_bwd_ms:.3f} ms; "
+          f"bounds {records[0]['bound_ms']:.4f} / {records[1]['bound_ms']:.4f} ms")
+    return records
+
+
 def adamw_step(model, tokens):
     opt = torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=0.01)
     logits = model(tokens[:, :-1])
@@ -310,13 +425,8 @@ def host_digest_rate():
 
 
 def phase_attention(cfg, model):
-    g = torch.Generator(device="cuda").manual_seed(11)
-    tokens = torch.randint(0, cfg.vocab, (1, SEQ), device="cuda", generator=g)
-    positions = torch.arange(SEQ, device="cuda").expand(tokens.shape)
-    layer = model.layer0
+    q, k, v = restored_layer0_qkv(cfg, model)
     with torch.no_grad():
-        x = model.embed(tokens)
-        q, k, v = layer.attn.qkv(layer.norm1(x), positions)
         out = ring_attention(q, k, v, causal=True)
         want = dense_attention(q.float(), k.float(), v.float(), causal=True)
     torch.cuda.synchronize()
@@ -324,6 +434,163 @@ def phase_attention(cfg, model):
     check(bool(torch.isfinite(out).all()) and out.shape == q.shape, "ring attention output malformed")
     check(err <= 2e-2, f"ring attention vs dense: max abs err {err} beyond 2e-2")
     print(f"ring attention on restored layer0 (s={SEQ}): max abs err vs f32 dense {err:.3e}")
+
+
+def restored_layer0_qkv(cfg, model):
+    g = torch.Generator(device="cuda").manual_seed(11)
+    tokens = torch.randint(0, cfg.vocab, (1, SEQ), device="cuda", generator=g)
+    positions = torch.arange(SEQ, device="cuda").expand(tokens.shape)
+    layer = model.layer0
+    with torch.no_grad():
+        return layer.attn.qkv(layer.norm1(model.embed(tokens)), positions)
+
+
+def phase_ring_gradient(cfg, model):
+    """The gradient of a loss through bf16 ring attention (K3 forward,
+    K4/K5 backward) against f32 dense attention's autograd gradient."""
+    q, k, v = (t.detach().requires_grad_() for t in restored_layer0_qkv(cfg, model))
+    g = torch.Generator(device="cuda").manual_seed(12)
+    ct = torch.randn(q.shape, device="cuda", generator=g)
+    grads = torch.autograd.grad((ring_attention(q, k, v, causal=True).float() * ct).sum(), (q, k, v))
+    qf, kf, vf = (t.detach().float().requires_grad_() for t in (q, k, v))
+    want = torch.autograd.grad((dense_attention(qf, kf, vf, causal=True) * ct).sum(), (qf, kf, vf))
+    torch.cuda.synchronize()
+    errs = []
+    for name, a, b in zip("qkv", grads, want):
+        check(a is not None and a.dtype == q.dtype and bool(torch.isfinite(a).all()),
+              f"ring gradient d{name} missing or malformed")
+        rel = float((a.float() - b).abs().max()) / float(b.abs().max())
+        check(rel <= 3e-2, f"ring gradient d{name}: error {rel} beyond 3e-2 of the largest gradient")
+        errs.append(f"d{name} {rel:.3e}")
+    print(f"ring-attention gradient on restored layer0 (s={SEQ}) vs f32 dense autograd, "
+          f"max error / max |gradient|: {', '.join(errs)}")
+
+
+def host_clone_state(model, opt):
+    """The state on the host: a device clone would sit beside the next
+    step in memory the step's peak did not count."""
+    return (
+        {k: v.to("cpu", copy=True) for k, v in model.state_dict().items()},
+        {i: {k: v.to("cpu", copy=True) for k, v in st.items()} for i, st in opt.state_dict()["state"].items()},
+    )
+
+
+def step_peak(model, opt, tokens):
+    """``train_step`` from an emptied allocator cache with the peaks reset:
+    the step's own reserved footprint, fragmentation included, which the
+    async take's device-copy budget reads."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    loss = train_step(model, opt, tokens)
+    torch.cuda.synchronize()
+    return loss, torch.cuda.max_memory_reserved()
+
+
+def phase_resumable_training(cfg, root):
+    """train_step at s = 2048 on a batch whose activations fill most of
+    the card, async_take, the next train_step while the snapshot drains,
+    restore into a differently seeded state, resume bitwise."""
+    g = torch.Generator(device="cuda").manual_seed(21)
+    batch = lambda n: torch.randint(0, cfg.vocab, (n, SEQ + 1), device="cuda", generator=g)  # noqa: E731
+    model, opt = make_train_state(cfg, seed=0, device="cuda")
+    train_step(model, opt, batch(1))  # AdamW's moments exist from here on
+    nb = state_bytes(model, opt)
+    # the step's peak at 4 and 8 sequences, where activations outweigh
+    # the optimizer's temporaries, gives its footprint per sequence
+    _, peak4 = step_peak(model, opt, batch(4))
+    _, peak8 = step_peak(model, opt, batch(8))
+    per_seq = (peak8 - peak4) // 4
+    check(per_seq > 0, f"the step's peak does not grow with the batch ({peak4}, {peak8})")
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    capacity = free + torch.cuda.memory_reserved()
+    # Aim the step's peak where half of the state's device copies fit
+    # beside the next step, so both kinds of copy run: as many sequences
+    # as fit under that peak, and a ballast tensor (memory the process
+    # holds for something else) for the rest of the way, first short of
+    # it by 2 GB, then corrected by what the linear estimate missed.
+    target = capacity - int(total * host_offload.HEADROOM_FRACTION) - nb // 2
+    n_seq = 8 + (target - peak8) // per_seq
+    check(n_seq >= 8, f"the card holds too little for the training phase ({capacity} bytes)")
+    batch_a, batch_b = batch(n_seq), batch(n_seq)
+    ballast_bytes = max(0, target - peak8 - (n_seq - 8) * per_seq - 2 * 10**9)
+    ballast = torch.empty(ballast_bytes, dtype=torch.uint8, device="cuda")
+    _, first_peak = step_peak(model, opt, batch_a)
+    ballast_bytes = max(0, ballast_bytes + target - first_peak)
+    del ballast
+    torch.cuda.empty_cache()  # the new ballast takes a segment of its own
+    ballast = torch.empty(ballast_bytes, dtype=torch.uint8, device="cuda")
+    # the allocator's high-water mark over two steps, as a loop that never
+    # resets it keeps it: what the take's budget reads
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        train_step(model, opt, batch_a)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_reserved()
+    print(f"resumable training: reserved step peaks {peak4} (4 sequences), {peak8} (8), {first_peak} "
+          f"({n_seq}, short of the target), {peak} (two steps of {n_seq}, ballast {ballast_bytes}); "
+          f"target {target}")
+    params_at_take, opt_at_take = host_clone_state(model, opt)
+    # what async_take's own budget will read
+    budget = host_offload.device_copy_budget_bytes(torch.device("cuda", torch.cuda.current_device()))
+    torch.cuda.synchronize()
+    tts.obs.reset()
+    t0 = time.perf_counter()
+    pending = tts.Snapshot.async_take(
+        root, {"model": model, "optim": opt, "rng": tts.RNGState(), "meta": tts.StateDict(step=1)}
+    )
+    unblock_s = time.perf_counter() - t0
+    offload = dict(host_offload.LAST_OFFLOAD_STATS)
+    torch.cuda.reset_peak_memory_stats()  # the next step's peaks, the copies' pool included
+    loss_b = train_step(model, opt, batch_b)  # changes the state in place
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0 - unblock_s
+    drained_during_step = pending.done()
+    step_peak_with_copies = torch.cuda.max_memory_reserved()
+    t1 = time.perf_counter()
+    pending.wait()
+    wait_s = time.perf_counter() - t1
+    total_s = time.perf_counter() - t0
+    print(f"async_take span totals (s, summed over concurrent tasks): {span_summary()}")
+    del model, opt, ballast, pending
+    gc.collect()
+    live = sum(host_offload._LIVE_COPY_BYTES.values())
+    check(live == 0, f"{live} bytes of device copies still live after wait()")
+    torch.cuda.empty_cache()
+
+    model2, opt2 = make_train_state(cfg, seed=1, device="cuda")
+    train_step(model2, opt2, batch(1))
+    meta2 = tts.StateDict(step=0)
+    tts.Snapshot(root).restore({"model": model2, "optim": opt2, "rng": tts.RNGState(), "meta": meta2})
+    for name, t in model2.state_dict().items():
+        check(torch.equal(t.cpu(), params_at_take[name]), f"resumed tensor {name} differs from the clone")
+    for i, st in opt2.state_dict()["state"].items():
+        for k, v in st.items():
+            check(torch.equal(v.cpu(), opt_at_take[i][k]), f"resumed optimizer state {i}/{k} differs")
+    check(meta2["step"] == 1, "meta step not restored")
+    loss_b2 = train_step(model2, opt2, batch_b)
+    check(torch.equal(loss_b2, loss_b), f"resumed loss {float(loss_b2)!r} != {float(loss_b)!r}")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    train_step(model2, opt2, batch_b)  # the same step with no snapshot draining
+    torch.cuda.synchronize()
+    lone_step_s = time.perf_counter() - t1
+    print(f"resumable training: batch {n_seq} x {SEQ} tokens; allocator capacity {capacity} bytes of "
+          f"{total}; reserved step peak {peak} bytes ({per_seq} per sequence); "
+          f"device-copy budget {budget} bytes; reserved peak of the next step beside the copies "
+          f"{step_peak_with_copies} bytes")
+    print(f"resumable training: state {nb} bytes; async_take unblocked in {unblock_s:.4f} s "
+          f"(device copies {offload['device_copy_bytes']} bytes, host copies "
+          f"{offload['host_copy_bytes']} bytes, blocking host copies {offload['blocking_host_bytes']} "
+          f"bytes); next train_step {step_s:.4f} s beside the drain (snapshot done by then: "
+          f"{drained_during_step}), the same step alone {lone_step_s:.4f} s; "
+          f"wait() {wait_s:.3f} s; async_take to commit {total_s:.3f} s ({nb / total_s / 1e9:.3f} GB/s); "
+          f"step loss {float(loss_b)!r} equal bitwise after restore")
+    t0 = time.perf_counter()
+    pinned = torch.empty(nb, dtype=torch.uint8, pin_memory=True)
+    pin_alloc_s = time.perf_counter() - t0
+    del pinned
+    print(f"for comparison: allocating {nb} bytes of pinned host memory takes {pin_alloc_s:.3f} s")
 
 
 def main():
@@ -354,26 +621,55 @@ def main():
     slab, k1 = phase_k1(members)
     k2 = phase_k2(slab, members)
     k3 = phase_k3()
-    del slab
+    k4, k5 = phase_k4_k5()
+    del slab, members
+    records = {r["name"]: r for r in (k1, k2, k3, k4, k5)}
+    counters = {
+        "slab_pack": (device_pack.LAUNCHES, "slab_pack"),
+        "slab_unpack": (device_pack.LAUNCHES, "slab_unpack"),
+        "flash_attention_fwd": (flash_attention.LAUNCHES, "flash_fwd"),
+        "flash_attention_bwd_dq": (flash_attention.LAUNCHES, "flash_bwd_dq"),
+        "flash_attention_bwd_dkv": (flash_attention.LAUNCHES, "flash_bwd_dkv"),
+    }
+
+    def run_path(name, kernels_expected, fn):
+        for table, key in counters.values():
+            table[key] = 0
+        fn()
+        torch.cuda.synchronize()
+        counts = {n: table[key] for n, (table, key) in counters.items()}
+        print(f"path {name}: launches {json.dumps(counts)}")
+        for n in kernels_expected:
+            check(counts[n] > 0, f"{n} was not launched on the {name} path")
+        for n, c in counts.items():
+            records[n]["launches"] += c
 
     tokens = torch.randint(0, cfg.vocab, (1, 129), device="cuda")
     opt = adamw_step(model, tokens)
-    for table in (device_pack.LAUNCHES, flash_attention.LAUNCHES):
-        for key in table:
-            table[key] = 0
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
-        model2 = phase_main_path(cfg, model, opt, os.path.join(root, "snap"))
-    phase_attention(cfg, model2)
-    host_digest_rate()
-    torch.cuda.synchronize()
-    k1["launches"] = device_pack.LAUNCHES["slab_pack"]
-    k2["launches"] = device_pack.LAUNCHES["slab_unpack"]
-    k3["launches"] = flash_attention.LAUNCHES["flash_fwd"]
-    for rec in (k1, k2, k3):
-        check(rec["launches"] > 0, f"{rec['name']} was not launched on the main path")
-    print(f"peak device memory: {torch.cuda.max_memory_allocated()} bytes")
+    restored = {}
 
-    print(json.dumps({"kernels": [k1, k2, k3]}))
+    def serving():
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
+            restored["model"] = phase_main_path(cfg, model, opt, os.path.join(root, "snap"))
+        phase_attention(cfg, restored["model"])
+
+    run_path("serving", ("slab_pack", "slab_unpack", "flash_attention_fwd"), serving)
+    run_path("ring_gradient", ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"),
+             lambda: phase_ring_gradient(cfg, restored["model"]))
+    del model, opt, restored
+    torch.cuda.empty_cache()
+
+    def training():
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
+            phase_resumable_training(cfg, os.path.join(root, "snap"))
+
+    peak_before_training = torch.cuda.max_memory_allocated()
+    run_path("resumable_training", ("slab_pack", "slab_unpack"), training)
+    host_digest_rate()
+    print(f"peak device memory allocated: {peak_before_training} bytes before the training phase, "
+          f"{torch.cuda.max_memory_allocated()} bytes in its last step")
+
+    print(json.dumps({"kernels": list(records.values())}))
     print(card)
     print(json.dumps({
         "ok": True,

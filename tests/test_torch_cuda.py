@@ -5,7 +5,10 @@ Marked ``cuda``: each test skips, with the reason, where
 ``python -m pytest tests/test_torch_cuda.py -q``.  Tolerances: K1 and K2
 bitwise; K3 m atol 1e-3 and pv/l compared after normalisation within
 2e-2 for bf16 inputs (bf16 operands, another summation order), 1e-4 for
-f32 ones.
+f32 ones.  K4/K5 (dq, dk, dv) within 2e-2 (bf16: ds and gpv enter the
+tensor cores in bf16) or 1e-4 (f32) of the largest plain value; the
+argmax exactly, on rows whose top two scores are apart by more than the
+summation order can move them.
 """
 
 import numpy as np
@@ -109,3 +112,146 @@ def test_flash_partials_other_head_dims(cuda, d):
     denom = lambda x: torch.where(x == 0, 1.0, x)[..., None]  # noqa: E731
     torch.testing.assert_close(pv / denom(l), wpv / denom(wl), atol=2e-2, rtol=2e-2)
     torch.testing.assert_close(l, wl, atol=2e-2, rtol=2e-2)
+
+
+def _bwd_inputs(bh, sq, sk, d, dtype, device, q_offset, k_offset, causal, seed):
+    from torchsnapshot_tpu_torch.ops import flash_attention as fa
+
+    q, k, v = (_rand((bh, n, d), dtype, device, seed + i) for i, n in enumerate((sq, sk, sk)))
+    scale = 1.0 / np.sqrt(d)
+    _, m, _ = fa.attend_partials_plain(q, k, v, q_offset, k_offset, causal, scale, sq, sk)
+    m = torch.where(torch.isfinite(m), m, 0.0).contiguous()
+    gpv = _rand((bh, sq, d), torch.float32, device, seed + 3)
+    gl = _rand((bh, sq), torch.float32, device, seed + 4)
+    return q, k, v, m, gpv, gl, scale
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize(
+    "sq,sk,q_offset,k_offset,causal,d",
+    [(256, 256, 0, 0, True, 128), (200, 190, 0, 0, True, 128), (128, 256, 384, 128, True, 128),
+     (96, 160, 0, 0, False, 128), (150, 170, 40, 0, True, 100), (64, 64, 0, 4096, True, 64)],
+)
+def test_flash_bwd_matches_plain(cuda, dtype, sq, sk, q_offset, k_offset, causal, d):
+    from torchsnapshot_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, m, gpv, gl, scale = _bwd_inputs(4, sq, sk, d, dtype, cuda, q_offset, k_offset, causal, sq + d)
+    before = dict(fa.LAUNCHES)
+    dq, dk, dv, amax = fa.flash_bwd(q, k, v, m, gpv, gl, q_offset, k_offset, causal, scale)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
+    assert fa.LAUNCHES["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1
+    want = fa.flash_bwd_plain(q, k, v, m, gpv, gl, q_offset, k_offset, causal, scale, sq, sk)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    for got, ref, name in zip((dq, dk, dv), want[:3], ("dq", "dk", "dv")):
+        assert got.dtype == torch.float32 and torch.isfinite(got).all(), name
+        torch.testing.assert_close(got, ref, rtol=tol, atol=tol * max(float(ref.abs().max()), 1e-6), msg=name)
+    # rows whose argmax the summation order cannot move must agree exactly
+    mask = fa._visible(sq, sk, q_offset, k_offset, causal, sq, sk, cuda)
+    scores = fa._scores(q, k, scale, mask)
+    top = scores.topk(min(2, sk), dim=-1).values
+    clear = (top[..., 0] - top[..., -1] > 1e-2 * (1 + top[..., 0].abs())) | ~torch.isfinite(top[..., -1])
+    assert torch.equal(amax[clear], want[3][clear])
+    assert torch.equal(amax == -1, want[3] == -1)
+
+
+def test_ring_attention_gradient_flows_through_the_kernels(cuda):
+    """A loss through ring attention on CUDA tensors reaches q, k and v
+    through K4/K5 (K3's ctypes launch alone has no autograd graph), and
+    matches the gradient of f32 dense attention."""
+    from torchsnapshot_tpu_torch.ops import flash_attention as fa
+    from torchsnapshot_tpu_torch.parallel.ring_attention import dense_attention, ring_attention
+
+    b, s, h, d = 1, 384, 4, 128
+    q, k, v = (_rand((b, s, h, d), torch.bfloat16, cuda, 30 + i).requires_grad_() for i in range(3))
+    ct = _rand((b, s, h, d), torch.float32, cuda, 33)
+    before = dict(fa.LAUNCHES)
+    grads = torch.autograd.grad((ring_attention(q, k, v, causal=True).float() * ct).sum(), (q, k, v))
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_bwd_dq"] > before["flash_bwd_dq"]
+    assert fa.LAUNCHES["flash_bwd_dkv"] > before["flash_bwd_dkv"]
+    qf, kf, vf = (t.detach().float().requires_grad_() for t in (q, k, v))
+    want = torch.autograd.grad((dense_attention(qf, kf, vf, causal=True) * ct).sum(), (qf, kf, vf))
+    for g, w, name in zip(grads, want, "qkv"):
+        assert g is not None and g.dtype == torch.bfloat16, name
+        torch.testing.assert_close(g.float(), w, rtol=3e-2, atol=3e-2 * float(w.abs().max()), msg=f"d{name}")
+
+
+@pytest.mark.parametrize("budget", ["device", "blocking", "staged"])
+def test_async_take_of_cuda_tensors_mutated_after_return(cuda, tmp_path, monkeypatch, budget):
+    """CUDA tensors (slab members and one tensor outside any slab) and a
+    host step counter, all changed in place right after async_take
+    returns, restore to their values at async_take — through device
+    copies, with no device budget through host copies made before the
+    return, or with eager staging disabled through staging finished
+    before the return."""
+    import contextlib
+
+    import torchsnapshot_tpu_torch as tts
+    from torchsnapshot_tpu_torch import host_offload
+    from torchsnapshot_tpu_torch import knobs
+
+    if budget == "blocking":
+        monkeypatch.setattr(host_offload, "device_copy_budget_bytes", lambda device: 0)
+    host_offload.LAST_OFFLOAD_STATS.clear()
+    state = tts.StateDict(
+        small=[_rand((300, 77), torch.bfloat16, cuda, 40 + i) for i in range(4)],
+        big=_rand((1 << 20,), torch.float32, cuda, 45),
+        step=torch.tensor(5.0),
+    )
+    want = {"small": [t.clone() for t in state["small"]], "big": state["big"].clone(),
+            "step": state["step"].clone()}
+    staged = knobs.override_disable_eager_host_staging(True) if budget == "staged" else contextlib.nullcontext()
+    with knobs.override_slab_size_threshold_bytes(1 << 20), staged:
+        pending = tts.Snapshot.async_take(str(tmp_path), {"app": state})
+    for t in state["small"]:
+        t.mul_(-3)
+    state["big"].add_(1)
+    state["step"] += 1
+    pending.wait()
+    stats = dict(host_offload.LAST_OFFLOAD_STATS)
+    if budget == "staged":
+        assert stats == {}, stats  # no eager copies: staging ran before the return
+    else:
+        key = "device_copy_bytes" if budget == "device" else "blocking_host_bytes"
+        assert stats[key] >= 4 * 300 * 77 * 2 + (1 << 22), stats
+    out = tts.StateDict(
+        small=[torch.zeros_like(t) for t in want["small"]],
+        big=torch.zeros_like(want["big"]), step=torch.tensor(0.0),
+    )
+    tts.Snapshot(str(tmp_path)).restore({"app": out})
+    for got, ref in zip(out["small"], want["small"]):
+        assert torch.equal(got, ref)
+    assert torch.equal(out["big"], want["big"]) and torch.equal(out["step"], want["step"])
+
+
+def test_device_copies_take_a_pool_of_their_own_and_give_it_back(cuda, tmp_path):
+    """An async take's device copies come from a memory pool of their own:
+    they leave the free blocks the caching allocator keeps for the next
+    step where they are, and the pool's memory goes back to the device
+    once the snapshot is committed and the copies are gone."""
+    import gc
+
+    import torchsnapshot_tpu_torch as tts
+    from torchsnapshot_tpu_torch import host_offload
+
+    state = tts.StateDict(w=[_rand((1 << 22,), torch.float32, cuda, 50 + i) for i in range(4)])
+    device = state["w"][0].device
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_reserved()
+    scratch = torch.empty(256 << 20, dtype=torch.uint8, device=cuda)
+    del scratch  # 256 MiB of free cached blocks, as a step leaves them
+    before = torch.cuda.memory_reserved()
+    pending = tts.Snapshot.async_take(str(tmp_path), {"app": state})
+    assert host_offload.LAST_OFFLOAD_STATS["device_copy_bytes"] == 4 << 24
+    assert torch.cuda.memory_reserved() >= before + (4 << 24)  # new segments, not the cache
+    assert host_offload._LIVE_COPY_BYTES[device] >= 4 << 24
+    pending.wait()
+    del pending
+    gc.collect()
+    assert host_offload._LIVE_COPY_BYTES[device] == 0
+    torch.cuda.empty_cache()
+    assert torch.cuda.memory_reserved() <= base

@@ -30,7 +30,11 @@ import torch
 from . import knobs, obs
 from .io_types import BufferConsumer, BufferStager, ReadReq, WriteReq
 from .manifest import ArrayEntry, ChunkedArrayEntry, Entry, ObjectEntry
-from .preparers.array import ArrayBufferConsumer, CudaTensorBufferStager
+from .preparers.array import (
+    ArrayBufferConsumer,
+    CudaTensorBufferStager,
+    HostArrayBufferStager,
+)
 from .serialization import BUFFER_PROTOCOL, string_to_dtype
 
 DEVICE_UNPACK_MISSES = {"host_template": 0, "cast": 0, "layout": 0}
@@ -48,6 +52,33 @@ class BatchedBufferStager(BufferStager):
         self.on_device = all(
             isinstance(s, CudaTensorBufferStager) for s, _ in stagers
         )
+        # the slab packed by ``offload()``, staged in place of the members
+        self.packed: Optional[CudaTensorBufferStager] = None
+
+    def offload(self, on_device: bool) -> int:
+        """Make the slab independent of the live members now (an async
+        take's unblock point).  A device slab is packed by K1 on the
+        caller's current stream — the slab is the device-side copy — or,
+        ``on_device`` false, packed and copied to pinned host memory
+        before this returns; host members take their defensive copies.
+        Returns the bytes copied."""
+        if not self.on_device:
+            return sum(
+                s.offload(on_device) for s, _ in self.stagers
+                if isinstance(s, HostArrayBufferStager)
+            )
+        from .ops.device_pack import pack_slab
+
+        tensors = [s.tensor for s, _ in self.stagers]
+        with torch.cuda.device(tensors[0].device):
+            packed = CudaTensorBufferStager(pack_slab(tensors))
+            if on_device:
+                packed.ready = torch.cuda.Event()
+                packed.ready.record(torch.cuda.current_stream())
+            else:
+                packed.offload(on_device=False)
+        self.packed, self.stagers = packed, []
+        return self.total
 
     async def stage_buffer(self, executor: Optional[Executor] = None) -> memoryview:
         with obs.span(
@@ -63,6 +94,9 @@ class BatchedBufferStager(BufferStager):
     async def _stage_device_packed(self, executor: Optional[Executor]) -> memoryview:
         from .ops.device_pack import pack_tensors_to_host
 
+        if self.packed is not None:
+            packed, self.packed = self.packed, None
+            return await packed.stage_buffer(executor)
         tensors = [s.tensor for s, _ in self.stagers]
         producer = self.stagers[0][0].producer_stream
         if executor is not None:

@@ -38,110 +38,21 @@
 //   a 4 x 8 accumulator tile per thread), keeping f32 products exact.
 //
 // Causal kv blocks entirely above the diagonal are never loaded.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cmath>
-#include <cstdint>
-#include <cstring>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int kDMax = 128;  // largest head dim taken
-
-// First kv column past what a q block [q0, q0 + rows) can see: below
-// sk_real and, under the causal mask, at or before the last valid row's
-// global position.
-__device__ __forceinline__ long long kv_limit(int q0, int rows, int sq_real,
-                                              int sk_real, int causal,
-                                              long long q_offset, long long k_offset) {
-  const int q_last = (q0 + rows < sq_real ? q0 + rows : sq_real) - 1;
-  if (q_last < q0) return 0;
-  long long end = sk_real;
-  if (causal) {
-    const long long lim = q_offset + q_last - k_offset + 1;
-    if (lim < end) end = lim > 0 ? lim : 0;
-  }
-  return end;
-}
-
-__device__ __forceinline__ bool visible(int row, int col, int sq_real, int sk_real,
-                                        int causal, long long q_offset, long long k_offset) {
-  return col < sk_real && row < sq_real && (!causal || q_offset + row >= k_offset + col);
-}
+using namespace tsnp_flash;
 
 // ------------------------------------------------------------ bf16 (mma)
 
 constexpr int kMmaBQ = 64;  // 4 warps x 16 rows
 constexpr int kMmaBK = 64;
 constexpr int kMmaThreads = 128;
-constexpr int kLd = kDMax + 8;  // bf16 row stride in shared memory (bank spread)
 // two stages of (k tile, v tile); the q tile is staged in stage 1's k
 // buffer before the kv loop, and read into registers before it refills
 constexpr int kTileElems = kMmaBK * kLd;
 constexpr size_t kMmaSmemBytes = 4 * kTileElems * sizeof(__nv_bfloat16);
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two consecutive bf16 (the lower address in the low half)
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// 16 bytes global → shared without a register trip; ``src_bytes`` = 0
-// zero-fills (rows past the end)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
-               "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// wait until at most one committed group is still in flight
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-// Rows [r0, r0 + rows) of a [n_rows, d] matrix into shared memory, zeros
-// past the rows or the head dim.  With ``vec`` (d % 8 == 0, 16-byte
-// aligned operands) the copies are asynchronous and belong to the next
-// committed group; otherwise they are plain loads and stores.
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          int r0, int rows, int n_rows, int d, bool vec) {
-  constexpr int kChunks = kDMax / 8;
-  for (int idx = threadIdx.x; idx < rows * kChunks; idx += blockDim.x) {
-    const int r = idx / kChunks, c8 = (idx % kChunks) * 8;
-    const bool in = r0 + r < n_rows && c8 < d;
-    const __nv_bfloat16* p = src + (in ? static_cast<size_t>(r0 + r) * d + c8 : 0);
-    __nv_bfloat16* out = dst + r * kLd + c8;
-    if (vec) {
-      cp_async16(out, p, in ? 16 : 0);
-      continue;
-    }
-    __nv_bfloat16 tmp[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-      tmp[i] = in && c8 + i < d ? p[i] : __float2bfloat16(0.f);
-    memcpy(out, tmp, sizeof(tmp));
-  }
-}
 
 __global__ void __launch_bounds__(kMmaThreads)
 flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
@@ -469,12 +380,6 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       l_out[row] = l_run[i];
     }
   }
-}
-
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
 }
 
 }  // namespace

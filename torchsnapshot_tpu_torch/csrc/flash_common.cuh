@@ -1,0 +1,213 @@
+// Helpers shared by the flash-attention kernels (K3 forward, K4 dq and
+// K5 dk/dv backward): the masking rules of the JAX package's
+// ``_block_scores``, bf16 tensor-core products through ``mma.sync``
+// m16n8k16 and ``ldmatrix``, and tile loads into shared memory.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cmath>
+#include <cstdint>
+#include <cstring>
+
+namespace tsnp_flash {
+
+constexpr int kDMax = 128;      // largest head dim taken
+constexpr int kLd = kDMax + 8;  // bf16 row stride in shared memory (bank spread)
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// First kv column past what a q block [q0, q0 + rows) can see: below
+// sk_real and, under the causal mask, at or before the last valid row's
+// global position.
+__device__ __forceinline__ long long kv_limit(int q0, int rows, int sq_real, int sk_real,
+                                              int causal, long long q_offset,
+                                              long long k_offset) {
+  const int q_last = (q0 + rows < sq_real ? q0 + rows : sq_real) - 1;
+  if (q_last < q0) return 0;
+  long long end = sk_real;
+  if (causal) {
+    const long long lim = q_offset + q_last - k_offset + 1;
+    if (lim < end) end = lim > 0 ? lim : 0;
+  }
+  return end;
+}
+
+// First q row that can see a kv block starting at column k0 (0 when not
+// causal): the transposed counterpart of kv_limit.
+__device__ __forceinline__ int q_begin(int k0, int causal, long long q_offset,
+                                       long long k_offset) {
+  if (!causal) return 0;
+  const long long first = k_offset + k0 - q_offset;
+  return first > 0 ? static_cast<int>(first) : 0;
+}
+
+__device__ __forceinline__ bool visible(int row, int col, int sq_real, int sk_real, int causal,
+                                        long long q_offset, long long k_offset) {
+  return col < sk_real && row < sq_real && (!causal || q_offset + row >= k_offset + col);
+}
+
+// c (16 x 8, f32) += a (16 x 16, bf16, row) * b (16 x 8, bf16, col)
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two consecutive bf16 (the lower address in the low half)
+__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// A fragment of rows [0, 16) x cols [c0, c0 + 16) of a row-major bf16
+// tile in shared memory (row stride kLd)
+__device__ __forceinline__ void load_a(uint32_t* a, const __nv_bfloat16* tile, int c0, int g,
+                                       int t) {
+  a[0] = ld_pair(tile + g * kLd + c0 + 2 * t);
+  a[1] = ld_pair(tile + (g + 8) * kLd + c0 + 2 * t);
+  a[2] = ld_pair(tile + g * kLd + c0 + 8 + 2 * t);
+  a[3] = ld_pair(tile + (g + 8) * kLd + c0 + 8 + 2 * t);
+}
+
+// The accumulators of score tiles 2j and 2j + 1 (16 x 8 each) as the A
+// fragment of a 16-wide reduction step: the m16n8k16 accumulator layout
+// is the A layout, so no trip through shared memory is needed.
+__device__ __forceinline__ void acc_to_a(uint32_t* a, const float* lo, const float* hi) {
+  a[0] = pack_bf16(lo[0], lo[1]);
+  a[1] = pack_bf16(lo[2], lo[3]);
+  a[2] = pack_bf16(hi[0], hi[1]);
+  a[3] = pack_bf16(hi[2], hi[3]);
+}
+
+// acc[n] (16 rows x 8 cols, n < kDMax / 8) += a (16 x 16) * tile[r0 + 0..15][n*8 .. n*8+7]:
+// the 16 reduction rows of a row-major bf16 tile, read transposed by
+// ldmatrix (lanes 0-15 address the rows)
+__device__ __forceinline__ void mma_rows_times_tile(float (*acc)[4], const uint32_t* a,
+                                                    const __nv_bfloat16* tile, int r0,
+                                                    int lane) {
+  const __nv_bfloat16* row = tile + (r0 + (lane & 15)) * kLd;
+#pragma unroll
+  for (int n = 0; n < kDMax / 8; ++n) {
+    uint32_t b0, b1;
+    const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(row + n * 8));
+    asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+                 : "=r"(b0), "=r"(b1)
+                 : "r"(addr));
+    mma_bf16(acc[n], a, b0, b1);
+  }
+}
+
+// 16 bytes global → shared without a register trip; ``src_bytes`` = 0
+// zero-fills (rows past the end)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// wait until at most one committed group is still in flight
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Rows [r0, r0 + rows) of a [n_rows, d] bf16 matrix into shared memory,
+// zeros past the rows or the head dim.  With ``vec`` (d % 8 == 0,
+// 16-byte aligned operands) the copies are asynchronous and belong to
+// the next committed group; otherwise they are plain loads and stores.
+__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src, int r0,
+                                          int rows, int n_rows, int d, bool vec) {
+  constexpr int kChunks = kDMax / 8;
+  for (int idx = threadIdx.x; idx < rows * kChunks; idx += blockDim.x) {
+    const int r = idx / kChunks, c8 = (idx % kChunks) * 8;
+    const bool in = r0 + r < n_rows && c8 < d;
+    const __nv_bfloat16* p = src + (in ? static_cast<size_t>(r0 + r) * d + c8 : 0);
+    __nv_bfloat16* out = dst + r * kLd + c8;
+    if (vec) {
+      cp_async16(out, p, in ? 16 : 0);
+      continue;
+    }
+    __nv_bfloat16 tmp[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) tmp[i] = in && c8 + i < d ? p[i] : __float2bfloat16(0.f);
+    memcpy(out, tmp, sizeof(tmp));
+  }
+}
+
+// The same for an f32 matrix rounded to bf16 on the way (plain loads:
+// cp.async cannot convert).
+__device__ __forceinline__ void load_tile_f32(__nv_bfloat16* dst, const float* src, int r0,
+                                              int rows, int n_rows, int d) {
+  constexpr int kChunks = kDMax / 8;
+  for (int idx = threadIdx.x; idx < rows * kChunks; idx += blockDim.x) {
+    const int r = idx / kChunks, c8 = (idx % kChunks) * 8;
+    const bool in = r0 + r < n_rows && c8 < d;
+    const float* p = src + (in ? static_cast<size_t>(r0 + r) * d + c8 : 0);
+    uint32_t packed[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float lo = in && c8 + 2 * i < d ? p[2 * i] : 0.f;
+      const float hi = in && c8 + 2 * i + 1 < d ? p[2 * i + 1] : 0.f;
+      packed[i] = pack_bf16(lo, hi);
+    }
+    memcpy(dst + r * kLd + c8, packed, sizeof(packed));
+  }
+}
+
+// Rows [r0, r0 + rows) of a [n_rows, d] f32 matrix into a [rows][kDMax]
+// f32 staging tile by cp.async (d % 4 == 0, 16-byte aligned rows), zeros
+// past the rows or the head dim; part of the next committed group.
+__device__ __forceinline__ void load_tile_f32_async(float* dst, const float* src, int r0,
+                                                    int rows, int n_rows, int d) {
+  constexpr int kChunks = kDMax / 4;
+  for (int idx = threadIdx.x; idx < rows * kChunks; idx += blockDim.x) {
+    const int r = idx / kChunks, c4 = (idx % kChunks) * 4;
+    const bool in = r0 + r < n_rows && c4 < d;
+    const float* p = src + (in ? static_cast<size_t>(r0 + r) * d + c4 : 0);
+    cp_async16(dst + r * kDMax + c4, p, in ? 16 : 0);
+  }
+}
+
+// A staged [rows][kDMax] f32 tile rounded to a bf16 tile (row stride kLd).
+__device__ __forceinline__ void convert_tile_f32(__nv_bfloat16* dst, const float* src,
+                                                 int rows) {
+  constexpr int kChunks = kDMax / 8;
+  for (int idx = threadIdx.x; idx < rows * kChunks; idx += blockDim.x) {
+    const int r = idx / kChunks, c8 = (idx % kChunks) * 8;
+    const float4 a = *reinterpret_cast<const float4*>(src + r * kDMax + c8);
+    const float4 b = *reinterpret_cast<const float4*>(src + r * kDMax + c8 + 4);
+    const uint32_t packed[4] = {pack_bf16(a.x, a.y), pack_bf16(a.z, a.w), pack_bf16(b.x, b.y),
+                                pack_bf16(b.z, b.w)};
+    memcpy(dst + r * kLd + c8, packed, sizeof(packed));
+  }
+}
+
+// every pointer 16-byte aligned (the cp.async paths need it)
+template <typename... Ptrs>
+inline bool aligned16(Ptrs... ptrs) {
+  return ((reinterpret_cast<uintptr_t>(ptrs) | ... | uintptr_t{0}) & 15) == 0;
+}
+
+template <typename Kernel>
+inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+}  // namespace tsnp_flash

@@ -22,6 +22,7 @@ _DISABLE_BATCHING = "DISABLE_BATCHING"
 _PER_RANK_MEMORY_BUDGET_BYTES = "PER_RANK_MEMORY_BUDGET_BYTES"
 _ALLOW_PICKLE_OBJECTS = "ALLOW_PICKLE_OBJECTS"
 _STAGING_THREADS = "STAGING_THREADS"
+_DISABLE_EAGER_HOST_STAGING = "DISABLE_EAGER_HOST_STAGING"
 
 _DEFAULTS = {
     # Arrays larger than this are chunked along dim 0 for pipelined I/O.
@@ -42,6 +43,10 @@ _DEFAULTS = {
     _ALLOW_PICKLE_OBJECTS: 1,
     # Threads for staging and consuming work.
     _STAGING_THREADS: 4,
+    # 1: async_take returns only after every request is staged in host
+    # memory (the reference torchsnapshot's unblock point) instead of
+    # after the eager copies of host_offload.py.
+    _DISABLE_EAGER_HOST_STAGING: 0,
 }
 
 _OVERRIDES: dict = {}
@@ -94,6 +99,10 @@ def get_staging_threads() -> int:
     return max(1, _get_int(_STAGING_THREADS))
 
 
+def is_eager_host_staging_disabled() -> bool:
+    return bool(_get_int(_DISABLE_EAGER_HOST_STAGING))
+
+
 @contextlib.contextmanager
 def _override(name: str, value) -> Iterator[None]:
     had = name in _OVERRIDES
@@ -122,3 +131,7 @@ def override_disable_batching(value: bool):
 
 def override_allow_pickle_objects(value: bool):
     return _override(_ALLOW_PICKLE_OBJECTS, int(value))
+
+
+def override_disable_eager_host_staging(value: bool):
+    return _override(_DISABLE_EAGER_HOST_STAGING, int(value))

@@ -8,14 +8,19 @@ probabilities cast to ``cfg.dtype``, and the LM head computed in f32.
 Attention stays dense (``torch.matmul``), as the JAX model computes it
 outside any Pallas kernel.  Weights are held in ``cfg.dtype``.
 
-``params_from_jax`` carries a flax parameter tree into this module's
-``state_dict`` layout.
+Training is the JAX module's: ``make_train_state`` builds the model and
+``torch.optim.AdamW(lr=3e-4, weight_decay=0.01)`` (optax
+``adamw(3e-4, weight_decay=0.01)``), ``loss_fn`` is the mean next-token
+NLL and ``train_step`` one update.  ``params_from_jax`` and
+``adamw_state_from_jax`` carry a flax parameter tree and its optax AdamW
+state into this module's ``state_dict`` layout and a torch AdamW
+``state_dict``, so a JAX train state continues here.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
@@ -184,3 +189,75 @@ def params_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 
     walk(params, "")
     return out
+
+
+LEARNING_RATE = 3e-4
+WEIGHT_DECAY = 0.01
+
+
+def _adamw(model: nn.Module) -> torch.optim.AdamW:
+    # optax.adamw's other defaults are torch's: betas (0.9, 0.999), eps 1e-8
+    return torch.optim.AdamW(
+        model.parameters(), lr=LEARNING_RATE, weight_decay=WEIGHT_DECAY
+    )
+
+
+def make_train_state(
+    cfg: TransformerConfig, seed: int = 0, device: Any = "cuda"
+) -> Tuple[TransformerLM, torch.optim.AdamW]:
+    """A model with weights drawn from ``seed`` (the caller's RNG streams
+    are left as they were) and its AdamW optimizer."""
+    device = torch.device(device)
+    with torch.random.fork_rng(devices=[device] if device.type == "cuda" else []):
+        torch.manual_seed(seed)
+        model = TransformerLM(cfg, device=device)
+    return model, _adamw(model)
+
+
+def loss_fn(model: TransformerLM, tokens: torch.Tensor) -> torch.Tensor:
+    """Mean next-token negative log-likelihood of ``tokens`` [b, s]."""
+    logits = model(tokens[:, :-1])
+    return F.cross_entropy(
+        logits.reshape(-1, logits.shape[-1]), tokens[:, 1:].reshape(-1)
+    )
+
+
+def train_step(
+    model: TransformerLM, opt: torch.optim.Optimizer, tokens: torch.Tensor
+) -> torch.Tensor:
+    """One training step, in place on ``model`` and ``opt``; returns the
+    step's loss (computed before the update)."""
+    opt.zero_grad(set_to_none=True)
+    loss = loss_fn(model, tokens)
+    loss.backward()
+    opt.step()
+    return loss.detach()
+
+
+def _find_adam_state(node: Any) -> Any:
+    """optax's ScaleByAdamState (count, mu, nu) inside an opt_state chain."""
+    if all(hasattr(node, a) for a in ("count", "mu", "nu")):
+        return node
+    if isinstance(node, (tuple, list)):
+        for child in node:
+            found = _find_adam_state(child)
+            if found is not None:
+                return found
+    return None
+
+
+def adamw_state_from_jax(opt_state: Any, model: TransformerLM) -> Dict[str, Any]:
+    """An optax ``adamw`` state (numpy leaves) → a ``state_dict`` for this
+    model's AdamW (``make_train_state``): count → ``step``, mu →
+    ``exp_avg``, nu → ``exp_avg_sq``, mapped onto the parameters by name
+    as ``params_from_jax`` maps the weights."""
+    adam = _find_adam_state(opt_state)
+    if adam is None:
+        raise ValueError("no ScaleByAdamState (count, mu, nu) in the optax state")
+    mu, nu = params_from_jax(adam.mu), params_from_jax(adam.nu)
+    step = torch.tensor(float(np.asarray(adam.count)), dtype=torch.float32)
+    state = {
+        i: {"step": step.clone(), "exp_avg": mu[name], "exp_avg_sq": nu[name]}
+        for i, (name, _) in enumerate(model.named_parameters())
+    }
+    return {"state": state, "param_groups": _adamw(model).state_dict()["param_groups"]}

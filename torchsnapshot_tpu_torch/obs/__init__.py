@@ -20,6 +20,7 @@ SLABS_PACKED = "slabs.packed"
 BYTES_STAGED = "bytes.staged"
 BYTES_WRITTEN = "bytes.written"
 BYTES_READ = "bytes.read"
+BYTES_OFFLOADED = "bytes.offloaded"
 EVENT_HANDLER_ERRORS = "event_handler.errors"
 
 _LOCK = threading.Lock()

@@ -29,6 +29,8 @@ SOURCES = {
     "slab_pack": "slab_pack.cu",
     "slab_unpack": "slab_unpack.cu",
     "flash_attention_fwd": "flash_attention_fwd.cu",
+    "flash_attention_bwd_dq": "flash_attention_bwd_dq.cu",
+    "flash_attention_bwd_dkv": "flash_attention_bwd_dkv.cu",
 }
 
 NVCC_FLAGS = [
@@ -105,6 +107,10 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _F = ctypes.c_float
 
+# q, k, v, m, gpv, gl, two outputs; bh, sq, sk, d; scale; causal;
+# q_offset, k_offset; sq_real, sk_real, is_bf16; stream
+_FLASH_BWD_ARGS = [_P] * 8 + [_I] * 4 + [_F, _I, _LL, _LL, _I, _I, _I, _P]
+
 # C signatures: (restype, argtypes) per exported symbol
 _SIGNATURES = {
     "slab_pack": {
@@ -123,6 +129,13 @@ _SIGNATURES = {
              _I, _I, _I, _P],
         ),
         "tsnp_flash_fwd_max_head_dim": (_I, []),
+    },
+    "flash_attention_bwd_dq": {
+        "tsnp_flash_bwd_dq": (_I, _FLASH_BWD_ARGS),
+        "tsnp_flash_bwd_dq_max_head_dim": (_I, []),
+    },
+    "flash_attention_bwd_dkv": {
+        "tsnp_flash_bwd_dkv": (_I, _FLASH_BWD_ARGS),
     },
 }
 

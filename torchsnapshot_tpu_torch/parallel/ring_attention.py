@@ -4,8 +4,11 @@ Counterpart of ``torchsnapshot_tpu/parallel/ring_attention.py``.  Each
 rank holds a ``[batch, seq_local, heads, head_dim]`` shard of q/k/v; the
 k/v shards rotate around the ring while the softmax accumulates online,
 so no rank materialises the full attention matrix.  Every step's block
-attention is the flash-attention forward partials (K3 on CUDA tensors,
-its plain version on CPU tensors; there is no knob and no fallback).
+attention is the flash-attention partials (K3 forward, K4/K5 backward
+on CUDA tensors, their plain versions on CPU tensors; there is no knob
+and no fallback), and the accumulator is torch ops, so the output is
+differentiable in q, k and v end to end, as ``ring_attention_shard``
+is in the JAX package.
 
 The ring size comes from ``torch.distributed`` (1 when no process group
 is initialised).  At size 1 the loop runs one step and needs no

@@ -41,9 +41,12 @@ def prepare_write(
     rank: int,
     replicated: bool = False,
     chunk_size_bytes: Optional[int] = None,
+    is_async_snapshot: bool = False,
 ) -> Tuple[Entry, List[WriteReq]]:
     """Plan the write of one leaf.  Storage paths: ``replicated/`` for
-    replicated entries, ``<rank>/`` for per-rank ones."""
+    replicated entries, ``<rank>/`` for per-rank ones.  An async snapshot
+    plans defensive copies of host arrays (the caller may mutate them
+    once ``async_take`` returns)."""
     if is_primitive_type(obj):
         return PrimitiveEntry.from_object(obj, replicated=replicated), []
     namespace = "replicated" if replicated else str(rank)
@@ -53,9 +56,9 @@ def prepare_write(
             chunk_size_bytes = knobs.get_max_chunk_size_bytes()
         if array_nbytes(obj) > chunk_size_bytes:
             return ChunkedArrayIOPreparer.prepare_write(
-                obj, location, replicated, chunk_size_bytes
+                obj, location, replicated, chunk_size_bytes, is_async_snapshot
             )
-        return ArrayIOPreparer.prepare_write(obj, location, replicated)
+        return ArrayIOPreparer.prepare_write(obj, location, replicated, is_async_snapshot)
     return ObjectIOPreparer.prepare_write(obj, location, replicated)
 
 

@@ -7,7 +7,12 @@ Counterpart of ``torchsnapshot_tpu/preparers/array.py``:
   ``JaxArrayBufferStager``): one ``cudaMemcpyAsync`` into pinned host
   memory on a side copy stream, ordered after the work that produced the
   tensor, completion awaited on an event in a worker thread.
-- Host tensors and numpy arrays stage as zero-copy byte views.
+- Host tensors and numpy arrays stage as zero-copy byte views, or as
+  copies for an async take (``defensive_copy``).
+- ``offload()`` on either stager makes it independent of the live
+  tensor before ``async_take`` returns (see ``host_offload.py``): a
+  device-side copy on the caller's stream for a CUDA tensor, a host
+  copy for a host one.
 - Restore writes INTO the template: ``template.copy_(...)`` casts, moves
   host→device and updates the caller's tensor in place.  The JAX package
   cannot do that (its arrays are immutable; it builds a new array and
@@ -55,39 +60,67 @@ def array_dtype_str(obj: Any) -> str:
     return dtype_to_string(obj.dtype)
 
 
+def copy_to_host(t: torch.Tensor, after: Any) -> np.ndarray:
+    """The bytes of CUDA tensor ``t`` in pinned host memory: one copy on a
+    side stream that first waits on ``after`` (a stream or an event), so
+    it reads ``t`` as the work before that point left it.  Blocks until
+    the copy is done, so ``t`` may be freed when this returns."""
+    host = torch.empty(array_nbytes(t), dtype=torch.uint8, pin_memory=True)
+    stream = torch.cuda.Stream(device=t.device)
+    if isinstance(after, torch.cuda.Event):
+        stream.wait_event(after)
+    else:
+        stream.wait_stream(after)
+    with torch.cuda.stream(stream):
+        src = t.detach().contiguous().reshape(-1).view(torch.uint8)
+        host.copy_(src, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(stream)
+    done.synchronize()
+    return host.numpy()
+
+
 class CudaTensorBufferStager(BufferStager):
     """Stage a CUDA tensor: one async D2H copy into pinned host memory on
     a side stream, then wait for its event in a worker thread.
 
     The copy stream waits on the stream that was current when the write
     was planned, so the bytes staged are the tensor's value at ``take``
-    — work the caller queued before it, none queued after it returns."""
+    — work the caller queued before it, none queued after it returns.
+    After ``offload()`` it stages from the device-side copy instead,
+    waiting only on the event recorded after that copy."""
 
     def __init__(self, tensor: torch.Tensor) -> None:
         self.tensor = tensor
         self.nbytes = array_nbytes(tensor)
         self.producer_stream = torch.cuda.current_stream(tensor.device)
+        self.ready: Any = self.producer_stream  # what staging waits on
+        self.host: Optional[np.ndarray] = None  # staged before staging ran
 
-    def _copy_to_host(self) -> np.ndarray:
-        t = self.tensor
-        host = torch.empty(self.nbytes, dtype=torch.uint8, pin_memory=True)
-        stream = torch.cuda.Stream(device=t.device)
-        stream.wait_stream(self.producer_stream)
-        with torch.cuda.stream(stream):
-            src = t.detach().contiguous().reshape(-1).view(torch.uint8)
-            host.copy_(src, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(stream)
-        done.synchronize()
-        return host.numpy()
+    def offload(self, on_device: bool) -> int:
+        """Make this stager independent of the live tensor, now: a copy on
+        the device, enqueued on the caller's current stream (no host
+        wait), or — ``on_device`` false — the D2H copy itself, waited
+        for.  Returns the bytes copied."""
+        if on_device:
+            with torch.no_grad():
+                self.tensor = self.tensor.clone(memory_format=torch.contiguous_format)
+            self.ready = torch.cuda.Event()
+            self.ready.record(torch.cuda.current_stream(self.tensor.device))
+        else:
+            self.host = copy_to_host(self.tensor, self.ready)
+            self.tensor = None
+        return self.nbytes
 
     async def stage_buffer(self, executor: Optional[Executor] = None) -> memoryview:
-        if executor is not None:
+        if self.host is not None:
+            arr, self.host = self.host, None
+        elif executor is not None:
             arr = await asyncio.get_running_loop().run_in_executor(
-                executor, self._copy_to_host
+                executor, copy_to_host, self.tensor, self.ready
             )
         else:
-            arr = self._copy_to_host()
+            arr = copy_to_host(self.tensor, self.ready)
         self.tensor = None  # drop the reference as early as possible
         return memoryview(arr)
 
@@ -96,27 +129,46 @@ class CudaTensorBufferStager(BufferStager):
 
 
 class HostArrayBufferStager(BufferStager):
-    """Stage a host tensor or numpy array as a zero-copy byte view.
-    ``take`` is synchronous, so the caller cannot mutate the source
-    before the write completes and no defensive copy is needed."""
+    """Stage a host tensor or numpy array as a byte view.  A sync take
+    holds the caller until the write completes, so the view is zero-copy;
+    an async take (``defensive_copy``) copies, at staging or, through
+    ``offload()``, before ``async_take`` returns."""
 
-    def __init__(self, arr: Any) -> None:
+    def __init__(self, arr: Any, defensive_copy: bool = False) -> None:
         self.arr = arr
+        self.defensive_copy = defensive_copy
+
+    def offload(self, on_device: bool = True) -> int:
+        """Take the defensive copy now; returns the bytes copied."""
+        if not self.defensive_copy or self.arr is None:
+            return 0
+        self.arr = _host_copy(self.arr)
+        self.defensive_copy = False
+        return array_nbytes(self.arr)
 
     async def stage_buffer(self, executor: Optional[Executor] = None) -> memoryview:
         arr, self.arr = self.arr, None
+        if self.defensive_copy:
+            arr = _host_copy(arr)
         return array_as_memoryview(arr)
 
     def get_staging_cost_bytes(self) -> int:
+        # the staged size: a slab lays its members out by this
         return array_nbytes(self.arr) if self.arr is not None else 0
 
 
-def _stager_for(obj: Any) -> BufferStager:
+def _host_copy(arr: Any) -> Any:
+    if isinstance(arr, torch.Tensor):
+        return arr.detach().clone(memory_format=torch.contiguous_format)
+    return np.array(arr, copy=True, order="C")
+
+
+def _stager_for(obj: Any, is_async: bool = False) -> BufferStager:
     if is_cuda_tensor(obj):
         return CudaTensorBufferStager(obj)
     if isinstance(obj, torch.Tensor) and obj.device.type != "cpu":
         raise TypeError(f"unsupported tensor device {obj.device}")
-    return HostArrayBufferStager(obj)
+    return HostArrayBufferStager(obj, defensive_copy=is_async)
 
 
 def materialize_into_template(src: torch.Tensor, obj_out: Any) -> Any:
@@ -171,7 +223,7 @@ class ArrayBufferConsumer(BufferConsumer):
 class ArrayIOPreparer:
     @staticmethod
     def prepare_write(
-        obj: Any, location: str, replicated: bool
+        obj: Any, location: str, replicated: bool, is_async: bool = False
     ) -> Tuple[ArrayEntry, List[WriteReq]]:
         entry = ArrayEntry(
             location=location,
@@ -183,7 +235,7 @@ class ArrayIOPreparer:
         return entry, [
             WriteReq(
                 path=location,
-                buffer_stager=_stager_for(obj),
+                buffer_stager=_stager_for(obj, is_async),
                 checksum_sinks=[
                     (lambda c, e=entry: setattr(e, "crc32", c), None)
                 ],
@@ -223,7 +275,7 @@ class ChunkedArrayIOPreparer:
     @staticmethod
     def prepare_write(
         obj: Any, location: str, replicated: bool,
-        chunk_size_bytes: Optional[int] = None,
+        chunk_size_bytes: Optional[int] = None, is_async: bool = False,
     ) -> Tuple[ChunkedArrayEntry, List[WriteReq]]:
         dtype_str = array_dtype_str(obj)
         shape = list(obj.shape)
@@ -244,7 +296,7 @@ class ChunkedArrayIOPreparer:
             write_reqs.append(
                 WriteReq(
                     path=chunk_location,
-                    buffer_stager=_stager_for(obj[r0:r1]),
+                    buffer_stager=_stager_for(obj[r0:r1], is_async),
                     checksum_sinks=[
                         (lambda c, s=chunks[-1]: setattr(s, "crc32", c), None)
                     ],

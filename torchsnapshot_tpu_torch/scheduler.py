@@ -3,7 +3,9 @@
 Counterpart of ``torchsnapshot_tpu/scheduler.py``, same discipline:
 
 - Write path: ``ready_for_staging → staging → ready_for_io → io →
-  done``.  A request is admitted to staging iff its cost fits the
+  done``, returned as a ``PendingIOWork`` whose I/O drains on its own
+  loop thread: ``take`` waits for all of it, ``async_take`` for staging
+  at most (none after the eager copies of ``host_offload.py``).  A request is admitted to staging iff its cost fits the
   remaining host-memory budget, or nothing else is in flight (progress
   for oversized items).  The budget is debited by the declared staging
   cost, corrected to the staged size, and credited when the write lands.
@@ -27,7 +29,7 @@ import threading
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Awaitable, List
+from typing import Any, Awaitable, Callable, List, Optional
 
 from . import knobs, obs
 from .io_types import ReadIO, ReadReq, StoragePlugin, WriteIO, WriteReq
@@ -136,6 +138,7 @@ async def _execute_write_pipelines(
     budget: _Budget,
     executor: ThreadPoolExecutor,
     stats: dict,
+    staging_done: threading.Event,
 ) -> None:
     ready_for_staging = deque(pipelines)
     ready_for_io: deque = deque()
@@ -166,6 +169,8 @@ async def _execute_write_pipelines(
 
     try:
         while ready_for_staging or staging_tasks or ready_for_io or io_tasks:
+            if not (ready_for_staging or staging_tasks):
+                staging_done.set()
             # admit every pending request that fits (largest first); when
             # nothing fits and nothing is in flight, admit the largest
             for _ in range(len(ready_for_staging)):
@@ -201,17 +206,64 @@ async def _execute_write_pipelines(
         for t in staging_tasks | io_tasks:
             t.cancel()
         raise
+    finally:
+        staging_done.set()
 
 
-def sync_execute_write_reqs(
+class PendingIOWork:
+    """Handle for a write pipeline whose I/O may still be draining
+    (the JAX package's ``PendingIOWork``).  ``sync_complete`` waits for
+    the rest, raises the pipeline's error if it failed, and stops its
+    threads; the pipeline starts at construction or, when deferred, on
+    the first ``sync_complete`` (the thread that commits pays for it)."""
+
+    def __init__(
+        self,
+        starter: Callable[[], concurrent.futures.Future],
+        loop_thread: _LoopThread,
+        executor: ThreadPoolExecutor,
+        stats: dict,
+        rank: int,
+        start_now: bool,
+    ) -> None:
+        self._starter = starter
+        self._loop_thread = loop_thread
+        self._executor = executor
+        self._stats = stats
+        self._rank = rank
+        self._fut: Optional[concurrent.futures.Future] = starter() if start_now else None
+
+    def sync_complete(self) -> int:
+        """Wait for every write; returns the bytes written."""
+        if self._fut is None:
+            self._fut = self._starter()
+        try:
+            self._fut.result()
+        finally:
+            self._executor.shutdown(wait=True)
+            self._loop_thread.shutdown()
+        dt = max(time.monotonic() - self._stats["begin_ts"], 1e-9)
+        gb = self._stats["bytes_written"] / 1e9
+        logger.info(
+            "rank %d: wrote %.3f GB in %.2fs (%.2f GB/s)", self._rank, gb, dt, gb / dt
+        )
+        return self._stats["bytes_written"]
+
+
+def execute_write_reqs(
     write_reqs: List[WriteReq],
     storage: StoragePlugin,
     memory_budget_bytes: int,
     rank: int,
-) -> int:
-    """Stage and write every request under the memory budget; returns
-    the bytes written.  Largest-first staging keeps the budget packed
-    and starts the biggest device copies earliest."""
+    wait_for_staging: bool = True,
+) -> PendingIOWork:
+    """Stage and write every request under the memory budget.  With
+    ``wait_for_staging`` it returns once every request is staged (the
+    I/O drains in the background); without, it returns at once and the
+    whole pipeline starts on the first ``sync_complete`` — for requests
+    already made independent of the caller's state.  Largest-first
+    staging keeps the budget packed and starts the biggest device copies
+    earliest."""
     executor = ThreadPoolExecutor(
         max_workers=knobs.get_staging_threads(), thread_name_prefix="tsnp-torch-staging"
     )
@@ -220,24 +272,24 @@ def sync_execute_write_reqs(
         key=lambda p: p.staging_cost,
         reverse=True,
     )
-    stats = {"bytes_written": 0}
+    stats = {"bytes_written": 0, "begin_ts": time.monotonic()}
+    staging_done = threading.Event()
     loop_thread = _LoopThread("tsnp-torch-write-loop")
-    t0 = time.monotonic()
-    try:
-        loop_thread.submit(
+    budget = _Budget(memory_budget_bytes)
+
+    def start() -> concurrent.futures.Future:
+        return loop_thread.submit(
             _execute_write_pipelines(
-                pipelines, storage, _Budget(memory_budget_bytes), executor, stats
+                pipelines, storage, budget, executor, stats, staging_done
             )
-        ).result()
-    finally:
-        executor.shutdown(wait=True)
-        loop_thread.shutdown()
-    dt = max(time.monotonic() - t0, 1e-9)
-    logger.info(
-        "rank %d: wrote %.3f GB in %.2fs (%.2f GB/s)",
-        rank, stats["bytes_written"] / 1e9, dt, stats["bytes_written"] / 1e9 / dt,
-    )
-    return stats["bytes_written"]
+        )
+
+    pending = PendingIOWork(start, loop_thread, executor, stats, rank, wait_for_staging)
+    if wait_for_staging:
+        staging_done.wait()
+        if pending._fut.done() and pending._fut.exception() is not None:
+            pending.sync_complete()  # raises
+    return pending
 
 
 class _ReadPipeline:

@@ -1,4 +1,5 @@
-"""The user-facing Snapshot API: take / restore / read_object / metadata.
+"""The user-facing Snapshot API: take / async_take / restore /
+read_object / metadata.
 
 Counterpart of ``torchsnapshot_tpu/snapshot.py`` for one process.  The
 orchestration is the JAX package's:
@@ -7,20 +8,26 @@ orchestration is the JAX package's:
   plans one write per leaf, coalesces small writes into slabs, stages
   and writes them under a host-memory budget, and commits by writing
   ``.snapshot_metadata`` last (a snapshot without it is incomplete);
+- ``async_take`` plans the same writes, makes each independent of the
+  live state (``host_offload.py``: device-side copies of CUDA tensors,
+  host copies of host ones) and returns a ``PendingSnapshot``; staging,
+  I/O and the commit run on a background thread, an error surfaces from
+  ``wait()``, and ``.snapshot_metadata`` is never written on failure;
 - ``restore`` reads each leaf INTO the current state's tensors (restore
   templates, updated in place), RNG state last;
 - ``read_object`` reads one leaf by ``"<rank>/<logical path>"``.
 
 Snapshots are interchangeable with the JAX package's: same manifest,
-same object layout, same checksums.  Not ported in this slice:
-``async_take``/``PendingSnapshot``, incremental and content-addressed
-takes, tiered storage, topology and transport, liveness, write takeover
-and repair.
+same object layout, same checksums.  Not ported yet: incremental and
+content-addressed takes, tiered storage, topology and transport,
+liveness, write takeover and repair.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
+import threading
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -46,9 +53,10 @@ from .manifest_ops import consolidate_manifests, get_manifest_for_rank
 from .partitioner import partition_replicated_writes
 from .preparers import path_is_replicated, prepare_read, prepare_write
 from .scheduler import (
+    PendingIOWork,
+    execute_write_reqs,
     get_process_memory_budget_bytes,
     sync_execute_read_reqs,
-    sync_execute_write_reqs,
 )
 from .stateful import RNGState, load_with_strict
 from .storage import url_to_storage_plugin
@@ -79,6 +87,38 @@ def _place(obj: Any, template: Any, device: Any) -> Any:
     return obj
 
 
+@dataclasses.dataclass
+class _TakePlan:
+    """A take's planned writes and the records they fill in: checksum
+    sinks stamp the entries while staging runs, so the metadata is
+    rendered after the writes."""
+
+    manifest: Manifest
+    entries: Dict[str, Entry]
+    write_reqs: List[WriteReq]
+    object_digests: Dict[str, List[int]]
+    world: int
+
+    def metadata(self) -> SnapshotMetadata:
+        return SnapshotMetadata(
+            version=MANIFEST_VERSION,
+            world_size=self.world,
+            manifest=consolidate_manifests([{**self.manifest, **self.entries}]),
+            objects=self.object_digests,
+        )
+
+
+def _commit(storage: Any, metadata: SnapshotMetadata) -> None:
+    """The commit point: metadata last, durably."""
+    storage.sync_write(
+        WriteIO(
+            path=SNAPSHOT_METADATA_FNAME,
+            buf=metadata.to_yaml().encode(),
+            durable=True,
+        )
+    )
+
+
 class Snapshot:
     def __init__(self, path: str, coordinator: Optional[LocalCoordinator] = None) -> None:
         self.path = path
@@ -101,36 +141,96 @@ class Snapshot:
         coordinator = coordinator or get_default_coordinator()
         _validate_app_state(app_state)
         with log_event(Event("take", {"path": path, "rank": coordinator.rank})):
-            # take must not perturb the RNG streams, and the state saved
-            # is the state at entry: capture now, restore on the way out
-            rng_at_entry = RNGState().state_dict()
-            rng_states_at_entry = {
-                k: v.state_dict()
-                for k, v in app_state.items()
-                if isinstance(v, RNGState)
-            }
+            plan = cls._plan_at_entry(path, app_state, replicated, coordinator, is_async=False)
+            storage = url_to_storage_plugin(path)
             try:
-                metadata = cls._take_impl(
-                    path, app_state, replicated, coordinator, rng_states_at_entry
-                )
+                execute_write_reqs(
+                    plan.write_reqs, storage, get_process_memory_budget_bytes(),
+                    coordinator.rank,
+                ).sync_complete()
+                metadata = plan.metadata()
+                _commit(storage, metadata)
             finally:
-                for k, v in app_state.items():
-                    if isinstance(v, RNGState):
-                        v.load_state_dict(rng_states_at_entry[k])
-                RNGState().load_state_dict(rng_at_entry)
+                storage.sync_close()
         snapshot = cls(path, coordinator)
         snapshot._metadata_cache = metadata
         return snapshot
 
     @classmethod
-    def _take_impl(
+    def async_take(
+        cls,
+        path: str,
+        app_state: AppState,
+        replicated: Sequence[str] = (),
+        coordinator: Optional[LocalCoordinator] = None,
+    ) -> "PendingSnapshot":
+        """Save ``app_state`` to ``path`` in the background.  Returns once
+        the snapshot's content is independent of the live state: CUDA
+        tensors are copied on the device (on the caller's current stream,
+        with no host wait) and host tensors on the host
+        (``host_offload.py``), so the caller may run its next step, which
+        changes the state in place, right away.  Staging, storage I/O
+        and the commit run on a background thread; ``wait()`` returns
+        the committed ``Snapshot`` or raises the error, in which case
+        ``.snapshot_metadata`` was never written.  With the knob
+        TORCHSNAPSHOT_TPU_TORCH_DISABLE_EAGER_HOST_STAGING=1 it returns
+        only after every write is staged in host memory."""
+        from .host_offload import eager_offload_write_reqs
+
+        coordinator = coordinator or get_default_coordinator()
+        _validate_app_state(app_state)
+        with log_event(Event("async_take", {"path": path, "rank": coordinator.rank})):
+            plan = cls._plan_at_entry(path, app_state, replicated, coordinator, is_async=True)
+            unblock_early = not knobs.is_eager_host_staging_disabled()
+            if unblock_early:
+                eager_offload_write_reqs(plan.write_reqs)
+            storage = url_to_storage_plugin(path)
+            try:
+                pending_io = execute_write_reqs(
+                    plan.write_reqs, storage, get_process_memory_budget_bytes(),
+                    coordinator.rank, wait_for_staging=not unblock_early,
+                )
+            except BaseException:
+                storage.sync_close()
+                raise
+        return PendingSnapshot(path, coordinator, plan, pending_io, storage)
+
+    @classmethod
+    def _plan_at_entry(
         cls,
         path: str,
         app_state: AppState,
         replicated: Sequence[str],
         coordinator: LocalCoordinator,
+        is_async: bool,
+    ) -> _TakePlan:
+        # a take must not perturb the RNG streams, and the state saved
+        # is the state at entry: capture now, restore on the way out
+        rng_at_entry = RNGState().state_dict()
+        rng_states_at_entry = {
+            k: v.state_dict()
+            for k, v in app_state.items()
+            if isinstance(v, RNGState)
+        }
+        try:
+            return cls._plan(
+                app_state, replicated, coordinator, rng_states_at_entry, is_async
+            )
+        finally:
+            for k, v in app_state.items():
+                if isinstance(v, RNGState):
+                    v.load_state_dict(rng_states_at_entry[k])
+            RNGState().load_state_dict(rng_at_entry)
+
+    @classmethod
+    def _plan(
+        cls,
+        app_state: AppState,
+        replicated: Sequence[str],
+        coordinator: LocalCoordinator,
         rng_states_at_entry: Dict[str, Dict[str, Any]],
-    ) -> SnapshotMetadata:
+        is_async: bool,
+    ) -> _TakePlan:
         rank, world = coordinator.rank, coordinator.world_size
         replicated_globs = sorted(set(replicated))
         manifest: Manifest = {}
@@ -154,7 +254,7 @@ class Snapshot:
                 repl = path_is_replicated(lpath, replicated_globs)
                 entry, reqs = prepare_write(
                     flattened[lpath], lpath, rank, replicated=repl,
-                    chunk_size_bytes=chunk_size_bytes,
+                    chunk_size_bytes=chunk_size_bytes, is_async_snapshot=is_async,
                 )
                 entries[lpath] = entry
                 if not repl:
@@ -189,31 +289,7 @@ class Snapshot:
             wr.digest_sink = (
                 lambda d, p=wr.path: object_digests.__setitem__(p, list(d))
             )
-
-        storage = url_to_storage_plugin(path)
-        try:
-            sync_execute_write_reqs(
-                write_reqs, storage, get_process_memory_budget_bytes(), rank
-            )
-            # checksum sinks stamped the entries during staging; the
-            # manifest is rendered after, so it carries them
-            metadata = SnapshotMetadata(
-                version=MANIFEST_VERSION,
-                world_size=world,
-                manifest=consolidate_manifests([{**manifest, **entries}]),
-                objects=object_digests,
-            )
-            # the commit point: metadata last, durably
-            storage.sync_write(
-                WriteIO(
-                    path=SNAPSHOT_METADATA_FNAME,
-                    buf=metadata.to_yaml().encode(),
-                    durable=True,
-                )
-            )
-        finally:
-            storage.sync_close()
-        return metadata
+        return _TakePlan(manifest, entries, write_reqs, object_digests, world)
 
     # --------------------------------------------------------------- restore
 
@@ -336,3 +412,60 @@ class Snapshot:
             finally:
                 storage.sync_close()
             return _place(fut.obj, obj_out, device)
+
+
+class PendingSnapshot:
+    """Handle for an in-flight ``async_take`` (the JAX package's
+    ``PendingSnapshot`` for one process: no commit barrier across ranks).
+    A background thread drains the writes and, only if every one
+    succeeded, writes ``.snapshot_metadata``.  Two takes in flight at
+    once each own their threads and storage."""
+
+    def __init__(
+        self,
+        path: str,
+        coordinator: LocalCoordinator,
+        plan: _TakePlan,
+        pending_io: PendingIOWork,
+        storage: Any,
+    ) -> None:
+        self.path = path
+        self._coordinator = coordinator
+        self._plan: Optional[_TakePlan] = plan
+        self._pending_io: Optional[PendingIOWork] = pending_io
+        self._storage = storage
+        self._metadata: Optional[SnapshotMetadata] = None
+        self._exc: Optional[BaseException] = None
+        self._thread = threading.Thread(
+            target=self._complete, name="tsnp-torch-commit", daemon=True
+        )
+        self._thread.start()
+
+    def _complete(self) -> None:
+        try:
+            self._pending_io.sync_complete()
+            metadata = self._plan.metadata()
+            _commit(self._storage, metadata)
+            self._metadata = metadata
+        except BaseException as e:  # noqa: BLE001 — surfaced by wait()
+            self._exc = e
+        finally:
+            # the drained work pinned the staged buffers; the handle may
+            # outlive the commit
+            self._pending_io = self._plan = None
+            try:
+                self._storage.sync_close()
+            except Exception:  # noqa: BLE001 — the outcome is decided
+                logger.warning("storage close after async commit failed", exc_info=True)
+
+    def wait(self) -> Snapshot:
+        """Block until the background commit finishes; re-raise its error."""
+        self._thread.join()
+        if self._exc is not None:
+            raise self._exc
+        snapshot = Snapshot(self.path, self._coordinator)
+        snapshot._metadata_cache = self._metadata
+        return snapshot
+
+    def done(self) -> bool:
+        return not self._thread.is_alive()
