@@ -20,7 +20,11 @@ is no card or anything below fails.  In order:
    dv within 2e-2 of the largest plain value (ds and gpv enter the
    tensor cores in bf16) and the argmax exactly on rows whose top two
    scores are apart by more than the summation order can move them (the
-   ``kernels`` line carries each kernel's own outputs' absolute error);
+   ``kernels`` line carries each kernel's own outputs' absolute error),
+   at s = 2048, on ragged, q_offset and tile-edge (s = 2047) cases, and
+   a second call bitwise equal to the first.  K4/K5, their plain version
+   and SDPA's backward are timed 5 times each: median, range, TFLOP/s
+   and share of the bound;
 4. three paths, each with the launch counters set to 0 just before it
    and read just after:
    a. serving, at full width: the repo's transformer (TransformerConfig
@@ -256,25 +260,41 @@ def causal_pairs(sq, sk, q_offset):
     return sum(min(sk, max(0, q_offset + i + 1)) for i in range(sq))
 
 
+def time_ms_repeats(fn, repeats=5, iters=10):
+    """``time_ms`` ``repeats`` times: (median, min, max)."""
+    times = sorted(time_ms(fn, iters=iters) for _ in range(repeats))
+    return times[len(times) // 2], times[0], times[-1]
+
+
 def phase_k4_k5():
     """K4 (dq, amax) and K5 (dk, dv) against their plain version at the
     ring-attention shape (bh = 32, s = 2048, d = 128, bf16, causal), a
-    ragged case and a q_offset case; m is K3's, the cotangents random."""
+    ragged case, a q_offset case and a tile-edge case (s = 2047); m is
+    K3's, the cotangents random.  Two calls at the main shape must give
+    the same bits (no float atomics)."""
     g = torch.Generator(device="cuda").manual_seed(4)
     bh, d = 32, 128
     scale = 1.0 / d ** 0.5
     mk = lambda *shape: torch.randn(shape, device="cuda", generator=g)  # noqa: E731
-    cases = [("main", SEQ, SEQ, 0), ("ragged", 2000, 1900, 0), ("q_offset", 1024, SEQ, 1024)]
+    cases = [("main", SEQ, SEQ, 0), ("ragged", 2000, 1900, 0), ("q_offset", 1024, SEQ, 1024),
+             ("tile_edge", SEQ - 1, SEQ - 1, 0)]
     errs = {}
     for what, sq, sk, qo in cases:
         q, k, v = (mk(bh, n, d).to(torch.bfloat16) for n in (sq, sk, sk))
         _, m, _ = flash_attention.attend_partials(q, k, v, qo, 0, True, scale)
         m = torch.where(torch.isfinite(m), m, 0.0).contiguous()
-        # the ring path hands the kernels a bf16-rounded gpv (pv is bf16)
-        gpv, gl = mk(bh, sq, d).to(torch.bfloat16).float(), mk(bh, sq)
+        # the ring path hands the kernels gpv in bf16 (pv is bf16)
+        gpv, gl = mk(bh, sq, d).to(torch.bfloat16), mk(bh, sq)
         got = flash_attention.flash_bwd(q, k, v, m, gpv, gl, qo, 0, True, scale)
         want = flash_attention.flash_bwd_plain(q, k, v, m, gpv, gl, qo, 0, True, scale, sq, sk)
         torch.cuda.synchronize()
+        if what == "main":
+            again = flash_attention.flash_bwd(q, k, v, m, gpv, gl, qo, 0, True, scale)
+            torch.cuda.synchronize()
+            for name, a, b in zip(("dq", "dk", "dv", "amax"), got, again):
+                check(torch.equal(a, b), f"K4/K5: a second call gives other bits in {name}")
+            del again
+            print("K4/K5 main: a second call gives the same dq, dk, dv and amax bitwise")
         case_errs = {}
         for name, a, b in zip(("dq", "dk", "dv"), got[:3], want[:3]):
             check(bool(torch.isfinite(a).all()), f"K4/K5 {what}: {name} not finite")
@@ -302,41 +322,50 @@ def phase_k4_k5():
     ins = [t.data_ptr() for t in (q, k, v, m, gpv, gl)]
     args = (bh, SEQ, SEQ, d, scale, 1, 0, 0, SEQ, SEQ, 1, stream)
     lib_dq, lib_dkv = kernels.lib("flash_attention_bwd_dq"), kernels.lib("flash_attention_bwd_dkv")
-    # each kernel alone, as flash_bwd launches it
-    dq_ms = time_ms(lambda: lib_dq.tsnp_flash_bwd_dq(*ins, outs[0].data_ptr(), amax.data_ptr(), *args), iters=10)
-    dkv_ms = time_ms(lambda: lib_dkv.tsnp_flash_bwd_dkv(*ins, outs[1].data_ptr(), outs[2].data_ptr(), *args), iters=10)
-    plain_ms = time_ms(
+    # each kernel alone, as flash_bwd launches it; 5 timings of 10 calls each
+    dq_t = time_ms_repeats(lambda: lib_dq.tsnp_flash_bwd_dq(*ins, outs[0].data_ptr(), amax.data_ptr(), *args))
+    dkv_t = time_ms_repeats(
+        lambda: lib_dkv.tsnp_flash_bwd_dkv(*ins, outs[1].data_ptr(), outs[2].data_ptr(), *args)
+    )
+    plain_t = time_ms_repeats(
         lambda: flash_attention.flash_bwd_plain(q, k, v, m, gpv, gl, 0, 0, True, scale, SEQ, SEQ), iters=3
     )
     # yardstick for K4 + K5 together: SDPA's backward, graph retained
     qs, ks, vs = (t.unsqueeze(0).detach().requires_grad_() for t in (q, k, v))  # [1, h, s, d]
     out = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
     go = torch.randn(out.shape, device="cuda", generator=g).to(out.dtype)
-    sdpa_bwd_ms = time_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), go, retain_graph=True), iters=10)
+    sdpa_t = time_ms_repeats(lambda: torch.autograd.grad(out, (qs, ks, vs), go, retain_graph=True))
     pairs = causal_pairs(SEQ, SEQ, 0) * bh
     in_bytes = 3 * nbytes(q) + nbytes(m) + nbytes(gpv) + nbytes(gl)
     main_errs = errs["main"]
-    records = []
+    records, lines = [], []
     # each record holds its own outputs' absolute error at the main shape
-    for name, source, line, ms, flop_per_pair, out_bytes, err, library_ms in (
-        ("flash_attention_bwd_dq", "flash_attention_bwd_dq.cu", 293, dq_ms, 6 * d,
+    for name, source, line, t, flop_per_pair, out_bytes, err, library_ms in (
+        ("flash_attention_bwd_dq", "flash_attention_bwd_dq.cu", 293, dq_t, 6 * d,
          nbytes(outs[0]) + nbytes(amax), main_errs["dq"][0], None),
-        ("flash_attention_bwd_dkv", "flash_attention_bwd_dkv.cu", 375, dkv_ms, 8 * d,
-         nbytes(outs[1]) + nbytes(outs[2]), max(main_errs["dk"][0], main_errs["dv"][0]), sdpa_bwd_ms),
+        ("flash_attention_bwd_dkv", "flash_attention_bwd_dkv.cu", 375, dkv_t, 8 * d,
+         nbytes(outs[1]) + nbytes(outs[2]), max(main_errs["dk"][0], main_errs["dv"][0]), sdpa_t[0]),
     ):
-        t_ops = flop_per_pair * pairs / BF16_FLOP_PER_S
+        flops = flop_per_pair * pairs
+        t_ops = flops / BF16_FLOP_PER_S
         t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S
+        bound_ms = max(t_ops, t_bytes) * 1e3
         records.append(kernel_record(
             name, f"torchsnapshot_tpu_torch/csrc/{source}",
             f"torchsnapshot_tpu/ops/flash_attention.py:{line}",
-            err, ms, plain_ms, max(t_ops, t_bytes) * 1e3,
+            err, t[0], plain_t[0], bound_ms,
             "operations" if t_ops >= t_bytes else "bytes", library_ms,
         ))
+        lines.append(f"{name} {t[0]:.4f} ms (range {t[1]:.4f}-{t[2]:.4f}), "
+                     f"{flops / t[0] / 1e9:.1f} TFLOP/s, {100 * bound_ms / t[0]:.1f}% of its "
+                     f"{bound_ms:.4f} ms bound")
     # K4's other output: argmax rows that a near-tie moved at the main shape
     records[0]["argmax_rows_moved"] = main_errs["amax_moved"]
-    print(f"K4 {dq_ms:.3f} ms, K5 {dkv_ms:.3f} ms, K4 + K5 {dq_ms + dkv_ms:.3f} ms; plain backward "
-          f"(both) {plain_ms:.3f} ms; SDPA backward (yardstick for K4 + K5) {sdpa_bwd_ms:.3f} ms; "
-          f"bounds {records[0]['bound_ms']:.4f} / {records[1]['bound_ms']:.4f} ms")
+    both = dq_t[0] + dkv_t[0]
+    print(f"K4/K5 timings, median of 5 (range): {'; '.join(lines)}; K4 + K5 {both:.4f} ms, "
+          f"{14 * d * pairs / both / 1e9:.1f} TFLOP/s; plain backward (both) {plain_t[0]:.3f} ms "
+          f"({plain_t[1]:.3f}-{plain_t[2]:.3f}); SDPA backward (yardstick for K4 + K5) "
+          f"{sdpa_t[0]:.4f} ms ({sdpa_t[1]:.4f}-{sdpa_t[2]:.4f})")
     return records
 
 

@@ -8,7 +8,8 @@ bitwise; K3 m atol 1e-3 and pv/l compared after normalisation within
 f32 ones.  K4/K5 (dq, dk, dv) within 2e-2 (bf16: ds and gpv enter the
 tensor cores in bf16) or 1e-4 (f32) of the largest plain value; the
 argmax exactly, on rows whose top two scores are apart by more than the
-summation order can move them.
+summation order can move them; two calls on the same inputs bitwise
+equal (no float atomics).
 """
 
 import numpy as np
@@ -126,33 +127,103 @@ def _bwd_inputs(bh, sq, sk, d, dtype, device, q_offset, k_offset, causal, seed):
     return q, k, v, m, gpv, gl, scale
 
 
+def _check_bwd(got, want, q, k, scale, q_offset, k_offset, causal, sq_real, sk_real, dtype):
+    from torchsnapshot_tpu_torch.ops import flash_attention as fa
+
+    dq, dk, dv, amax = got
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    for g, ref, name in zip((dq, dk, dv), want[:3], ("dq", "dk", "dv")):
+        assert g.dtype == torch.float32 and torch.isfinite(g).all(), name
+        torch.testing.assert_close(g, ref, rtol=tol, atol=tol * max(float(ref.abs().max()), 1e-6), msg=name)
+    # rows whose argmax the summation order cannot move must agree exactly
+    sq, sk = q.shape[1], k.shape[1]
+    mask = fa._visible(sq, sk, q_offset, k_offset, causal, sq_real, sk_real, q.device)
+    scores = fa._scores(q, k, scale, mask)
+    top = scores.topk(min(2, sk), dim=-1).values
+    clear = (top[..., 0] - top[..., -1] > 1e-2 * (1 + top[..., 0].abs())) | ~torch.isfinite(top[..., -1])
+    assert torch.equal(amax[clear], want[3][clear])
+    assert torch.equal(amax == -1, want[3] == -1)
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize(
     "sq,sk,q_offset,k_offset,causal,d",
     [(256, 256, 0, 0, True, 128), (200, 190, 0, 0, True, 128), (128, 256, 384, 128, True, 128),
-     (96, 160, 0, 0, False, 128), (150, 170, 40, 0, True, 100), (64, 64, 0, 4096, True, 64)],
+     (96, 160, 0, 0, False, 128), (150, 170, 40, 0, True, 100), (64, 64, 0, 4096, True, 64),
+     # a one-row q; sq and sk just past a 128-row tile; non-causal at d = 64
+     (1, 200, 199, 0, True, 128), (129, 257, 128, 0, True, 128), (257, 129, 0, 0, True, 128),
+     (96, 160, 0, 0, False, 64)],
 )
 def test_flash_bwd_matches_plain(cuda, dtype, sq, sk, q_offset, k_offset, causal, d):
     from torchsnapshot_tpu_torch.ops import flash_attention as fa
 
     q, k, v, m, gpv, gl, scale = _bwd_inputs(4, sq, sk, d, dtype, cuda, q_offset, k_offset, causal, sq + d)
     before = dict(fa.LAUNCHES)
-    dq, dk, dv, amax = fa.flash_bwd(q, k, v, m, gpv, gl, q_offset, k_offset, causal, scale)
+    got = fa.flash_bwd(q, k, v, m, gpv, gl, q_offset, k_offset, causal, scale)
     torch.cuda.synchronize()
     assert fa.LAUNCHES["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
     assert fa.LAUNCHES["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1
     want = fa.flash_bwd_plain(q, k, v, m, gpv, gl, q_offset, k_offset, causal, scale, sq, sk)
-    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
-    for got, ref, name in zip((dq, dk, dv), want[:3], ("dq", "dk", "dv")):
-        assert got.dtype == torch.float32 and torch.isfinite(got).all(), name
-        torch.testing.assert_close(got, ref, rtol=tol, atol=tol * max(float(ref.abs().max()), 1e-6), msg=name)
-    # rows whose argmax the summation order cannot move must agree exactly
-    mask = fa._visible(sq, sk, q_offset, k_offset, causal, sq, sk, cuda)
-    scores = fa._scores(q, k, scale, mask)
-    top = scores.topk(min(2, sk), dim=-1).values
-    clear = (top[..., 0] - top[..., -1] > 1e-2 * (1 + top[..., 0].abs())) | ~torch.isfinite(top[..., -1])
-    assert torch.equal(amax[clear], want[3][clear])
-    assert torch.equal(amax == -1, want[3] == -1)
+    _check_bwd(got, want, q, k, scale, q_offset, k_offset, causal, sq, sk, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_bwd_fully_masked_rows(cuda, dtype):
+    """sk_real < sk, and a k_offset that leaves the first 50 q rows seeing
+    no column: their amax is −1 and their dq zero."""
+    from torchsnapshot_tpu_torch.ops import flash_attention as fa
+
+    sq, sk, sk_real, k_offset = 100, 150, 90, 50
+    q, k, v, m, gpv, gl, scale = _bwd_inputs(3, sq, sk, 128, dtype, cuda, 0, k_offset, True, 60)
+    _, m, _ = fa.attend_partials_plain(q, k, v, 0, k_offset, True, scale, sq, sk_real)
+    m = torch.where(torch.isfinite(m), m, 0.0).contiguous()
+    got = fa.flash_bwd(q, k, v, m, gpv, gl, 0, k_offset, True, scale, sq_real=sq, sk_real=sk_real)
+    torch.cuda.synchronize()
+    want = fa.flash_bwd_plain(q, k, v, m, gpv, gl, 0, k_offset, True, scale, sq, sk_real)
+    assert bool((got[3][:, :50] == -1).all()) and bool((got[0][:, :50] == 0).all())
+    assert bool((got[1][:, sk_real:] == 0).all()) and bool((got[2][:, sk_real:] == 0).all())
+    _check_bwd(got, want, q, k, scale, 0, k_offset, True, sq, sk_real, dtype)
+
+
+def test_flash_bwd_more_blocks_than_one_wave(cuda):
+    """bh = 64 at s = 512: 256 blocks of 128 rows per kernel, about two
+    waves on a 132-SM card with one block per SM."""
+    from torchsnapshot_tpu_torch.ops import flash_attention as fa
+
+    bh, s, d = 64, 512, 128
+    q, k, v, m, gpv, gl, scale = _bwd_inputs(bh, s, s, d, torch.bfloat16, cuda, 0, 0, True, 70)
+    got = fa.flash_bwd(q, k, v, m, gpv, gl, 0, 0, True, scale)
+    torch.cuda.synchronize()
+    want = fa.flash_bwd_plain(q, k, v, m, gpv, gl, 0, 0, True, scale, s, s)
+    _check_bwd(got, want, q, k, scale, 0, 0, True, s, s, torch.bfloat16)
+
+
+def test_flash_bwd_is_bitwise_repeatable(cuda):
+    """No float atomics: two calls on the same inputs give the same bits."""
+    from torchsnapshot_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, m, gpv, gl, scale = _bwd_inputs(8, 300, 280, 128, torch.bfloat16, cuda, 20, 0, True, 80)
+    first = fa.flash_bwd(q, k, v, m, gpv, gl, 20, 0, True, scale)
+    second = fa.flash_bwd(q, k, v, m, gpv, gl, 20, 0, True, scale)
+    torch.cuda.synchronize()
+    for a, b, name in zip(first, second, ("dq", "dk", "dv", "amax")):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("d,padded", [(100, True), (128, False)])
+def test_flash_bwd_pads_what_tma_cannot_read(cuda, d, padded):
+    """A head dim that is not a multiple of 8 runs the bf16 kernels on
+    zero-padded copies, counted in ``PADDED``; d = 128 runs as it is."""
+    from torchsnapshot_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, m, gpv, gl, scale = _bwd_inputs(2, 70, 90, d, torch.bfloat16, cuda, 0, 0, True, 90)
+    before = fa.PADDED["flash_bwd"]
+    got = fa.flash_bwd(q, k, v, m, gpv, gl, 0, 0, True, scale)
+    torch.cuda.synchronize()
+    assert fa.PADDED["flash_bwd"] == before + int(padded)
+    assert all(t.shape[-1] == d for t in got[:3])
+    want = fa.flash_bwd_plain(q, k, v, m, gpv, gl, 0, 0, True, scale, 70, 90)
+    _check_bwd(got, want, q, k, scale, 0, 0, True, 70, 90, torch.bfloat16)
 
 
 def test_ring_attention_gradient_flows_through_the_kernels(cuda):

@@ -97,6 +97,33 @@ def test_m_cotangent_lands_on_the_first_tied_column():
     _check(got, want)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+def test_head_dim_padding_changes_no_result(causal):
+    """The bf16 kernels take a head dim that is not a multiple of 8 on
+    copies zero-padded by ``_pad_head_dim``: the plain backward gives the
+    same dq, dk, dv and amax at d = 100 as at its padding to d = 104 with
+    the padding cut from the outputs (amax exactly, the rest within
+    1e-6: the same sums with zeros added), and zeros in the padding."""
+    bh, sq, sk, d, d_pad = 2, 70, 90, 100, 104
+    rng = np.random.default_rng(7 + causal)
+    q, k, v, gpv = (
+        torch.from_numpy(x) for x in _arrays(rng, (bh, sq, d), (bh, sk, d), (bh, sk, d), (bh, sq, d))
+    )
+    gl = torch.from_numpy(_arrays(rng, (bh, sq))[0])
+    scale = 1.0 / np.sqrt(d)
+    _, m, _ = tfa.attend_partials_plain(q, k, v, 5, 0, causal, scale, sq, sk)
+    m = torch.where(torch.isfinite(m), m, 0.0)
+    args = (5, 0, causal, scale, sq, sk)
+    want = tfa.flash_bwd_plain(q, k, v, m, gpv, gl, *args)
+    q_p, k_p, v_p, gpv_p = (tfa._pad_head_dim(t, d_pad) for t in (q, k, v, gpv))
+    assert q_p.is_contiguous() and torch.equal(q_p[..., :d], q) and not q_p[..., d:].any()
+    got = tfa.flash_bwd_plain(q_p, k_p, v_p, m, gpv_p, gl, *args)
+    assert torch.equal(got[3], want[3])
+    for g, w, name in zip(got[:3], want[:3], ("dq", "dk", "dv")):
+        assert g.shape[-1] == d_pad and not g[..., d:].any(), name
+        np.testing.assert_allclose(g[..., :d].numpy(), w.numpy(), rtol=1e-6, atol=1e-6, err_msg=name)
+
+
 def test_ring_attention_gradient_matches_jax_ring_attention():
     b, s, h, d = 1, 96, 2, 16
     rng = np.random.default_rng(3)

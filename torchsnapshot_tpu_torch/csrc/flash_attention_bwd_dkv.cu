@@ -1,7 +1,7 @@
 // K5, flash-attention backward, dk and dv: for q [bh, sq, d] and k/v
 // [bh, sk, d] (bf16 or f32, d <= 128), the forward's saved row max m
-// [bh, sq] (f32, m_safe) and the cotangents gpv [bh, sq, d] and gl
-// [bh, sq] (f32):
+// [bh, sq] (f32, m_safe) and the cotangents gpv [bh, sq, d] (bf16 for
+// bf16 q/k/v, f32 for f32 ones) and gl [bh, sq] (f32):
 //
 //   p_ij  = exp(scale q_i.k_j - m_i) on visible (i, j), 0 elsewhere
 //   dv_j  = sum_i p_ij gpv_i                                     (f32 out)
@@ -15,7 +15,7 @@
 // (launched by ``_flash_bwd_jit`` through ``pl.pallas_call``).  The TPU
 // kernel runs a transposed grid whose innermost axis is the q block,
 // accumulating dk/dv in VMEM scratch.  Here the design stays transposed:
-// one thread block owns a 64-row kv tile and walks the q tiles in a
+// one thread block owns a 128-row kv tile and walks the q tiles in a
 // loop, with dk and dv accumulated in registers, so no two blocks write
 // one output row and there are no float atomics: the result is the same
 // on every run.
@@ -23,183 +23,226 @@
 // Bound on this card: at the ring-attention shape (bh = 32, s = 2048,
 // d = 128, causal) the kernel recomputes the scores and gpv.v and runs
 // the dv and dk products, 8 d operations per causal pair: ~69 GFLOP
-// against ~0.12 GB of operands, so it is bound by operations: ~0.070 ms
+// against ~0.1 GB of operands, so it is bound by operations: ~0.070 ms
 // at 989 TFLOP/s.
 //
-// - bf16 inputs: the four products on the tensor cores through
-//   ``mma.sync`` m16n8k16 (bf16 in, f32 accumulate).  Four warps per
-//   (bh, 64-row kv tile); each warp owns 16 kv rows and keeps its dk and
-//   dv accumulators (2 x 16 x 128 f32) in registers, which is why a q
-//   step is 32 rows.  The k and v tiles stay in shared memory for the
-//   whole walk; the next q step's q tile and f32 gpv tile load by
-//   cp.async (double-buffered) while this step computes, and m/gl
-//   through registers; gpv is rounded to bf16 in shared memory at the
-//   start of its step.  p^T and ds^T enter the dv and dk products in
-//   bf16 straight from the accumulator registers.
+// - bf16 inputs (d % 8 == 0, 16-byte aligned q/k/v/gpv; the wrapper pads
+//   the head dim otherwise): the four products on the tensor cores
+//   through ``wgmma`` (bf16 in, f32 accumulate), warp-specialised.  A
+//   block is two consumer warpgroups, each owning 64 kv rows, and one
+//   producer warp.  The producer loads the block's k and v tiles once
+//   and then streams the 64-row q and gpv tiles of each q step through
+//   a ring of stages by TMA (128-byte swizzle, rows and columns past the
+//   arrays zero-filled), staging m (log2 units) and gl of the step's
+//   rows beside them; ``mbarrier``s hand each stage to the consumers and
+//   back.  A consumer computes s^T = k q^T and gv^T = v gpv^T with both
+//   operands in shared memory, so p^T and ds^T come out in the
+//   accumulator layout that ``wgmma`` takes as a register A operand:
+//   dv += p^T gpv and dk += ds^T q read gpv and q transposed (MN-major)
+//   from the same tiles.  The two score products are separate commit
+//   groups, so exp over s^T runs while gv^T is computed; the softmax
+//   code has no branch per element (a visible q range per kv row and
+//   step, none tested on steps that see every pair).  dk and dv (64 x
+//   128 f32 each per warpgroup) stay in registers under ``setmaxnreg``.  Blocks are launched lowest
+//   kv tile first: under the causal mask those see the most q rows.
 // - f32 inputs: plain f32 FMAs on the CUDA cores.
 //
-// Causal q tiles entirely before the kv tile are never loaded.
+// Causal q steps entirely before a warpgroup's kv rows are skipped.
 #include "flash_common.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 
 using namespace tsnp_flash;
+using namespace tsnp_hopper;
 
-// ------------------------------------------------------------ bf16 (mma)
+// ---------------------------------------------------------- bf16 (wgmma)
 
-constexpr int kMmaBK = 64;  // kv rows per block: 4 warps x 16 rows
-constexpr int kMmaBQ = 32;  // q rows per step
-constexpr int kMmaThreads = 128;
-constexpr int kKvElems = kMmaBK * kLd;
-constexpr int kQElems = kMmaBQ * kLd;
-// k tile, v tile, two q tiles, the bf16 gpv tile, then two f32 gpv
-// staging tiles, m (log2 units) and gl per q row
-constexpr size_t kMmaSmemBytes = (2 * kKvElems + 3 * kQElems) * sizeof(__nv_bfloat16) +
-                                 (2 * kMmaBQ * kDMax + 2 * kMmaBQ) * sizeof(float);
+constexpr int kTcBK = 128;  // kv rows per block: two consumer warpgroups x 64
+constexpr int kTcBQ = 64;   // q rows per step
+constexpr int kStages = 2;
+constexpr int kConsumerThreads = 256;
+constexpr int kTcThreads = kConsumerThreads + 128;  // + the producer warpgroup
+constexpr uint32_t kKvPanel = kTcBK * kRowBytes;    // one 64-column panel of k or v
+constexpr uint32_t kKvTile = 2 * kKvPanel;
+constexpr uint32_t kQPanel = kTcBQ * kRowBytes;
+constexpr uint32_t kQTile = 2 * kQPanel;
+// shared memory: the k tile, the v tile, the stages (q tile, gpv tile),
+// m (log2 units) and gl of each stage's rows, the barriers
+constexpr uint32_t kStageBytes = 2 * kQTile;
+constexpr uint32_t kStageOff = 2 * kKvTile;
+constexpr uint32_t kRowVecOff = kStageOff + kStages * kStageBytes;
+constexpr uint32_t kBarOff = kRowVecOff + kStages * 2 * kTcBQ * sizeof(float);
+constexpr size_t kTcSmemBytes = kBarOff + (1 + 2 * kStages) * sizeof(uint64_t) + kAtomBytes;
 
-__global__ void __launch_bounds__(kMmaThreads)
-bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                   const __nv_bfloat16* __restrict__ v, const float* __restrict__ m,
-                   const float* __restrict__ gpv, const float* __restrict__ gl,
-                   float* __restrict__ dk_out, float* __restrict__ dv_out, int sq, int sk, int d,
-                   float scale, int causal, long long q_offset, long long k_offset, int sq_real,
-                   int sk_real, int vec_loads) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* vs = ks + kKvElems;
-  __nv_bfloat16* qbuf = vs + kKvElems;  // step i's q tile at (i & 1) * kQElems
-  __nv_bfloat16* gs = qbuf + 2 * kQElems;
-  float* gstage = reinterpret_cast<float*>(gs + kQElems);  // (i & 1) * kMmaBQ * kDMax
-  float* m2s = gstage + 2 * kMmaBQ * kDMax;
-  float* gls = m2s + kMmaBQ;
+__global__ void __launch_bounds__(kTcThreads, 1)
+bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                     const __grid_constant__ CUtensorMap k_map,
+                     const __grid_constant__ CUtensorMap v_map,
+                     const __grid_constant__ CUtensorMap g_map, const float* __restrict__ m,
+                     const float* __restrict__ gl, float* __restrict__ dk_out,
+                     float* __restrict__ dv_out, int sq, int sk, int d, float scale, int causal,
+                     long long q_offset, long long k_offset, int sq_real, int sk_real) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  unsigned char* ks = smem;
+  unsigned char* vs = smem + kKvTile;
+  float* rowvec = reinterpret_cast<float*>(smem + kRowVecOff);  // stage s at 2s * kTcBQ
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + kBarOff);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + kStages;
 
-  const int bh = blockIdx.y;
-  const int k0 = blockIdx.x * kMmaBK;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const __nv_bfloat16* qb = q + static_cast<size_t>(bh) * sq * d;
-  const float* gb = gpv + static_cast<size_t>(bh) * sq * d;
-  const float* mb = m + static_cast<size_t>(bh) * sq;
-  const float* glb = gl + static_cast<size_t>(bh) * sq;
-  const bool vec = vec_loads != 0;
-  const float scale2 = scale * kLog2e;
-
-  load_tile(ks, k + static_cast<size_t>(bh) * sk * d, k0, kMmaBK, sk, d, vec);
-  load_tile(vs, v + static_cast<size_t>(bh) * sk * d, k0, kMmaBK, sk, d, vec);
-  cp_async_commit();
-
-  float dk[kDMax / 8][4], dv[kDMax / 8][4];
-#pragma unroll
-  for (int n = 0; n < kDMax / 8; ++n)
-    dk[n][0] = dk[n][1] = dk[n][2] = dk[n][3] = dv[n][0] = dv[n][1] = dv[n][2] = dv[n][3] = 0.f;
-  const int cols[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};  // this thread's kv rows
-  const __nv_bfloat16* kw = ks + warp * 16 * kLd;
-  const __nv_bfloat16* vw = vs + warp * 16 * kLd;
-
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * kTcBK;
   // q rows that can see this tile: from the causal diagonal to sq_real
   const int q_first = k0 < sk_real ? q_begin(k0, causal, q_offset, k_offset) : sq_real;
-  const int q_lo = (q_first < sq_real ? q_first : sq_real) / kMmaBQ * kMmaBQ;
-  const int n_steps = (sq_real - q_lo + kMmaBQ - 1) / kMmaBQ;
-  // step i's loads: q (and, with ``vec``, f32 gpv) by cp.async into
-  // buffer i & 1, m and gl into registers
-  float m_next = 0.f, gl_next = 0.f;
-  auto issue = [&](int i) {
-    const int q0 = q_lo + i * kMmaBQ;
-    load_tile(qbuf + (i & 1) * kQElems, qb, q0, kMmaBQ, sq, d, vec);
-    if (vec) load_tile_f32_async(gstage + (i & 1) * kMmaBQ * kDMax, gb, q0, kMmaBQ, sq, d);
-    const int r = q0 + static_cast<int>(threadIdx.x);
-    if (threadIdx.x < kMmaBQ && r < sq) {
-      m_next = mb[r] * kLog2e;
-      gl_next = glb[r];
-    } else {
-      m_next = gl_next = 0.f;
-    }
-  };
-  if (n_steps > 0) issue(0);
-  cp_async_commit();
+  const int q_lo = (q_first < sq_real ? q_first : sq_real) / kTcBQ * kTcBQ;
+  const int n_steps = (sq_real - q_lo + kTcBQ - 1) / kTcBQ;
 
-  for (int step = 0; step < n_steps; ++step) {
-    const int q0 = q_lo + step * kMmaBQ;
-    const __nv_bfloat16* qs = qbuf + (step & 1) * kQElems;
-    // the previous step's readers of m2s/gls passed its closing barrier
-    if (threadIdx.x < kMmaBQ) {
-      m2s[threadIdx.x] = m_next;
-      gls[threadIdx.x] = gl_next;
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 32);  // the producer warp's lanes
+      mbar_init(&empty[s], kConsumerThreads);
     }
-    if (step + 1 < n_steps) issue(step + 1);
-    cp_async_commit();
-    cp_async_wait_one();  // this step's group (and k/v) has landed
-    __syncthreads();
-    if (vec) {
-      convert_tile_f32(gs, gstage + (step & 1) * kMmaBQ * kDMax, kMmaBQ);
-    } else {
-      load_tile_f32(gs, gb, q0, kMmaBQ, sq, d);
-    }
-    __syncthreads();
-
-    // s^T = k q^T and gv^T = v gpv^T: 16 kv rows x 32 q cols per warp
-    float s[kMmaBQ / 8][4], gv[kMmaBQ / 8][4];
-#pragma unroll
-    for (int n = 0; n < kMmaBQ / 8; ++n)
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = gv[n][0] = gv[n][1] = gv[n][2] = gv[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kDMax / 16; ++kk) {
-      uint32_t ka[4], va[4];
-      load_a(ka, kw, kk * 16, g, t);
-      load_a(va, vw, kk * 16, g, t);
-#pragma unroll
-      for (int n = 0; n < kMmaBQ / 8; ++n) {
-        const __nv_bfloat16* qr = qs + (n * 8 + g) * kLd + kk * 16 + 2 * t;
-        mma_bf16(s[n], ka, ld_pair(qr), ld_pair(qr + 8));
-        const __nv_bfloat16* gr = gs + (n * 8 + g) * kLd + kk * 16 + 2 * t;
-        mma_bf16(gv[n], va, ld_pair(gr), ld_pair(gr + 8));
-      }
-    }
-
-    // element e of a tile is kv row cols[e >> 1], q row q0 + n*8 + 2t + (e & 1)
-    const bool masked = k0 + kMmaBK > sk_real || q0 + kMmaBQ > sq_real ||
-                        (causal && k_offset + k0 + kMmaBK - 1 > q_offset + q0);
-#pragma unroll
-    for (int n = 0; n < kMmaBQ / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = n * 8 + 2 * t + (e & 1);
-        const bool vis = !masked || visible(q0 + i, cols[e >> 1], sq_real, sk_real, causal,
-                                            q_offset, k_offset);
-        const float p = vis ? exp2f(s[n][e] * scale2 - m2s[i]) : 0.f;
-        s[n][e] = p;                       // p^T
-        gv[n][e] = p * (gv[n][e] + gls[i]);  // ds^T
-      }
-    }
-
-    // dv += p^T gpv and dk += ds^T q over the 32 q rows of this step
-#pragma unroll
-    for (int j = 0; j < kMmaBQ / 16; ++j) {
-      uint32_t a[4];
-      acc_to_a(a, s[2 * j], s[2 * j + 1]);
-      mma_rows_times_tile(dv, a, gs, j * 16, lane);
-      acc_to_a(a, gv[2 * j], gv[2 * j + 1]);
-      mma_rows_times_tile(dk, a, qs, j * 16, lane);
-    }
-    __syncthreads();  // frees this step's q buffer, gs and m2s/gls
+    mbar_fence_init();
   }
-  cp_async_wait_all();
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumerThreads) {
+    // ---- producer: one warp; its lanes stage m and gl, lane 0 the tiles
+    regs_dec<24>();
+    if (threadIdx.x >= kConsumerThreads + 32) return;
+    const int lane = threadIdx.x & 31;
+    if (n_steps > 0 && lane == 0) {
+      mbar_arrive_expect_tx(kv_full, 2 * kKvTile);
+      tma_load_tile(ks, kKvPanel, &k_map, kv_full, k0, bh);
+      tma_load_tile(vs, kKvPanel, &v_map, kv_full, k0, bh);
+    }
+    for (int i = 0; i < n_steps; ++i) {
+      const int s = i % kStages;
+      mbar_wait(&empty[s], ((i / kStages) & 1) ^ 1);  // round 0 passes at once
+      const int q0 = q_lo + i * kTcBQ;
+      float* m2s = rowvec + s * 2 * kTcBQ;
+      for (int r = lane; r < kTcBQ; r += 32) {
+        const size_t at = static_cast<size_t>(bh) * sq + q0 + r;
+        const bool in = q0 + r < sq;
+        m2s[r] = in ? m[at] * kLog2e : 0.f;
+        m2s[kTcBQ + r] = in ? gl[at] : 0.f;
+      }
+      if (lane == 0) {
+        unsigned char* stage = smem + kStageOff + s * kStageBytes;
+        mbar_arrive_expect_tx(&full[s], kStageBytes);
+        tma_load_tile(stage, kQPanel, &q_map, &full[s], q0, bh);
+        tma_load_tile(stage + kQTile, kQPanel, &g_map, &full[s], q0, bh);
+      } else {
+        mbar_arrive(&full[s]);
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns kv rows r0 .. r0 + 63
+    regs_inc<240>();
+    const int wg = threadIdx.x >> 7;
+    const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int r0 = k0 + wg * 64;
+    const int rows[2] = {r0 + warp * 16 + g, r0 + warp * 16 + g + 8};  // this thread's kv rows
+    // the first q row that sees any of them (none past sk_real)
+    const int wq_first = r0 < sk_real ? q_begin(r0, causal, q_offset, k_offset) : 0x7fffffff;
+    const float scale2 = scale * kLog2e;
+    const unsigned char* kw = ks + wg * 64 * kRowBytes;
+    const unsigned char* vw = vs + wg * 64 * kRowBytes;
+
+    float dk[64], dv[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) dk[i] = dv[i] = 0.f;
+    if (n_steps > 0) mbar_wait(kv_full, 0);
+
+    for (int i = 0; i < n_steps; ++i) {
+      const int s = i % kStages;
+      mbar_wait(&full[s], (i / kStages) & 1);
+      const int q0 = q_lo + i * kTcBQ;
+      if (q0 + kTcBQ > wq_first) {
+        const unsigned char* qs = smem + kStageOff + s * kStageBytes;
+        const unsigned char* gs = qs + kQTile;
+        const float* m2s = rowvec + s * 2 * kTcBQ;
+        const float* gls = m2s + kTcBQ;
+
+        // s^T = k q^T and gv^T = v gpv^T: 64 kv rows x 64 q columns each
+        float st[32], gt[32];
+        wgmma_score_pair(st, gt, kw, vw, kKvPanel, qs, gs, kQPanel);
+        wgmma_wait<1>();  // s^T is done, gv^T may still run
+        fence_regs(st);
+
+        // p^T while gv^T runs; element 4j + e: kv row rows[e >> 1], q row
+        // q0 + 8j + 2t + (e & 1); kv row rows[h] is seen by the step's q
+        // rows [lo[h], hi)
+        const int hi = sq_real - q0 < kTcBQ ? sq_real - q0 : kTcBQ;
+        int lo[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          lo[h] = first_visible_row(rows[h], q0, kTcBQ, sk_real, causal, q_offset, k_offset);
+        if (lo[0] == 0 && lo[1] == 0 && hi == kTcBQ) {  // most steps: every pair seen
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int c = 8 * j + 2 * t + (e & 1);
+              st[4 * j + e] = exp2_approx(st[4 * j + e] * scale2 - m2s[c]);  // p^T
+            }
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int c = 8 * j + 2 * t + (e & 1);
+              const float p = exp2_approx(st[4 * j + e] * scale2 - m2s[c]);
+              st[4 * j + e] = c >= lo[e >> 1] && c < hi ? p : 0.f;  // p^T
+            }
+          }
+        }
+        wgmma_wait<0>();  // gv^T = v gpv^T is done
+        fence_regs(gt);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = 8 * j + 2 * t + (e & 1);
+            gt[4 * j + e] = st[4 * j + e] * (gt[4 * j + e] + gls[c]);  // ds^T
+          }
+        }
+
+        // dv += p^T gpv and dk += ds^T q over the step's 64 q rows
+        uint32_t pa[4][4], da[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          acc_to_a(pa[kk], &st[8 * kk], &st[8 * kk + 4]);
+          acc_to_a(da[kk], &gt[8 * kk], &gt[8 * kk + 4]);
+        }
+        wgmma_rows_product(dv, pa, gs, kQPanel);
+        wgmma_rows_product(dk, da, qs, kQPanel);
+        wgmma_wait<0>();
+        fence_regs(dv);
+        fence_regs(dk);
+      }
+      mbar_arrive(&empty[s]);  // this thread is done with the stage
+    }
 
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = cols[h];
-    if (r >= sk) continue;
-    const size_t row = static_cast<size_t>(bh) * sk + r;
+    for (int h = 0; h < 2; ++h) {
+      const int r = rows[h];
+      if (r >= sk) continue;
+      float* dkr = dk_out + (static_cast<size_t>(bh) * sk + r) * d;
+      float* dvr = dv_out + (static_cast<size_t>(bh) * sk + r) * d;
 #pragma unroll
-    for (int n = 0; n < kDMax / 8; ++n) {
-      const int c = n * 8 + 2 * t;
-      if (c < d) {
-        dk_out[row * d + c] = dk[n][2 * h] * scale;
-        dv_out[row * d + c] = dv[n][2 * h];
-      }
-      if (c + 1 < d) {
-        dk_out[row * d + c + 1] = dk[n][2 * h + 1] * scale;
-        dv_out[row * d + c + 1] = dv[n][2 * h + 1];
+      for (int n = 0; n < kDMax / 8; ++n) {
+        const int c = n * 8 + 2 * t;
+        if (c < d) {
+          *reinterpret_cast<float2*>(dkr + c) =
+              make_float2(dk[4 * n + 2 * h] * scale, dk[4 * n + 2 * h + 1] * scale);
+          *reinterpret_cast<float2*>(dvr + c) = make_float2(dv[4 * n + 2 * h], dv[4 * n + 2 * h + 1]);
+        }
       }
     }
   }
@@ -318,10 +361,12 @@ bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 }  // namespace
 
+
 // q: [bh, sq, d], k/v: [bh, sk, d], contiguous, bf16 (is_bf16 = 1) or
-// f32; m, gl: f32 [bh, sq]; gpv: f32 [bh, sq, d]; dk, dv: f32
-// [bh, sk, d].  Launches on ``stream`` and returns cudaGetLastError()
-// (0 when there is nothing to launch).
+// f32; m, gl: f32 [bh, sq]; gpv: [bh, sq, d] in q's dtype; dk, dv: f32
+// [bh, sk, d].  The bf16 path takes d % 8 == 0 and 16-byte aligned
+// q, k, v and gpv (what TMA reads).  Launches on ``stream`` and returns
+// cudaGetLastError() (0 when there is nothing to launch).
 extern "C" int tsnp_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* m,
                                   const void* gpv, const void* gl, void* dk, void* dv, int bh,
                                   int sq, int sk, int d, float scale, int causal,
@@ -332,16 +377,23 @@ extern "C" int tsnp_flash_bwd_dkv(const void* q, const void* k, const void* v, c
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (is_bf16) {
-    err = allow_smem(bwd_dkv_mma_kernel, kMmaSmemBytes);
+    if (d % 8 != 0 || !aligned16(q, k, v, gpv)) return static_cast<int>(cudaErrorInvalidValue);
+    if (sq <= 0) {  // no q row: dk = dv = 0
+      const size_t bytes = static_cast<size_t>(bh) * sk * d * sizeof(float);
+      err = cudaMemsetAsync(dk, 0, bytes, s);
+      if (err == cudaSuccess) err = cudaMemsetAsync(dv, 0, bytes, s);
+      return static_cast<int>(err);
+    }
+    CUtensorMap q_map, k_map, v_map, g_map;
+    if (!make_tile_map(&q_map, q, bh, sq, d, kTcBQ) || !make_tile_map(&k_map, k, bh, sk, d, kTcBK) ||
+        !make_tile_map(&v_map, v, bh, sk, d, kTcBK) || !make_tile_map(&g_map, gpv, bh, sq, d, kTcBQ))
+      return static_cast<int>(cudaErrorNotSupported);
+    err = allow_smem(bwd_dkv_wgmma_kernel, kTcSmemBytes);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const int vec = (d % 8 == 0) && aligned16(q, k, v, gpv);
-    bwd_dkv_mma_kernel<<<dim3((sk + kMmaBK - 1) / kMmaBK, bh), kMmaThreads, kMmaSmemBytes,
-                         s>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(m),
-        static_cast<const float*>(gpv), static_cast<const float*>(gl), static_cast<float*>(dk),
-        static_cast<float*>(dv), sq, sk, d, scale, causal, q_offset, k_offset, sq_real, sk_real,
-        vec);
+    bwd_dkv_wgmma_kernel<<<dim3(bh, (sk + kTcBK - 1) / kTcBK), kTcThreads, kTcSmemBytes, s>>>(
+        q_map, k_map, v_map, g_map, static_cast<const float*>(m), static_cast<const float*>(gl),
+        static_cast<float*>(dk), static_cast<float*>(dv), sq, sk, d, scale, causal, q_offset,
+        k_offset, sq_real, sk_real);
   } else {
     const size_t smem = kSmemFloats * sizeof(float);
     err = allow_smem(bwd_dkv_f32_kernel, smem);

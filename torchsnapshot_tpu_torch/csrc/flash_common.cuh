@@ -1,7 +1,8 @@
 // Helpers shared by the flash-attention kernels (K3 forward, K4 dq and
 // K5 dk/dv backward): the masking rules of the JAX package's
-// ``_block_scores``, bf16 tensor-core products through ``mma.sync``
-// m16n8k16 and ``ldmatrix``, and tile loads into shared memory.
+// ``_block_scores``, the accumulator-to-A-fragment repacking (the
+// m16n8k16 layout, which is also wgmma's per warp), and K3's bf16
+// ``mma.sync`` m16n8k16 products and cp.async tile loads.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -48,6 +49,36 @@ __device__ __forceinline__ bool visible(int row, int col, int sq_real, int sk_re
   return col < sk_real && row < sq_real && (!causal || q_offset + row >= k_offset + col);
 }
 
+// How many of the columns [k0, k0 + n) q row ``row`` sees: they are a
+// prefix (below sk_real and, when causal, at or before the row's global
+// position); 0 for a row at or past sq_real.
+__device__ __forceinline__ int visible_prefix(int row, int k0, int n, int sq_real, int sk_real,
+                                              int causal, long long q_offset,
+                                              long long k_offset) {
+  if (row >= sq_real) return 0;
+  long long end = sk_real;
+  if (causal && q_offset + row - k_offset + 1 < end) end = q_offset + row - k_offset + 1;
+  end -= k0;
+  return end <= 0 ? 0 : (end >= n ? n : static_cast<int>(end));
+}
+
+// The transposed counterpart: the q rows of [q0, q0 + n) that see kv
+// column ``col`` are [q0 + first, q0 + n) cut at sq_real; this returns
+// ``first`` (n when none does).
+__device__ __forceinline__ int first_visible_row(int col, int q0, int n, int sk_real, int causal,
+                                                 long long q_offset, long long k_offset) {
+  if (col >= sk_real) return n;
+  const long long first = causal ? k_offset + col - q_offset - q0 : 0;
+  return first <= 0 ? 0 : (first >= n ? n : static_cast<int>(first));
+}
+
+// 2^x on the special function unit (subnormal results flush to zero)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // c (16 x 8, f32) += a (16 x 16, bf16, row) * b (16 x 8, bf16, col)
 __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0,
                                          uint32_t b1) {
@@ -68,16 +99,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// A fragment of rows [0, 16) x cols [c0, c0 + 16) of a row-major bf16
-// tile in shared memory (row stride kLd)
-__device__ __forceinline__ void load_a(uint32_t* a, const __nv_bfloat16* tile, int c0, int g,
-                                       int t) {
-  a[0] = ld_pair(tile + g * kLd + c0 + 2 * t);
-  a[1] = ld_pair(tile + (g + 8) * kLd + c0 + 2 * t);
-  a[2] = ld_pair(tile + g * kLd + c0 + 8 + 2 * t);
-  a[3] = ld_pair(tile + (g + 8) * kLd + c0 + 8 + 2 * t);
-}
-
 // The accumulators of score tiles 2j and 2j + 1 (16 x 8 each) as the A
 // fragment of a 16-wide reduction step: the m16n8k16 accumulator layout
 // is the A layout, so no trip through shared memory is needed.
@@ -86,24 +107,6 @@ __device__ __forceinline__ void acc_to_a(uint32_t* a, const float* lo, const flo
   a[1] = pack_bf16(lo[2], lo[3]);
   a[2] = pack_bf16(hi[0], hi[1]);
   a[3] = pack_bf16(hi[2], hi[3]);
-}
-
-// acc[n] (16 rows x 8 cols, n < kDMax / 8) += a (16 x 16) * tile[r0 + 0..15][n*8 .. n*8+7]:
-// the 16 reduction rows of a row-major bf16 tile, read transposed by
-// ldmatrix (lanes 0-15 address the rows)
-__device__ __forceinline__ void mma_rows_times_tile(float (*acc)[4], const uint32_t* a,
-                                                    const __nv_bfloat16* tile, int r0,
-                                                    int lane) {
-  const __nv_bfloat16* row = tile + (r0 + (lane & 15)) * kLd;
-#pragma unroll
-  for (int n = 0; n < kDMax / 8; ++n) {
-    uint32_t b0, b1;
-    const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(row + n * 8));
-    asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-                 : "=r"(b0), "=r"(b1)
-                 : "r"(addr));
-    mma_bf16(acc[n], a, b0, b1);
-  }
 }
 
 // 16 bytes global → shared without a register trip; ``src_bytes`` = 0
@@ -121,10 +124,6 @@ __device__ __forceinline__ void cp_async_commit() {
 // wait until at most one committed group is still in flight
 __device__ __forceinline__ void cp_async_wait_one() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // Rows [r0, r0 + rows) of a [n_rows, d] bf16 matrix into shared memory,
@@ -150,55 +149,7 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat1
   }
 }
 
-// The same for an f32 matrix rounded to bf16 on the way (plain loads:
-// cp.async cannot convert).
-__device__ __forceinline__ void load_tile_f32(__nv_bfloat16* dst, const float* src, int r0,
-                                              int rows, int n_rows, int d) {
-  constexpr int kChunks = kDMax / 8;
-  for (int idx = threadIdx.x; idx < rows * kChunks; idx += blockDim.x) {
-    const int r = idx / kChunks, c8 = (idx % kChunks) * 8;
-    const bool in = r0 + r < n_rows && c8 < d;
-    const float* p = src + (in ? static_cast<size_t>(r0 + r) * d + c8 : 0);
-    uint32_t packed[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float lo = in && c8 + 2 * i < d ? p[2 * i] : 0.f;
-      const float hi = in && c8 + 2 * i + 1 < d ? p[2 * i + 1] : 0.f;
-      packed[i] = pack_bf16(lo, hi);
-    }
-    memcpy(dst + r * kLd + c8, packed, sizeof(packed));
-  }
-}
-
-// Rows [r0, r0 + rows) of a [n_rows, d] f32 matrix into a [rows][kDMax]
-// f32 staging tile by cp.async (d % 4 == 0, 16-byte aligned rows), zeros
-// past the rows or the head dim; part of the next committed group.
-__device__ __forceinline__ void load_tile_f32_async(float* dst, const float* src, int r0,
-                                                    int rows, int n_rows, int d) {
-  constexpr int kChunks = kDMax / 4;
-  for (int idx = threadIdx.x; idx < rows * kChunks; idx += blockDim.x) {
-    const int r = idx / kChunks, c4 = (idx % kChunks) * 4;
-    const bool in = r0 + r < n_rows && c4 < d;
-    const float* p = src + (in ? static_cast<size_t>(r0 + r) * d + c4 : 0);
-    cp_async16(dst + r * kDMax + c4, p, in ? 16 : 0);
-  }
-}
-
-// A staged [rows][kDMax] f32 tile rounded to a bf16 tile (row stride kLd).
-__device__ __forceinline__ void convert_tile_f32(__nv_bfloat16* dst, const float* src,
-                                                 int rows) {
-  constexpr int kChunks = kDMax / 8;
-  for (int idx = threadIdx.x; idx < rows * kChunks; idx += blockDim.x) {
-    const int r = idx / kChunks, c8 = (idx % kChunks) * 8;
-    const float4 a = *reinterpret_cast<const float4*>(src + r * kDMax + c8);
-    const float4 b = *reinterpret_cast<const float4*>(src + r * kDMax + c8 + 4);
-    const uint32_t packed[4] = {pack_bf16(a.x, a.y), pack_bf16(a.z, a.w), pack_bf16(b.x, b.y),
-                                pack_bf16(b.z, b.w)};
-    memcpy(dst + r * kLd + c8, packed, sizeof(packed));
-  }
-}
-
-// every pointer 16-byte aligned (the cp.async paths need it)
+// every pointer 16-byte aligned (what cp.async and TMA need)
 template <typename... Ptrs>
 inline bool aligned16(Ptrs... ptrs) {
   return ((reinterpret_cast<uintptr_t>(ptrs) | ... | uintptr_t{0}) & 15) == 0;

@@ -37,6 +37,10 @@ from torch.autograd.function import once_differentiable
 from . import kernels
 
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+# bf16 ``flash_bwd`` calls whose operands TMA could not read as they were
+# (head dim not a multiple of 8, or a base not 16-byte aligned): the same
+# kernels on zero-padded copies
+PADDED = {"flash_bwd": 0}
 _COUNT_LOCK = threading.Lock()
 
 
@@ -181,8 +185,14 @@ def flash_bwd(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Backward of the partials without the g_m term: q [bh, sq, d], k/v
     [bh, sk, d], the forward's m_safe and the cotangent gl as f32
-    [bh, sq], gpv as f32 [bh, sq, d] → f32 (dq, dk, dv) and the i32 row
-    argmax ``amax`` [bh, sq].  K4 computes dq and amax, K5 dk and dv."""
+    [bh, sq], gpv [bh, sq, d] as f32 or bf16 → f32 (dq, dk, dv) and the
+    i32 row argmax ``amax`` [bh, sq].  K4 computes dq and amax, K5 dk and
+    dv.  The kernels take gpv in q's dtype: for bf16 q an f32 gpv is
+    rounded to bf16 once, to nearest even (the tensor cores take it in
+    bf16), for f32 q a bf16 gpv is widened exactly.  For bf16 q whose
+    head dim is not a multiple of 8, or whose q/k/v/gpv bases are not
+    16-byte aligned, the kernels run on zero-padded copies (counted in
+    ``PADDED``): zero columns change no score and no output."""
     bh, sq, d = q.shape
     sk = k.shape[1]
     sq_real = sq if sq_real is None else int(sq_real)
@@ -193,25 +203,38 @@ def flash_bwd(
         )
     _check_qkv("flash_bwd", q, k, v)
     device = q.device
-    for name, t, shape in (("m", m, (bh, sq)), ("gl", gl, (bh, sq)), ("gpv", gpv, (bh, sq, d))):
+    for name, t, shape, dtypes in (
+        ("m", m, (bh, sq), (torch.float32,)),
+        ("gl", gl, (bh, sq), (torch.float32,)),
+        ("gpv", gpv, (bh, sq, d), (torch.float32, torch.bfloat16)),
+    ):
         if (
-            t.device != device or t.dtype != torch.float32
+            t.device != device or t.dtype not in dtypes
             or tuple(t.shape) != shape or not t.is_contiguous()
         ):
             raise ValueError(
-                f"flash_bwd takes a contiguous f32 {name} of shape {shape} on "
-                f"{device}, got {t.dtype} {tuple(t.shape)} on {t.device}"
+                f"flash_bwd takes a contiguous {name} of shape {shape} in "
+                f"{'/'.join(str(x) for x in dtypes)} on {device}, got "
+                f"{t.dtype} {tuple(t.shape)} on {t.device}"
             )
     lib_dq = kernels.lib("flash_attention_bwd_dq")
     lib_dkv = kernels.lib("flash_attention_bwd_dkv")
     if d > lib_dq.tsnp_flash_bwd_dq_max_head_dim():
         raise ValueError(f"head dim {d} above the kernel's maximum")
-    dq = torch.empty((bh, sq, d), dtype=torch.float32, device=device)
+    gpv = gpv.to(q.dtype)
+    d_run = d
+    if q.dtype == torch.bfloat16:
+        d_run = -(-d // 8) * 8
+        if d_run != d or any(t.data_ptr() % 16 for t in (q, k, v, gpv)):
+            q, k, v, gpv = (_pad_head_dim(t, d_run) for t in (q, k, v, gpv))
+            with _COUNT_LOCK:
+                PADDED["flash_bwd"] += 1
+    dq = torch.empty((bh, sq, d_run), dtype=torch.float32, device=device)
     amax = torch.empty((bh, sq), dtype=torch.int32, device=device)
-    dk = torch.empty((bh, sk, d), dtype=torch.float32, device=device)
-    dv = torch.empty((bh, sk, d), dtype=torch.float32, device=device)
+    dk = torch.empty((bh, sk, d_run), dtype=torch.float32, device=device)
+    dv = torch.empty((bh, sk, d_run), dtype=torch.float32, device=device)
     args = (
-        bh, sq, sk, d, float(scale), int(bool(causal)), int(q_offset), int(k_offset),
+        bh, sq, sk, d_run, float(scale), int(bool(causal)), int(q_offset), int(k_offset),
         sq_real, sk_real, int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(device).cuda_stream,
     )
@@ -226,7 +249,17 @@ def flash_bwd(
         kernels.check(rc, "flash_bwd_dkv")
         with _COUNT_LOCK:
             LAUNCHES["flash_bwd_dkv"] += 1
+    if d_run != d:
+        dq, dk, dv = (t[..., :d].contiguous() for t in (dq, dk, dv))
     return dq, dk, dv, amax
+
+
+def _pad_head_dim(x: torch.Tensor, d_pad: int) -> torch.Tensor:
+    """x [..., d] zero-padded to [..., d_pad] in a fresh contiguous tensor
+    (so also 16-byte aligned when d_pad is a multiple of 8 for bf16)."""
+    out = x.new_zeros((*x.shape[:-1], d_pad))
+    out[..., : x.shape[-1]] = x
+    return out
 
 
 def _to_bh(x: torch.Tensor) -> torch.Tensor:
@@ -255,7 +288,7 @@ def _flash_bwd(
     = −1) contribute nothing."""
     b, sq, h, d = pv.shape
     sk = k_bh.shape[1]
-    gpv_bh = _to_bh(g_pv).float()
+    gpv_bh = _to_bh(g_pv)  # in pv's dtype: bf16 on the bf16 path, as the kernels take it
     flat = lambda x: x.reshape(b * h, x.shape[2]).float().contiguous()  # noqa: E731
     T = torch.einsum("bshd,bshd->bhs", g_pv.float(), pv.float()) + l * g_l
     gmt = flat(g_m.float() - T)

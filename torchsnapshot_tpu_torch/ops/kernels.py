@@ -108,7 +108,9 @@ _LL = ctypes.c_longlong
 _F = ctypes.c_float
 
 # q, k, v, m, gpv, gl, two outputs; bh, sq, sk, d; scale; causal;
-# q_offset, k_offset; sq_real, sk_real, is_bf16; stream
+# q_offset, k_offset; sq_real, sk_real, is_bf16; stream.  gpv is in q's
+# dtype: bf16 for the bf16 (TMA + wgmma) kernels, which also take only
+# d % 8 == 0 and 16-byte aligned q, k, v and gpv; f32 for the f32 ones.
 _FLASH_BWD_ARGS = [_P] * 8 + [_I] * 4 + [_F, _I, _LL, _LL, _I, _I, _I, _P]
 
 # C signatures: (restype, argtypes) per exported symbol
