@@ -11,7 +11,8 @@ is no card or anything below fails.  In order:
 1. prints the card (``nvidia-smi`` name and power limit);
 2. builds the CUDA kernels (K1 slab pack, K2 slab unpack, K3 flash-
    attention forward, K4/K5 flash-attention backward dq and dk/dv), one
-   nvcc each, in parallel, and prints what ptxas reports for them;
+   nvcc each, in parallel, prints what ptxas reports for them, and
+   fails on a spill or a serialised ``wgmma`` (C75xx);
 3. kernel phase: holds each kernel against its plain PyTorch version on
    the card at the main path's shapes and times both, plus one PyTorch
    library call computing the same function where there is one.
@@ -20,11 +21,17 @@ is no card or anything below fails.  In order:
    dv within 2e-2 of the largest plain value (ds and gpv enter the
    tensor cores in bf16) and the argmax exactly on rows whose top two
    scores are apart by more than the summation order can move them (the
-   ``kernels`` line carries each kernel's own outputs' absolute error),
-   at s = 2048, on ragged, q_offset and tile-edge (s = 2047) cases, and
-   a second call bitwise equal to the first.  K4/K5, their plain version
-   and SDPA's backward are timed 5 times each: median, range, TFLOP/s
-   and share of the bound;
+   ``kernels`` line carries each kernel's own outputs' absolute error;
+   K3's record adds its normalised pv error), K3-K5 at s = 2048, on
+   ragged and q_offset cases (K4/K5 also s = 2047), with a second call
+   bitwise equal to the first.  K1 packs the take's first device slab
+   and the same members each followed by a 4-byte f32 scalar (the step
+   a fused AdamW keeps on the card), which puts them off 16-byte
+   alignment; K2 unpacks both slabs.  Every kernel, its plain version
+   and the library yardstick (``torch.cat`` for K1, SDPA forward for K3,
+   SDPA backward for K4 + K5) are timed 5 times: median, range, share
+   of the bound, TFLOP/s for K3-K5; K1 both as ``pack_slab`` is called
+   and as its launch alone;
 4. three paths, each with the launch counters set to 0 just before it
    and read just after:
    a. serving, at full width: the repo's transformer (TransformerConfig
@@ -149,45 +156,114 @@ def kernel_record(name, source, replaces, err, ms, plain_ms, bound_ms, bound_by,
     }
 
 
+def interleave_steps(members):
+    """``members`` each followed by a 4-byte f32 CUDA scalar, the ``step``
+    that ``torch.optim.AdamW(fused=True)`` keeps on the card beside every
+    parameter: in the slab every member after the first then sits at 4,
+    8, 12, ... mod 16, as the batcher's path order puts them."""
+    out = []
+    for i, t in enumerate(members):
+        out += [t, torch.full((), float(i + 1), device=t.device)]
+    return out
+
+
+def pack_launch(members):
+    """K1's launch alone, its table built beforehand (as ``pack_slab``
+    builds it): a callable returning the launch's error code."""
+    lib = kernels.lib("slab_pack")
+    plan, total_chunks, total = device_pack.pack_plan(
+        [nbytes(t) for t in members], lib.tsnp_slab_pack_chunk_bytes()
+    )
+    table, on_device = device_pack.descriptor_table(
+        [(t.data_ptr(), *row) for t, row in zip(members, plan)],
+        lib.tsnp_slab_pack_inline_members(), members[0].device,
+    )
+    slab = torch.empty(total, dtype=torch.uint8, device=members[0].device)
+    stream = torch.cuda.current_stream().cuda_stream
+    return lambda: lib.tsnp_slab_pack(table.data_ptr(), on_device, len(plan), total_chunks,
+                                      slab.data_ptr(), stream)
+
+
+def fmt_t(t):
+    return f"{t[0]:.4f} ms ({t[1]:.4f}-{t[2]:.4f})"
+
+
 def phase_k1(members):
-    total = sum(nbytes(t) for t in members)
-    got = device_pack.pack_slab(members)
-    want = device_pack.pack_slab_plain(members)
-    check(torch.equal(got, want), "K1 slab differs from its plain version")
-    err = float((got.int() - want.int()).abs().max()) if total else 0.0
-    views = [t.reshape(-1).view(torch.uint8) for t in members]
-    ms = time_ms(lambda: device_pack.pack_slab(members))
-    plain_ms = time_ms(lambda: device_pack.pack_slab_plain(members))
-    library_ms = time_ms(lambda: torch.cat(views))
+    """K1 on the take's first device slab (aligned members) and on the same
+    members interleaved with 4-byte scalars (misaligned), bitwise against
+    the plain version; ``pack_slab`` as called and its launch alone, with
+    ``torch.cat`` of the same bytes as the yardstick, 5 timings each."""
+    out = {}
+    for what, ms in (("aligned", members), ("misaligned", interleave_steps(members))):
+        total = sum(nbytes(t) for t in ms)
+        got = device_pack.pack_slab(ms)
+        want = device_pack.pack_slab_plain(ms)
+        check(torch.equal(got, want), f"K1 {what} slab differs from its plain version")
+        err = float((got.int() - want.int()).abs().max()) if total else 0.0
+        launch = pack_launch(ms)
+        kernels.check(launch(), f"slab_pack {what}")
+        views = [t.reshape(-1).view(torch.uint8) for t in ms]
+        call_t = time_ms_repeats(lambda: device_pack.pack_slab(ms))
+        launch_t = time_ms_repeats(launch)
+        cat_t = time_ms_repeats(lambda: torch.cat(views))
+        bound_ms = 2 * total / HBM_BYTES_PER_S * 1e3
+        out[what] = (ms, got, total, err, call_t, launch_t, cat_t, bound_ms)
+        print(f"K1 {what}: {len(ms)} members, {total} bytes; pack_slab as called {fmt_t(call_t)}, "
+              f"launch alone {fmt_t(launch_t)}, torch.cat {fmt_t(cat_t)}; bound {bound_ms:.4f} ms "
+              f"({100 * bound_ms / call_t[0]:.1f}% as called, {100 * bound_ms / launch_t[0]:.1f}% "
+              f"launch alone); {total / call_t[0] / 1e6:.1f} GB/s of slab")
+    _, got, total, err, call_t, launch_t, cat_t, bound_ms = out["aligned"]
+    mis = out["misaligned"]
+    per_byte = (mis[4][0] / mis[2]) / (call_t[0] / total)
+    plain_t = time_ms_repeats(lambda: device_pack.pack_slab_plain(members), iters=5)
     host = torch.empty(total, dtype=torch.uint8, pin_memory=True)
     d2h_ms = time_ms(lambda: host.copy_(got, non_blocking=True), iters=5)
-    print(f"K1 slab: {len(members)} members, {total} bytes; pinned D2H of the slab "
-          f"{d2h_ms:.3f} ms ({total / d2h_ms / 1e6:.2f} GB/s)")
-    return got, kernel_record(
+    print(f"K1 misaligned time per byte / aligned: {per_byte:.3f}; plain {fmt_t(plain_t)}; pinned D2H "
+          f"of the aligned slab {d2h_ms:.3f} ms ({total / d2h_ms / 1e6:.2f} GB/s)")
+    record = kernel_record(
         "slab_pack", "torchsnapshot_tpu_torch/csrc/slab_pack.cu",
-        "torchsnapshot_tpu/ops/device_pack.py:23", err, ms, plain_ms,
-        2 * total / HBM_BYTES_PER_S * 1e3, "bytes", library_ms,
+        "torchsnapshot_tpu/ops/device_pack.py:23", max(err, mis[3]), call_t[0], plain_t[0],
+        bound_ms, "bytes", cat_t[0],
     )
+    record.update(launch_ms=launch_t[0], misaligned_ms=mis[4][0], misaligned_launch_ms=mis[5][0],
+                  misaligned_bound_ms=mis[7], misaligned_library_ms=mis[6][0])
+    return got, mis[0], mis[1], record
 
 
-def phase_k2(slab, members):
-    """Unpack the K1 slab plus a bool member, casting member 0 bf16 → f32."""
+def unpack_layout(members):
+    layout, off = [], 0
+    for t in members:
+        layout.append((off, dtype_to_string(t.dtype), tuple(t.shape)))
+        off += nbytes(t)
+    return layout
+
+
+def phase_k2(slab, members, mis_slab, mis_members):
+    """Unpack the K1 slab plus a bool member, casting member 0 bf16 → f32;
+    and the misaligned K1 slab into aligned templates of the stored
+    dtypes (identity members at 4, 8, 12 mod 16).  Both bitwise against
+    the plain version, 5 timings each."""
     g = torch.Generator(device="cuda").manual_seed(2)
     flags = torch.rand(4099, device="cuda", generator=g) > 0.5
     slab = torch.cat([slab, flags.view(torch.uint8)])
-    layout, off = [], 0
-    for t in members + [flags]:
-        layout.append((off, dtype_to_string(t.dtype), tuple(t.shape)))
-        off += nbytes(t)
+    layout = unpack_layout(members + [flags])
     out_dtypes = [torch.float32] + [t.dtype for t in members[1:]] + [torch.bool]
     outs = [torch.empty(t.shape, dtype=d, device="cuda") for t, d in zip(members + [flags], out_dtypes)]
-    device_pack.unpack_slab_into(slab, layout, outs)
-    want = device_pack.unpack_slab_plain(slab, layout, out_dtypes)
-    err = 0.0
-    for o, w in zip(outs, want):
-        check(o.dtype == w.dtype and torch.equal(o, w), "K2 output differs from its plain version")
+    mis_layout = unpack_layout(mis_members)
+    mis_dtypes = [t.dtype for t in mis_members]
+    mis_outs = [torch.empty_like(t) for t in mis_members]
+    times = {}
+    for what, sl, lay, dts, os_ in (("aligned", slab, layout, out_dtypes, outs),
+                                     ("misaligned", mis_slab, mis_layout, mis_dtypes, mis_outs)):
+        device_pack.unpack_slab_into(sl, lay, os_)
+        want = device_pack.unpack_slab_plain(sl, lay, dts)
+        for o, w in zip(os_, want):
+            check(o.dtype == w.dtype and torch.equal(o, w), f"K2 {what} output differs from its plain version")
+        times[what] = time_ms_repeats(lambda sl=sl, lay=lay, os_=os_: device_pack.unpack_slab_into(sl, lay, os_))
+    check(all(torch.equal(o, t) for o, t in zip(mis_outs, mis_members)), "K2 misaligned: members differ")
     out_bytes = sum(nbytes(o) for o in outs)
-    ms = time_ms(lambda: device_pack.unpack_slab_into(slab, layout, outs))
+    bound_ms = (nbytes(slab) + out_bytes) / HBM_BYTES_PER_S * 1e3
+    mis_bound_ms = 2 * nbytes(mis_slab) / HBM_BYTES_PER_S * 1e3
 
     def plain_into():
         # the plain version plus the copy into the templates the kernel
@@ -195,25 +271,36 @@ def phase_k2(slab, members):
         for o, w in zip(outs, device_pack.unpack_slab_plain(slab, layout, out_dtypes)):
             o.copy_(w)
 
-    plain_ms = time_ms(plain_into)
-    return kernel_record(
+    plain_t = time_ms_repeats(plain_into, iters=5)
+    print(f"K2 aligned (member 0 cast bf16 -> f32): {fmt_t(times['aligned'])}, bound {bound_ms:.4f} ms "
+          f"({100 * bound_ms / times['aligned'][0]:.1f}%); misaligned identity: {fmt_t(times['misaligned'])}, "
+          f"bound {mis_bound_ms:.4f} ms ({100 * mis_bound_ms / times['misaligned'][0]:.1f}%); "
+          f"plain {fmt_t(plain_t)}")
+    record = kernel_record(
         "slab_unpack", "torchsnapshot_tpu_torch/csrc/slab_unpack.cu",
-        "torchsnapshot_tpu/ops/device_pack.py:85", err, ms, plain_ms,
-        (nbytes(slab) + out_bytes) / HBM_BYTES_PER_S * 1e3, "bytes", None,
+        "torchsnapshot_tpu/ops/device_pack.py:85", 0.0, times["aligned"][0], plain_t[0],
+        bound_ms, "bytes", None,
     )
+    record.update(misaligned_ms=times["misaligned"][0], misaligned_bound_ms=mis_bound_ms)
+    return record
 
 
 def compare_partials(got, want, what):
+    """Holds K3's partials to their tolerances; returns the normalised pv
+    error and the largest absolute error of the kernel's own outputs (pv,
+    finite m, l)."""
     pv, m, l = got
     wpv, wm, wl = want
     finite = torch.isfinite(wm)
     check(torch.equal(torch.isfinite(m), finite), f"{what}: masked rows differ")
-    check(bool(((m - wm).abs()[finite] <= 1e-3).all()), f"{what}: m beyond atol 1e-3")
+    m_err = float((m - wm).abs()[finite].max()) if bool(finite.any()) else 0.0
+    check(m_err <= 1e-3, f"{what}: m beyond atol 1e-3")
     denom = lambda x: torch.where(x == 0, 1.0, x)[..., None]  # noqa: E731
     err = float((pv / denom(l) - wpv / denom(wl)).abs().max())
     check(err <= 2e-2, f"{what}: normalised pv error {err} beyond 2e-2")
     check(bool(((l - wl).abs() <= 2e-2 * wl.abs() + 2e-2).all()), f"{what}: l beyond 2e-2")
-    return err
+    abs_err = max(float((pv - wpv).abs().max()), m_err, float((l - wl).abs().max()))
+    return err, abs_err
 
 
 def phase_k3():
@@ -226,33 +313,54 @@ def phase_k3():
         return mk(sq), mk(sk), mk(sk)
 
     cases = [("main", SEQ, SEQ, 0, 0), ("ragged", 2000, 1900, 0, 0), ("q_offset", 1024, SEQ, 1024, 0)]
-    main_err = None
     for what, sq, sk, qo, ko in cases:
         q, k, v = qkv(sq, sk)
         got = flash_attention.attend_partials(q, k, v, qo, ko, True, scale)
         want = flash_attention.attend_partials_plain(q, k, v, qo, ko, True, scale, sq, sk)
-        err = compare_partials(got, want, f"K3 {what}")
-        print(f"K3 {what} (sq={sq}, sk={sk}, q_offset={qo}): normalised max abs err {err:.3e}")
+        err, abs_err = compare_partials(got, want, f"K3 {what}")
+        print(f"K3 {what} (sq={sq}, sk={sk}, q_offset={qo}): normalised pv error {err:.3e}, "
+              f"max abs err of pv, m, l {abs_err:.3e}")
         if what == "main":
-            main_err, main = err, (q, k, v)
+            again = flash_attention.attend_partials(q, k, v, qo, ko, True, scale)
+            for name, a, b in zip(("pv", "m", "l"), got, again):
+                check(torch.equal(a, b), f"K3: a second call gives other bits in {name}")
+            print("K3 main: a second call gives the same pv, m and l bitwise")
+            main_err, main = (err, abs_err), (q, k, v)
+        del got, want
     q, k, v = main
-    ms = time_ms(lambda: flash_attention.attend_partials(q, k, v, 0, 0, True, scale), iters=10)
-    plain_ms = time_ms(
-        lambda: flash_attention.attend_partials_plain(q, k, v, 0, 0, True, scale, SEQ, SEQ), iters=5
+    # the launch alone, as K4/K5 are timed, and attend_partials as called
+    lib = kernels.lib("flash_attention_fwd")
+    outs = [torch.empty((bh, SEQ, d), device="cuda"), torch.empty((bh, SEQ), device="cuda"),
+            torch.empty((bh, SEQ), device="cuda")]
+    stream = torch.cuda.current_stream().cuda_stream
+    launch = lambda: lib.tsnp_flash_fwd(  # noqa: E731
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), *(t.data_ptr() for t in outs),
+        bh, SEQ, SEQ, d, scale, 1, 0, 0, SEQ, SEQ, 1, stream)
+    kernels.check(launch(), "flash_fwd")
+    k3_t = time_ms_repeats(launch)
+    called_t = time_ms_repeats(lambda: flash_attention.attend_partials(q, k, v, 0, 0, True, scale))
+    plain_t = time_ms_repeats(
+        lambda: flash_attention.attend_partials_plain(q, k, v, 0, 0, True, scale, SEQ, SEQ), repeats=3, iters=3
     )
     qs, ks, vs = (t.unsqueeze(0) for t in (q, k, v))  # [1, h, s, d]
-    library_ms = time_ms(
-        lambda: torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, is_causal=True), iters=10
+    sdpa_t = time_ms_repeats(
+        lambda: torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
     )
-    pairs = SEQ * (SEQ + 1) // 2  # causal (query, key) pairs this run computes
-    flops = 4 * bh * d * pairs
+    flops = 4 * bh * d * causal_pairs(SEQ, SEQ, 0)
     io_bytes = 3 * bh * SEQ * d * 2 + bh * SEQ * d * 4 + 2 * bh * SEQ * 4
     t_ops, t_bytes = flops / BF16_FLOP_PER_S, io_bytes / HBM_BYTES_PER_S
-    return kernel_record(
+    bound_ms = max(t_ops, t_bytes) * 1e3
+    print(f"K3 timings, median of 5 (range): flash_attention_fwd {fmt_t(k3_t)}, "
+          f"{flops / k3_t[0] / 1e9:.1f} TFLOP/s, {100 * bound_ms / k3_t[0]:.1f}% of its {bound_ms:.4f} ms "
+          f"bound; attend_partials as called {fmt_t(called_t)}; SDPA forward {fmt_t(sdpa_t)} "
+          f"({flops / sdpa_t[0] / 1e9:.1f} TFLOP/s, bf16 output, K3 writes pv in f32); plain {fmt_t(plain_t)}")
+    record = kernel_record(
         "flash_attention_fwd", "torchsnapshot_tpu_torch/csrc/flash_attention_fwd.cu",
-        "torchsnapshot_tpu/ops/flash_attention.py:136", main_err, ms, plain_ms,
-        max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes", library_ms,
+        "torchsnapshot_tpu/ops/flash_attention.py:136", main_err[1], k3_t[0], plain_t[0],
+        bound_ms, "operations" if t_ops >= t_bytes else "bytes", sdpa_t[0],
     )
+    record.update(normalised_pv_err=main_err[0], called_ms=called_t[0])
+    return record
 
 
 def causal_pairs(sq, sk, q_offset):
@@ -637,8 +745,13 @@ def main():
     print(f"kernel build: {time.perf_counter() - t0:.1f} s")
     for name, log in kernels.BUILD_LOG.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill", "warning", "C75")):
                 print(f"ptxas {name}: {line.strip()}")
+        # the Hopper kernels' design rests on neither: a spill or a
+        # serialised wgmma (C75xx) is a build that must be looked at
+        check("(C75" not in log, f"ptxas serialised wgmma in {name}")
+        check(all(" 0 bytes spill stores" in line for line in log.splitlines() if "spill stores" in line),
+              f"ptxas spilled registers in {name}")
 
     cfg = TransformerConfig(n_layers=N_LAYERS)
     torch.manual_seed(0)
@@ -647,11 +760,11 @@ def main():
     print(f"model: {n_params} parameters, {cfg}")
 
     members = first_device_slab(model)
-    slab, k1 = phase_k1(members)
-    k2 = phase_k2(slab, members)
+    slab, mis_members, mis_slab, k1 = phase_k1(members)
+    k2 = phase_k2(slab, members, mis_slab, mis_members)
     k3 = phase_k3()
     k4, k5 = phase_k4_k5()
-    del slab, members
+    del slab, members, mis_members, mis_slab
     records = {r["name"]: r for r in (k1, k2, k3, k4, k5)}
     counters = {
         "slab_pack": (device_pack.LAUNCHES, "slab_pack"),

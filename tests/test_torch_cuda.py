@@ -9,7 +9,7 @@ f32 ones.  K4/K5 (dq, dk, dv) within 2e-2 (bf16: ds and gpv enter the
 tensor cores in bf16) or 1e-4 (f32) of the largest plain value; the
 argmax exactly, on rows whose top two scores are apart by more than the
 summation order can move them; two calls on the same inputs bitwise
-equal (no float atomics).
+equal (no float atomics, for K3 too).
 """
 
 import numpy as np
@@ -98,7 +98,7 @@ def test_flash_partials_match_plain(cuda, dtype, sq, sk, q_offset, k_offset, cau
 
 @pytest.mark.parametrize("d", [64, 100])
 def test_flash_partials_other_head_dims(cuda, d):
-    """d = 100 takes the kernel's synchronous (non-16-byte) load path."""
+    """bf16 d = 100 runs the kernel on copies padded to d = 104."""
     from torchsnapshot_tpu_torch.ops import flash_attention as fa
 
     bh, sq, sk = 3, 150, 170
@@ -113,6 +113,149 @@ def test_flash_partials_other_head_dims(cuda, d):
     denom = lambda x: torch.where(x == 0, 1.0, x)[..., None]  # noqa: E731
     torch.testing.assert_close(pv / denom(l), wpv / denom(wl), atol=2e-2, rtol=2e-2)
     torch.testing.assert_close(l, wl, atol=2e-2, rtol=2e-2)
+
+
+def _check_fwd(got, want, tol=2e-2):
+    pv, m, l = got
+    wpv, wm, wl = want
+    finite = torch.isfinite(wm)
+    assert torch.equal(torch.isfinite(m), finite)
+    torch.testing.assert_close(m[finite], wm[finite], atol=1e-3, rtol=0)
+    denom = lambda x: torch.where(x == 0, 1.0, x)[..., None]  # noqa: E731
+    torch.testing.assert_close(pv / denom(l), wpv / denom(wl), atol=tol, rtol=tol)
+    torch.testing.assert_close(l, wl, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize(
+    "sq,sk,q_offset,k_offset,causal,d",
+    [(1, 200, 199, 0, True, 128),  # a one-row q
+     (129, 257, 128, 0, True, 128), (257, 129, 0, 0, True, 128),  # just past a 128-row tile
+     (96, 160, 0, 0, False, 64),  # non-causal at d = 64
+     (128, 256, 384, 128, True, 128)],  # q and k offsets
+)
+def test_flash_fwd_edges_match_plain(cuda, sq, sk, q_offset, k_offset, causal, d):
+    from torchsnapshot_tpu_torch.ops import flash_attention as fa
+
+    q, k, v = (_rand((4, n, d), torch.bfloat16, cuda, sq + i) for i, n in enumerate((sq, sk, sk)))
+    scale = 1.0 / np.sqrt(d)
+    before = fa.LAUNCHES["flash_fwd"]
+    got = fa.attend_partials(q, k, v, q_offset, k_offset, causal, scale)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_fwd"] == before + 1
+    _check_fwd(got, fa.attend_partials_plain(q, k, v, q_offset, k_offset, causal, scale, sq, sk))
+
+
+def test_flash_fwd_rows_that_see_nothing(cuda):
+    """A k_offset that leaves the first 50 q rows seeing no column, and
+    sk_real < sk: those rows have m = -inf, l = 0 and pv = 0."""
+    from torchsnapshot_tpu_torch.ops import flash_attention as fa
+
+    sq, sk, sk_real, k_offset = 100, 150, 90, 50
+    q, k, v = (_rand((3, n, 128), torch.bfloat16, cuda, 60 + i) for i, n in enumerate((sq, sk, sk)))
+    got = fa.attend_partials(q, k, v, 0, k_offset, True, 0.1, sq_real=sq, sk_real=sk_real)
+    torch.cuda.synchronize()
+    pv, m, l = got
+    assert bool(torch.isneginf(m[:, :50]).all()) and bool((l[:, :50] == 0).all())
+    assert bool((pv[:, :50] == 0).all()) and bool(torch.isfinite(m[:, 50:]).all())
+    _check_fwd(got, fa.attend_partials_plain(q, k, v, 0, k_offset, True, 0.1, sq, sk_real))
+
+
+def test_flash_fwd_more_blocks_than_one_wave_and_bitwise_repeat(cuda):
+    """bh = 64 at s = 512: 256 blocks of 128 rows, about two waves on a
+    132-SM card with one block per SM; a second call gives the same bits."""
+    from torchsnapshot_tpu_torch.ops import flash_attention as fa
+
+    q, k, v = (_rand((64, 512, 128), torch.bfloat16, cuda, 70 + i) for i in range(3))
+    first = fa.attend_partials(q, k, v, 0, 0, True, 0.09)
+    second = fa.attend_partials(q, k, v, 0, 0, True, 0.09)
+    torch.cuda.synchronize()
+    for a, b, name in zip(first, second, ("pv", "m", "l")):
+        assert torch.equal(a, b), name
+    _check_fwd(first, fa.attend_partials_plain(q, k, v, 0, 0, True, 0.09, 512, 512))
+
+
+@pytest.mark.parametrize("case", ["d100", "misaligned", "d128"])
+def test_flash_fwd_pads_what_tma_cannot_read(cuda, case):
+    """A head dim that is not a multiple of 8, or a q base that is not
+    16-byte aligned, runs the bf16 kernel on zero-padded copies, counted
+    in ``PADDED``; d = 128 with aligned bases runs as it is."""
+    from torchsnapshot_tpu_torch.ops import flash_attention as fa
+
+    d = 100 if case == "d100" else 128
+    sq, sk = 70, 90
+    q, k, v = (_rand((2, n, d), torch.bfloat16, cuda, 90 + i) for i, n in enumerate((sq, sk, sk)))
+    if case == "misaligned":  # the same values one element into a larger buffer
+        buf = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)
+        buf[1:] = q.reshape(-1)
+        q = buf[1:].view(q.shape)
+        assert q.is_contiguous() and q.data_ptr() % 16
+    before = fa.PADDED["flash_fwd"]
+    got = fa.attend_partials(q, k, v, 0, 0, True, 0.1)
+    torch.cuda.synchronize()
+    assert fa.PADDED["flash_fwd"] == before + int(case != "d128")
+    assert got[0].shape == (2, sq, d)
+    _check_fwd(got, fa.attend_partials_plain(q, k, v, 0, 0, True, 0.1, sq, sk))
+
+
+def _byte_members(cuda, sizes, src_shift, seed):
+    """uint8 members of ``sizes`` bytes cut out of one buffer at source
+    offsets ``src_shift`` mod 16."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    stride = -(-max(sizes) // 16) * 16 + 16
+    buf = torch.randint(0, 256, (stride * len(sizes) + 16,), dtype=torch.uint8, generator=g).to(cuda)
+    return [buf[j * stride + src_shift:j * stride + src_shift + n] for j, n in enumerate(sizes)]
+
+
+@pytest.mark.parametrize("src_shift", range(16))
+def test_slab_pack_any_alignment(cuda, src_shift):
+    """Members whose sources sit at ``src_shift`` mod 16 and whose slab
+    offsets take every value mod 16 (sizes 1 to 65,537 bytes, several
+    larger than a chunk), bitwise against the plain version."""
+    from torchsnapshot_tpu_torch.ops import device_pack as dp
+
+    sizes = [1, 15, 16, 0, 17, 4, 4099, 32767, 32768, 32769, 65537, 3, 48, 100000, 2, 4]
+    members = _byte_members(cuda, sizes, src_shift, src_shift)
+    assert len({m.data_ptr() % 16 for m in members if m.numel()}) == 1
+    got = dp.pack_slab(members)
+    assert torch.equal(got.cpu(), dp.pack_slab_plain([m.cpu() for m in members]))
+
+
+def test_slab_pack_table_longer_than_the_launch_carries(cuda):
+    """More members than fit in the kernel's parameters: the table is
+    uploaded, and the slab is the same."""
+    from torchsnapshot_tpu_torch.ops import device_pack as dp
+    from torchsnapshot_tpu_torch.ops import kernels
+
+    n = kernels.lib("slab_pack").tsnp_slab_pack_inline_members() + 80
+    sizes = [int(x) for x in np.random.default_rng(3).integers(0, 3000, n)]
+    members = _byte_members(cuda, sizes, 5, 7)
+    got = dp.pack_slab(members)
+    assert torch.equal(got.cpu(), dp.pack_slab_plain([m.cpu() for m in members]))
+
+
+def test_slab_unpack_identity_members_at_misaligned_offsets(cuda):
+    """Identity members at every slab offset mod 16 (after 4-byte
+    scalars and odd-sized members) land bitwise in aligned templates."""
+    from torchsnapshot_tpu_torch.ops import device_pack as dp
+    from torchsnapshot_tpu_torch.serialization import dtype_to_string
+
+    src = []
+    for i, (shape, dtype) in enumerate([((33, 65), torch.bfloat16), ((), torch.float32),
+                                        ((4099,), torch.bool), ((70000,), torch.float32),
+                                        ((1,), torch.uint8), ((129, 257), torch.bfloat16),
+                                        ((), torch.float32), ((5000,), torch.int64)]):
+        t = _rand(shape, torch.float32, cuda, 100 + i) * 1000
+        src.append(t > 0 if dtype == torch.bool else t.to(dtype))
+    slab = dp.pack_slab_plain([t.cpu() for t in src]).to(cuda)
+    members, off = [], 0
+    for t in src:
+        members.append((off, dtype_to_string(t.dtype), tuple(t.shape)))
+        off += t.numel() * t.element_size()
+    assert len({o % 16 for o, _, _ in members}) > 4
+    outs = [torch.empty_like(t) for t in src]
+    dp.unpack_slab_into(slab, members, outs)
+    for o, t in zip(outs, src):
+        assert torch.equal(o, t)
 
 
 def _bwd_inputs(bh, sq, sk, d, dtype, device, q_offset, k_offset, causal, seed):

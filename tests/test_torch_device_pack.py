@@ -54,13 +54,31 @@ def _host_bytes(t):
     return t.contiguous().reshape(-1).view(torch.uint8).numpy().tobytes()
 
 
-@pytest.mark.parametrize("name", sorted(NP_DTYPES))
-def test_pack_matches_jax_bitwise(name):
+def _layout(kind, name, rng):
+    """Slab members of dtype ``name``: after a 3-byte bool, so every later
+    member sits at an odd offset ("odd_offset"), or interleaved with
+    4-byte f32 scalars (the ``step`` a fused AdamW keeps on the card) and
+    a 4099-byte bool, so the members' offsets move mod 16 ("interleaved")."""
+    if kind == "odd_offset":
+        return [_array("bool", (3,), rng), _array(name, (5, 3), rng),
+                _array(name, (), rng), _array(name, (0, 2), rng),
+                _array("float32", (4,), rng)]
+    return [_array(name, (5, 3), rng), _array("float32", (), rng),
+            _array(name, (33,), rng), _array("float32", (), rng),
+            _array("bool", (4099,), rng), _array(name, (7, 2), rng),
+            _array("float32", (), rng), _array(name, (), rng)]
+
+
+# the odd-offset cases keep the bare dtype as their id
+LAYOUT_CASES = [pytest.param(n, "odd_offset", id=n) for n in sorted(NP_DTYPES)] + [
+    pytest.param(n, "interleaved", id=f"interleaved-{n}") for n in sorted(NP_DTYPES)
+]
+
+
+@pytest.mark.parametrize("name,layout", LAYOUT_CASES)
+def test_pack_matches_jax_bitwise(name, layout):
     rng = np.random.default_rng(len(name))
-    # a 1-byte member first puts every later member at an odd offset
-    arrays = [_array("bool", (3,), rng), _array(name, (5, 3), rng),
-              _array(name, (), rng), _array(name, (0, 2), rng),
-              _array("float32", (4,), rng)]
+    arrays = _layout(layout, name, rng)
     with jax.enable_x64(True):
         want = pack_arrays_to_host([jnp.asarray(a) for a in arrays])
     got = tdp.pack_slab([_tensor(a) for a in arrays])
@@ -87,11 +105,10 @@ def _members(arrays):
     return tuple(members)
 
 
-@pytest.mark.parametrize("name", sorted(NP_DTYPES))
-def test_unpack_matches_jax_bitwise(name):
+@pytest.mark.parametrize("name,layout", LAYOUT_CASES)
+def test_unpack_matches_jax_bitwise(name, layout):
     rng = np.random.default_rng(100 + len(name))
-    arrays = [_array("bool", (3,), rng), _array(name, (5, 3), rng),
-              _array(name, (), rng), _array("int16", (7,), rng)]
+    arrays = _layout(layout, name, rng) + [_array("int16", (7,), rng)]
     slab = b"".join(a.tobytes() for a in arrays)
     members = _members(arrays)
     with jax.enable_x64(True):
@@ -172,3 +189,40 @@ def test_wrappers_take_the_plain_path_only_for_cpu_tensors():
         tdp.unpack_slab_into(
             slab, ((0, "float32", (4,)),), [torch.empty(4, device="meta")]
         )
+
+
+@pytest.mark.parametrize("chunk", [16, 4096, 32768])
+def test_pack_plan_covers_every_slab_byte_once(chunk):
+    """K1's plan, walked as its blocks walk it (block c copies a chunk of
+    the last member whose first chunk is <= c), writes every slab byte
+    exactly once, at the offsets ``pack_slab_plain`` gives, and takes
+    more than one chunk for the members larger than a chunk."""
+    rng = np.random.default_rng(chunk)
+    sizes = [0, 1, 3, 4, chunk - 1, chunk, chunk + 1, 0, 65537, 15, 2 * chunk + 5, 0]
+    members = [torch.from_numpy(rng.integers(0, 256, n, dtype=np.uint8)) for n in sizes]
+    rows, total_chunks, total = tdp.pack_plan(sizes, chunk)
+    assert total == sum(sizes)
+    assert total_chunks == sum(-(-n // chunk) for n in sizes)
+    starts = [r[2] for r in rows]
+    slab = torch.zeros(total, dtype=torch.uint8)
+    hits = np.zeros(total, np.int64)
+    for c in range(total_chunks):
+        i = max(j for j, b in enumerate(starts) if b <= c)
+        n, off, first = rows[i]
+        lo = (c - first) * chunk
+        hi = min(n, lo + chunk)
+        assert 0 <= lo < hi
+        slab[off + lo:off + hi] = members[i][lo:hi]
+        hits[off + lo:off + hi] += 1
+    assert (hits == 1).all()
+    assert torch.equal(slab, tdp.pack_slab_plain(members))
+    for n, (nbytes, off, first), nxt in zip(sizes, rows, starts[1:] + [total_chunks]):
+        assert nbytes == n and nxt - first == -(-n // chunk)
+
+
+def test_short_descriptor_tables_stay_on_the_host():
+    """A table the launch can carry in its parameters is not uploaded."""
+    rows = [(i, 2 * i, 3 * i, 4 * i) for i in range(5)]
+    table, on_device = tdp.descriptor_table(rows, 5, torch.device("cpu"))
+    assert on_device == 0 and table.device.type == "cpu"
+    assert table.dtype == torch.int64 and table.tolist() == [list(r) for r in rows]

@@ -134,3 +134,27 @@ def test_attend_partials_refuses_what_the_kernel_does_not_take():
     q = torch.zeros(1, 4, 8)
     with pytest.raises(ValueError):
         tfa.attend_partials(q, q.to("meta"), q, 0, 0, True, 1.0)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_head_dim_padding_changes_no_result(causal):
+    """The bf16 forward kernel takes a head dim that is not a multiple of
+    8 on copies zero-padded by ``_pad_head_dim``: the plain forward gives
+    the same m and l at d = 100 as at its padding to d = 104, the same pv
+    in the first d columns (within 1e-6: the same sums with zeros added)
+    and zeros in the padding."""
+    bh, sq, sk, d, d_pad = 2, 70, 90, 100, 104
+    rng = np.random.default_rng(17 + causal)
+    q, k, v = (
+        torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+        for shape in ((bh, sq, d), (bh, sk, d), (bh, sk, d))
+    )
+    scale = 1.0 / np.sqrt(d)
+    args = (5, 0, causal, scale, sq, sk)
+    want = tfa.attend_partials_plain(q, k, v, *args)
+    q_p, k_p, v_p = (tfa._pad_head_dim(t, d_pad) for t in (q, k, v))
+    assert q_p.is_contiguous() and torch.equal(q_p[..., :d], q) and not q_p[..., d:].any()
+    pv, m, l = tfa.attend_partials_plain(q_p, k_p, v_p, *args)
+    assert pv.shape[-1] == d_pad and not pv[..., d:].any()
+    for g, w, name in ((pv[..., :d], want[0], "pv"), (m, want[1], "m"), (l, want[2], "l")):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-6, atol=1e-6, err_msg=name)

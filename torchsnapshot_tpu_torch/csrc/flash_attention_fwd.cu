@@ -18,215 +18,246 @@
 // Bound on this card: at the ring-attention shape (bh = 32, s = 2048,
 // d = 128, causal) the work is ~34 GFLOP against ~17 MB of operands, so
 // it is bound by operations: 34 GFLOP / 989 TFLOP/s (bf16 tensor cores)
-// = ~35 us.  Two kernels:
+// = ~35 us.
 //
-// - bf16 inputs: tensor cores through ``mma.sync`` m16n8k16 (bf16 in,
-//   f32 accumulate), FlashAttention-2 style.  One thread block of four
-//   warps per (bh, 64-row q block); each warp owns 16 q rows, holds its
-//   q fragments, its 16 x 128 output accumulator and its scores in
-//   registers, and turns the scores into the P operand of the second
-//   product without a trip through shared memory (the accumulator and
-//   A-operand layouts line up).  k/v blocks of 64 rows are double-
-//   buffered in shared memory by ``cp.async`` (the next block loads
-//   while this one computes); the V operand is read transposed with
-//   ``ldmatrix.trans``.  The softmax runs in base 2 on pre-scaled
-//   scores, and only blocks crossing the diagonal or a ragged edge pay
-//   the mask.  P enters the second product in bf16, l is summed from the
-//   f32 p.  The products do not use ``wgmma`` and the loads not TMA:
-//   those are the next steps toward the bound.
+// - bf16 inputs (d % 8 == 0, 16-byte aligned q/k/v; the wrapper pads the
+//   head dim otherwise): both products on the tensor cores through
+//   ``wgmma`` (bf16 in, f32 accumulate), warp-specialised as K4 is.  A
+//   block is two consumer warpgroups, each owning 64 of the block's 128
+//   q rows, and a producer warpgroup of which one thread issues every
+//   load.  The producer loads the q tile once and then streams 64-row
+//   k/v tiles through a ring of three stages by TMA (128-byte swizzle,
+//   rows and columns past the arrays zero-filled); ``mbarrier``s hand
+//   each stage to the consumers and back.  A consumer step computes
+//   s = q k^T with both operands in shared memory, then the online
+//   softmax in registers (base 2 on scores pre-scaled by log2 e, one
+//   compare per element against the row's visible column range only on
+//   tiles that cross the diagonal or a ragged edge, ``ex2.approx.ftz``,
+//   no branch per element), rescales o, rounds p to bf16 in registers
+//   and feeds it as the A operand of o += p v, which reads v MN-major
+//   from its tile.  The steps overlap: step i's score product and step
+//   i - 1's p v product are issued back to back as two commit groups,
+//   so the softmax of step i runs while p v of step i - 1 is on the
+//   tensor cores.  o (64 x 128 f32 per warpgroup) stays in registers
+//   under ``setmaxnreg``; l is summed per thread and reduced across the
+//   row's four lanes once, at the end.  Blocks are launched highest q
+//   tile first: under the causal mask those see the most kv tiles.  P
+//   enters the second product in bf16, l is summed from the f32 p.
 // - f32 inputs: plain f32 FMAs on the CUDA cores (a 4 x 2 score tile and
 //   a 4 x 8 accumulator tile per thread), keeping f32 products exact.
 //
-// Causal kv blocks entirely above the diagonal are never loaded.
+// Causal kv tiles entirely above a warpgroup's diagonal are skipped, and
+// never loaded when above the block's.
+#include <type_traits>
+
 #include "flash_common.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 
 using namespace tsnp_flash;
+using namespace tsnp_hopper;
 
-// ------------------------------------------------------------ bf16 (mma)
+// ---------------------------------------------------------- bf16 (wgmma)
 
-constexpr int kMmaBQ = 64;  // 4 warps x 16 rows
-constexpr int kMmaBK = 64;
-constexpr int kMmaThreads = 128;
-// two stages of (k tile, v tile); the q tile is staged in stage 1's k
-// buffer before the kv loop, and read into registers before it refills
-constexpr int kTileElems = kMmaBK * kLd;
-constexpr size_t kMmaSmemBytes = 4 * kTileElems * sizeof(__nv_bfloat16);
+constexpr int kTcBQ = 128;  // q rows per block: two consumer warpgroups x 64
+constexpr int kTcBK = 64;   // kv rows per step
+constexpr int kStages = 3;  // a stage's v tile is read one step after its k tile
+constexpr int kConsumerThreads = 256;
+constexpr int kTcThreads = kConsumerThreads + 128;  // + the producer warpgroup
+constexpr uint32_t kQPanel = kTcBQ * kRowBytes;     // one 64-column panel of q
+constexpr uint32_t kQTile = 2 * kQPanel;
+constexpr uint32_t kKvPanel = kTcBK * kRowBytes;
+constexpr uint32_t kKvTile = 2 * kKvPanel;
+// shared memory: the q tile, the stages (k tile, v tile), the barriers
+constexpr uint32_t kStageBytes = 2 * kKvTile;
+constexpr uint32_t kStageOff = kQTile;
+constexpr uint32_t kBarOff = kStageOff + kStages * kStageBytes;
+constexpr size_t kTcSmemBytes = kBarOff + (1 + 2 * kStages) * sizeof(uint64_t) + kAtomBytes;
 
-__global__ void __launch_bounds__(kMmaThreads)
-flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v, float* __restrict__ pv_out,
-                     float* __restrict__ m_out, float* __restrict__ l_out, int sq, int sk,
-                     int d, float scale, int causal, long long q_offset, long long k_offset,
-                     int sq_real, int sk_real) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  // stage i: k tile at tiles + 2i * kTileElems, v tile right after it
-  __nv_bfloat16* tiles = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* qs = tiles + 2 * kTileElems;  // stage 1's k buffer
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                       const __grid_constant__ CUtensorMap k_map,
+                       const __grid_constant__ CUtensorMap v_map, float* __restrict__ pv_out,
+                       float* __restrict__ m_out, float* __restrict__ l_out, int sq, int d,
+                       float scale, int causal, long long q_offset, long long k_offset,
+                       int sq_real, int sk_real) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  unsigned char* qs = smem;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + kBarOff);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kStages;
 
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * kMmaBQ;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;  // mma fragment row group / column pair
-  const __nv_bfloat16* qb = q + static_cast<size_t>(bh) * sq * d;
-  const __nv_bfloat16* kb = k + static_cast<size_t>(bh) * sk * d;
-  const __nv_bfloat16* vb = v + static_cast<size_t>(bh) * sk * d;
-  const bool vec = (d & 7) == 0 && ((reinterpret_cast<uintptr_t>(q) |
-                                     reinterpret_cast<uintptr_t>(k) |
-                                     reinterpret_cast<uintptr_t>(v)) & 15) == 0;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTcBQ;
+  const long long kv_end = kv_limit(q0, kTcBQ, sq_real, sk_real, causal, q_offset, k_offset);
+  const int n_kv = static_cast<int>((kv_end + kTcBK - 1) / kTcBK);
 
-  load_tile(qs, qb, q0, kMmaBQ, sq, d, vec);
-  cp_async_commit();
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerThreads);
+    }
+    mbar_fence_init();
+  }
   __syncthreads();
-  // this warp's q rows as A fragments, all eight 16-wide k steps
-  uint32_t qf[kDMax / 16][4];
-  const __nv_bfloat16* qw = qs + warp * 16 * kLd;
-#pragma unroll
-  for (int kk = 0; kk < kDMax / 16; ++kk) {
-    qf[kk][0] = ld_pair(qw + g * kLd + kk * 16 + 2 * t);
-    qf[kk][1] = ld_pair(qw + (g + 8) * kLd + kk * 16 + 2 * t);
-    qf[kk][2] = ld_pair(qw + g * kLd + kk * 16 + 8 + 2 * t);
-    qf[kk][3] = ld_pair(qw + (g + 8) * kLd + kk * 16 + 8 + 2 * t);
-  }
-  __syncthreads();  // every warp holds its q before stage 1 refills
 
-  float o[kDMax / 8][4];
-#pragma unroll
-  for (int n = 0; n < kDMax / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  // running row max in log2 units (scores pre-scaled by log2 e)
-  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
-  const int rows[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+  if (threadIdx.x >= kConsumerThreads) {
+    // ---- producer: one thread issues every load
+    regs_dec<24>();
+    if (threadIdx.x != kConsumerThreads) return;
+    if (n_kv > 0) {
+      mbar_arrive_expect_tx(q_full, kQTile);
+      tma_load_tile(qs, kQPanel, &q_map, q_full, q0, bh);
+    }
+    for (int i = 0; i < n_kv; ++i) {
+      const int s = i % kStages;
+      mbar_wait(&empty[s], ((i / kStages) & 1) ^ 1);  // round 0 passes at once
+      unsigned char* stage = smem + kStageOff + s * kStageBytes;
+      mbar_arrive_expect_tx(&full[s], kStageBytes);
+      tma_load_tile(stage, kKvPanel, &k_map, &full[s], i * kTcBK, bh);
+      tma_load_tile(stage + kKvTile, kKvPanel, &v_map, &full[s], i * kTcBK, bh);
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg owns q rows q0w .. q0w + 63
+  regs_inc<240>();
+  const int wg = threadIdx.x >> 7;
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0w = q0 + wg * 64;
+  const int rows[2] = {q0w + warp * 16 + g, q0w + warp * 16 + g + 8};
   const float scale2 = scale * kLog2e;
+  // kv tiles this warpgroup's rows see (the block's walk may be longer)
+  const long long wg_end = kv_limit(q0w, 64, sq_real, sk_real, causal, q_offset, k_offset);
+  const int wg_n = static_cast<int>((wg_end + kTcBK - 1) / kTcBK);
+  const unsigned char* qw = qs + wg * 64 * kRowBytes;
+  auto stage_at = [&](int i) { return smem + kStageOff + (i % kStages) * kStageBytes; };
 
-  const long long kv_end =
-      kv_limit(q0, kMmaBQ, sq_real, sk_real, causal, q_offset, k_offset);
-  const int n_kv_blocks = static_cast<int>((kv_end + kMmaBK - 1) / kMmaBK);
+  float o[64];
+#pragma unroll
+  for (int x = 0; x < 64; ++x) o[x] = 0.f;
+  // running row max (scores x scale x log2 e) and this thread's share of
+  // the row sum; accumulator element x is row rows[(x >> 1) & 1], column
+  // 8 (x >> 2) + 2t + (x & 1) of the step's tile
+  float m2[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float st[kTcBK / 2], corr[2];
+  uint32_t pa[kTcBK / 16][4];  // p of the previous step, bf16 A fragments
 
-  if (n_kv_blocks > 0) {
-    load_tile(tiles, kb, 0, kMmaBK, sk, d, vec);
-    load_tile(tiles + kTileElems, vb, 0, kMmaBK, sk, d, vec);
+  // The online softmax of step i on st (p written over it), with corr
+  // the factor that moves o and l to the new row max.  Only Masked
+  // steps test the columns: one compare per element against the row's
+  // visible prefix.  No branch depends on the data, so nothing diverges
+  // while the previous step's p v product is in flight.
+  auto softmax = [&](int i, auto masked) {
+    if constexpr (decltype(masked)::value) {
+      int lim[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        lim[h] = visible_prefix(rows[h], i * kTcBK, kTcBK, sq_real, sk_real, causal, q_offset,
+                                k_offset) - 2 * t;
+#pragma unroll
+      for (int x = 0; x < kTcBK / 2; ++x)
+        st[x] = 8 * (x >> 2) + (x & 1) < lim[(x >> 1) & 1] ? st[x] : -INFINITY;
+    }
+    float mb[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int x = 0; x < kTcBK / 2; ++x) mb[(x >> 1) & 1] = fmaxf(mb[(x >> 1) & 1], st[x]);
+    float m_safe[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      // the four lanes sharing a row group hold the tile's columns
+      mb[h] = fmaxf(mb[h], __shfl_xor_sync(0xffffffffu, mb[h], 1));
+      mb[h] = fmaxf(mb[h], __shfl_xor_sync(0xffffffffu, mb[h], 2));
+      const float m_new = fmaxf(m2[h], mb[h] * scale2);
+      m_safe[h] = m_new == -INFINITY ? 0.f : m_new;  // a row that saw nothing yet
+      corr[h] = exp2_approx(m2[h] - m_safe[h]);     // 0 while m2 is -inf
+      m2[h] = m_new;
+      l[h] *= corr[h];
+    }
+#pragma unroll
+    for (int x = 0; x < kTcBK / 2; ++x) {
+      // masked: exp2(-inf) = 0
+      st[x] = exp2_approx(fmaf(st[x], scale2, -m_safe[(x >> 1) & 1]));
+      l[(x >> 1) & 1] += st[x];
+    }
+  };
+  auto pack_p = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < kTcBK / 16; ++kk) acc_to_a(pa[kk], &st[8 * kk], &st[8 * kk + 4]);
+  };
+  // Step i >= 1: its score product and step i - 1's p v product go out
+  // back to back; the softmax runs while p v is on the tensor cores.
+  auto step = [&](int i, auto masked) {
+    mbar_wait(&full[i % kStages], (i / kStages) & 1);
+    wgmma_scores(st, qw, kQPanel, stage_at(i), kKvPanel);
+    wgmma_rows_product(o, pa, stage_at(i - 1) + kKvTile, kKvPanel);  // o += p v, step i - 1
+    wgmma_wait<1>();  // s is done, p v may still run
+    fence_regs(st);
+    softmax(i, masked);
+    wgmma_wait<0>();  // p v of step i - 1 is done: o and its stage are free
+    fence_regs(o);
+    fence_frags(pa);
+    mbar_arrive(&empty[(i - 1) % kStages]);
+#pragma unroll
+    for (int x = 0; x < 64; ++x) o[x] *= corr[(x >> 1) & 1];
+    pack_p();
+  };
+
+  if (wg_n > 0) {
+    // the leading steps whose tile every row of the warpgroup sees whole
+    // (below sk_real and, when causal, at or below the diagonal) need no
+    // column test
+    long long clear = q0w + 64 <= sq_real ? sk_real / kTcBK : 0;
+    if (causal) {
+      const long long diag = (q_offset + q0w - k_offset + 1) / kTcBK;
+      clear = diag < clear ? diag : clear;
+    }
+    const int n_clear = clear <= 0 ? 0 : (clear < wg_n ? static_cast<int>(clear) : wg_n);
+    mbar_wait(q_full, 0);
+    mbar_wait(&full[0], 0);
+    wgmma_scores(st, qw, kQPanel, stage_at(0), kKvPanel);
+    wgmma_wait<0>();
+    fence_regs(st);
+    if (n_clear > 0) {
+      softmax(0, std::false_type{});
+    } else {
+      softmax(0, std::true_type{});
+    }
+    pack_p();
+    for (int i = 1; i < n_clear; ++i) step(i, std::false_type{});
+    for (int i = n_clear > 1 ? n_clear : 1; i < wg_n; ++i) step(i, std::true_type{});
+    wgmma_rows_product(o, pa, stage_at(wg_n - 1) + kKvTile, kKvPanel);
+    wgmma_wait<0>();
+    fence_regs(o);
+    mbar_arrive(&empty[(wg_n - 1) % kStages]);
   }
-  cp_async_commit();
-
-  for (int kbi = 0; kbi < n_kv_blocks; ++kbi) {
-    const int k0 = kbi * kMmaBK;
-    // the next block's load flies while this one computes; its stage was
-    // released by the barrier that ended the previous step
-    if (kbi + 1 < n_kv_blocks) {
-      __nv_bfloat16* next = tiles + ((kbi + 1) & 1) * 2 * kTileElems;
-      load_tile(next, kb, k0 + kMmaBK, kMmaBK, sk, d, vec);
-      load_tile(next + kTileElems, vb, k0 + kMmaBK, kMmaBK, sk, d, vec);
-    }
-    cp_async_commit();
-    cp_async_wait_one();
-    __syncthreads();
-    const __nv_bfloat16* ks = tiles + (kbi & 1) * 2 * kTileElems;
-    const __nv_bfloat16* vs = ks + kTileElems;
-
-    // scores: 16 rows x 64 keys per warp, as eight 16 x 8 accumulators
-    float s[kMmaBK / 8][4];
-#pragma unroll
-    for (int n = 0; n < kMmaBK / 8; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < kDMax / 16; ++kk) {
-        const __nv_bfloat16* kr = ks + (n * 8 + g) * kLd + kk * 16 + 2 * t;
-        mma_bf16(s[n], qf[kk], ld_pair(kr), ld_pair(kr + 8));
-      }
-    }
-
-    // mask (only blocks crossing the diagonal or a ragged edge need it)
-    // + online softmax; element e of a tile is row rows[e >> 1], column
-    // k0 + n * 8 + 2t + (e & 1)
-    const bool masked = k0 + kMmaBK > sk_real || q0 + kMmaBQ > sq_real ||
-                        (causal && k_offset + k0 + kMmaBK - 1 > q_offset + q0);
-    float m_blk[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int n = 0; n < kMmaBK / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + n * 8 + 2 * t + (e & 1);
-        s[n][e] = !masked || visible(rows[e >> 1], col, sq_real, sk_real, causal,
-                                     q_offset, k_offset)
-                      ? s[n][e] * scale2
-                      : -INFINITY;
-        m_blk[e >> 1] = fmaxf(m_blk[e >> 1], s[n][e]);
-      }
-    }
-    float m_safe[2], corr[2], row_sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      // the four lanes sharing a row group hold its 64 columns
-      m_blk[h] = fmaxf(m_blk[h], __shfl_xor_sync(0xffffffffu, m_blk[h], 1));
-      m_blk[h] = fmaxf(m_blk[h], __shfl_xor_sync(0xffffffffu, m_blk[h], 2));
-      const float m_new = fmaxf(m_run[h], m_blk[h]);
-      m_safe[h] = isfinite(m_new) ? m_new : 0.f;
-      corr[h] = isfinite(m_run[h]) ? exp2f(m_run[h] - m_safe[h]) : 0.f;
-      m_run[h] = m_new;
-    }
-#pragma unroll
-    for (int n = 0; n < kMmaBK / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[n][e] = exp2f(s[n][e] - m_safe[e >> 1]);  // masked: exp2(-inf) = 0
-        row_sum[e >> 1] += s[n][e];
-      }
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      row_sum[h] += __shfl_xor_sync(0xffffffffu, row_sum[h], 1);
-      row_sum[h] += __shfl_xor_sync(0xffffffffu, row_sum[h], 2);
-      l_run[h] = l_run[h] * corr[h] + row_sum[h];
-    }
-#pragma unroll
-    for (int n = 0; n < kDMax / 8; ++n) {
-      o[n][0] *= corr[0];
-      o[n][1] *= corr[0];
-      o[n][2] *= corr[1];
-      o[n][3] *= corr[1];
-    }
-
-    // o += p v: the score accumulators of tiles 2j, 2j+1 are the A
-    // fragment of key step j; v's B fragments come transposed by ldmatrix
-#pragma unroll
-    for (int j = 0; j < kMmaBK / 16; ++j) {
-      const uint32_t pa[4] = {
-          pack_bf16(s[2 * j][0], s[2 * j][1]), pack_bf16(s[2 * j][2], s[2 * j][3]),
-          pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
-          pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
-      // lanes 0-15 address the 16 key rows of this step
-      const __nv_bfloat16* vrow = vs + (j * 16 + (lane & 15)) * kLd;
-#pragma unroll
-      for (int n = 0; n < kDMax / 8; ++n) {
-        uint32_t b0, b1;
-        const uint32_t addr =
-            static_cast<uint32_t>(__cvta_generic_to_shared(vrow + n * 8));
-        asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-                     : "=r"(b0), "=r"(b1)
-                     : "r"(addr));
-        mma_bf16(o[n], pa, b0, b1);
-      }
-    }
-    __syncthreads();  // this stage is free for the load two steps on
+  // tiles the block loads for its other warpgroup only
+  for (int i = wg_n; i < n_kv; ++i) {
+    mbar_wait(&full[i % kStages], (i / kStages) & 1);
+    mbar_arrive(&empty[i % kStages]);
   }
 
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
     const int r = rows[h];
     if (r >= sq) continue;
     const size_t row = static_cast<size_t>(bh) * sq + r;
+    float* pvr = pv_out + row * d;
 #pragma unroll
     for (int n = 0; n < kDMax / 8; ++n) {
       const int c = n * 8 + 2 * t;
-      if (c < d) pv_out[row * d + c] = o[n][2 * h];
-      if (c + 1 < d) pv_out[row * d + c + 1] = o[n][2 * h + 1];
+      if (c < d)  // d % 8 == 0: c + 1 < d too
+        *reinterpret_cast<float2*>(pvr + c) = make_float2(o[4 * n + 2 * h], o[4 * n + 2 * h + 1]);
     }
     if (t == 0) {
-      m_out[row] = m_run[h] * kLn2;  // back to natural units (-inf stays)
-      l_out[row] = l_run[h];
+      m_out[row] = m2[h] * kLn2;  // back to natural units (-inf stays)
+      l_out[row] = l[h];
     }
   }
 }
@@ -387,8 +418,10 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 extern "C" int tsnp_flash_fwd_max_head_dim() { return kDMax; }
 
 // q: [bh, sq, d], k/v: [bh, sk, d], contiguous, bf16 (is_bf16 = 1) or
-// f32; pv: f32 [bh, sq, d]; m, l: f32 [bh, sq].  Launches on ``stream``
-// and returns cudaGetLastError() (0 when there is nothing to launch).
+// f32; pv: f32 [bh, sq, d]; m, l: f32 [bh, sq].  The bf16 path takes
+// d % 8 == 0 and 16-byte aligned q, k and v (what TMA reads).  Launches
+// on ``stream`` and returns cudaGetLastError() (0 when there is nothing
+// to launch).
 extern "C" int tsnp_flash_fwd(const void* q, const void* k, const void* v, void* pv,
                               void* m, void* l, int bh, int sq, int sk, int d,
                               float scale, int causal, long long q_offset,
@@ -399,14 +432,21 @@ extern "C" int tsnp_flash_fwd(const void* q, const void* k, const void* v, void*
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (is_bf16) {
-    err = allow_smem(flash_fwd_mma_kernel, kMmaSmemBytes);
+    if (d % 8 != 0 || !aligned16(q, k, v)) return static_cast<int>(cudaErrorInvalidValue);
+    // no kv row: every row sees nothing; the k/v maps are then made over
+    // q so that they are valid, and are never read (the walk is empty)
+    if (sk <= 0) sk_real = 0;
+    const int kv_rows = sk > 0 ? sk : sq;
+    CUtensorMap q_map, k_map, v_map;
+    if (!make_tile_map(&q_map, q, bh, sq, d, kTcBQ) ||
+        !make_tile_map(&k_map, sk > 0 ? k : q, bh, kv_rows, d, kTcBK) ||
+        !make_tile_map(&v_map, sk > 0 ? v : q, bh, kv_rows, d, kTcBK))
+      return static_cast<int>(cudaErrorNotSupported);
+    err = allow_smem(flash_fwd_wgmma_kernel, kTcSmemBytes);
     if (err != cudaSuccess) return static_cast<int>(err);
-    flash_fwd_mma_kernel<<<dim3((sq + kMmaBQ - 1) / kMmaBQ, bh), kMmaThreads,
-                           kMmaSmemBytes, s>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<float*>(pv),
-        static_cast<float*>(m), static_cast<float*>(l), sq, sk, d, scale, causal,
-        q_offset, k_offset, sq_real, sk_real);
+    flash_fwd_wgmma_kernel<<<dim3(bh, (sq + kTcBQ - 1) / kTcBQ), kTcThreads, kTcSmemBytes, s>>>(
+        q_map, k_map, v_map, static_cast<float*>(pv), static_cast<float*>(m),
+        static_cast<float*>(l), sq, d, scale, causal, q_offset, k_offset, sq_real, sk_real);
   } else {
     const size_t smem = kSmemFloats * sizeof(float);
     err = allow_smem(flash_fwd_f32_kernel, smem);

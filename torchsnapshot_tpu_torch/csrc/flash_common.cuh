@@ -1,8 +1,7 @@
 // Helpers shared by the flash-attention kernels (K3 forward, K4 dq and
 // K5 dk/dv backward): the masking rules of the JAX package's
-// ``_block_scores``, the accumulator-to-A-fragment repacking (the
-// m16n8k16 layout, which is also wgmma's per warp), and K3's bf16
-// ``mma.sync`` m16n8k16 products and cp.async tile loads.
+// ``_block_scores`` and the accumulator-to-A-fragment repacking (the
+// m16n8k16 layout, which is also wgmma's per warp).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -10,12 +9,10 @@
 
 #include <cmath>
 #include <cstdint>
-#include <cstring>
 
 namespace tsnp_flash {
 
-constexpr int kDMax = 128;      // largest head dim taken
-constexpr int kLd = kDMax + 8;  // bf16 row stride in shared memory (bank spread)
+constexpr int kDMax = 128;  // largest head dim taken
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -79,21 +76,6 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
-// c (16 x 8, f32) += a (16 x 16, bf16, row) * b (16 x 8, bf16, col)
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two consecutive bf16 (the lower address in the low half)
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -107,46 +89,6 @@ __device__ __forceinline__ void acc_to_a(uint32_t* a, const float* lo, const flo
   a[1] = pack_bf16(lo[2], lo[3]);
   a[2] = pack_bf16(hi[0], hi[1]);
   a[3] = pack_bf16(hi[2], hi[3]);
-}
-
-// 16 bytes global → shared without a register trip; ``src_bytes`` = 0
-// zero-fills (rows past the end)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
-               "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// wait until at most one committed group is still in flight
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-// Rows [r0, r0 + rows) of a [n_rows, d] bf16 matrix into shared memory,
-// zeros past the rows or the head dim.  With ``vec`` (d % 8 == 0,
-// 16-byte aligned operands) the copies are asynchronous and belong to
-// the next committed group; otherwise they are plain loads and stores.
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src, int r0,
-                                          int rows, int n_rows, int d, bool vec) {
-  constexpr int kChunks = kDMax / 8;
-  for (int idx = threadIdx.x; idx < rows * kChunks; idx += blockDim.x) {
-    const int r = idx / kChunks, c8 = (idx % kChunks) * 8;
-    const bool in = r0 + r < n_rows && c8 < d;
-    const __nv_bfloat16* p = src + (in ? static_cast<size_t>(r0 + r) * d + c8 : 0);
-    __nv_bfloat16* out = dst + r * kLd + c8;
-    if (vec) {
-      cp_async16(out, p, in ? 16 : 0);
-      continue;
-    }
-    __nv_bfloat16 tmp[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) tmp[i] = in && c8 + i < d ? p[i] : __float2bfloat16(0.f);
-    memcpy(out, tmp, sizeof(tmp));
-  }
 }
 
 // every pointer 16-byte aligned (what cp.async and TMA need)

@@ -1,5 +1,5 @@
-// Hopper (sm_90a) building blocks of the flash-attention backward
-// kernels K4 (dq) and K5 (dk/dv): TMA tensor maps made on the host and
+// Hopper (sm_90a) building blocks of the flash-attention kernels K3
+// (forward), K4 (dq) and K5 (dk/dv): TMA tensor maps made on the host and
 // the tile loads they drive, mbarriers, wgmma shared-memory descriptors
 // for 128-byte-swizzled bf16 tiles, the m64nNk16 bf16 products (A from
 // shared memory or from registers) and setmaxnreg.
@@ -157,7 +157,18 @@ __device__ __forceinline__ void fence_regs(float (&r)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
-#define TSNP_ACC8(b)                                                                      \
+// the same for register A fragments read by an asynchronous product:
+// placed after its wait, it keeps them allocated until then
+template <int KS>
+__device__ __forceinline__ void fence_frags(uint32_t (&a)[KS][4]) {
+#pragma unroll
+  for (int i = 0; i < KS; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+  }
+}
+
+#define TSNP_ACC8(b)                                                                    \
   "+f"(d[(b) + 0]), "+f"(d[(b) + 1]), "+f"(d[(b) + 2]), "+f"(d[(b) + 3]), "+f"(d[(b) + 4]), \
       "+f"(d[(b) + 5]), "+f"(d[(b) + 6]), "+f"(d[(b) + 7])
 
@@ -197,6 +208,20 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs_mn(float (&d)[64], const uin
 
 #undef TSNP_ACC8
 
+// One score product of a flash-attention step, 64 x 64 over a 128-column
+// reduction, as one commit group: d = a . b^T, with a a warpgroup's 64
+// rows (panels a_panel bytes apart) and b a 64-row tile (panels b_panel
+// bytes apart), both K-major.
+__device__ __forceinline__ void wgmma_scores(float (&d)[32], const unsigned char* a,
+                                             uint32_t a_panel, const unsigned char* b,
+                                             uint32_t b_panel) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    wgmma_m64n64k16_ss(d, kmajor_desc(a, a_panel, kk), kmajor_desc(b, b_panel, kk), kk);
+  wgmma_commit();
+}
+
 // The two score products of a flash-attention step, each 64 x 64 over a
 // 128-column reduction and committed as a group of its own (so the
 // first can be waited for alone): d1 = a1 . b1^T, d2 = a2 . b2^T.  All
@@ -219,14 +244,15 @@ __device__ __forceinline__ void wgmma_score_pair(float (&d1)[32], float (&d2)[32
   wgmma_commit();
 }
 
-// d (64 x 128) += A . B over a 64-row reduction: A as four k16 register
-// fragments, B the 64-row MN-major tile at ``b`` (panels b_panel bytes
+// d (64 x 128) += A . B over a 16 KS-row reduction: A as KS k16 register
+// fragments, B the 16 KS-row MN-major tile at ``b`` (panels b_panel bytes
 // apart); one commit group
-__device__ __forceinline__ void wgmma_rows_product(float (&d)[64], const uint32_t (&a)[4][4],
+template <int KS>
+__device__ __forceinline__ void wgmma_rows_product(float (&d)[64], const uint32_t (&a)[KS][4],
                                                    const unsigned char* b, uint32_t b_panel) {
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) wgmma_m64n128k16_rs_mn(d, a[kk], mnmajor_desc(b, b_panel, kk));
+  for (int kk = 0; kk < KS; ++kk) wgmma_m64n128k16_rs_mn(d, a[kk], mnmajor_desc(b, b_panel, kk));
   wgmma_commit();
 }
 

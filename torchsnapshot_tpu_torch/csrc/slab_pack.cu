@@ -11,10 +11,15 @@
 // and written once: 2 x slab bytes / 3.35 TB/s.  The design keeps the
 // launch count at one whatever the member count (a checkpoint slab has
 // hundreds of small optimizer-state members, each of which would
-// otherwise pay a launch), splits members into 64 KiB chunks so large
-// and small members spread evenly over the SMs, and moves 16 bytes per
-// thread per access wherever source and destination alignments agree.
+// otherwise pay a launch), splits members into 32 KiB chunks so large
+// and small members spread evenly over the SMs, and writes 16-byte
+// words at any member alignment with four loads in flight per thread
+// (slab_common.cuh).  A table of up to ``kInlineMembers`` members rides
+// in the kernel's parameters, so the launch needs no upload before it;
+// a longer one is read from device memory.
 #include <cuda_runtime.h>
+
+#include <cstring>
 
 #include "slab_common.cuh"
 
@@ -29,34 +34,51 @@ struct PackDesc {
   long long chunk_begin;  // index of the member's first chunk
 };
 
-constexpr long long kChunkBytes = 65536;
-constexpr int kThreads = 256;
+// 3,840 bytes: with the other arguments, inside the 4 KB of parameters
+// a launch takes
+constexpr int kInlineMembers = 120;
+struct PackTable {
+  PackDesc d[kInlineMembers];
+};
+
+constexpr long long kChunkBytes = 32768;
+constexpr int kThreads = 512;  // with kUnroll, one trip over a chunk
+constexpr int kUnroll = 4;  // 16-byte loads in flight per thread
 
 __global__ void __launch_bounds__(kThreads)
-slab_pack_kernel(const PackDesc* __restrict__ descs, int n,
-                 uint8_t* __restrict__ slab) {
+slab_pack_kernel(const __grid_constant__ PackTable inline_descs,
+                 const PackDesc* __restrict__ dev_descs, int n, uint8_t* __restrict__ slab) {
+  const PackDesc* descs = dev_descs != nullptr ? dev_descs : inline_descs.d;
   const long long c = blockIdx.x;
   const PackDesc d = descs[find_member(descs, n, c)];
   const long long lo = (c - d.chunk_begin) * kChunkBytes;
   long long len = d.nbytes - lo;
   if (len > kChunkBytes) len = kChunkBytes;
-  block_copy_bytes(reinterpret_cast<const uint8_t*>(d.src) + lo,
-                   slab + d.dst_off + lo, len);
+  block_copy_bytes<kUnroll>(reinterpret_cast<const uint8_t*>(d.src) + lo, slab + d.dst_off + lo,
+                            len);
 }
 
 }  // namespace
 
 extern "C" long long tsnp_slab_pack_chunk_bytes() { return kChunkBytes; }
+extern "C" int tsnp_slab_pack_inline_members() { return kInlineMembers; }
 
-// descs: device array of ``n`` PackDesc; total_chunks: sum of
-// ceil(nbytes / chunk) over members.  Launches on ``stream`` and returns
-// cudaGetLastError() (0 when nothing was launched for an empty slab).
-extern "C" int tsnp_slab_pack(const void* descs, int n, long long total_chunks,
+// descs: ``n`` PackDesc, in host memory when ``on_device`` is 0 (then
+// n <= kInlineMembers; they are copied into the launch's parameters
+// before this returns) or in device memory otherwise; total_chunks: sum
+// of ceil(nbytes / chunk) over members.  Launches on ``stream`` and
+// returns cudaGetLastError() (0 when nothing was launched for an empty
+// slab).
+extern "C" int tsnp_slab_pack(const void* descs, int on_device, int n, long long total_chunks,
                               void* slab, void* stream) {
   if (n <= 0 || total_chunks <= 0) return 0;
-  if (total_chunks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  if (total_chunks > 0x7fffffffLL || (!on_device && n > kInlineMembers))
+    return static_cast<int>(cudaErrorInvalidValue);
+  PackTable table;
+  if (!on_device) memcpy(table.d, descs, static_cast<size_t>(n) * sizeof(PackDesc));
   slab_pack_kernel<<<static_cast<unsigned>(total_chunks), kThreads, 0,
                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const PackDesc*>(descs), n, static_cast<uint8_t*>(slab));
+      table, on_device ? static_cast<const PackDesc*>(descs) : nullptr, n,
+      static_cast<uint8_t*>(slab));
   return static_cast<int>(cudaGetLastError());
 }

@@ -17,7 +17,8 @@
 //
 // Bound on this card: memory bandwidth, (slab bytes + output bytes) /
 // 3.35 TB/s, after the one host-to-device copy of the slab.  Identity
-// members take the 16-byte vector byte copy; cast members convert one
+// members take K1's byte copy (16-byte words at any slab offset, the
+// misaligned ones realigned by funnel shifts); cast members convert one
 // element per thread step.  Members sit at arbitrary byte offsets in the
 // slab (no padding between them), so a member whose offset is not a
 // multiple of its element size is read with byte-wise loads.
@@ -52,6 +53,11 @@ struct UnpackDesc {
 constexpr long long kChunkBytes = 65536;
 constexpr long long kChunkElems = 8192;
 constexpr int kThreads = 256;
+// 16-byte loads in flight per thread for identity members, kept at 2 so
+// the kernel fits 32 registers: 8 blocks per SM, which the cast path
+// (one element per thread step) needs to hide its latency
+constexpr int kUnroll = 2;
+constexpr int kMinBlocks = 8;
 
 __device__ __forceinline__ int code_size(int code) {
   switch (code) {
@@ -132,7 +138,7 @@ __device__ __forceinline__ void store_int(long long dst, int code, long long i,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 slab_unpack_kernel(const UnpackDesc* __restrict__ descs, int n,
                    const uint8_t* __restrict__ slab) {
   const long long c = blockIdx.x;
@@ -144,7 +150,7 @@ slab_unpack_kernel(const UnpackDesc* __restrict__ descs, int n,
     const long long lo = (c - d.chunk_begin) * kChunkBytes;
     long long len = d.n - lo;
     if (len > kChunkBytes) len = kChunkBytes;
-    block_copy_bytes(src + lo, reinterpret_cast<uint8_t*>(d.dst) + lo, len);
+    block_copy_bytes<kUnroll>(src + lo, reinterpret_cast<uint8_t*>(d.dst) + lo, len);
     return;
   }
   const long long lo = (c - d.chunk_begin) * kChunkElems;

@@ -89,6 +89,31 @@ def pack_slab_plain(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.cat(parts)
 
 
+def pack_plan(sizes: Sequence[int], chunk: int) -> Tuple[List[Tuple[int, int, int]], int, int]:
+    """K1's plan for members of ``sizes`` bytes: per member (nbytes, slab
+    offset, first chunk), the total chunk count and the slab's size.
+    Block c of the launch copies bytes [(c - first) * chunk, + chunk) of
+    the last member whose first chunk is <= c, cut at its end."""
+    rows = []
+    off = chunk_begin = 0
+    for n in sizes:
+        rows.append((n, off, chunk_begin))
+        off += n
+        chunk_begin += -(-n // chunk)
+    return rows, chunk_begin, off
+
+
+def descriptor_table(
+    rows: Sequence[tuple], inline_max: int, device: torch.device
+) -> Tuple[torch.Tensor, int]:
+    """The int64 descriptor table and whether it lies on the device: a
+    table of up to ``inline_max`` rows stays on the host (the launch
+    copies it into the kernel's parameters), a longer one is uploaded."""
+    if len(rows) <= inline_max:
+        return torch.tensor(rows, dtype=torch.int64), 0
+    return _upload_table(list(rows), device), 1
+
+
 def pack_slab(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     """One uint8 slab holding each member's bytes back to back (on the
     members' device)."""
@@ -107,24 +132,21 @@ def pack_slab(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
             t = t.contiguous()
         srcs.append(t.detach())
     lib = kernels.lib("slab_pack")
-    chunk = lib.tsnp_slab_pack_chunk_bytes()
-    rows = []
-    off = 0
-    chunk_begin = 0
-    for t in srcs:
-        n = _nbytes(t)
-        rows.append((t.data_ptr(), n, off, chunk_begin))
-        off += n
-        chunk_begin += -(-n // chunk)
-    slab = torch.empty(off, dtype=torch.uint8, device=device)
-    if chunk_begin == 0:
+    plan, total_chunks, total = pack_plan(
+        [_nbytes(t) for t in srcs], lib.tsnp_slab_pack_chunk_bytes()
+    )
+    slab = torch.empty(total, dtype=torch.uint8, device=device)
+    if total_chunks == 0:
         return slab
-    desc = _upload_table(rows, device)
+    desc, on_device = descriptor_table(
+        [(t.data_ptr(), *row) for t, row in zip(srcs, plan)],
+        lib.tsnp_slab_pack_inline_members(), device,
+    )
     # srcs/desc may be freed as soon as this returns: the caching
     # allocator reuses their memory only for work queued after this
-    # launch on the same stream
+    # launch on the same stream (a host table is copied by the call)
     rc = lib.tsnp_slab_pack(
-        desc.data_ptr(), len(rows), chunk_begin, slab.data_ptr(),
+        desc.data_ptr(), on_device, len(plan), total_chunks, slab.data_ptr(),
         _stream_ptr(device),
     )
     kernels.check(rc, "slab_pack")

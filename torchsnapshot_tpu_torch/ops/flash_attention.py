@@ -37,10 +37,10 @@ from torch.autograd.function import once_differentiable
 from . import kernels
 
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
-# bf16 ``flash_bwd`` calls whose operands TMA could not read as they were
-# (head dim not a multiple of 8, or a base not 16-byte aligned): the same
-# kernels on zero-padded copies
-PADDED = {"flash_bwd": 0}
+# bf16 ``attend_partials`` and ``flash_bwd`` calls whose operands TMA could
+# not read as they were (head dim not a multiple of 8, or a base not
+# 16-byte aligned): the same kernels on zero-padded copies
+PADDED = {"flash_fwd": 0, "flash_bwd": 0}
 _COUNT_LOCK = threading.Lock()
 
 
@@ -116,7 +116,11 @@ def attend_partials(
     sq_real: Optional[int] = None, sk_real: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Forward partials (pv f32, raw m, l) of q [bh, sq, d] against k/v
-    [bh, sk, d]; ``sq_real``/``sk_real`` default to the full lengths."""
+    [bh, sk, d]; ``sq_real``/``sk_real`` default to the full lengths.
+    For bf16 q whose head dim is not a multiple of 8, or whose q/k/v
+    bases are not 16-byte aligned, the kernel runs on zero-padded copies
+    (counted in ``PADDED``) and pv is cut back to d columns: zero
+    columns change no score and add only zero pv columns."""
     bh, sq, d = q.shape
     sk = k.shape[1]
     sq_real = sq if sq_real is None else int(sq_real)
@@ -130,14 +134,21 @@ def attend_partials(
     lib = kernels.lib("flash_attention_fwd")
     if d > lib.tsnp_flash_fwd_max_head_dim():
         raise ValueError(f"head dim {d} above the kernel's maximum")
-    pv = torch.empty((bh, sq, d), dtype=torch.float32, device=device)
+    d_run = d
+    if q.dtype == torch.bfloat16:
+        d_run = -(-d // 8) * 8
+        if d_run != d or any(t.data_ptr() % 16 for t in (q, k, v)):
+            q, k, v = (_pad_head_dim(t, d_run) for t in (q, k, v))
+            with _COUNT_LOCK:
+                PADDED["flash_fwd"] += 1
+    pv = torch.empty((bh, sq, d_run), dtype=torch.float32, device=device)
     m = torch.empty((bh, sq), dtype=torch.float32, device=device)
     l = torch.empty((bh, sq), dtype=torch.float32, device=device)
     if bh and sq:
         rc = lib.tsnp_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             pv.data_ptr(), m.data_ptr(), l.data_ptr(),
-            bh, sq, sk, d, float(scale), int(bool(causal)),
+            bh, sq, sk, d_run, float(scale), int(bool(causal)),
             int(q_offset), int(k_offset), sq_real, sk_real,
             int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream(device).cuda_stream,
@@ -145,6 +156,8 @@ def attend_partials(
         kernels.check(rc, "flash_fwd")
         with _COUNT_LOCK:
             LAUNCHES["flash_fwd"] += 1
+    if d_run != d:
+        pv = pv[..., :d].contiguous()
     return pv, m, l
 
 

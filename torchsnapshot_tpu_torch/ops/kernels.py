@@ -116,8 +116,9 @@ _FLASH_BWD_ARGS = [_P] * 8 + [_I] * 4 + [_F, _I, _LL, _LL, _I, _I, _I, _P]
 # C signatures: (restype, argtypes) per exported symbol
 _SIGNATURES = {
     "slab_pack": {
-        "tsnp_slab_pack": (_I, [_P, _I, _LL, _P, _P]),
+        "tsnp_slab_pack": (_I, [_P, _I, _I, _LL, _P, _P]),
         "tsnp_slab_pack_chunk_bytes": (_LL, []),
+        "tsnp_slab_pack_inline_members": (_I, []),
     },
     "slab_unpack": {
         "tsnp_slab_unpack": (_I, [_P, _I, _LL, _P, _P]),
