@@ -27,13 +27,16 @@ is no card or anything below fails.  In order:
    bitwise equal to the first.  K1 packs the take's first device slab
    and the same members each followed by a 4-byte f32 scalar (the step
    a fused AdamW keeps on the card), which puts them off 16-byte
-   alignment; K2 unpacks both slabs.  Every kernel, its plain version
-   and the library yardstick (``torch.cat`` for K1, SDPA forward for K3,
-   SDPA backward for K4 + K5) are timed 5 times: median, range, share
-   of the bound, TFLOP/s for K3-K5; K1 both as ``pack_slab`` is called
-   and as its launch alone;
-4. three paths, each with the launch counters set to 0 just before it
-   and read just after:
+   alignment; K2 unpacks both slabs.  K6 casts 32 MiB bf16 tiles of the
+   embedding into an f32 template at offset 0 and as the last, ragged
+   tile, bitwise.  Every kernel, its plain version and the library
+   yardstick (``torch.cat`` for K1, SDPA forward for K3, SDPA backward
+   for K4 + K5, ``copy_`` into the template's range for K6) are timed 5
+   times: median, range, share of the bound, TFLOP/s for K3-K5; K1 both
+   as ``pack_slab`` is called and as its launch alone;
+4. five paths, each with the launch counters set to 0 just before it
+   and read just after (a path that starts processes adds the launches
+   they report):
    a. serving, at full width: the repo's transformer (TransformerConfig
       defaults, depth cut to 2 layers, bf16, ~0.67 B parameters) takes
       one AdamW step, is snapshotted with ``Snapshot.take``, restored
@@ -55,7 +58,25 @@ is no card or anything below fails.  In order:
       changes the state in place while the snapshot drains), ``wait()``,
       restore into a differently seeded model and optimizer: every
       tensor bitwise equal to the clone, and the step after the restore
-      gives the same loss bitwise.
+      gives the same loss bitwise;
+   d. budgeted reads (after b, out of a's snapshot, at full width):
+      ``read_object`` of the embedding and the LM head, and of the
+      embedding chunked into 64 MiB chunks, with a 32 MiB budget into
+      bf16 CUDA templates (copies only), f32 CUDA templates (K6), no
+      template (a fresh CUDA tensor) and CPU templates, each bitwise;
+      again under VERIFY_ON_RESTORE=1, and a corrupted copy that must
+      raise while its template stays usable.  Each read prints its
+      tiles, seconds, pinned tile high-water mark (at most the budget
+      and one tile) and the rise in allocated device memory;
+   e. many ranks (after c, the parent holding no state): two processes
+      on the card over a TCPStore on localhost (gloo initialized for the
+      store only), each with the full-width model and AdamW state marked
+      ``Replicated`` plus state of its own: a sync take at world 2 (each
+      rank writes 40-60% of the replicated bytes), restore at world 2,
+      ``async_take`` with its commit barrier, and a take in which rank
+      1's storage fails (both raise within 10 s, rank 0 a
+      ``SnapshotAbortedError``, no metadata); then a restore at world 1
+      in this process, bitwise.
 
 Every kernel must have launched on these paths, and each path on the
 kernels it runs.  The line before the last is the card; the line before
@@ -65,6 +86,8 @@ it the ``kernels`` JSON; the last line ``{"ok": true, "device": ...}``.
 import gc
 import json
 import os
+import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -85,6 +108,7 @@ from torchsnapshot_tpu_torch.models.transformer import (
 )
 from torchsnapshot_tpu_torch.ops import device_pack, flash_attention, kernels
 from torchsnapshot_tpu_torch.parallel.ring_attention import dense_attention, ring_attention
+from torchsnapshot_tpu_torch.preparers import array as array_preparer
 from torchsnapshot_tpu_torch.preparers import prepare_write
 from torchsnapshot_tpu_torch.serialization import dtype_to_string
 
@@ -93,6 +117,7 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
 N_LAYERS = 2
 SEQ = 2048
+READ_BUDGET = 32 << 20  # the budgeted reads' memory_budget_bytes
 
 
 def check(cond, msg):
@@ -283,6 +308,47 @@ def phase_k2(slab, members, mis_slab, mis_members):
     )
     record.update(misaligned_ms=times["misaligned"][0], misaligned_bound_ms=mis_bound_ms)
     return record
+
+
+def phase_k6(cfg):
+    """K6 at full width: 32 MiB bf16 tiles of the embedding (vocab x d_model
+    bf16, the budgeted read's tile size) cast into an f32 template, at
+    offset 0 and as the last, ragged tile; bitwise against
+    ``tile_update_plain``.  The full tile timed 5 times beside the plain
+    version and the one PyTorch call computing the same thing,
+    ``dst.view(-1)[off:off + n].copy_(tile)``."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    total = cfg.vocab * cfg.d_model
+    emb = torch.randn(total, device="cuda", generator=g).to(torch.bfloat16)
+    dst = torch.zeros(total, dtype=torch.float32, device="cuda")
+    want = torch.zeros_like(dst)
+    n_tile = READ_BUDGET // emb.element_size()
+    last = (total - 1) // n_tile * n_tile
+    err = 0.0
+    for off in (0, last):
+        tile = emb[off:off + n_tile]
+        device_pack.tile_update(dst, off, tile)
+        device_pack.tile_update_plain(want, off, tile)
+        torch.cuda.synchronize()
+        check(torch.equal(dst, want), f"K6 tile at {off} ({tile.numel()} elements) differs from its plain version")
+        check(torch.equal(dst[off:off + tile.numel()], tile.float()), f"K6 tile at {off}: not the cast tile")
+        err = max(err, float((dst - want).abs().max()))
+    print(f"K6: bf16 -> f32 tiles of {n_tile} and {total - last} elements (offsets 0 and {last}) "
+          "bitwise equal to the plain version")
+    tile = emb[:n_tile]
+    k6_t = time_ms_repeats(lambda: device_pack.tile_update(dst, 0, tile))
+    plain_t = time_ms_repeats(lambda: device_pack.tile_update_plain(want, 0, tile))
+    copy_t = time_ms_repeats(lambda: dst.view(-1)[0:n_tile].copy_(tile))
+    bound_ms = (nbytes(tile) + n_tile * 4) / HBM_BYTES_PER_S * 1e3
+    print(f"K6 timings, median of 5 (range), one {nbytes(tile)}-byte bf16 tile into f32: tile_update "
+          f"{fmt_t(k6_t)}, {100 * bound_ms / k6_t[0]:.1f}% of its {bound_ms:.4f} ms bound "
+          f"({(nbytes(tile) + n_tile * 4) / k6_t[0] / 1e6:.1f} GB/s); copy_ {fmt_t(copy_t)}; "
+          f"plain {fmt_t(plain_t)}")
+    return kernel_record(
+        "tile_update", "torchsnapshot_tpu_torch/csrc/tile_update.cu",
+        "torchsnapshot_tpu/ops/device_pack.py:138", err, k6_t[0], plain_t[0], bound_ms, "bytes",
+        copy_t[0],
+    )
 
 
 def compare_partials(got, want, what):
@@ -730,6 +796,289 @@ def phase_resumable_training(cfg, root):
     print(f"for comparison: allocating {nb} bytes of pinned host memory takes {pin_alloc_s:.3f} s")
 
 
+def budgeted_read(snap, path, template, want, label):
+    """One ``read_object`` with ``READ_BUDGET``; checks the result bitwise
+    and prints its tiles, seconds, K6 launches, the pinned tile high-water
+    mark and the rise in allocated device memory."""
+    tiles0 = tts.obs.counters().get(tts.obs.TILES_READ, 0)
+    k6_0 = device_pack.LAUNCHES["tile_update"]
+    array_preparer.PINNED_TILES["high_water_bytes"] = 0
+    torch.cuda.synchronize()
+    alloc0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = snap.read_object(path, obj_out=template, memory_budget_bytes=READ_BUDGET, device=want.device)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    rise = torch.cuda.max_memory_allocated() - alloc0
+    tiles = tts.obs.counters().get(tts.obs.TILES_READ, 0) - tiles0
+    k6 = device_pack.LAUNCHES["tile_update"] - k6_0
+    hw = array_preparer.PINNED_TILES["high_water_bytes"]
+    check(template is None or out is template, f"{label}: the template was not filled in place")
+    check(out.dtype == want.dtype and out.device == want.device and torch.equal(out, want),
+          f"{label}: the result differs from the source")
+    check(hw <= 2 * READ_BUDGET, f"{label}: {hw} bytes of pinned tiles beyond the budget and one tile")
+    nb = want.numel() * want.element_size()
+    print(f"budgeted read {label}: {tiles} tiles, {dt:.4f} s ({nb / dt / 1e9:.3f} GB/s of result), "
+          f"K6 launches {k6}, pinned tile high water {hw} bytes (budget {READ_BUDGET}), "
+          f"device memory rise {rise} bytes")
+    return out, k6
+
+
+def phase_budgeted_reads(model, work, snap_dir):
+    """read_object of the embedding and the LM head with a 32 MiB budget
+    out of the serving path's snapshot, and of the embedding chunked (64
+    MiB chunks): into bf16 CUDA templates (identity: copies only), f32
+    CUDA templates (K6), no template (a fresh CUDA tensor) and CPU
+    templates; again under VERIFY_ON_RESTORE=1, plus a corrupted copy of
+    the chunked snapshot that must raise, leaving the template usable."""
+    chunked_dir = os.path.join(work, "chunked")
+    with tts.knobs.override_max_chunk_size_bytes(64 << 20):
+        tts.Snapshot.take(chunked_dir, {"emb": tts.StateDict(embed=model.embed.weight.detach())})
+    snap, chunked = tts.Snapshot(snap_dir), tts.Snapshot(chunked_dir)
+    check(type(chunked.metadata.manifest["0/emb/embed"]).__name__ == "ChunkedArrayEntry",
+          "the chunked snapshot's embedding is not chunked")
+    sources = (
+        ("embedding", snap, "0/model/embed.weight", model.embed.weight.detach()),
+        ("LM head", snap, "0/model/lm_head.weight", model.lm_head.weight.detach()),
+        ("chunked embedding", chunked, "0/emb/embed", model.embed.weight.detach()),
+    )
+    for name, sn, path, src in sources:
+        budgeted_read(sn, path, torch.empty_like(src), src, f"{name} -> bf16 CUDA template")
+        _, k6 = budgeted_read(sn, path, torch.empty(src.shape, device="cuda"), src.float(),
+                              f"{name} -> f32 CUDA template")
+        check(k6 > 0, f"{name}: the read into an f32 template launched no K6")
+        budgeted_read(sn, path, None, src, f"{name} -> no template (fresh CUDA tensor)")
+        budgeted_read(sn, path, torch.empty(src.shape, dtype=src.dtype), src.cpu(), f"{name} -> CPU template")
+    src = model.embed.weight.detach()
+    f32 = torch.empty(src.shape, device="cuda")
+    with tts.knobs.override_verify_on_restore(True):
+        for name, sn, path in (("embedding", snap, "0/model/embed.weight"),
+                               ("chunked embedding", chunked, "0/emb/embed")):
+            budgeted_read(sn, path, f32, src.float(), f"{name} -> f32 CUDA template, VERIFY_ON_RESTORE=1")
+        budgeted_read(chunked, "0/emb/embed", None, src, "chunked embedding -> no template, VERIFY_ON_RESTORE=1")
+        corrupt_dir = os.path.join(work, "corrupt")
+        shutil.copytree(chunked_dir, corrupt_dir)
+        victim = max((os.path.join(r, f) for r, _, fs in os.walk(corrupt_dir) for f in fs
+                      if f != ".snapshot_metadata"), key=os.path.getsize)
+        with open(victim, "r+b") as f:
+            f.seek(os.path.getsize(victim) // 2)
+            b = f.read(1)
+            f.seek(os.path.getsize(victim) // 2)
+            f.write(bytes([b[0] ^ 0x40]))
+        try:
+            tts.Snapshot(corrupt_dir).read_object("0/emb/embed", obj_out=f32, memory_budget_bytes=READ_BUDGET)
+        except RuntimeError as e:
+            check("crc32" in str(e), f"the corrupted read raised something else: {e}")
+            print(f"budgeted read of a corrupted copy ({os.path.basename(victim)}, one byte flipped) "
+                  f"raised: {str(e)[:160]}")
+        else:
+            raise RuntimeError("check failed: a corrupted payload read back under VERIFY_ON_RESTORE=1")
+        budgeted_read(chunked, "0/emb/embed", f32, src.float(),
+                      "chunked embedding -> the same f32 template after the failed read")
+    print(f"budgeted reads: TILE_MISSES {json.dumps(array_preparer.TILE_MISSES)}")
+    shutil.rmtree(chunked_dir)
+    shutil.rmtree(corrupt_dir)
+
+
+def deterministic_state(cfg, seed):
+    """The full-width model from ``seed`` and its AdamW after one step on
+    gradients drawn from ``seed`` (elementwise work only, so every
+    process builds the same bits)."""
+    model, opt = make_train_state(cfg, seed=seed, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(seed + 100)
+    for p in model.parameters():
+        p.grad = (torch.randn(p.shape, device="cuda", generator=g) * 1e-3).to(p.dtype)
+    opt.step()
+    opt.zero_grad(set_to_none=True)
+    return model, opt
+
+
+def same_state(a, b):
+    (m1, o1), (m2, o2) = a, b
+    for (name, x), y in zip(m1.state_dict().items(), m2.state_dict().values()):
+        if not (x.dtype == y.dtype and torch.equal(x, y)):
+            return f"model tensor {name}"
+    s1, s2 = o1.state_dict(), o2.state_dict()
+    for i, st in s1["state"].items():
+        for k, v in st.items():
+            if not torch.equal(v, s2["state"][i][k]):
+                return f"optimizer state {i}/{k}"
+    return None
+
+
+def many_ranks_child(rank, world, port, root):
+    """One rank of the many_ranks path (see ``phase_many_ranks``); prints
+    one ``many_ranks result`` JSON line and exits non-zero on a failure."""
+    import torch.distributed as dist
+
+    from torchsnapshot_tpu_torch.resilience.abort import SnapshotAbortedError
+
+    if not torch.cuda.is_available():
+        print("many_ranks child: no CUDA device", file=sys.stderr)
+        return 2
+    # gloo is initialized only for its TCPStore, which the snapshots'
+    # coordinator uses; no collective runs
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank, world_size=world)
+    coord = tts.get_default_coordinator()
+    check(isinstance(coord, tts.TorchStoreCoordinator), f"default coordinator is {type(coord).__name__}")
+    cfg = TransformerConfig(n_layers=N_LAYERS)
+    model, opt = deterministic_state(cfg, seed=0)
+    mine = tts.StateDict(t=torch.full((1 << 20,), float(rank), device="cuda"), rank=rank)
+    rng = tts.RNGState()
+    rng_at_take = rng.state_dict()
+    app = {"model": tts.Replicated(model), "optim": tts.Replicated(opt), "mine": mine, "rng": rng}
+    repl_bytes = state_bytes(model, opt)
+    for table in (device_pack.LAUNCHES,):
+        for k in table:
+            table[k] = 0
+    out = {"rank": rank, "replicated_bytes": repl_bytes}
+
+    def written():
+        return tts.obs.counters().get(tts.obs.BYTES_WRITTEN, 0)
+
+    sync_dir, async_dir, fail_dir = (os.path.join(root, n) for n in ("sync", "async", "failed"))
+    torch.cuda.synchronize()
+    w0, t0 = written(), time.perf_counter()
+    tts.Snapshot.take(sync_dir, app)
+    out["take_s"], out["take_bytes"] = time.perf_counter() - t0, written() - w0
+    share = out["take_bytes"] / repl_bytes
+    check(0.4 <= share <= 0.6, f"rank {rank} wrote {share:.3f} of the replicated bytes")
+
+    model2, opt2 = deterministic_state(cfg, seed=1)
+    mine2 = tts.StateDict(t=torch.zeros(1 << 20, device="cuda"), rank=-1)
+    torch.manual_seed(1234)  # moves the RNG streams off their state at the take
+    t0 = time.perf_counter()
+    tts.Snapshot(sync_dir).restore(
+        {"model": tts.Replicated(model2), "optim": tts.Replicated(opt2), "mine": mine2, "rng": rng}
+    )
+    torch.cuda.synchronize()
+    out["restore_s"] = time.perf_counter() - t0
+    diff = same_state((model, opt), (model2, opt2))
+    check(diff is None, f"rank {rank}: restored {diff} differs")
+    check(torch.equal(mine2["t"], mine["t"]) and mine2["rank"] == rank, f"rank {rank}: per-rank state differs")
+    check(torch.equal(rng.state_dict()["torch"], rng_at_take["torch"]), f"rank {rank}: RNG state not restored")
+    del model2, opt2
+
+    t0 = time.perf_counter()
+    pending = tts.Snapshot.async_take(async_dir, app)
+    out["async_unblock_s"] = time.perf_counter() - t0
+    pending.wait()
+    out["async_commit_s"] = time.perf_counter() - t0
+    coord.barrier()
+    check(os.path.exists(os.path.join(async_dir, ".snapshot_metadata")), "async take left no metadata")
+
+    import torchsnapshot_tpu_torch.snapshot as snapmod
+    from torchsnapshot_tpu_torch.storage.fs import FSStoragePlugin
+
+    class FailingWrites(FSStoragePlugin):
+        async def write(self, write_io):
+            raise OSError(f"rank {rank}: injected storage failure")
+
+    real = snapmod.url_to_storage_plugin
+    if rank == 1:
+        snapmod.url_to_storage_plugin = lambda p: FailingWrites(root=p)
+    t0 = time.perf_counter()
+    try:
+        tts.Snapshot.take(fail_dir, app)
+    except SnapshotAbortedError as e:
+        out["failure"] = f"SnapshotAbortedError: {str(e)[:120]}"
+        check(rank != 1, "the failing rank raised an abort, not its own error")
+    except OSError as e:
+        out["failure"] = f"OSError: {e}"
+        check(rank == 1, f"rank {rank} raised the injected error")
+    else:
+        raise RuntimeError(f"check failed: rank {rank}'s take did not fail")
+    finally:
+        snapmod.url_to_storage_plugin = real
+    out["failure_s"] = time.perf_counter() - t0
+    check(out["failure_s"] < 10, f"rank {rank} took {out['failure_s']:.1f} s to raise")
+    coord.barrier()  # outside the abort scope: both ranks are done
+    check(not os.path.exists(os.path.join(fail_dir, ".snapshot_metadata")), "a failed take wrote metadata")
+    out["launches"] = dict(device_pack.LAUNCHES)
+    print("many_ranks result " + json.dumps(out), flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_many_ranks(cfg, work):
+    """Two processes on the one card, coordinated over a TCPStore on
+    localhost: sync take at world 2 of a replicated model and optimizer
+    plus per-rank state (each rank writes 40-60% of the replicated bytes),
+    restore at world 2, async_take with its commit barrier, and a take in
+    which rank 1's storage fails (both raise within 10 s, rank 0 a
+    SnapshotAbortedError, no metadata); then a restore at world 1 here,
+    bitwise for the replicated state.  Returns the children's launches."""
+    root = os.path.join(work, "many_ranks")
+    os.makedirs(root)
+    port = free_port()
+    # each child writes to a file: a pipe the parent is not reading could
+    # fill and stall a child while its peer waits for it
+    logs = [open(os.path.join(root, f"rank{r}.log"), "w+") for r in range(2)]
+    procs = [
+        subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--many-ranks-child", str(r), "2", str(port), root],
+            stdout=logs[r], stderr=subprocess.STDOUT, text=True,
+        )
+        for r in range(2)
+    ]
+    try:
+        deadline = time.monotonic() + 300
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    outs = []
+    for f in logs:
+        f.seek(0)
+        outs.append(f.read())
+        f.close()
+    results = []
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        for line in text.splitlines():
+            if line.startswith("many_ranks result "):
+                results.append(json.loads(line[len("many_ranks result "):]))
+        if p.returncode != 0:
+            print(text[-4000:])
+            raise RuntimeError(f"check failed: many_ranks rank {r} exited {p.returncode}")
+    check(len(results) == 2, "a many_ranks child printed no result")
+    for res in sorted(results, key=lambda x: x["rank"]):
+        print(f"many_ranks rank {res['rank']}: take {res['take_s']:.3f} s writing {res['take_bytes']} bytes "
+              f"({res['take_bytes'] / res['replicated_bytes']:.3f} of the {res['replicated_bytes']} replicated "
+              f"bytes); restore at world 2 {res['restore_s']:.3f} s; async_take unblocked in "
+              f"{res['async_unblock_s']:.4f} s, committed in {res['async_commit_s']:.3f} s; failed take raised "
+              f"after {res['failure_s']:.3f} s: {res['failure']}")
+    model, opt = deterministic_state(cfg, seed=0)
+    model2, opt2 = deterministic_state(cfg, seed=1)
+    mine = tts.StateDict(t=torch.full((1 << 20,), -1.0, device="cuda"), rank=-1)
+    t0 = time.perf_counter()
+    tts.Snapshot(os.path.join(root, "sync")).restore(
+        {"model": tts.Replicated(model2), "optim": tts.Replicated(opt2), "mine": mine}
+    )
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    diff = same_state((model, opt), (model2, opt2))
+    check(diff is None, f"world-1 restore: {diff} differs")
+    check(mine["rank"] == 0 and bool((mine["t"] == 0).all()), "world-1 restore: rank 0's per-rank state differs")
+    print(f"many_ranks: restore at world 1 of the world-2 snapshot {restore_s:.3f} s, bitwise")
+    del model, opt, model2, opt2
+    shutil.rmtree(root)
+    launches = {}
+    for res in results:
+        for k, v in res["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA GPU",
@@ -762,25 +1111,31 @@ def main():
     members = first_device_slab(model)
     slab, mis_members, mis_slab, k1 = phase_k1(members)
     k2 = phase_k2(slab, members, mis_slab, mis_members)
+    k6 = phase_k6(cfg)
     k3 = phase_k3()
     k4, k5 = phase_k4_k5()
     del slab, members, mis_members, mis_slab
-    records = {r["name"]: r for r in (k1, k2, k3, k4, k5)}
+    torch.cuda.empty_cache()
+    records = {r["name"]: r for r in (k1, k2, k3, k4, k5, k6)}
     counters = {
         "slab_pack": (device_pack.LAUNCHES, "slab_pack"),
         "slab_unpack": (device_pack.LAUNCHES, "slab_unpack"),
         "flash_attention_fwd": (flash_attention.LAUNCHES, "flash_fwd"),
         "flash_attention_bwd_dq": (flash_attention.LAUNCHES, "flash_bwd_dq"),
         "flash_attention_bwd_dkv": (flash_attention.LAUNCHES, "flash_bwd_dkv"),
+        "tile_update": (device_pack.LAUNCHES, "tile_update"),
     }
 
     def run_path(name, kernels_expected, fn):
+        """``fn`` may return launches made in processes it started, by
+        kernel name as their ``LAUNCHES`` tables count them."""
         for table, key in counters.values():
             table[key] = 0
-        fn()
+        t_path = time.perf_counter()
+        others = fn() or {}
         torch.cuda.synchronize()
-        counts = {n: table[key] for n, (table, key) in counters.items()}
-        print(f"path {name}: launches {json.dumps(counts)}")
+        counts = {n: table[key] + others.get(key, 0) for n, (table, key) in counters.items()}
+        print(f"path {name}: launches {json.dumps(counts)}; {time.perf_counter() - t_path:.1f} s")
         for n in kernels_expected:
             check(counts[n] > 0, f"{n} was not launched on the {name} path")
         for n, c in counts.items():
@@ -789,27 +1144,31 @@ def main():
     tokens = torch.randint(0, cfg.vocab, (1, 129), device="cuda")
     opt = adamw_step(model, tokens)
     restored = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
+        snap_dir = os.path.join(work, "snap")
 
-    def serving():
-        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
-            restored["model"] = phase_main_path(cfg, model, opt, os.path.join(root, "snap"))
-        phase_attention(cfg, restored["model"])
+        def serving():
+            restored["model"] = phase_main_path(cfg, model, opt, snap_dir)
+            phase_attention(cfg, restored["model"])
 
-    run_path("serving", ("slab_pack", "slab_unpack", "flash_attention_fwd"), serving)
-    run_path("ring_gradient", ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"),
-             lambda: phase_ring_gradient(cfg, restored["model"]))
-    del model, opt, restored
-    torch.cuda.empty_cache()
+        run_path("serving", ("slab_pack", "slab_unpack", "flash_attention_fwd"), serving)
+        run_path("ring_gradient", ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"),
+                 lambda: phase_ring_gradient(cfg, restored["model"]))
+        run_path("budgeted_reads", ("tile_update",), lambda: phase_budgeted_reads(model, work, snap_dir))
+        shutil.rmtree(snap_dir)
+        del model, opt, restored
+        gc.collect()
+        torch.cuda.empty_cache()
 
-    def training():
-        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
-            phase_resumable_training(cfg, os.path.join(root, "snap"))
-
-    peak_before_training = torch.cuda.max_memory_allocated()
-    run_path("resumable_training", ("slab_pack", "slab_unpack"), training)
-    host_digest_rate()
-    print(f"peak device memory allocated: {peak_before_training} bytes before the training phase, "
-          f"{torch.cuda.max_memory_allocated()} bytes in its last step")
+        peak_before_training = torch.cuda.max_memory_allocated()
+        run_path("resumable_training", ("slab_pack", "slab_unpack"),
+                 lambda: phase_resumable_training(cfg, os.path.join(work, "train")))
+        host_digest_rate()
+        print(f"peak device memory allocated: {peak_before_training} bytes before the training phase, "
+              f"{torch.cuda.max_memory_allocated()} bytes in its last step")
+        gc.collect()
+        torch.cuda.empty_cache()
+        run_path("many_ranks", ("slab_pack", "slab_unpack"), lambda: phase_many_ranks(cfg, work))
 
     print(json.dumps({"kernels": list(records.values())}))
     print(card)
@@ -822,4 +1181,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 6 and sys.argv[1] == "--many-ranks-child":
+        sys.exit(many_ranks_child(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), sys.argv[5]))
     sys.exit(main())

@@ -469,3 +469,162 @@ def test_device_copies_take_a_pool_of_their_own_and_give_it_back(cuda, tmp_path)
     assert host_offload._LIVE_COPY_BYTES[device] == 0
     torch.cuda.empty_cache()
     assert torch.cuda.memory_reserved() <= base
+
+
+_K6_DTYPES = [torch.float16, torch.bfloat16, torch.float32, torch.float64, torch.int8,
+              torch.int16, torch.int32, torch.int64, torch.uint8]
+_K6_PAIRS = [
+    (a, b) for a in _K6_DTYPES for b in _K6_DTYPES
+    if a.is_floating_point == b.is_floating_point
+] + [(torch.bool, torch.bool), (torch.complex64, torch.complex64)]
+
+
+def _tile_of(dtype, n, device, seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    if dtype.is_floating_point:
+        return (torch.randn(n, generator=g) * 1000).to(dtype).to(device)
+    if dtype == torch.bool:
+        return (torch.rand(n, generator=g) > 0.5).to(device)
+    if dtype == torch.complex64:
+        return torch.randn(n, generator=g, dtype=torch.complex64).to(device)
+    lo, hi = (0, 256) if dtype == torch.uint8 else (-(2**31), 2**31)
+    return torch.randint(lo, hi, (n,), generator=g, dtype=torch.int64).to(dtype).to(device)
+
+
+@pytest.mark.parametrize("src,dst", _K6_PAIRS, ids=lambda d: str(d).replace("torch.", ""))
+def test_tile_update_matches_plain_for_every_pair(cuda, src, dst):
+    """K6 at an odd offset with a ragged tile, bitwise against its plain
+    version; the rest of the template untouched."""
+    from torchsnapshot_tpu_torch.ops import device_pack as dp
+
+    tile = _tile_of(src, 70001, cuda, 60)
+    base = _tile_of(dst, 100003, cuda, 61)
+    got, want = base.clone(), base.clone()
+    before = dp.LAUNCHES["tile_update"]
+    dp.tile_update(got, 12345, tile)
+    torch.cuda.synchronize()
+    assert dp.LAUNCHES["tile_update"] == before + 1
+    dp.tile_update_plain(want, 12345, tile)
+    assert torch.equal(got, want)
+
+
+def test_tile_update_one_element_and_multi_d_template(cuda):
+    from torchsnapshot_tpu_torch.ops import device_pack as dp
+
+    dst = torch.zeros((3, 5, 7), dtype=torch.float32, device=cuda)
+    tile = torch.tensor([2.5], dtype=torch.bfloat16, device=cuda)
+    dp.tile_update(dst, 104, tile)
+    torch.cuda.synchronize()
+    want = torch.zeros(105)
+    want[104] = 2.5
+    assert torch.equal(dst.reshape(-1).cpu(), want)
+
+
+def test_tile_update_offset_past_2_pow_31(cuda):
+    """A 64-bit offset: a uint8 template of more than 2^31 elements (or
+    the largest that fits), the tile landing past 2^31, both the
+    identity copy and an int8 → uint8 cast."""
+    from torchsnapshot_tpu_torch.ops import device_pack as dp
+
+    free, _ = torch.cuda.mem_get_info()
+    n = min((1 << 31) + (1 << 21), free - (1 << 30))
+    if n <= (1 << 31) + (1 << 20):
+        pytest.skip(f"the card has {free} bytes free, too few for a template past 2^31 elements")
+    dst = torch.zeros(n, dtype=torch.uint8, device=cuda)
+    off = (1 << 31) + 12345
+    ident = _tile_of(torch.uint8, 300001, cuda, 62)
+    dp.tile_update(dst, off, ident)
+    cast = _tile_of(torch.int8, 1001, cuda, 63)
+    dp.tile_update(dst, off + 400000, cast)
+    torch.cuda.synchronize()
+    assert torch.equal(dst[off:off + 300001], ident)
+    assert torch.equal(dst[off + 400000:off + 401001], cast.to(torch.uint8))
+    assert int(dst[:off].count_nonzero()) == 0
+    del dst
+
+
+def test_tile_update_refuses_what_it_cannot_cast(cuda):
+    from torchsnapshot_tpu_torch.ops import device_pack as dp
+
+    with pytest.raises(ValueError, match="does not cast"):
+        dp.tile_update(torch.zeros(8, device=cuda), 0, torch.ones(4, dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError, match="outside"):
+        dp.tile_update(torch.zeros(8, device=cuda), 6, torch.ones(4, device=cuda))
+
+
+@pytest.mark.parametrize("stored,template", [
+    (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32), (torch.float32, torch.float16),
+    (torch.int32, torch.int64), (torch.float32, None),
+], ids=lambda d: str(d).replace("torch.", ""))
+@pytest.mark.parametrize("chunked", [False, True], ids=["whole", "chunked"])
+def test_budgeted_read_into_cuda_template(cuda, tmp_path, stored, template, chunked):
+    """read_object with a budget into a CUDA template (or none, onto the
+    card): tiles no larger than the budget, K6 launched for a cast and
+    not for an identity read, the result equal to the cast of the source,
+    pinned tile memory within the budget."""
+    import torchsnapshot_tpu_torch as tts
+    from torchsnapshot_tpu_torch import knobs
+    from torchsnapshot_tpu_torch.ops import device_pack as dp
+    from torchsnapshot_tpu_torch.preparers import array as pa
+
+    src = _tile_of(stored, 3 * (1 << 18) + 77, "cpu", 64).reshape(-1, 1)
+    chunk = knobs.override_max_chunk_size_bytes(1 << 20) if chunked else knobs.override_max_chunk_size_bytes(1 << 30)
+    with chunk:
+        tts.Snapshot.take(str(tmp_path), {"app": tts.StateDict(w=src)})
+    budget = 1 << 18
+    out = None if template is None else torch.full(src.shape, 7, dtype=template, device=cuda)
+    before = dp.LAUNCHES["tile_update"]
+    pa.PINNED_TILES["high_water_bytes"] = 0
+    with knobs.override_verify_on_restore(True):
+        got = tts.Snapshot(str(tmp_path)).read_object("0/app/w", obj_out=out, memory_budget_bytes=budget)
+    launched = dp.LAUNCHES["tile_update"] - before
+    assert got.is_cuda and (template is None or got is out)
+    assert torch.equal(got.cpu(), src.to(template or stored))
+    assert (launched > 0) == (template not in (None, stored)), launched
+    assert 0 < pa.PINNED_TILES["high_water_bytes"] <= budget
+
+
+def test_budgeted_read_misses_are_decided_before_any_read(cuda, tmp_path):
+    """A cast pair K6 does not take and a non-contiguous CUDA template
+    are read whole, counted in TILE_MISSES, and come out right."""
+    import torchsnapshot_tpu_torch as tts
+    from torchsnapshot_tpu_torch.preparers import array as pa
+
+    src = torch.arange(1 << 16, dtype=torch.float32).reshape(256, 256)
+    tts.Snapshot.take(str(tmp_path), {"app": tts.StateDict(w=src)})
+    snap = tts.Snapshot(str(tmp_path))
+    before = dict(pa.TILE_MISSES)
+    out = torch.zeros((256, 256), dtype=torch.int32, device=cuda)
+    snap.read_object("0/app/w", obj_out=out, memory_budget_bytes=1 << 12)
+    assert torch.equal(out.cpu(), src.to(torch.int32))
+    t = torch.zeros((256, 256), device=cuda).t()
+    snap.read_object("0/app/w", obj_out=t, memory_budget_bytes=1 << 12)
+    assert torch.equal(t.cpu(), src)
+    assert pa.TILE_MISSES["cast"] == before["cast"] + 1
+    assert pa.TILE_MISSES["layout"] == before["layout"] + 1
+
+
+def test_budgeted_read_failure_leaves_the_cuda_template_usable(cuda, tmp_path):
+    """A corrupted payload under VERIFY_ON_RESTORE raises; the same
+    template then takes a retry once the payload is repaired."""
+    import pathlib
+
+    import torchsnapshot_tpu_torch as tts
+    from torchsnapshot_tpu_torch import knobs
+
+    src = torch.arange(1 << 18, dtype=torch.float32)
+    tts.Snapshot.take(str(tmp_path), {"app": tts.StateDict(w=src)})
+    target = max((p for p in pathlib.Path(tmp_path).rglob("*") if p.is_file()
+                  and "metadata" not in p.name), key=lambda p: p.stat().st_size)
+    good = target.read_bytes()
+    bad = bytearray(good)
+    bad[len(bad) // 2] ^= 0x40
+    target.write_bytes(bytes(bad))
+    out = torch.zeros(1 << 18, dtype=torch.float64, device=cuda)
+    snap = tts.Snapshot(str(tmp_path))
+    with knobs.override_verify_on_restore(True):
+        with pytest.raises(RuntimeError, match="crc32"):
+            snap.read_object("0/app/w", obj_out=out, memory_budget_bytes=1 << 16)
+        target.write_bytes(good)
+        assert snap.read_object("0/app/w", obj_out=out, memory_budget_bytes=1 << 16) is out
+    assert torch.equal(out.cpu(), src.double())

@@ -15,7 +15,9 @@ falls back: a kernel failure fails the take or restore.  What routes a
 member to the host path instead is a decision made BEFORE any launch —
 a host template, a cast pair K2 does not take, a template whose shape or
 layout differs — and each such decision is counted in
-``DEVICE_UNPACK_MISSES``.
+``DEVICE_UNPACK_MISSES``.  Under VERIFY_ON_RESTORE every member of a
+merged read checks its own slice against its recorded crc32 before any
+member is written.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from . import knobs, obs
-from .io_types import BufferConsumer, BufferStager, ReadReq, WriteReq
+from .io_types import BufferConsumer, BufferStager, ReadReq, WriteReq, check_read_crc
 from .manifest import ArrayEntry, ChunkedArrayEntry, Entry, ObjectEntry
 from .preparers.array import (
     ArrayBufferConsumer,
@@ -265,6 +267,20 @@ class _MergedRangeConsumer(BufferConsumer):
         self, buf: Any, executor: Optional[Executor] = None
     ) -> None:
         view = memoryview(buf).cast("B")
+        if knobs.verify_on_restore():
+            # the spanning read bypassed the scheduler's request-level
+            # check: each member checks its own slice, all before any
+            # member is written, so templates stay untouched on a mismatch
+            for req, start, end in self.subs:
+                if req.expected_crc32 is None:
+                    continue
+                piece = view[start - self.base:end - self.base]
+                if executor is not None:
+                    await asyncio.get_running_loop().run_in_executor(
+                        executor, check_read_crc, req, piece
+                    )
+                else:
+                    check_read_crc(req, piece)
         device_subs: Dict[torch.device, list] = {}
         host_subs = []
         for req, start, end in self.subs:

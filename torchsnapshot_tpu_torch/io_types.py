@@ -8,7 +8,9 @@ Counterpart of ``torchsnapshot_tpu/io_types.py``:
 - ``BufferConsumer``: the read-side dual — "consume these bytes"
   (deserialize + place into the target tensor/object).
 - ``WriteReq``/``ReadReq`` bind a storage path to a stager/consumer;
-  ``ReadReq`` carries an optional byte range for ranged reads.
+  ``ReadReq`` carries an optional byte range for ranged reads and the
+  payload's recorded crc32, checked by ``check_read_crc`` under the
+  VERIFY_ON_RESTORE knob.
 - ``StoragePlugin``: async write/read/close against a backend.
 
 On the GPU the stager's device→host copy is a ``cudaMemcpyAsync`` into
@@ -62,6 +64,14 @@ class BufferConsumer(abc.ABC):
     def get_consuming_cost_bytes(self) -> int:
         """Peak host memory consumed while the read buffer is alive."""
 
+    def read_buffer(self, nbytes: int) -> Any:
+        """A writable host buffer of ``nbytes`` the storage may read this
+        request's bytes into (it then hands that same object to
+        ``consume_buffer``), or None for a buffer of the storage's own.
+        Asked for when the read starts, so only reads in flight hold
+        one."""
+        return None
+
 
 @dataclass
 class WriteReq:
@@ -78,11 +88,31 @@ class WriteReq:
     digest_sink: Optional[Callable[[List[int]], None]] = None
 
 
+def check_read_crc(read_req: "ReadReq", buf: Any) -> None:
+    """VERIFY_ON_RESTORE: fail when a whole-payload read does not match
+    its recorded checksum (the scheduler's request-level check and the
+    batcher's per-member slice check)."""
+    from .utils.checksums import crc32_fast
+
+    expected = read_req.expected_crc32
+    actual = crc32_fast(memoryview(buf).cast("B"))
+    if actual != expected:
+        raise RuntimeError(
+            f"checksum mismatch reading {read_req.path!r} "
+            f"(range {read_req.byte_range}): recorded crc32={expected}, "
+            f"read crc32={actual} — the payload changed after commit"
+        )
+
+
 @dataclass
 class ReadReq:
     path: str
     buffer_consumer: BufferConsumer
     byte_range: Optional[List[int]] = None  # [start, end)
+    # the recorded crc32 when this read covers one payload exactly (a
+    # whole entry or chunk, never a tile); checked before consume when
+    # the VERIFY_ON_RESTORE knob is on
+    expected_crc32: Optional[int] = None
 
 
 @dataclass
@@ -99,6 +129,9 @@ class ReadIO:
     path: str
     byte_range: Optional[List[int]] = None
     buf: Any = field(default=None)  # filled by the plugin
+    # a writable buffer of exactly the read's length: a plugin may read
+    # into it and set ``buf = into`` (consumers test ``buf is into``)
+    into: Any = None
 
 
 def run_in_fresh_loop(coro: Coroutine) -> Any:

@@ -23,6 +23,9 @@ _PER_RANK_MEMORY_BUDGET_BYTES = "PER_RANK_MEMORY_BUDGET_BYTES"
 _ALLOW_PICKLE_OBJECTS = "ALLOW_PICKLE_OBJECTS"
 _STAGING_THREADS = "STAGING_THREADS"
 _DISABLE_EAGER_HOST_STAGING = "DISABLE_EAGER_HOST_STAGING"
+_WRITE_CHECKSUMS = "WRITE_CHECKSUMS"
+_VERIFY_ON_RESTORE = "VERIFY_ON_RESTORE"
+_REPLICATION_VERIFY = "REPLICATION_VERIFY"
 
 _DEFAULTS = {
     # Arrays larger than this are chunked along dim 0 for pipelined I/O.
@@ -47,6 +50,18 @@ _DEFAULTS = {
     # memory (the reference torchsnapshot's unblock point) instead of
     # after the eager copies of host_offload.py.
     _DISABLE_EAGER_HOST_STAGING: 0,
+    # Record crc32 content checksums of every payload in the manifest and
+    # [crc32, adler32, size] of every object at staging time.  0 writes
+    # none (a snapshot either package still restores, unverified).
+    _WRITE_CHECKSUMS: 1,
+    # Check recorded checksums during restore reads: a whole payload
+    # before it is consumed, a tiled one from its tiles' folded crc32.
+    # Off by default: restore is the latency-critical path.
+    _VERIFY_ON_RESTORE: 0,
+    # How a take verifies that state claimed replicated matches across
+    # ranks: "full" (array content crc32), "shape" (arrays by dtype and
+    # shape; small non-array leaves still by content) or "off".
+    _REPLICATION_VERIFY: "full",
 }
 
 _OVERRIDES: dict = {}
@@ -103,6 +118,23 @@ def is_eager_host_staging_disabled() -> bool:
     return bool(_get_int(_DISABLE_EAGER_HOST_STAGING))
 
 
+def write_checksums_enabled() -> bool:
+    return bool(_get_int(_WRITE_CHECKSUMS))
+
+
+def verify_on_restore() -> bool:
+    return bool(_get_int(_VERIFY_ON_RESTORE))
+
+
+def get_replication_verify() -> str:
+    v = str(_get_raw(_REPLICATION_VERIFY)).lower()
+    if v not in ("full", "shape", "off"):
+        raise ValueError(
+            f"{_ENV_PREFIX}{_REPLICATION_VERIFY} must be full|shape|off, got {v!r}"
+        )
+    return v
+
+
 @contextlib.contextmanager
 def _override(name: str, value) -> Iterator[None]:
     had = name in _OVERRIDES
@@ -135,3 +167,15 @@ def override_allow_pickle_objects(value: bool):
 
 def override_disable_eager_host_staging(value: bool):
     return _override(_DISABLE_EAGER_HOST_STAGING, int(value))
+
+
+def override_write_checksums(value: bool):
+    return _override(_WRITE_CHECKSUMS, int(value))
+
+
+def override_verify_on_restore(value: bool):
+    return _override(_VERIFY_ON_RESTORE, int(value))
+
+
+def override_replication_verify(value: str):
+    return _override(_REPLICATION_VERIFY, value)

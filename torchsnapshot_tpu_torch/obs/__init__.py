@@ -21,6 +21,11 @@ BYTES_STAGED = "bytes.staged"
 BYTES_WRITTEN = "bytes.written"
 BYTES_READ = "bytes.read"
 BYTES_OFFLOADED = "bytes.offloaded"
+TILES_READ = "tiles.read"
+RESILIENCE_ABORTS = "resilience.aborts"
+# which coordinator get_default_coordinator chose
+COORDINATOR_STORE = "coordination.default.store"
+COORDINATOR_LOCAL = "coordination.default.local"
 EVENT_HANDLER_ERRORS = "event_handler.errors"
 
 _LOCK = threading.Lock()

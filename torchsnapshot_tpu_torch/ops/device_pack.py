@@ -1,8 +1,9 @@
-"""Device-side slab pack (K1) and unpack (K2) with their plain versions.
+"""Device-side slab pack (K1), unpack (K2) and tile update (K6) with their
+plain versions.
 
 Counterpart of ``torchsnapshot_tpu/ops/device_pack.py``, whose XLA
 programs become hand-written CUDA kernels (``csrc/slab_pack.cu``,
-``csrc/slab_unpack.cu``):
+``csrc/slab_unpack.cu``, ``csrc/tile_update.cu``):
 
 - ``pack_slab`` gathers the bytes of many CUDA tensors into one uint8
   slab in one launch; ``pack_tensors_to_host`` follows it with one
@@ -10,6 +11,9 @@ programs become hand-written CUDA kernels (``csrc/slab_pack.cu``,
 - ``unpack_slab_into`` decodes every member of a device slab into its
   restore template in place (cast to the template dtype) in one launch;
   ``unpack_slab_to_device`` precedes it with one host-to-device copy.
+- ``tile_update`` writes one device tile of the stored dtype into a
+  range of a contiguous template in place, cast to its dtype (a budgeted
+  ``read_object`` into a CUDA template, ``preparers/array.py``).
 
 Each wrapper takes its plain PyTorch version only when the tensors it is
 given lie on the CPU; for CUDA tensors it launches its kernel or raises.
@@ -27,14 +31,14 @@ import torch
 from ..serialization import serialized_size_bytes, string_to_dtype
 from . import kernels
 
-LAUNCHES = {"slab_pack": 0, "slab_unpack": 0}
+LAUNCHES = {"slab_pack": 0, "slab_unpack": 0, "tile_update": 0}
 # pre-launch decisions: members copied to a contiguous buffer first
 COUNTS = {"made_contiguous": 0}
 _COUNT_LOCK = threading.Lock()
 
 Member = Tuple[int, str, Tuple[int, ...]]  # (byte offset, dtype, shape)
 
-# element codes of csrc/slab_unpack.cu (0 = raw bytes, identity)
+# element codes of csrc/element_cast.cuh (0 = raw bytes, identity)
 _CODES = {
     torch.float16: 1, torch.bfloat16: 2, torch.float32: 3, torch.float64: 4,
     torch.int8: 5, torch.int16: 6, torch.int32: 7, torch.int64: 8,
@@ -49,8 +53,8 @@ def _bump(table: dict, key: str) -> None:
 
 
 def cast_supported(src: torch.dtype, dst: torch.dtype) -> bool:
-    """Whether K2 takes the stored → template dtype pair: identity for
-    every dtype, float↔float among f16/bf16/f32/f64, int↔int."""
+    """Whether K2 and K6 take the stored → template dtype pair: identity
+    for every dtype, float↔float among f16/bf16/f32/f64, int↔int."""
     if src == dst:
         return True
     a, b = _CODES.get(src), _CODES.get(dst)
@@ -289,3 +293,51 @@ def unpack_slab_to_device(
     slab.copy_(host)
     unpack_slab_into(slab, members, outs)
     torch.cuda.current_stream(device).synchronize()
+
+
+# ------------------------------------------------------------------ K6
+
+
+def tile_update_plain(dst: torch.Tensor, off: int, tile: torch.Tensor) -> torch.Tensor:
+    """Plain version of K6: ``dst.view(-1)[off:off + n] = tile`` cast to
+    ``dst``'s dtype (the cast made first, then the slice assigned)."""
+    with torch.no_grad():
+        dst.view(-1)[off:off + tile.numel()] = tile.reshape(-1).to(dst.dtype)
+    return dst
+
+
+def tile_update(dst: torch.Tensor, off: int, tile: torch.Tensor) -> torch.Tensor:
+    """Write the contiguous ``tile`` (its elements in order) INTO elements
+    [off, off + n) of the contiguous ``dst``, cast to ``dst``'s dtype, in
+    place; returns ``dst``.  A CUDA ``dst`` takes one K6 launch on the
+    current stream, with a 64-bit offset."""
+    n = tile.numel()
+    if not dst.is_contiguous() or not tile.is_contiguous():
+        raise ValueError("tile update needs a contiguous template and tile")
+    if off < 0 or off + n > dst.numel():
+        raise ValueError(
+            f"tile [{off}, {off + n}) outside a template of {dst.numel()} elements"
+        )
+    if dst.device.type == "cpu" and tile.device.type == "cpu":
+        return tile_update_plain(dst, off, tile)
+    if dst.device.type != "cuda" or tile.device != dst.device:
+        raise ValueError(
+            f"tile on {tile.device}, template on {dst.device}: both must lie "
+            "on one CUDA device"
+        )
+    if not cast_supported(tile.dtype, dst.dtype):
+        raise ValueError(f"tile update does not cast {tile.dtype} → {dst.dtype}")
+    if n == 0:
+        return dst
+    lib = kernels.lib("tile_update")
+    if tile.dtype == dst.dtype:
+        size = tile.element_size()
+        args = (off * size, n * size, 0, 0)
+    else:
+        args = (off, n, _CODES[tile.dtype], _CODES[dst.dtype])
+    rc = lib.tsnp_tile_update(
+        tile.data_ptr(), dst.data_ptr(), *args, _stream_ptr(dst.device)
+    )
+    kernels.check(rc, "tile_update")
+    _bump(LAUNCHES, "tile_update")
+    return dst

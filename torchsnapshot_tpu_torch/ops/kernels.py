@@ -28,6 +28,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 SOURCES = {
     "slab_pack": "slab_pack.cu",
     "slab_unpack": "slab_unpack.cu",
+    "tile_update": "tile_update.cu",
     "flash_attention_fwd": "flash_attention_fwd.cu",
     "flash_attention_bwd_dq": "flash_attention_bwd_dq.cu",
     "flash_attention_bwd_dkv": "flash_attention_bwd_dkv.cu",
@@ -124,6 +125,9 @@ _SIGNATURES = {
         "tsnp_slab_unpack": (_I, [_P, _I, _LL, _P, _P]),
         "tsnp_slab_unpack_chunk_bytes": (_LL, []),
         "tsnp_slab_unpack_chunk_elems": (_LL, []),
+    },
+    "tile_update": {
+        "tsnp_tile_update": (_I, [_P, _P, _LL, _LL, _I, _I, _P]),
     },
     "flash_attention_fwd": {
         "tsnp_flash_fwd": (

@@ -8,8 +8,8 @@ Counterpart of ``torchsnapshot_tpu/preparers/__init__.py``.  Dispatch:
   above the MAX_CHUNK_SIZE_BYTES knob)
 - everything else → object preparer (safe codec, pickle behind a knob)
 
-Sharded arrays are the multi-rank slice's work; a ``ShardedArrayEntry``
-found on restore raises.
+Sharded arrays (the JAX package's multi-device ``jax.Array``s) are not
+ported; a ``ShardedArrayEntry`` found on restore raises.
 """
 
 from __future__ import annotations
@@ -63,21 +63,25 @@ def prepare_write(
 
 
 def prepare_read(
-    entry: Entry, obj_out: Optional[Any] = None
+    entry: Entry,
+    obj_out: Optional[Any] = None,
+    buffer_size_limit_bytes: Optional[int] = None,
 ) -> Tuple[List[ReadReq], Future]:
     """Plan the read of one entry; ``obj_out`` is the restore template
-    (restored in place when it is a tensor or numpy array)."""
+    (restored in place when it is a tensor or numpy array).  With
+    ``buffer_size_limit_bytes``, an array or chunk larger than it is read
+    in byte-range tiles of at most that size (see ``preparers/array.py``)."""
     if isinstance(entry, PrimitiveEntry):
         fut: Future = Future()
         fut.set(entry.get_value())
         return [], fut
     if isinstance(entry, ChunkedArrayEntry):
-        return ChunkedArrayIOPreparer.prepare_read(entry, obj_out)
+        return ChunkedArrayIOPreparer.prepare_read(entry, obj_out, buffer_size_limit_bytes)
     if isinstance(entry, ArrayEntry):
-        return ArrayIOPreparer.prepare_read(entry, obj_out)
+        return ArrayIOPreparer.prepare_read(entry, obj_out, buffer_size_limit_bytes)
     if isinstance(entry, ObjectEntry):
         return ObjectIOPreparer.prepare_read(entry)
     raise TypeError(
         f"cannot prepare read for entry type {type(entry).__name__} in the "
-        "PyTorch port (sharded arrays arrive with the multi-rank slice)"
+        "PyTorch port (sharded arrays are not ported)"
     )

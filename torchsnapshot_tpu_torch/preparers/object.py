@@ -78,6 +78,7 @@ class ObjectIOPreparer:
                     path=entry.location,
                     byte_range=list(entry.byte_range) if entry.byte_range else None,
                     buffer_consumer=ObjectBufferConsumer(entry, fut),
+                    expected_crc32=entry.crc32,
                 )
             ],
             fut,

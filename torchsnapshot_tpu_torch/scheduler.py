@@ -11,7 +11,11 @@ Counterpart of ``torchsnapshot_tpu/scheduler.py``, same discipline:
   cost, corrected to the staged size, and credited when the write lands.
 - Concurrent storage operations are capped per process.
 - Read path: admit reads under the consuming-cost budget and chain each
-  completed read into a consume task.
+  completed read into a consume task; under VERIFY_ON_RESTORE a read
+  that covers one payload is checked against its recorded crc32 before
+  it is consumed.  A consumer may hand the storage a buffer of its own
+  to read into (pinned tile memory, ``BufferConsumer.read_buffer``).
+- WRITE_CHECKSUMS off: no digests are computed at staging.
 
 The pipelines run on a dedicated event-loop thread; heavy work (device
 copies, checksums, deserialization) runs on a thread pool.  The codec,
@@ -32,7 +36,14 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Awaitable, Callable, List, Optional
 
 from . import knobs, obs
-from .io_types import ReadIO, ReadReq, StoragePlugin, WriteIO, WriteReq
+from .io_types import (
+    ReadIO,
+    ReadReq,
+    StoragePlugin,
+    WriteIO,
+    WriteReq,
+    check_read_crc,
+)
 from .utils.checksums import adler32_fast, combine_piece_digests, crc32_fast
 
 logger = logging.getLogger(__name__)
@@ -145,6 +156,7 @@ async def _execute_write_pipelines(
     staging_tasks: set = set()
     io_tasks: set = set()
     io_concurrency = knobs.get_max_per_rank_io_concurrency()
+    checksums = knobs.write_checksums_enabled()
     loop = asyncio.get_running_loop()
 
     async def stage_one(p: _WritePipeline) -> _WritePipeline:
@@ -152,7 +164,7 @@ async def _execute_write_pipelines(
             p.buf = await p.write_req.buffer_stager.stage_buffer(executor)
             p.buf_size = _buf_nbytes(p.buf)
             wr = p.write_req
-            if wr.checksum_sinks or wr.digest_sink:
+            if (wr.checksum_sinks or wr.digest_sink) and checksums:
                 await loop.run_in_executor(
                     executor, apply_checksum_sinks, p.buf, wr
                 )
@@ -311,17 +323,28 @@ async def _execute_read_pipelines(
     io_tasks: set = set()
     consume_tasks: set = set()
     io_concurrency = knobs.get_max_per_rank_io_concurrency()
+    verify = knobs.verify_on_restore()
 
     async def read_one(p: _ReadPipeline) -> _ReadPipeline:
         rr = p.read_req
         with obs.span("pipeline/io", path=rr.path, op="read"):
-            read_io = ReadIO(path=rr.path, byte_range=rr.byte_range)
+            into = None
+            if rr.byte_range is not None:
+                into = rr.buffer_consumer.read_buffer(
+                    rr.byte_range[1] - rr.byte_range[0]
+                )
+            read_io = ReadIO(path=rr.path, byte_range=rr.byte_range, into=into)
             await storage.read(read_io)
             p.buf = read_io.buf
         return p
 
     async def consume_one(p: _ReadPipeline) -> _ReadPipeline:
         with obs.span("pipeline/consume", path=p.read_req.path):
+            if p.read_req.expected_crc32 is not None and verify:
+                # before consume: a mismatch leaves the target untouched
+                await asyncio.get_running_loop().run_in_executor(
+                    executor, check_read_crc, p.read_req, p.buf
+                )
             await p.read_req.buffer_consumer.consume_buffer(p.buf, executor)
             p.buf = None
         return p

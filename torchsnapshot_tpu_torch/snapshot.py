@@ -1,25 +1,35 @@
 """The user-facing Snapshot API: take / async_take / restore /
 read_object / metadata.
 
-Counterpart of ``torchsnapshot_tpu/snapshot.py`` for one process.  The
-orchestration is the JAX package's:
+Counterpart of ``torchsnapshot_tpu/snapshot.py``.  The orchestration is
+the JAX package's:
 
 - ``take`` flattens every stateful's ``state_dict`` into logical paths,
-  plans one write per leaf, coalesces small writes into slabs, stages
-  and writes them under a host-memory budget, and commits by writing
-  ``.snapshot_metadata`` last (a snapshot without it is incomplete);
+  plans one write per leaf, splits replicated writes across ranks,
+  coalesces small writes into slabs, stages and writes them under a
+  host-memory budget, and commits: every rank reports done under the
+  take's commit uid and rank 0 writes ``.snapshot_metadata`` last, only
+  when every rank succeeded (a snapshot without it is incomplete).  A
+  rank that fails poisons the commit scope, so its peers raise a typed
+  ``SnapshotAbortedError`` within a poll interval;
 - ``async_take`` plans the same writes, makes each independent of the
   live state (``host_offload.py``: device-side copies of CUDA tensors,
   host copies of host ones) and returns a ``PendingSnapshot``; staging,
-  I/O and the commit run on a background thread, an error surfaces from
-  ``wait()``, and ``.snapshot_metadata`` is never written on failure;
+  I/O and the commit protocol run on a background thread, an error
+  surfaces from ``wait()``, and ``.snapshot_metadata`` is never written
+  on failure;
 - ``restore`` reads each leaf INTO the current state's tensors (restore
-  templates, updated in place), RNG state last;
-- ``read_object`` reads one leaf by ``"<rank>/<logical path>"``.
+  templates, updated in place), RNG state last, at any world size:
+  replicated entries serve every rank;
+- ``read_object`` reads one leaf by ``"<rank>/<logical path>"``, in
+  tiles of at most ``memory_budget_bytes`` when given.
 
-Snapshots are interchangeable with the JAX package's: same manifest,
-same object layout, same checksums.  Not ported yet: incremental and
-content-addressed takes, tiered storage, topology and transport,
+Across ranks, state claimed replicated (``replicated`` globs, the
+``Replicated`` marker, DDP-wrapped modules) is verified by fingerprint
+(``REPLICATION_VERIFY``) and written once, the writes balanced over the
+ranks.  Snapshots are interchangeable with the JAX package's: same
+manifest, same object layout, same checksums.  Not ported: incremental
+and content-addressed takes, tiered storage, topology and transport,
 liveness, write takeover and repair.
 """
 
@@ -27,26 +37,30 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import struct
 import threading
-from typing import Any, Dict, List, Optional, Sequence
+import zlib
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from . import knobs, obs
 from .batcher import batch_read_requests, batch_write_requests
-from .coordination import LocalCoordinator, get_default_coordinator
+from .coordination import Coordinator, get_default_coordinator
 from .event import Event
 from .event_handlers import log_event
 from .flatten import flatten, inflate
 from .io_types import Future, ReadIO, ReadReq, WriteIO, WriteReq
 from .manifest import (
     MANIFEST_VERSION,
+    ArrayEntry,
     ChunkedArrayEntry,
     Entry,
     Manifest,
     PrimitiveEntry,
     SnapshotMetadata,
+    entry_from_dict,
     is_container_entry,
 )
 from .manifest_ops import consolidate_manifests, get_manifest_for_rank
@@ -58,7 +72,9 @@ from .scheduler import (
     get_process_memory_budget_bytes,
     sync_execute_read_reqs,
 )
-from .stateful import RNGState, load_with_strict
+from .resilience.abort import SnapshotAbortedError
+from .serialization import serialize_object, string_to_dtype
+from .stateful import Replicated, RNGState, load_with_strict
 from .storage import url_to_storage_plugin
 
 logger = logging.getLogger(__name__)
@@ -87,25 +103,198 @@ def _place(obj: Any, template: Any, device: Any) -> Any:
     return obj
 
 
+def _host_crc32(obj: Any) -> int:
+    """crc32 of a host array's bytes in C order, copied at most 16 MiB of
+    rows at a time when it is not contiguous."""
+    if isinstance(obj, torch.Tensor):
+        t = obj.detach()
+        if t.is_contiguous() or t.dim() == 0:
+            return zlib.crc32(t.reshape(-1).view(torch.uint8).numpy())
+        rows = max(1, (16 << 20) // max(1, t[:1].numel() * t.element_size()))
+        crc = 0
+        for i in range(0, t.shape[0], rows):
+            crc = zlib.crc32(t[i:i + rows].contiguous().reshape(-1).view(torch.uint8).numpy(), crc)
+        return crc
+    if obj.flags["C_CONTIGUOUS"] or obj.ndim == 0:
+        return zlib.crc32(np.ascontiguousarray(obj).reshape(-1).view(np.uint8))
+    crc = 0
+    rows = max(1, (16 << 20) // max(1, obj[:1].nbytes))
+    for i in range(0, obj.shape[0], rows):
+        crc = zlib.crc32(np.ascontiguousarray(obj[i:i + rows]).reshape(-1).view(np.uint8), crc)
+    return crc
+
+
+def _replication_fingerprint(obj: Any, mode: str = "full") -> Tuple:
+    """Per-leaf fingerprint that verifies state claimed replicated matches
+    across ranks (the JAX package's, with CUDA tensors in the place of
+    jax arrays).
+
+    - host arrays (numpy, CPU tensors): dtype, shape and the crc32 of the
+      whole buffer in C order (so memory layout does not matter); dtype
+      and shape only under ``mode == "shape"``;
+    - CUDA tensors: dtype and shape only — content would need a device
+      sync on the take's path;
+    - primitives: small values verbatim, floats by bit pattern (NaN must
+      compare equal to itself), long str/bytes by length and crc32;
+    - anything else: the crc32 of its serialized form.
+    ``mode == "off"`` is handled by the caller (no fingerprints)."""
+    if isinstance(obj, float):
+        return ("prim_f", struct.pack("<d", obj))
+    if isinstance(obj, (str, bytes)):
+        raw = obj.encode("utf-8", "surrogatepass") if isinstance(obj, str) else obj
+        if len(raw) > 4096:
+            return ("prim_big", type(obj).__name__, len(raw), zlib.crc32(raw))
+        return ("prim", type(obj).__name__, obj)
+    if isinstance(obj, (int, bool, type(None))):
+        # the concrete type in the tag: True == 1, but a bool/int
+        # divergence across ranks must still demote
+        return ("prim", type(obj).__name__, obj)
+    if isinstance(obj, torch.Tensor) and obj.device.type != "cpu":
+        return ("dev", str(obj.dtype), tuple(obj.shape))
+    if isinstance(obj, (np.ndarray, torch.Tensor)):
+        if mode == "shape":
+            return ("arr", str(obj.dtype), tuple(obj.shape))
+        return ("arr", str(obj.dtype), tuple(obj.shape), _host_crc32(obj))
+    try:
+        payload, _ = serialize_object(obj)
+        return ("obj", type(obj).__name__, len(payload), zlib.crc32(payload))
+    except Exception:  # noqa: BLE001 — an unencodable object: by type
+        return ("obj", type(obj).__name__)
+
+
+def _safe_replication_verify_mode() -> str:
+    """The knob, without raising: an invalid value on one rank must not
+    break the ranks' common protocol — the strict default instead."""
+    try:
+        return knobs.get_replication_verify()
+    except ValueError as e:
+        logger.warning("%s; falling back to 'full'", e)
+        return "full"
+
+
+def _strictest_mode(modes: Sequence[str]) -> str:
+    return "full" if "full" in modes else ("shape" if "shape" in modes else "off")
+
+
+def _verify_replicated_paths(
+    flattened: Dict[str, Any],
+    replicated_globs: Sequence[str],
+    coordinator: Coordinator,
+    mode: str,
+) -> set:
+    """The logical paths that are verifiably replicated: matched by the
+    agreed globs on every rank, with equal fingerprints.  The others are
+    demoted to per-rank entries with a warning: a 'replicated' save of
+    one rank's copy is worse than a larger correct one.  Under "off" the
+    paths' presence is still intersected (the partitioner needs the same
+    item list on every rank)."""
+    if not replicated_globs:
+        return set()
+    local = {
+        lpath: None if mode == "off" else _replication_fingerprint(obj, mode)
+        for lpath, obj in flattened.items()
+        if path_is_replicated(lpath, replicated_globs)
+    }
+    if coordinator.world_size <= 1:
+        return set(local)
+    gathered = coordinator.all_gather_object(local)
+    missing = object()
+    verified = {
+        lpath for lpath, fp in gathered[0].items()
+        if all(peer.get(lpath, missing) == fp for peer in gathered[1:])
+    }
+    demoted = set(local) - verified
+    if demoted:
+        logger.warning(
+            "rank %d: %d path(s) matched replicated globs but differ across "
+            "ranks; saving per-rank instead: %s",
+            coordinator.rank, len(demoted), sorted(demoted)[:10],
+        )
+    return verified
+
+
+def _ddp_module(stateful: Any) -> Optional[Any]:
+    """The DistributedDataParallel instance behind ``stateful`` (itself,
+    or the ``.module`` of an adapter), if there is one."""
+    from torch.nn.parallel import DistributedDataParallel as DDP
+
+    for cand in (stateful, getattr(stateful, "module", None)):
+        if isinstance(cand, DDP):
+            return cand
+    return None
+
+
+def _infer_replicated(replicated: Sequence[str], app_state: Dict[str, Any]) -> List[str]:
+    """Replication globs inferred from the app state, added to the
+    caller's: a stateful marked ``Replicated`` (or whose class says
+    ``replicated = True``) and a DDP-wrapped module contribute
+    ``key/**``; a DDP module with ``parameters_to_ignore`` contributes
+    one glob per name it does replicate.  Each rank infers on its own;
+    the glob intersection across ranks and the fingerprints guard the
+    rest."""
+    globs = list(replicated)
+    if "**" in globs:
+        return globs
+    for key, val in app_state.items():
+        if isinstance(val, Replicated) or getattr(type(val), "replicated", None) is True:
+            globs.append(f"{key}/**")
+            continue
+        ddp = _ddp_module(val)
+        if ddp is None:
+            continue
+        ignored = set(getattr(ddp, "parameters_to_ignore", ()) or ())
+        if not ignored:
+            globs.append(f"{key}/**")
+            continue
+        for name in val.state_dict().keys():
+            bare = name[7:] if name.startswith("module.") else name
+            if bare not in ignored and name not in ignored:
+                globs.append(f"{key}/{name}")
+    return globs
+
+
 @dataclasses.dataclass
 class _TakePlan:
     """A take's planned writes and the records they fill in: checksum
-    sinks stamp the entries while staging runs, so the metadata is
-    rendered after the writes."""
+    sinks stamp the entries while staging runs, so each rank's manifest
+    is published after its writes."""
 
+    path: str
     manifest: Manifest
     entries: Dict[str, Entry]
     write_reqs: List[WriteReq]
     object_digests: Dict[str, List[int]]
     world: int
 
-    def metadata(self) -> SnapshotMetadata:
-        return SnapshotMetadata(
-            version=MANIFEST_VERSION,
-            world_size=self.world,
-            manifest=consolidate_manifests([{**self.manifest, **self.entries}]),
-            objects=self.object_digests,
-        )
+    def local_payload(self) -> Dict[str, Any]:
+        return {
+            "manifest": {p: e.to_dict() for p, e in {**self.manifest, **self.entries}.items()},
+            "objects": self.object_digests,
+        }
+
+
+def _metadata_from(
+    manifests: List[Dict[str, Entry]], objects: Dict[str, List[int]], world: int
+) -> SnapshotMetadata:
+    """The consolidated metadata of every rank's manifest.  A replicated
+    chunked entry whose chunks were split across ranks carries on each
+    rank only the crc32s of the chunks that rank wrote: the kept copy
+    gets them all."""
+    chunk_crcs = {}
+    for m in manifests:
+        for e in m.values():
+            for c in getattr(e, "chunks", None) or ():
+                if c.crc32 is not None:
+                    chunk_crcs[(c.location, tuple(c.byte_range or ()))] = c.crc32
+    consolidated = consolidate_manifests(manifests)
+    for e in consolidated.values():
+        for c in getattr(e, "chunks", None) or ():
+            if c.crc32 is None:
+                c.crc32 = chunk_crcs.get((c.location, tuple(c.byte_range or ())))
+    return SnapshotMetadata(
+        version=MANIFEST_VERSION, world_size=world, manifest=consolidated,
+        objects=objects,
+    )
 
 
 def _commit(storage: Any, metadata: SnapshotMetadata) -> None:
@@ -119,8 +308,65 @@ def _commit(storage: Any, metadata: SnapshotMetadata) -> None:
     )
 
 
+def _commit_protocol(
+    coord: Coordinator, uid: str, plan: _TakePlan, storage: Any, status: str
+) -> Optional[SnapshotMetadata]:
+    """Commit a take whose writes on this rank ended with ``status``
+    ("ok" or an error).  KV only, under explicit keys of the commit uid,
+    so the async commit thread may run it: each rank publishes its
+    manifest and its status; rank 0 waits for every rank, consolidates
+    and writes ``.snapshot_metadata`` only when all succeeded and the
+    scope is not poisoned, then publishes its verdict, which every rank
+    waits for.  Returns the metadata on rank 0, None elsewhere.  Run
+    inside ``coord.abort_scope(uid)``: a peer's poison ends every wait."""
+    rank, world = coord.rank, coord.world_size
+    if world == 1:
+        metadata = _metadata_from(
+            [{**plan.manifest, **plan.entries}], plan.object_digests, 1
+        )
+        _commit(storage, metadata)
+        return metadata
+    coord.kv_set(
+        f"{uid}/manifest/{rank}",
+        coord._encode(plan.local_payload()) if status == "ok" else "",
+    )
+    coord.kv_set(f"{uid}/arrive/{rank}", status)
+    metadata = None
+    if rank == 0:
+        # the verdict is published even when the commit itself raises,
+        # so peers never wait out the timeout
+        try:
+            statuses = [coord.kv_get(f"{uid}/arrive/{r}") for r in range(world)]
+            failed = [f"rank {r}: {st}" for r, st in enumerate(statuses) if st != "ok"]
+            if failed:
+                depart = f"peers failed: {failed}"
+            else:
+                payloads = [
+                    coord._decode(coord.kv_get(f"{uid}/manifest/{r}")) for r in range(world)
+                ]
+                objects: Dict[str, List[int]] = {}
+                for p in payloads:
+                    objects.update(p["objects"])
+                metadata = _metadata_from(
+                    [{k: entry_from_dict(v) for k, v in p["manifest"].items()} for p in payloads],
+                    objects, world,
+                )
+                # never write the commit marker after the scope was poisoned
+                coord.raise_if_poisoned(uid)
+                _commit(storage, metadata)
+                depart = "ok"
+        except BaseException as e:
+            coord.kv_set(f"{uid}/depart", f"rank 0 commit failed: {e!r}")
+            raise
+        coord.kv_set(f"{uid}/depart", depart)
+    depart = coord.kv_get(f"{uid}/depart")
+    if depart != "ok":
+        raise RuntimeError(f"snapshot commit failed: {depart}")
+    return metadata
+
+
 class Snapshot:
-    def __init__(self, path: str, coordinator: Optional[LocalCoordinator] = None) -> None:
+    def __init__(self, path: str, coordinator: Optional[Coordinator] = None) -> None:
         self.path = path
         self._coordinator = coordinator or get_default_coordinator()
         self._metadata_cache: Optional[SnapshotMetadata] = None
@@ -133,26 +379,37 @@ class Snapshot:
         path: str,
         app_state: AppState,
         replicated: Sequence[str] = (),
-        coordinator: Optional[LocalCoordinator] = None,
+        coordinator: Optional[Coordinator] = None,
     ) -> "Snapshot":
-        """Save ``app_state`` (name → Stateful) to ``path``.  Leaves whose
-        logical path matches a ``replicated`` glob are stored once for
-        all ranks under ``replicated/``."""
+        """Save ``app_state`` (name → Stateful) to ``path`` from every rank
+        of ``coordinator`` (default: ``get_default_coordinator()``).
+        Leaves whose logical path matches a ``replicated`` glob (or that
+        replication inference finds) and whose content every rank shares
+        are stored once under ``replicated/``, their writes split across
+        the ranks.  A rank whose writes fail raises its error and its
+        peers raise ``SnapshotAbortedError``; no metadata is written."""
         coordinator = coordinator or get_default_coordinator()
         _validate_app_state(app_state)
-        with log_event(Event("take", {"path": path, "rank": coordinator.rank})):
-            plan = cls._plan_at_entry(path, app_state, replicated, coordinator, is_async=False)
-            storage = url_to_storage_plugin(path)
+        rank = coordinator.rank
+        with log_event(Event("take", {"path": path, "rank": rank})):
+            uid = coordinator._next_uid("commit")
+            plan = cls._plan_at_entry(path, app_state, replicated, coordinator, uid, is_async=False)
+            storage = url_to_storage_plugin(plan.path)
             try:
-                execute_write_reqs(
-                    plan.write_reqs, storage, get_process_memory_budget_bytes(),
-                    coordinator.rank,
-                ).sync_complete()
-                metadata = plan.metadata()
-                _commit(storage, metadata)
+                with coordinator.abort_scope(uid):
+                    execute_write_reqs(
+                        plan.write_reqs, storage, get_process_memory_budget_bytes(), rank,
+                    ).sync_complete()
+                    metadata = _commit_protocol(coordinator, uid, plan, storage, "ok")
+            except SnapshotAbortedError:
+                raise
+            except BaseException as e:
+                coordinator.poison(uid, cause=repr(e), site=f"take/rank{rank}")
+                raise
             finally:
                 storage.sync_close()
-        snapshot = cls(path, coordinator)
+        snapshot = cls(plan.path, coordinator)
+        # other ranks load the committed metadata when they need it
         snapshot._metadata_cache = metadata
         return snapshot
 
@@ -162,7 +419,7 @@ class Snapshot:
         path: str,
         app_state: AppState,
         replicated: Sequence[str] = (),
-        coordinator: Optional[LocalCoordinator] = None,
+        coordinator: Optional[Coordinator] = None,
     ) -> "PendingSnapshot":
         """Save ``app_state`` to ``path`` in the background.  Returns once
         the snapshot's content is independent of the live state: CUDA
@@ -170,8 +427,9 @@ class Snapshot:
         with no host wait) and host tensors on the host
         (``host_offload.py``), so the caller may run its next step, which
         changes the state in place, right away.  Staging, storage I/O
-        and the commit run on a background thread; ``wait()`` returns
-        the committed ``Snapshot`` or raises the error, in which case
+        and the commit protocol run on a background thread; ``wait()``
+        returns the committed ``Snapshot`` or raises the error (a peer's
+        failure as ``SnapshotAbortedError``), in which case
         ``.snapshot_metadata`` was never written.  With the knob
         TORCHSNAPSHOT_TPU_TORCH_DISABLE_EAGER_HOST_STAGING=1 it returns
         only after every write is staged in host memory."""
@@ -179,21 +437,25 @@ class Snapshot:
 
         coordinator = coordinator or get_default_coordinator()
         _validate_app_state(app_state)
-        with log_event(Event("async_take", {"path": path, "rank": coordinator.rank})):
-            plan = cls._plan_at_entry(path, app_state, replicated, coordinator, is_async=True)
+        rank = coordinator.rank
+        with log_event(Event("async_take", {"path": path, "rank": rank})):
+            uid = coordinator._next_uid("commit")
+            plan = cls._plan_at_entry(path, app_state, replicated, coordinator, uid, is_async=True)
             unblock_early = not knobs.is_eager_host_staging_disabled()
-            if unblock_early:
-                eager_offload_write_reqs(plan.write_reqs)
-            storage = url_to_storage_plugin(path)
+            storage = url_to_storage_plugin(plan.path)
             try:
+                if unblock_early:
+                    eager_offload_write_reqs(plan.write_reqs)
                 pending_io = execute_write_reqs(
                     plan.write_reqs, storage, get_process_memory_budget_bytes(),
-                    coordinator.rank, wait_for_staging=not unblock_early,
+                    rank, wait_for_staging=not unblock_early,
                 )
-            except BaseException:
+            except BaseException as e:
+                # peers are past planning, waiting for this rank's commit
+                coordinator.poison(uid, cause=repr(e), site=f"async_take/rank{rank}")
                 storage.sync_close()
                 raise
-        return PendingSnapshot(path, coordinator, plan, pending_io, storage)
+        return PendingSnapshot(plan.path, coordinator, plan, pending_io, storage, uid)
 
     @classmethod
     def _plan_at_entry(
@@ -201,7 +463,8 @@ class Snapshot:
         path: str,
         app_state: AppState,
         replicated: Sequence[str],
-        coordinator: LocalCoordinator,
+        coordinator: Coordinator,
+        uid: str,
         is_async: bool,
     ) -> _TakePlan:
         # a take must not perturb the RNG streams, and the state saved
@@ -212,10 +475,18 @@ class Snapshot:
             for k, v in app_state.items()
             if isinstance(v, RNGState)
         }
+        # the commit uid is the abort scope from the first gather on, so
+        # a rank failing in planning releases peers waiting in a gather
         try:
-            return cls._plan(
-                app_state, replicated, coordinator, rng_states_at_entry, is_async
-            )
+            with coordinator.abort_scope(uid):
+                return cls._plan(
+                    path, app_state, replicated, coordinator, rng_states_at_entry, is_async
+                )
+        except SnapshotAbortedError:
+            raise
+        except BaseException as e:
+            coordinator.poison(uid, cause=repr(e), site=f"take_plan/rank{coordinator.rank}")
+            raise
         finally:
             for k, v in app_state.items():
                 if isinstance(v, RNGState):
@@ -225,33 +496,68 @@ class Snapshot:
     @classmethod
     def _plan(
         cls,
+        path: str,
         app_state: AppState,
         replicated: Sequence[str],
-        coordinator: LocalCoordinator,
+        coordinator: Coordinator,
         rng_states_at_entry: Dict[str, Dict[str, Any]],
         is_async: bool,
     ) -> _TakePlan:
         rank, world = coordinator.rank, coordinator.world_size
-        replicated_globs = sorted(set(replicated))
+        replicated = _infer_replicated(replicated, app_state)
+        local_mode = _safe_replication_verify_mode()
+        if world > 1:
+            # rank 0's path wins; the replication globs are intersected
+            # and the strictest verification mode wins, so every rank
+            # branches alike below
+            path0 = coordinator.broadcast_object(path, src=0)
+            if path0 != path:
+                logger.warning(
+                    "rank %d: snapshot path %r differs from rank 0's %r; using "
+                    "rank 0's", rank, path, path0,
+                )
+                path = path0
+            gathered = coordinator.all_gather_object((sorted(set(replicated)), local_mode))
+            replicated_globs = sorted(
+                set(gathered[0][0]).intersection(*(set(g) for g, _ in gathered[1:]))
+            )
+            if set(replicated) != set(replicated_globs):
+                logger.warning(
+                    "rank %d: replicated globs differ across ranks; using the "
+                    "intersection %r", rank, replicated_globs,
+                )
+            verify_mode = _strictest_mode([m for _, m in gathered])
+            keys = sorted(set().union(*coordinator.all_gather_object(sorted(app_state))))
+        else:
+            replicated_globs = sorted(set(replicated))
+            verify_mode = local_mode
+            keys = sorted(app_state)
         manifest: Manifest = {}
         flattened: Dict[str, Any] = {}
-        for key in sorted(app_state):
-            state = rng_states_at_entry.get(key)
-            if state is None:
-                state = app_state[key].state_dict()
-            m, f = flatten(state, prefix=key)
-            manifest.update(m)
-            flattened.update(f)
+        for key in keys:
+            if key in app_state:
+                state = rng_states_at_entry.get(key)
+                if state is None:
+                    state = app_state[key].state_dict()
+                m, f = flatten(state, prefix=key)
+                manifest.update(m)
+                flattened.update(f)
+            if world > 1:
+                # one state_dict() at a time across ranks, in case one
+                # runs collectives
+                coordinator.barrier()
+        verified = _verify_replicated_paths(flattened, replicated_globs, coordinator, verify_mode)
 
         entries: Dict[str, Entry] = {}
         write_reqs: List[WriteReq] = []
         repl_items = []
         repl_reqs: Dict[str, List[WriteReq]] = {}
-        split_repl_paths = set()
+        repl_chunks: Dict[str, Tuple[str, WriteReq]] = {}
+        local_bytes = 0
         chunk_size_bytes = knobs.get_max_chunk_size_bytes()
         with obs.span("take/plan", leaves=len(flattened), rank=rank):
             for lpath in sorted(flattened):
-                repl = path_is_replicated(lpath, replicated_globs)
+                repl = lpath in verified
                 entry, reqs = prepare_write(
                     flattened[lpath], lpath, rank, replicated=repl,
                     chunk_size_bytes=chunk_size_bytes, is_async_snapshot=is_async,
@@ -259,37 +565,61 @@ class Snapshot:
                 entries[lpath] = entry
                 if not repl:
                     write_reqs.extend(reqs)
+                    local_bytes += sum(r.buffer_stager.get_staging_cost_bytes() for r in reqs)
                 elif isinstance(entry, ChunkedArrayEntry) and len(reqs) > 1:
-                    # chunk-granular writers; such entries stay out of
-                    # slabs (a slab would re-point a shared entry at a
-                    # rank-local location)
+                    # chunk-granular writers, so a big replicated array's
+                    # writes spread over the ranks too
                     for ci, r in enumerate(reqs):
-                        k = f"{lpath}\x00{ci}"
-                        repl_reqs[k] = [r]
+                        k = f"{lpath}\x00{ci}"  # \x00 cannot occur in a path
+                        repl_chunks[k] = (lpath, r)
                         repl_items.append((k, r.buffer_stager.get_staging_cost_bytes()))
-                    split_repl_paths.add(lpath)
                 else:
                     repl_reqs[lpath] = reqs
                     repl_items.append((
                         lpath,
                         sum(r.buffer_stager.get_staging_cost_bytes() for r in reqs),
                     ))
-        assignment = partition_replicated_writes(repl_items, world)
-        for k, reqs in repl_reqs.items():
-            if assignment[k] == rank:
-                write_reqs.extend(reqs)
+        split_repl_paths = set()
+        if repl_items:
+            # each rank's per-rank bytes preload the balance
+            preloads = coordinator.all_gather_object(local_bytes) if world > 1 else [local_bytes]
+            assignment = partition_replicated_writes(repl_items, world, preloads)
+            for lpath, reqs in repl_reqs.items():
+                if assignment[lpath] == rank:
+                    write_reqs.extend(reqs)
+                else:
+                    # only the writer keeps the entry: batching may point
+                    # its copy at a slab, and the manifest must carry the
+                    # written one
+                    del entries[lpath]
+            writes_chunk_of: Dict[str, bool] = {}
+            for k, (lpath, r) in repl_chunks.items():
+                mine = assignment[k] == rank
+                writes_chunk_of[lpath] = writes_chunk_of.get(lpath, False) or mine
+                if mine:
+                    write_reqs.append(r)
+            for lpath, any_mine in writes_chunk_of.items():
+                if any_mine:
+                    # chunk locations are rank-independent: every writer's
+                    # copy of the entry is the same (restore dedups)
+                    split_repl_paths.add(lpath)
+                else:
+                    del entries[lpath]
 
         if not knobs.is_batching_disabled():
+            # a slab would re-point a shared chunked entry at a rank-local
+            # location: such entries stay out
             shielded = {lp: entries.pop(lp) for lp in split_repl_paths}
             entries, write_reqs = batch_write_requests(entries, write_reqs, rank)
             entries.update(shielded)
 
         object_digests: Dict[str, List[int]] = {}
-        for wr in write_reqs:
-            wr.digest_sink = (
-                lambda d, p=wr.path: object_digests.__setitem__(p, list(d))
-            )
-        return _TakePlan(manifest, entries, write_reqs, object_digests, world)
+        if knobs.write_checksums_enabled():
+            for wr in write_reqs:
+                wr.digest_sink = (
+                    lambda d, p=wr.path: object_digests.__setitem__(p, list(d))
+                )
+        return _TakePlan(path, manifest, entries, write_reqs, object_digests, world)
 
     # --------------------------------------------------------------- restore
 
@@ -315,10 +645,12 @@ class Snapshot:
     def restore(
         self, app_state: AppState, strict: bool = True, device: Any = "cuda"
     ) -> None:
-        """Load the snapshot into ``app_state``.  Tensors in the current
-        state are restore templates and are updated IN PLACE (cast to
-        their dtype, on their device); a tensor leaf with no tensor
-        template comes back on ``device``."""
+        """Load the snapshot into ``app_state`` as the coordinator's rank
+        sees it, at any world size: that rank's own entries (none for a
+        rank the take did not have) and every replicated one.  Tensors in
+        the current state are restore templates and are updated IN PLACE
+        (cast to their dtype, on their device); a tensor leaf with no
+        tensor template comes back on ``device``."""
         _validate_app_state(app_state)
         rank = self._coordinator.rank
         with log_event(Event("restore", {"path": self.path, "rank": rank})):
@@ -390,11 +722,26 @@ class Snapshot:
     # ----------------------------------------------------------- read_object
 
     def read_object(
-        self, path: str, obj_out: Optional[Any] = None, device: Any = "cuda"
+        self,
+        path: str,
+        obj_out: Optional[Any] = None,
+        memory_budget_bytes: Optional[int] = None,
+        device: Any = "cuda",
     ) -> Any:
         """One object by ``"<rank>/<logical_path>"``; a tensor or numpy
         ``obj_out`` is filled in place and returned, else a new tensor on
-        ``device`` (or the decoded object) comes back."""
+        ``device`` (or the decoded object) comes back.
+
+        With ``memory_budget_bytes``, an array (or chunk) larger than the
+        budget is read in tiles of at most that many bytes, each written
+        into its place as it lands, and the budget also caps the reads in
+        flight: host memory stays O(budget).  A CUDA template takes the
+        tiles in place (a cast tile through kernel K6); with no template
+        and a CUDA ``device`` the tiles land in a fresh tensor on the
+        card.  If the read fails (a storage error, or a crc32 mismatch
+        under VERIFY_ON_RESTORE) it raises; the template's contents are
+        then unspecified, but it stays usable and can be passed to a
+        retry."""
         with log_event(Event("read_object", {"path": path})):
             rank_str, _, lpath = path.partition("/")
             manifest = get_manifest_for_rank(self.metadata, int(rank_str))
@@ -403,11 +750,24 @@ class Snapshot:
             entry = manifest[lpath]
             if isinstance(entry, PrimitiveEntry):
                 return entry.get_value()
-            reqs, fut = prepare_read(entry, obj_out=obj_out)
+            if (
+                memory_budget_bytes is not None
+                and obj_out is None
+                and isinstance(entry, (ArrayEntry, ChunkedArrayEntry))
+                and torch.device(device).type != "cpu"
+            ):
+                # tile by tile onto the card, never through a whole host copy
+                obj_out = torch.empty(
+                    tuple(entry.shape), dtype=string_to_dtype(entry.dtype), device=device
+                )
+            reqs, fut = prepare_read(
+                entry, obj_out=obj_out, buffer_size_limit_bytes=memory_budget_bytes
+            )
             storage = url_to_storage_plugin(self.path)
             try:
                 sync_execute_read_reqs(
-                    reqs, storage, get_process_memory_budget_bytes(), rank=0
+                    reqs, storage,
+                    memory_budget_bytes or get_process_memory_budget_bytes(), rank=0,
                 )
             finally:
                 storage.sync_close()
@@ -415,25 +775,29 @@ class Snapshot:
 
 
 class PendingSnapshot:
-    """Handle for an in-flight ``async_take`` (the JAX package's
-    ``PendingSnapshot`` for one process: no commit barrier across ranks).
-    A background thread drains the writes and, only if every one
-    succeeded, writes ``.snapshot_metadata``.  Two takes in flight at
-    once each own their threads and storage."""
+    """Handle for an in-flight ``async_take``.  A background thread drains
+    the writes, then runs the KV-only commit protocol under the take's
+    commit uid: every rank reports done or its error, and rank 0 writes
+    ``.snapshot_metadata`` only if every rank succeeded.  A rank whose
+    writes fail poisons the scope first, so its peers' waits end within
+    a poll interval.  Two takes in flight at once each own their threads
+    and storage."""
 
     def __init__(
         self,
         path: str,
-        coordinator: LocalCoordinator,
+        coordinator: Coordinator,
         plan: _TakePlan,
         pending_io: PendingIOWork,
         storage: Any,
+        uid: str,
     ) -> None:
         self.path = path
         self._coordinator = coordinator
         self._plan: Optional[_TakePlan] = plan
         self._pending_io: Optional[PendingIOWork] = pending_io
         self._storage = storage
+        self._uid = uid
         self._metadata: Optional[SnapshotMetadata] = None
         self._exc: Optional[BaseException] = None
         self._thread = threading.Thread(
@@ -442,13 +806,23 @@ class PendingSnapshot:
         self._thread.start()
 
     def _complete(self) -> None:
+        coord, uid = self._coordinator, self._uid
+        status = "ok"
         try:
             self._pending_io.sync_complete()
-            metadata = self._plan.metadata()
-            _commit(self._storage, metadata)
-            self._metadata = metadata
         except BaseException as e:  # noqa: BLE001 — surfaced by wait()
             self._exc = e
+            status = f"err:{e!r}"
+            coord.poison(uid, cause=repr(e), site=f"async_commit/rank{coord.rank}")
+        try:
+            if status == "ok" or coord.world_size > 1:
+                with coord.abort_scope(uid):
+                    self._metadata = _commit_protocol(
+                        coord, uid, self._plan, self._storage, status
+                    )
+        except BaseException as e:  # noqa: BLE001 — surfaced by wait()
+            if self._exc is None:
+                self._exc = e
         finally:
             # the drained work pinned the staged buffers; the handle may
             # outlive the commit
@@ -464,6 +838,7 @@ class PendingSnapshot:
         if self._exc is not None:
             raise self._exc
         snapshot = Snapshot(self.path, self._coordinator)
+        # rank 0 holds the consolidated metadata; others load the committed one
         snapshot._metadata_cache = self._metadata
         return snapshot
 

@@ -6,11 +6,13 @@ Counterpart of ``torchsnapshot_tpu/stateful.py``.  ``nn.Module`` and
 structure of dicts, lists and tuples of tensors and renders it as the
 JAX package renders a pytree (a nested NAMED dict, dict keys sorted,
 sequence positions as string keys, ``None`` as no leaf), so the two
-packages write the same manifest for the same tree.
+packages write the same manifest for the same tree.  ``Replicated``
+marks a stateful whose whole state every rank holds identically.
 """
 
 from __future__ import annotations
 
+import collections.abc
 import inspect
 import random
 from collections import UserDict
@@ -139,6 +141,45 @@ class PyTreeState:
                     f"path(s) absent from template {surplus[:5]}"
                 )
         self.tree = _rebuild(self.tree, iter(new_leaves))
+
+
+class Replicated:
+    """Marker wrapper declaring a stateful's entire state replicated
+    across ranks: every rank holds the same copy, so ``Snapshot.take``
+    adds a ``key/**`` replication glob, balances the writes across ranks
+    and persists one copy.  Content verification still applies: a wrong
+    claim is demoted to per-rank entries rather than saving one rank's
+    copy for all."""
+
+    replicated = True
+
+    def __init__(self, stateful: Any) -> None:
+        if isinstance(stateful, RNGState):
+            # RNG streams are per-rank state, and the take's capture and
+            # restore of RNGState keys is keyed on isinstance
+            raise ValueError(
+                "Replicated(RNGState()) is not supported: pass the "
+                "RNGState directly (RNG streams are per-rank state)"
+            )
+        if not isinstance(stateful, Stateful):
+            if not isinstance(stateful, collections.abc.MutableMapping):
+                raise TypeError(
+                    "Replicated(...) takes a Stateful or a mutable mapping; "
+                    f"got {type(stateful).__name__}"
+                )
+            # share the caller's mapping, so a restore through the
+            # wrapper shows in the original dict
+            wrapped = StateDict()
+            wrapped.data = stateful
+            stateful = wrapped
+        self.stateful = stateful
+
+    def state_dict(self) -> Dict[str, Any]:
+        return self.stateful.state_dict()
+
+    def load_state_dict(self, state_dict: Dict[str, Any], strict: bool = True) -> None:
+        # ``strict`` declared by name so restore's signature probe sees it
+        load_with_strict(self.stateful, state_dict, strict)
 
 
 def load_with_strict(stateful: Any, state_dict: Dict[str, Any], strict: bool) -> None:

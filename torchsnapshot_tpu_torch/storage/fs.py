@@ -86,17 +86,20 @@ class FSStoragePlugin(StoragePlugin):
         )
 
     @staticmethod
-    def _read_sync(full: str, byte_range) -> np.ndarray:
+    def _read_sync(full: str, byte_range, into=None) -> np.ndarray:
         with open(full, "rb") as f:
             if byte_range is None:
                 start, length = 0, os.fstat(f.fileno()).st_size
             else:
                 start, length = byte_range[0], byte_range[1] - byte_range[0]
                 f.seek(start)
-            # np.empty, not bytearray: zeroing memory the read is about to
-            # overwrite costs a full extra pass
-            out = np.empty(length, dtype=np.uint8)
-            view = memoryview(out)
+            if into is not None and memoryview(into).nbytes == length:
+                out = into  # the caller's buffer (pinned tile memory)
+            else:
+                # np.empty, not bytearray: zeroing memory the read is
+                # about to overwrite costs a full extra pass
+                out = np.empty(length, dtype=np.uint8)
+            view = memoryview(out).cast("B")
             got = 0
             while got < length:
                 n = f.readinto(view[got:])
@@ -109,7 +112,8 @@ class FSStoragePlugin(StoragePlugin):
 
     async def read(self, read_io: ReadIO) -> None:
         read_io.buf = await self._off_loop(
-            self._read_sync, self._full(read_io.path), read_io.byte_range
+            self._read_sync, self._full(read_io.path), read_io.byte_range,
+            read_io.into,
         )
 
     async def close(self) -> None:
