@@ -34,7 +34,7 @@ is no card or anything below fails.  In order:
    for K4 + K5, ``copy_`` into the template's range for K6) are timed 5
    times: median, range, share of the bound, TFLOP/s for K3-K5; K1 both
    as ``pack_slab`` is called and as its launch alone;
-4. five paths, each with the launch counters set to 0 just before it
+4. six paths, each with the launch counters set to 0 just before it
    and read just after (a path that starts processes adds the launches
    they report):
    a. serving, at full width: the repo's transformer (TransformerConfig
@@ -76,7 +76,22 @@ is no card or anything below fails.  In order:
       ``async_take`` with its commit barrier, and a take in which rank
       1's storage fails (both raise within 10 s, rank 0 a
       ``SnapshotAbortedError``, no metadata); then a restore at world 1
-      in this process, bitwise.
+      in this process, bitwise;
+   f. sharded (after e): the same full-width state as DTensors laid out
+      by ``parallel/mesh.py``'s rules (embedding, LM head, wq/wk/wv/w1/
+      gate split over dim 1, wo/w2 over dim 0, norms replicated, each
+      AdamW moment as its parameter), stored boxes split at 64 MiB.  In
+      this process, on a 1-rank CUDA mesh of (1, 1) named ("dp", "tp")
+      over gloo: sync take, ``async_take`` and ``wait()``, restores into
+      bf16 DTensors, f32 DTensors (K6) and plain CUDA tensors, and a
+      budgeted ``read_object`` of the embedding, each bitwise.  Then two
+      processes on the card over gloo, DTensors on a 1-D "tp" CUDA mesh
+      of 2 (on the CPU if such a mesh cannot be built; the result line
+      says which): a take at world 2 (each rank writes 40-60% of the
+      bytes) and a restore at world 2 into the transposed layout; then,
+      in this process, the restore at world 1 of that snapshot onto the
+      (1, 1) mesh and into plain tensors, bitwise.  No box may miss the
+      device path (``TILE_MISSES``).
 
 Every kernel must have launched on these paths, and each path on the
 kernels it runs.  The line before the last is the card; the line before
@@ -1007,6 +1022,50 @@ def free_port():
         return s.getsockname()[1]
 
 
+SHARD_BOX_BYTES = 64 << 20  # MAX_SHARD_SIZE_BYTES on the sharded path
+
+
+def spawn_ranks(flag, root, world=2, timeout_s=300):
+    """Start this script ``world`` times as ``flag <rank> <world> <port>
+    <root>``; returns each child's JSON result (the line starting with
+    ``flag``'s word and ``result``), in rank order.  A child that exits
+    non-zero fails the path."""
+    port = free_port()
+    tag = f"{flag.strip('-').replace('-child', '').replace('-', '_')} result "
+    # each child writes to a file: a pipe the parent is not reading could
+    # fill and stall a child while its peer waits for it
+    logs = [open(os.path.join(root, f"{flag.strip('-')}{r}.log"), "w+") for r in range(world)]
+    procs = [
+        subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), flag, str(r), str(world), str(port), root],
+            stdout=logs[r], stderr=subprocess.STDOUT, text=True,
+        )
+        for r in range(world)
+    ]
+    try:
+        deadline = time.monotonic() + timeout_s
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results = []
+    for r, (p, f) in enumerate(zip(procs, logs)):
+        f.seek(0)
+        text = f.read()
+        f.close()
+        for line in text.splitlines():
+            if line.startswith(tag):
+                results.append(json.loads(line[len(tag):]))
+        if p.returncode != 0:
+            print(text[-4000:])
+            raise RuntimeError(f"check failed: {flag} rank {r} exited {p.returncode}")
+    check(len(results) == world, f"a {flag} child printed no result")
+    return sorted(results, key=lambda x: x["rank"])
+
+
 def phase_many_ranks(cfg, work):
     """Two processes on the one card, coordinated over a TCPStore on
     localhost: sync take at world 2 of a replicated model and optimizer
@@ -1017,41 +1076,8 @@ def phase_many_ranks(cfg, work):
     bitwise for the replicated state.  Returns the children's launches."""
     root = os.path.join(work, "many_ranks")
     os.makedirs(root)
-    port = free_port()
-    # each child writes to a file: a pipe the parent is not reading could
-    # fill and stall a child while its peer waits for it
-    logs = [open(os.path.join(root, f"rank{r}.log"), "w+") for r in range(2)]
-    procs = [
-        subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--many-ranks-child", str(r), "2", str(port), root],
-            stdout=logs[r], stderr=subprocess.STDOUT, text=True,
-        )
-        for r in range(2)
-    ]
-    try:
-        deadline = time.monotonic() + 300
-        for p in procs:
-            p.wait(timeout=max(1.0, deadline - time.monotonic()))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    outs = []
-    for f in logs:
-        f.seek(0)
-        outs.append(f.read())
-        f.close()
-    results = []
-    for r, (p, text) in enumerate(zip(procs, outs)):
-        for line in text.splitlines():
-            if line.startswith("many_ranks result "):
-                results.append(json.loads(line[len("many_ranks result "):]))
-        if p.returncode != 0:
-            print(text[-4000:])
-            raise RuntimeError(f"check failed: many_ranks rank {r} exited {p.returncode}")
-    check(len(results) == 2, "a many_ranks child printed no result")
-    for res in sorted(results, key=lambda x: x["rank"]):
+    results = spawn_ranks("--many-ranks-child", root)
+    for res in results:
         print(f"many_ranks rank {res['rank']}: take {res['take_s']:.3f} s writing {res['take_bytes']} bytes "
               f"({res['take_bytes'] / res['replicated_bytes']:.3f} of the {res['replicated_bytes']} replicated "
               f"bytes); restore at world 2 {res['restore_s']:.3f} s; async_take unblocked in "
@@ -1071,6 +1097,256 @@ def phase_many_ranks(cfg, work):
     check(mine["rank"] == 0 and bool((mine["t"] == 0).all()), "world-1 restore: rank 0's per-rank state differs")
     print(f"many_ranks: restore at world 1 of the world-2 snapshot {restore_s:.3f} s, bitwise")
     del model, opt, model2, opt2
+    shutil.rmtree(root)
+    launches = {}
+    for res in results:
+        for k, v in res["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return launches
+
+
+def full_state(model, opt):
+    """``"model/<name>"`` and ``"optim/<i>/<key>"`` → the tensors of a
+    plain (unsharded) model and its optimizer: the reference a sharded
+    restore is held against."""
+    out = {f"model/{n}": p.detach() for n, p in model.named_parameters()}
+    for i, st in opt.state_dict()["state"].items():
+        out.update({f"optim/{i}/{k}": v for k, v in st.items()})
+    return out
+
+
+def local_of(full, dt):
+    """The part of ``full`` that DTensor ``dt``'s local tensor holds."""
+    from torchsnapshot_tpu_torch.preparers.sharded import box_at
+
+    mesh = dt.device_mesh
+    offsets, sizes = box_at(full.shape, mesh.shape, mesh.get_coordinate(), dt.placements)
+    return full[tuple(slice(o, o + n) for o, n in zip(offsets, sizes))]
+
+
+def check_restored(ref, params, opt_state, label):
+    """Every restored parameter (name → tensor or DTensor) and optimizer
+    state (index → key → tensor) bitwise equal to ``ref`` cast to its
+    dtype (a DTensor's local tensor to its box of ``ref``)."""
+    items = [(f"model/{n}", t) for n, t in params.items()]
+    items += [(f"optim/{i}/{k}", t) for i, st in opt_state.items() for k, t in st.items()]
+    check(len(items) == len(ref), f"{label}: {len(items)} tensors restored, {len(ref)} taken")
+    for key, t in items:
+        got, want = (t.to_local(), local_of(ref[key], t)) if hasattr(t, "device_mesh") else (t, ref[key])
+        check(torch.equal(got, want.to(got.device, got.dtype)), f"{label}: {key} differs")
+
+
+def sharded_templates(model, opt, mesh, place=list, dtype=None):
+    """Zero DTensor templates of ``model``'s parameters and ``opt``'s state,
+    each moment laid out as ``place(placements)`` of its parameter, in
+    ``dtype`` (the state's own by default): ``model`` and ``optim`` app
+    state for a restore."""
+    from torchsnapshot_tpu_torch.parallel.mesh import distribute
+
+    def zeros(t):
+        return distribute(
+            torch.zeros(t.shape, dtype=dtype or t.dtype, device="cuda"), mesh, place(t.placements)
+        )
+
+    sd = opt.state_dict()
+    state = {
+        i: {k: v.clone() if k == "step" else zeros(p) for k, v in sd["state"][i].items()}
+        for i, p in enumerate(model.parameters())
+    }
+    model_t = tts.StateDict({n: zeros(p) for n, p in model.named_parameters()})
+    return model_t, tts.StateDict(state=state, param_groups=sd["param_groups"])
+
+
+def swapped(placements):
+    """The transposed layout: Shard(0) ↔ Shard(1)."""
+    from torch.distributed.tensor import Shard
+
+    return [Shard(1 - p.dim) if p.is_shard() else p for p in placements]
+
+
+def sharded_bytes(ref):
+    return sum(nbytes(t) for k, t in ref.items() if not k.endswith("/step"))
+
+
+def sharded_child(rank, world, port, root):
+    """One rank of the sharded path's part 2 (see ``phase_sharded``);
+    prints one ``sharded result`` JSON line, exits non-zero on a
+    failure."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from torchsnapshot_tpu_torch.parallel.mesh import shard_train_state
+
+    if not torch.cuda.is_available():
+        print("sharded child: no CUDA device", file=sys.stderr)
+        return 2
+    # gloo: its TCPStore is the snapshots' coordinator; the take and the
+    # restore run no collective of the mesh
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank, world_size=world)
+    coord = tts.get_default_coordinator()
+    out = {"rank": rank}
+    mesh = DeviceMesh("cuda", list(range(world)), mesh_dim_names=("tp",))
+    out["mesh"] = mesh.device_type
+    cfg = TransformerConfig(n_layers=N_LAYERS)
+    ref = full_state(*deterministic_state(cfg, seed=0))
+    model, opt = shard_train_state(*deterministic_state(cfg, seed=0), mesh)
+    for k in device_pack.LAUNCHES:
+        device_pack.LAUNCHES[k] = 0
+    misses = dict(array_preparer.TILE_MISSES)
+    written = tts.obs.counters().get(tts.obs.BYTES_WRITTEN, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with tts.knobs.override_max_shard_size_bytes(SHARD_BOX_BYTES):
+        tts.Snapshot.take(os.path.join(root, "world2"), {"model": model, "optim": opt}, coordinator=coord)
+    out["take_s"] = time.perf_counter() - t0
+    out["take_bytes"] = tts.obs.counters().get(tts.obs.BYTES_WRITTEN, 0) - written
+    out["sharded_bytes"] = sharded_bytes(ref)
+    share = out["take_bytes"] / out["sharded_bytes"]
+    check(0.4 <= share <= 0.6, f"rank {rank} wrote {share:.3f} of the state's bytes")
+
+    model_t, optim_t = sharded_templates(model, opt, mesh, place=swapped)
+    del model, opt
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tts.Snapshot(os.path.join(root, "world2"), coordinator=coord).restore(
+        {"model": model_t, "optim": optim_t}
+    )
+    torch.cuda.synchronize()
+    out["restore_s"] = time.perf_counter() - t0
+    check_restored(ref, model_t, optim_t["state"], f"rank {rank} restore into the transposed layout")
+    check(dict(array_preparer.TILE_MISSES) == misses, f"rank {rank}: a box missed the device path")
+    out["launches"] = dict(device_pack.LAUNCHES)
+    check(out["launches"]["slab_pack"] > 0, f"rank {rank}: the take at world 2 launched no K1")
+    print("sharded result " + json.dumps(out), flush=True)
+    coord.barrier()  # both ranks are done with the snapshot
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_sharded(cfg, work):
+    """DTensor state at full width.  Part 1, in this process on a 1-rank
+    CUDA mesh of shape (1, 1) named ("dp", "tp"): the model and AdamW
+    laid out by ``parallel/mesh.py``'s rules, boxes subdivided at
+    ``SHARD_BOX_BYTES``; sync take, async_take and ``wait()``, restores
+    into bf16 DTensors (a fresh sharded model and optimizer), f32 DTensors
+    (K6) and plain CUDA tensors, and a budgeted ``read_object`` of the
+    embedding, all bitwise.  Part 2, two processes on the card over gloo,
+    DTensors on a "tp" mesh of 2: a take at world 2 and a restore at
+    world 2 into the transposed layout; then, here, the restore at world
+    1 of that snapshot onto the 1-rank mesh and into plain tensors.
+    Returns the children's launches."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from torchsnapshot_tpu_torch.parallel.mesh import shard_train_state
+
+    root = os.path.join(work, "sharded")
+    os.makedirs(root)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0, world_size=1)
+    try:
+        mesh = DeviceMesh("cuda", [[0]], mesh_dim_names=("dp", "tp"))
+        ref = full_state(*deterministic_state(cfg, seed=0))
+        model, opt = shard_train_state(*deterministic_state(cfg, seed=0), mesh)
+        nb = sharded_bytes(ref)
+        misses = dict(array_preparer.TILE_MISSES)
+        sync_dir, async_dir = os.path.join(root, "sync"), os.path.join(root, "async")
+        with tts.knobs.override_max_shard_size_bytes(SHARD_BOX_BYTES):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            snap = tts.Snapshot.take(sync_dir, {"model": model, "optim": opt})
+            take_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            pending = tts.Snapshot.async_take(async_dir, {"model": model, "optim": opt})
+            unblock_s = time.perf_counter() - t0
+            pending.wait()
+            wait_s = time.perf_counter() - t0
+        entry = snap.metadata.manifest["0/model/embed.weight"]
+        check(len(entry.shards) == 4 and entry.spec == [None, "tp"] and entry.mesh_shape == [1, 1],
+              f"the embedding's entry: {len(entry.shards)} boxes, spec {entry.spec}, mesh {entry.mesh_shape}")
+        print(f"sharded: state {nb} bytes in DTensors on a (1, 1) cuda mesh; take {take_s:.3f} s "
+              f"({nb / take_s / 1e9:.3f} GB/s); async_take unblocked in {unblock_s:.4f} s, wait() returned "
+              f"{wait_s:.3f} s after the call; the embedding in {len(entry.shards)} boxes of "
+              f"{SHARD_BOX_BYTES} bytes at most")
+        del model, opt
+
+        m2, o2 = shard_train_state(*deterministic_state(cfg, seed=1), mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tts.Snapshot(sync_dir).restore({"model": m2, "optim": o2})
+        torch.cuda.synchronize()
+        bf16_s = time.perf_counter() - t0
+        check_restored(ref, dict(m2.named_parameters()), o2.state_dict()["state"], "restore into bf16 DTensors")
+        model_t, optim_t = sharded_templates(m2, o2, mesh, dtype=torch.float32)
+        del m2, o2
+        k6 = device_pack.LAUNCHES["tile_update"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tts.Snapshot(async_dir).restore({"model": model_t, "optim": optim_t})
+        torch.cuda.synchronize()
+        f32_s = time.perf_counter() - t0
+        k6 = device_pack.LAUNCHES["tile_update"] - k6
+        check(k6 > 0, "the f32 restore launched no K6")
+        check_restored(ref, model_t, optim_t["state"], "restore of the async snapshot into f32 DTensors")
+        del model_t, optim_t
+        plain_m, plain_o = deterministic_state(cfg, seed=2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tts.Snapshot(sync_dir).restore({"model": plain_m, "optim": plain_o})
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        check_restored(ref, dict(plain_m.named_parameters()), plain_o.state_dict()["state"],
+                       "restore into plain CUDA tensors")
+        del plain_m, plain_o
+        tiles0 = tts.obs.counters().get(tts.obs.TILES_READ, 0)
+        array_preparer.PINNED_TILES["high_water_bytes"] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        emb = snap.read_object("0/model/embed.weight", memory_budget_bytes=READ_BUDGET)
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t0
+        tiles = tts.obs.counters().get(tts.obs.TILES_READ, 0) - tiles0
+        hw = array_preparer.PINNED_TILES["high_water_bytes"]
+        check(emb.is_cuda and torch.equal(emb, ref["model/embed.weight"]), "budgeted read of the embedding differs")
+        # its boxes split by rows, so its tiles land in place
+        check(0 < hw <= 2 * READ_BUDGET, f"the sharded budgeted read held {hw} bytes of pinned tiles")
+        print(f"sharded: restore into bf16 DTensors {bf16_s:.3f} s, into f32 DTensors {f32_s:.3f} s "
+              f"({k6} K6 launches), into plain CUDA tensors {plain_s:.3f} s, all bitwise; budgeted read of "
+              f"the embedding ({nbytes(emb)} bytes, budget {READ_BUDGET}): {tiles} row tiles, {read_s:.4f} s, "
+              f"pinned tile high water {hw} bytes (row tiles landed in place)")
+        del emb
+        check(dict(array_preparer.TILE_MISSES) == misses, f"a box missed the device path: {array_preparer.TILE_MISSES}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        results = spawn_ranks("--sharded-child", root)
+        for res in results:
+            check(res["mesh"] == "cuda", f"sharded rank {res['rank']} ran on a {res['mesh']} mesh")
+            print(f"sharded rank {res['rank']} (DTensors on a {res['mesh']} mesh): take at world 2 "
+                  f"{res['take_s']:.3f} s writing {res['take_bytes']} bytes ({res['take_bytes'] / res['sharded_bytes']:.3f} "
+                  f"of the {res['sharded_bytes']} bytes of DTensor state); restore at world 2 into the "
+                  f"transposed layout {res['restore_s']:.3f} s, bitwise")
+        world2 = os.path.join(root, "world2")
+        m3, o3 = shard_train_state(*deterministic_state(cfg, seed=1), mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tts.Snapshot(world2).restore({"model": m3, "optim": o3})
+        torch.cuda.synchronize()
+        w1_s = time.perf_counter() - t0
+        check_restored(ref, dict(m3.named_parameters()), o3.state_dict()["state"], "world-1 restore onto the mesh")
+        del m3, o3
+        plain_m, plain_o = deterministic_state(cfg, seed=2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tts.Snapshot(world2).restore({"model": plain_m, "optim": plain_o})
+        torch.cuda.synchronize()
+        w1_plain_s = time.perf_counter() - t0
+        check_restored(ref, dict(plain_m.named_parameters()), plain_o.state_dict()["state"],
+                       "world-1 restore into plain tensors")
+        print(f"sharded: restore at world 1 of the world-2 snapshot onto the (1, 1) mesh {w1_s:.3f} s, "
+              f"into plain CUDA tensors {w1_plain_s:.3f} s, bitwise")
+        del plain_m, plain_o, ref
+    finally:
+        dist.destroy_process_group()
     shutil.rmtree(root)
     launches = {}
     for res in results:
@@ -1169,6 +1445,9 @@ def main():
         gc.collect()
         torch.cuda.empty_cache()
         run_path("many_ranks", ("slab_pack", "slab_unpack"), lambda: phase_many_ranks(cfg, work))
+        gc.collect()
+        torch.cuda.empty_cache()
+        run_path("sharded", ("slab_pack", "tile_update"), lambda: phase_sharded(cfg, work))
 
     print(json.dumps({"kernels": list(records.values())}))
     print(card)
@@ -1183,4 +1462,6 @@ def main():
 if __name__ == "__main__":
     if len(sys.argv) == 6 and sys.argv[1] == "--many-ranks-child":
         sys.exit(many_ranks_child(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), sys.argv[5]))
+    if len(sys.argv) == 6 and sys.argv[1] == "--sharded-child":
+        sys.exit(sharded_child(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), sys.argv[5]))
     sys.exit(main())

@@ -628,3 +628,89 @@ def test_budgeted_read_failure_leaves_the_cuda_template_usable(cuda, tmp_path):
         target.write_bytes(good)
         assert snap.read_object("0/app/w", obj_out=out, memory_budget_bytes=1 << 16) is out
     assert torch.equal(out.cpu(), src.double())
+
+
+@pytest.fixture
+def cuda_mesh(cuda):
+    """A 1-rank gloo process group and a ("dp", "tp") CUDA mesh of (1, 1),
+    destroyed after the test."""
+    import socket
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=0, world_size=1)
+    try:
+        yield DeviceMesh("cuda", [[0]], mesh_dim_names=("dp", "tp"))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_sharded_take_and_restore_on_a_cuda_mesh(cuda_mesh, tmp_path):
+    """DTensors on a 1-rank CUDA mesh, boxes subdivided under a small
+    MAX_SHARD_SIZE_BYTES (by rows, and by columns for the wide "c"),
+    small ones packed by K1: restored bitwise into bf16 DTensors of other
+    placements, into f32 DTensors through K6, bitwise equal to K6's plain
+    version, and into a plain CUDA tensor; row boxes land in place as
+    they are read (one pinned copy, or one K6 launch, per stored box),
+    column boxes are assembled in one pinned buffer and land once; no box
+    misses the device path, and a budgeted read holds pinned tiles of at
+    most the budget."""
+    import torchsnapshot_tpu_torch as tts
+    from torch.distributed.tensor import Replicate, Shard
+    from torchsnapshot_tpu_torch import knobs
+    from torchsnapshot_tpu_torch.ops import device_pack as dp
+    from torchsnapshot_tpu_torch.parallel.mesh import distribute
+    from torchsnapshot_tpu_torch.preparers import array as tarray
+
+    full = {"w": _rand((96, 40), torch.bfloat16, "cuda", 30), "n": _rand((40,), torch.bfloat16, "cuda", 31),
+            "m": _rand((33, 7), torch.bfloat16, "cuda", 32), "c": _rand((8, 300), torch.bfloat16, "cuda", 34)}
+    layout = {"w": (Replicate(), Shard(1)), "n": (Replicate(), Replicate()), "m": (Shard(0), Replicate()),
+              "c": (Replicate(), Replicate())}
+    state = tts.StateDict({k: distribute(v, cuda_mesh, layout[k]) for k, v in full.items()})
+    k1, k6, misses = dp.LAUNCHES["slab_pack"], dp.LAUNCHES["tile_update"], dict(tarray.TILE_MISSES)
+    with knobs.override_max_shard_size_bytes(2048):
+        snap = tts.Snapshot.take(str(tmp_path / "s"), {"app": state})
+    assert dp.LAUNCHES["slab_pack"] > k1
+    assert len(snap.metadata.manifest["0/app/w"].shards) == 4  # 7680 bytes in 2048-byte row boxes
+    assert len(snap.metadata.manifest["0/app/c"].shards) == 3  # 4800 bytes in 2048-byte column boxes
+    swapped = {"w": (Shard(0), Replicate()), "n": (Replicate(), Replicate()), "m": (Replicate(), Shard(1)),
+               "c": (Shard(1), Replicate())}
+    bf16 = tts.StateDict({k: distribute(torch.zeros_like(v), cuda_mesh, swapped[k]) for k, v in full.items()})
+    f32 = tts.StateDict({k: distribute(torch.zeros(v.shape, device="cuda"), cuda_mesh, layout[k]) for k, v in full.items()})
+    plain = tts.StateDict({k: torch.zeros_like(v) for k, v in full.items()})
+    for dest in (bf16, f32, plain):
+        tts.Snapshot(str(tmp_path / "s")).restore({"app": dest})
+    # one launch per stored row box of w, n and m; one for c's assembled box
+    assert dp.LAUNCHES["tile_update"] == k6 + 4 + 1 + 1 + 1
+    for k, v in full.items():
+        assert torch.equal(bf16[k].to_local(), v) and torch.equal(plain[k], v), k
+        want = dp.tile_update_plain(torch.zeros(v.numel()), 0, v.cpu().reshape(-1)).reshape(v.shape)
+        assert torch.equal(f32[k].to_local().cpu(), want), k
+    assert dict(tarray.TILE_MISSES) == misses
+    tarray.PINNED_TILES["high_water_bytes"] = 0
+    got = tts.Snapshot(str(tmp_path / "s")).read_object("0/app/w", memory_budget_bytes=1024)
+    assert got.device.type == "cuda" and torch.equal(got, full["w"])
+    assert 0 < tarray.PINNED_TILES["high_water_bytes"] <= 2 * 1024
+
+
+def test_sharded_restore_into_a_non_contiguous_local_tensor(cuda_mesh, tmp_path):
+    """A DTensor whose local tensor is a transposed view cannot take the
+    pinned copy or K6: it counts a layout miss in ``TILE_MISSES`` and is
+    copied plainly, still bitwise."""
+    import torchsnapshot_tpu_torch as tts
+    from torch.distributed.tensor import DTensor, Replicate
+    from torchsnapshot_tpu_torch.parallel.mesh import distribute
+    from torchsnapshot_tpu_torch.preparers import array as tarray
+
+    src = _rand((48, 64), torch.float32, "cuda", 33)
+    tts.Snapshot.take(str(tmp_path / "s"), {"app": tts.StateDict(w=distribute(src, cuda_mesh, (Replicate(), Replicate())))})
+    local = torch.zeros(64, 48, device="cuda").t()
+    dest = tts.StateDict(w=DTensor.from_local(local, cuda_mesh, [Replicate(), Replicate()], run_check=False))
+    before = tarray.TILE_MISSES["layout"]
+    tts.Snapshot(str(tmp_path / "s")).restore({"app": dest})
+    assert tarray.TILE_MISSES["layout"] == before + 1
+    assert torch.equal(local, src)

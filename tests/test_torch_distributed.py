@@ -243,6 +243,85 @@ def test_peer_failure_raises_a_typed_abort_and_writes_no_metadata(tmp_path, mode
         assert word in line and float(line.split()[-1]) < 10, line
 
 
+def test_peer_restore_failure_aborts_every_rank(tmp_path):
+    """Rank 1 reads through a storage plugin that raises: rank 1 raises
+    its own error and rank 0 a ``SnapshotAbortedError`` naming rank 1,
+    both within 10 s (the port of the JAX package's
+    ``test_chaos_multirank_restore_peer_fault_aborts_all_ranks``)."""
+    outs = run_workers(tmp_path, 2, """
+        import time
+        import torchsnapshot_tpu_torch.snapshot as snapmod
+        from torchsnapshot_tpu_torch.storage.fs import FSStoragePlugin
+
+        tts.Snapshot.take(snap_dir, {"app": tts.StateDict(w=torch.arange(128.0))}, coordinator=coord)
+
+        class FailingReads(FSStoragePlugin):
+            async def read(self, read_io):
+                raise OSError(f"rank {rank}: injected read failure")
+
+        if rank == 1:
+            snapmod.url_to_storage_plugin = lambda p: FailingReads(root=p)
+        dest = tts.StateDict(w=torch.zeros(128))
+        t0 = time.monotonic()
+        try:
+            tts.Snapshot(snap_dir, coordinator=coord).restore({"app": dest})
+        except tts.SnapshotAbortedError as e:
+            assert rank == 0 and e.info.origin_rank == 1, e
+            print("RESULT", rank, "aborted", time.monotonic() - t0)
+        except OSError as e:
+            assert rank == 1, e
+            print("RESULT", rank, "failed", time.monotonic() - t0)
+        else:
+            raise AssertionError(f"rank {rank}: restore unexpectedly succeeded")
+        """)
+    for r, word in enumerate(("aborted", "failed")):
+        line = next(line for line in outs[r].splitlines() if line.startswith(f"RESULT {r}"))
+        assert word in line and float(line.split()[-1]) < 10, line
+
+
+class _Rank1View(tts.LocalCoordinator):
+    """Restores alone, as rank 1 of the snapshot's ranks sees it."""
+
+    @property
+    def rank(self):
+        return 1
+
+
+def test_degraded_snapshot_refuses_only_what_this_rank_would_read(tmp_path):
+    """A JAX 2-rank snapshot whose ``degraded`` section names a path:
+    rank 0 restores its intact private copy of rank 1's lost private
+    path; rank 1 (the origin) raises ``DegradedSnapshotError``, and so
+    does any rank when the lost path is replicated."""
+    from torchsnapshot_tpu.manifest import SnapshotMetadata as JaxMetadata
+
+    run_workers(tmp_path, 2, """
+        state = StateDict(shared=np.arange(64, dtype=np.float32), local=np.full(8, float(rank)))
+        Snapshot.take(snap_dir, {"app": state}, replicated=["app/shared"], coordinator=coord)
+        """, package="jax")
+    meta_path = tmp_path / "snap" / ".snapshot_metadata"
+    committed = meta_path.read_text()
+
+    def degrade(lpath):
+        meta = JaxMetadata.from_yaml(committed)
+        meta.degraded = {lpath: {"origin_rank": 1, "kind": "Array"}}
+        meta_path.write_text(meta.to_yaml())
+
+    def dest():
+        return tts.StateDict(shared=torch.zeros(64), local=torch.full((8,), -1.0, dtype=torch.float64))
+
+    degrade("app/local")
+    d0 = dest()
+    tts.Snapshot(str(tmp_path / "snap")).restore({"app": d0})
+    assert torch.equal(d0["local"], torch.zeros(8, dtype=torch.float64))
+    assert torch.equal(d0["shared"], torch.arange(64, dtype=torch.float32))
+    d1 = dest()
+    with pytest.raises(tts.DegradedSnapshotError, match="app/local"):
+        tts.Snapshot(str(tmp_path / "snap"), coordinator=_Rank1View()).restore({"app": d1})
+    degrade("app/shared")
+    with pytest.raises(tts.DegradedSnapshotError, match="app/shared"):
+        tts.Snapshot(str(tmp_path / "snap")).restore({"app": dest()})
+
+
 def test_replication_verification_demotes_divergent_state(tmp_path):
     run_workers(tmp_path, 2, """
         state = tts.StateDict(

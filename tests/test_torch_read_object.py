@@ -302,3 +302,53 @@ def test_no_template_cpu_read_returns_a_tensor_of_the_stored_shape(tmp_path):
     assert _bytes(out) == src.tobytes()
     assert glob.glob(str(tmp_path / "s" / "0" / "*"))
     assert os.path.exists(tmp_path / "s" / ".snapshot_metadata")
+
+
+@pytest.mark.parametrize("encoding", ["codec", "cas"])
+def test_encoded_objects_raise_a_typed_error_before_any_byte_lands(tmp_path, encoding):
+    """A JAX snapshot whose object is stored compressed (zlib frames,
+    striped) or as CAS chunk references: every read path of the port
+    raises ``EncodedPayloadError`` naming the location and its table,
+    and the template is never written (it stays all zeros)."""
+    w = np.random.default_rng(7).standard_normal(1 << 22).astype(np.float32)  # 16 MiB
+    path = str(tmp_path / "run" / "s")
+    if encoding == "codec":
+        with jknobs.override_codec("zlib"), jknobs.override_stripe_min_object_size_bytes(4 << 20):
+            jts.Snapshot.take(path, {"m": jts.StateDict(w=w)})
+        table = "codec frame table"
+    else:
+        jts.Snapshot.take(path, {"m": jts.StateDict(w=w)}, cas=True)
+        table = "CAS chunk table"
+    # the JAX package reads its own snapshot back bitwise
+    np.testing.assert_array_equal(jts.Snapshot(path).read_object("0/m/w"), w)
+    snap = tts.Snapshot(path)
+    tmpl = torch.zeros(w.size)
+    for budget in (1 << 20, None):
+        with pytest.raises(tts.EncodedPayloadError, match=table) as e:
+            snap.read_object("0/m/w", obj_out=tmpl, memory_budget_bytes=budget, device="cpu")
+        assert e.value.location == "0/m/w"
+        with pytest.raises(tts.EncodedPayloadError, match=table):
+            snap.read_object("0/m/w", memory_budget_bytes=budget, device="cpu")
+    dest = tts.StateDict(w=tmpl)
+    with pytest.raises(tts.EncodedPayloadError, match=table):
+        snap.restore({"m": dest})
+    assert not tmpl.any()
+
+
+
+def test_encoded_object_under_a_later_key_refuses_the_whole_restore(tmp_path):
+    """A restore refuses an encoded object before any key restores: an
+    earlier key's template stays untouched when a later key holds it."""
+    path = str(tmp_path / "s")
+    w = torch.from_numpy(np.random.default_rng(8).standard_normal(64).astype(np.float32))
+    with tts.knobs.override_disable_batching(True):  # an object of its own each
+        tts.Snapshot.take(path, {"a": tts.StateDict(v=w.clone()), "m": tts.StateDict(w=w.clone())})
+    snap = tts.Snapshot(path)
+    location = snap.metadata.manifest["0/m/w"].location
+    assert location != snap.metadata.manifest["0/a/v"].location
+    snap.metadata.codecs = {location: [[0, 64]]}  # the table's contents are not read
+    first, later = torch.zeros(64), torch.zeros(64)
+    with pytest.raises(tts.EncodedPayloadError, match="codec frame table") as e:
+        snap.restore({"a": tts.StateDict(v=first), "m": tts.StateDict(w=later)}, device="cpu")
+    assert e.value.location == location
+    assert not first.any() and not later.any()

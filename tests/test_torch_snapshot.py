@@ -245,3 +245,42 @@ def test_transformer_state_round_trips_through_both_packages(tmp_path):
     tokens = torch.randint(0, cfg.vocab, (1, 8))
     with torch.no_grad():
         assert torch.equal(fresh(tokens), model(tokens))
+
+
+def test_legacy_leaf_list_loads_positionally():
+    """A ``{"leaves": [...]}`` state dict loads into the tree in its
+    flattening order (the JAX package's
+    ``test_legacy_leaf_list_loads_positionally``), unless the tree itself
+    is named that way (``test_tree_actually_named_leaves_is_not_legacy``)."""
+    ts = tts.PyTreeState({"a": torch.zeros(2), "b": {"c": torch.zeros(3)}})
+    ts.load_state_dict({"leaves": [torch.ones(2), torch.full((3,), 2.0)]})
+    assert torch.equal(ts.tree["a"], torch.ones(2))
+    assert torch.equal(ts.tree["b"]["c"], torch.full((3,), 2.0))
+    with pytest.raises(ValueError, match="cannot load 1 leaves"):
+        ts.load_state_dict({"leaves": [torch.ones(2)]})
+    named = tts.PyTreeState({"leaves": [torch.zeros(2), torch.zeros(3)]})
+    named.load_state_dict({"leaves": [torch.ones(2), torch.full((3,), 5.0)]})
+    assert torch.equal(named.tree["leaves"][1], torch.full((3,), 5.0))
+
+
+def test_legacy_jax_snapshot_restores_into_the_templates(tmp_path, monkeypatch):
+    """A JAX snapshot in the leaf-list layout (``ts/leaves/<i>``) restores
+    into a named ``PyTreeState`` positionally, in place: the tree keeps
+    its own tensors (the port's counterpart of the JAX package's
+    ``test_legacy_snapshot_restore_keeps_sharding``)."""
+    rng = np.random.default_rng(3)
+    w = rng.standard_normal(16).astype(np.float32)
+    b = rng.standard_normal(4).astype(np.float32)
+    monkeypatch.setattr(
+        jts.PyTreeState, "state_dict",
+        lambda self: {"leaves": jax.tree_util.tree_leaves(self.tree)},
+    )
+    jts.Snapshot.take(str(tmp_path / "s"), {"ts": jts.PyTreeState({"w": jnp.asarray(w), "b": jnp.asarray(b)})})
+    monkeypatch.undo()
+    assert any("ts/leaves/" in p for p in jts.Snapshot(str(tmp_path / "s")).get_manifest())
+    tw, tb = torch.zeros(16), torch.zeros(4)
+    dest = tts.PyTreeState({"w": tw, "b": tb})
+    tts.Snapshot(str(tmp_path / "s")).restore({"ts": dest})
+    # b sorts before w: the positional mapping still lands each leaf
+    assert dest.tree["w"] is tw and dest.tree["b"] is tb
+    assert _bytes(tw) == w.tobytes() and _bytes(tb) == b.tobytes()

@@ -7,7 +7,8 @@ the other.  On the GPU, small tensors coalesce into slabs that are
 packed and unpacked on the device by hand-written CUDA kernels
 (``csrc/``).  Many ranks of one host take and restore together over a
 ``torch.distributed`` store (``TorchStoreCoordinator``) or a shared
-directory (``FileCoordinator``).  It imports ``torch`` and ``numpy``,
+directory (``FileCoordinator``), and ``DTensor`` state is stored as
+sharded entries that restore into any layout at any world size.  It imports ``torch`` and ``numpy``,
 never ``jax`` and nothing of ``torchsnapshot_tpu``.
 
 Entry points place new tensors on ``cuda`` unless the caller asks for
@@ -24,7 +25,7 @@ from .coordination import (  # noqa: F401
 )
 from .event import Event  # noqa: F401
 from .event_handlers import register_event_handler, unregister_event_handler  # noqa: F401
-from .snapshot import Snapshot  # noqa: F401
+from .snapshot import DegradedSnapshotError, EncodedPayloadError, Snapshot  # noqa: F401
 from .resilience.abort import SnapshotAbortedError  # noqa: F401
 from .stateful import PyTreeState, Replicated, RNGState, StateDict, Stateful  # noqa: F401
 
@@ -36,6 +37,8 @@ __all__ = [
     "TorchStoreCoordinator",
     "get_default_coordinator",
     "SnapshotAbortedError",
+    "DegradedSnapshotError",
+    "EncodedPayloadError",
     "Replicated",
     "PyTreeState",
     "RNGState",

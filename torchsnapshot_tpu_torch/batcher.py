@@ -31,7 +31,7 @@ import torch
 
 from . import knobs, obs
 from .io_types import BufferConsumer, BufferStager, ReadReq, WriteReq, check_read_crc
-from .manifest import ArrayEntry, ChunkedArrayEntry, Entry, ObjectEntry
+from .manifest import ArrayEntry, ChunkedArrayEntry, Entry, ObjectEntry, ShardedArrayEntry
 from .preparers.array import (
     ArrayBufferConsumer,
     CudaTensorBufferStager,
@@ -143,6 +143,10 @@ def _byte_range_targets(entries: Dict[str, Entry]) -> Dict[str, Any]:
         elif isinstance(entry, ChunkedArrayEntry):
             for chunk in entry.chunks:
                 targets[chunk.location] = chunk
+        elif isinstance(entry, ShardedArrayEntry):
+            # small device shards (norms, sub-threshold boxes) ride slabs
+            for shard in entry.shards:
+                targets[shard.location] = shard
     return targets
 
 

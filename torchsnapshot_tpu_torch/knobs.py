@@ -15,6 +15,7 @@ from typing import Iterator, Optional
 _ENV_PREFIX = "TORCHSNAPSHOT_TPU_TORCH_"
 
 _MAX_CHUNK_SIZE_BYTES = "MAX_CHUNK_SIZE_BYTES"
+_MAX_SHARD_SIZE_BYTES = "MAX_SHARD_SIZE_BYTES"
 _SLAB_SIZE_THRESHOLD_BYTES = "SLAB_SIZE_THRESHOLD_BYTES"
 _SLAB_HOST_MEMBER_MAX_BYTES = "SLAB_HOST_MEMBER_MAX_BYTES"
 _MAX_PER_RANK_IO_CONCURRENCY = "MAX_PER_RANK_IO_CONCURRENCY"
@@ -30,6 +31,9 @@ _REPLICATION_VERIFY = "REPLICATION_VERIFY"
 _DEFAULTS = {
     # Arrays larger than this are chunked along dim 0 for pipelined I/O.
     _MAX_CHUNK_SIZE_BYTES: 512 * 1024 * 1024,
+    # Sharded-array boxes larger than this are subdivided along their
+    # largest dim into several stored shards.
+    _MAX_SHARD_SIZE_BYTES: 512 * 1024 * 1024,
     # Host-staged members at or above this size skip slab packing (the
     # pack would be a pure extra memcpy); CUDA members stay eligible at
     # any size below the slab threshold, since the device pack turns N
@@ -83,6 +87,10 @@ def _get_int(name: str) -> int:
 
 def get_max_chunk_size_bytes() -> int:
     return _get_int(_MAX_CHUNK_SIZE_BYTES)
+
+
+def get_max_shard_size_bytes() -> int:
+    return _get_int(_MAX_SHARD_SIZE_BYTES)
 
 
 def get_slab_size_threshold_bytes() -> int:
@@ -151,6 +159,10 @@ def _override(name: str, value) -> Iterator[None]:
 
 def override_max_chunk_size_bytes(value: int):
     return _override(_MAX_CHUNK_SIZE_BYTES, value)
+
+
+def override_max_shard_size_bytes(value: int):
+    return _override(_MAX_SHARD_SIZE_BYTES, value)
 
 
 def override_slab_size_threshold_bytes(value: int):

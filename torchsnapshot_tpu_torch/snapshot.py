@@ -20,17 +20,24 @@ the JAX package's:
   on failure;
 - ``restore`` reads each leaf INTO the current state's tensors (restore
   templates, updated in place), RNG state last, at any world size:
-  replicated entries serve every rank;
+  replicated entries serve every rank, and a sharded entry's merged box
+  set serves any template layout (resharding).  Across ranks it is one
+  collective operation: a rank that fails poisons the restore's scope
+  and every peer raises ``SnapshotAbortedError``;
 - ``read_object`` reads one leaf by ``"<rank>/<logical path>"``, in
   tiles of at most ``memory_budget_bytes`` when given.
 
 Across ranks, state claimed replicated (``replicated`` globs, the
 ``Replicated`` marker, DDP-wrapped modules) is verified by fingerprint
 (``REPLICATION_VERIFY``) and written once, the writes balanced over the
-ranks.  Snapshots are interchangeable with the JAX package's: same
-manifest, same object layout, same checksums.  Not ported: incremental
-and content-addressed takes, tiered storage, topology and transport,
-liveness, write takeover and repair.
+ranks.  ``DTensor`` leaves are sharded state: each box of the layout is
+written once, by a writer every rank elects alike from the per-rank
+loads (``preparers/sharded.py``).  Snapshots are interchangeable with
+the JAX package's: same manifest, same object layout, same checksums.
+Not ported: incremental and content-addressed takes, codecs, tiered
+storage, topology and transport, liveness, write takeover and repair;
+a read of an object stored compressed or as chunk references raises
+``EncodedPayloadError`` before any byte reaches a template.
 """
 
 from __future__ import annotations
@@ -40,7 +47,7 @@ import logging
 import struct
 import threading
 import zlib
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -59,13 +66,15 @@ from .manifest import (
     Entry,
     Manifest,
     PrimitiveEntry,
+    ShardedArrayEntry,
     SnapshotMetadata,
     entry_from_dict,
     is_container_entry,
 )
 from .manifest_ops import consolidate_manifests, get_manifest_for_rank
 from .partitioner import partition_replicated_writes
-from .preparers import path_is_replicated, prepare_read, prepare_write
+from .preparers import estimate_write_bytes, path_is_replicated, prepare_read, prepare_write
+from .preparers.sharded import check_coordinator_rank, is_dtensor
 from .scheduler import (
     PendingIOWork,
     execute_write_reqs,
@@ -74,13 +83,62 @@ from .scheduler import (
 )
 from .resilience.abort import SnapshotAbortedError
 from .serialization import serialize_object, string_to_dtype
-from .stateful import Replicated, RNGState, load_with_strict
+from .stateful import PyTreeState, Replicated, RNGState, _tree_path_keys, load_with_strict
 from .storage import url_to_storage_plugin
 
 logger = logging.getLogger(__name__)
 
 SNAPSHOT_METADATA_FNAME = ".snapshot_metadata"
 AppState = Dict[str, Any]
+
+
+class EncodedPayloadError(RuntimeError):
+    """A read of an object the snapshot stores encoded: compressed (a
+    codec frame table in the metadata's ``codecs``) or as content
+    addressed chunk references (a chunk table in its ``cas``).  The port
+    does not decode either yet; raised before any byte is read."""
+
+    def __init__(self, location: str, table: str) -> None:
+        self.location = location
+        self.table = table
+        super().__init__(
+            f"object {location!r} is stored encoded (the snapshot's metadata has "
+            f"a {table} for it), which this package cannot decode yet; restore "
+            "it with the JAX package"
+        )
+
+
+class DegradedSnapshotError(RuntimeError):
+    """A restore would read logical paths the snapshot's ``degraded``
+    section declares lost with a rank that died during the take."""
+
+    def __init__(self, path: str, degraded_paths: Sequence[str]) -> None:
+        self.path = path
+        self.degraded_paths = sorted(degraded_paths)
+        super().__init__(
+            f"snapshot {path!r} is degraded: {len(self.degraded_paths)} logical "
+            f"path(s) were lost with a dead rank and not healed: "
+            f"{self.degraded_paths[:5]}"
+        )
+
+
+def _entry_locations(entry: Entry) -> List[str]:
+    if isinstance(entry, ShardedArrayEntry):
+        return [s.location for s in entry.shards]
+    if isinstance(entry, ChunkedArrayEntry):
+        return [c.location for c in entry.chunks]
+    location = getattr(entry, "location", None)
+    return [location] if location else []
+
+
+def _refuse_encoded(metadata: SnapshotMetadata, locations: Iterable[str]) -> None:
+    codecs = metadata.codecs or {}
+    chunks = (metadata.cas or {}).get("chunks") or {}
+    for location in locations:
+        if location in codecs:
+            raise EncodedPayloadError(location, "codec frame table")
+        if location in chunks:
+            raise EncodedPayloadError(location, "CAS chunk table")
 
 
 def _validate_app_state(app_state: AppState) -> None:
@@ -190,10 +248,11 @@ def _verify_replicated_paths(
     item list on every rank)."""
     if not replicated_globs:
         return set()
+    # a DTensor is sharded state, never replicated
     local = {
         lpath: None if mode == "off" else _replication_fingerprint(obj, mode)
         for lpath, obj in flattened.items()
-        if path_is_replicated(lpath, replicated_globs)
+        if path_is_replicated(lpath, replicated_globs) and not is_dtensor(obj)
     }
     if coordinator.world_size <= 1:
         return set(local)
@@ -547,6 +606,15 @@ class Snapshot:
                 # runs collectives
                 coordinator.barrier()
         verified = _verify_replicated_paths(flattened, replicated_globs, coordinator, verify_mode)
+        # every rank's non-sharded write bytes pre-load the sharded-box
+        # balance; the gathered vector is the same on every rank and is
+        # mutated by each sharded leaf's assignment, in sorted path order
+        host_est = sum(
+            estimate_write_bytes(obj)
+            for lp, obj in flattened.items()
+            if lp not in verified and not is_dtensor(obj)
+        )
+        writer_loads = list(coordinator.all_gather_object(host_est)) if world > 1 else [host_est]
 
         entries: Dict[str, Entry] = {}
         write_reqs: List[WriteReq] = []
@@ -561,6 +629,7 @@ class Snapshot:
                 entry, reqs = prepare_write(
                     flattened[lpath], lpath, rank, replicated=repl,
                     chunk_size_bytes=chunk_size_bytes, is_async_snapshot=is_async,
+                    world=world, writer_loads=writer_loads,
                 )
                 entries[lpath] = entry
                 if not repl:
@@ -652,21 +721,52 @@ class Snapshot:
         (cast to their dtype, on their device); a tensor leaf with no
         tensor template comes back on ``device``."""
         _validate_app_state(app_state)
-        rank = self._coordinator.rank
+        coordinator = self._coordinator
+        rank, world = coordinator.rank, coordinator.world_size
         with log_event(Event("restore", {"path": self.path, "rank": rank})):
-            manifest_for_rank = get_manifest_for_rank(self.metadata, rank)
-            storage = url_to_storage_plugin(self.path)
+            # one collective operation under the restore's own scope, the
+            # metadata read included: a rank that fails anywhere poisons
+            # it, and its peers' waits raise SnapshotAbortedError
+            uid = coordinator._next_uid("restore")
+            storage = None
             try:
-                # RNG state last, so no other restore can perturb it
-                keys = sorted(app_state)
-                keys.sort(key=lambda k: isinstance(app_state[k], RNGState))
-                for key in keys:
-                    self._load_stateful(
-                        key, app_state[key], manifest_for_rank, storage,
-                        strict, rank, device,
-                    )
+                with coordinator.abort_scope(uid):
+                    manifest_for_rank = get_manifest_for_rank(self.metadata, rank)
+                    storage = url_to_storage_plugin(self.path)
+                    keys = sorted(app_state)
+                    if world > 1:
+                        gathered = coordinator.all_gather_object(keys)
+                        if any(g != keys for g in gathered):
+                            raise ValueError(
+                                f"restore: the ranks' app_state keys differ: {gathered}"
+                            )
+                    # every object the keys would read, refused before
+                    # any key restores if one is stored encoded
+                    _refuse_encoded(self.metadata, (
+                        location
+                        for p, e in manifest_for_rank.items()
+                        if any(p == k or p.startswith(k + "/") for k in keys)
+                        for location in _entry_locations(e)
+                    ))
+                    # RNG state last, so no other restore can perturb it
+                    keys.sort(key=lambda k: isinstance(app_state[k], RNGState))
+                    for key in keys:
+                        self._load_stateful(
+                            key, app_state[key], manifest_for_rank, storage,
+                            strict, rank, device,
+                        )
+                        if world > 1:
+                            # one load_state_dict at a time across ranks,
+                            # in case one runs collectives
+                            coordinator.barrier()
+            except SnapshotAbortedError:
+                raise
+            except BaseException as e:
+                coordinator.poison(uid, cause=repr(e), site=f"restore/rank{rank}")
+                raise
             finally:
-                storage.sync_close()
+                if storage is not None:
+                    storage.sync_close()
 
     def _load_stateful(
         self, key: str, stateful: Any, manifest_for_rank: Manifest,
@@ -685,14 +785,30 @@ class Snapshot:
                     )
                 logger.warning("skipping %r: not in snapshot", key)
                 return
-            degraded = sorted(set(self.metadata.degraded) & set(key_manifest))
-            if degraded:
-                raise RuntimeError(
-                    f"snapshot {self.path!r} is degraded at {degraded[:5]}: "
-                    "their payloads were lost with a dead rank"
+            # a degraded path blocks this restore only when this rank's
+            # view would read the dead rank's bytes: this rank is its
+            # origin, or the entry is sharded (the merged boxes include
+            # the lost ones), or replicated (every view overlays the dead
+            # writer's copy); a peer's intact private copy restores
+            degraded = self.metadata.degraded or {}
+            hits = [
+                p for p, e in key_manifest.items()
+                if p in degraded
+                and not is_container_entry(e)
+                and (
+                    rank == degraded[p].get("origin_rank")
+                    or isinstance(e, ShardedArrayEntry)
+                    or bool(getattr(e, "replicated", False))
                 )
+            ]
+            if hits:
+                raise DegradedSnapshotError(self.path, hits)
             # the current state provides the in-place templates
             _, targets = flatten(stateful.state_dict(), prefix=key)
+            _map_legacy_leaf_targets(key, stateful, key_manifest, targets)
+            for lpath, t in targets.items():
+                if is_dtensor(t):
+                    check_coordinator_rank(rank, self._coordinator.world_size, t, lpath)
             container_entries: Manifest = {}
             read_reqs: List[ReadReq] = []
             futures: Dict[str, Future] = {}
@@ -735,7 +851,13 @@ class Snapshot:
         With ``memory_budget_bytes``, an array (or chunk) larger than the
         budget is read in tiles of at most that many bytes, each written
         into its place as it lands, and the budget also caps the reads in
-        flight: host memory stays O(budget).  A CUDA template takes the
+        flight: host memory stays O(budget).  A sharded entry is read in
+        row tiles of its stored boxes under the same cap; where every
+        stored box spans the whole array but along dim 0 (boxes split by
+        rows), the tiles land in place as a dense array's do, else they
+        are scattered into one host buffer of the whole result (pinned,
+        for the card), as the JAX package assembles it, and that buffer
+        is not bounded by the budget.  A CUDA template takes the
         tiles in place (a cast tile through kernel K6); with no template
         and a CUDA ``device`` the tiles land in a fresh tensor on the
         card.  If the read fails (a storage error, or a crc32 mismatch
@@ -753,16 +875,18 @@ class Snapshot:
             if (
                 memory_budget_bytes is not None
                 and obj_out is None
-                and isinstance(entry, (ArrayEntry, ChunkedArrayEntry))
+                and isinstance(entry, (ArrayEntry, ChunkedArrayEntry, ShardedArrayEntry))
                 and torch.device(device).type != "cpu"
             ):
-                # tile by tile onto the card, never through a whole host copy
+                # onto the card, never through a whole host copy of a dense
+                # array or of row-split boxes (their tiles land in place)
                 obj_out = torch.empty(
                     tuple(entry.shape), dtype=string_to_dtype(entry.dtype), device=device
                 )
             reqs, fut = prepare_read(
                 entry, obj_out=obj_out, buffer_size_limit_bytes=memory_budget_bytes
             )
+            _refuse_encoded(self.metadata, [r.path for r in reqs])
             storage = url_to_storage_plugin(self.path)
             try:
                 sync_execute_read_reqs(
@@ -772,6 +896,32 @@ class Snapshot:
             finally:
                 storage.sync_close()
             return _place(fut.obj, obj_out, device)
+
+
+def _map_legacy_leaf_targets(
+    key: str, stateful: Any, key_manifest: Manifest, targets: Dict[str, Any]
+) -> None:
+    """A snapshot written before ``PyTreeState`` rendered named paths
+    stores its leaves as ``<key>/leaves/<i>``: map the current tree's
+    leaves onto them positionally (both orders are the tree's flattening
+    order), so they stay the restore's in-place templates."""
+    import re
+
+    if isinstance(stateful, Replicated):
+        stateful = stateful.stateful
+    if not isinstance(stateful, PyTreeState):
+        return
+    pat = re.compile(re.escape(key) + r"/leaves/(\d+)")
+    legacy = {
+        int(m.group(1)): p
+        for p, e in key_manifest.items()
+        if (m := pat.fullmatch(p)) and not is_container_entry(e)
+    }
+    if not legacy or any(p in targets for p in legacy.values()):
+        return
+    for i, (_, leaf) in enumerate(_tree_path_keys(stateful.tree)):
+        if i in legacy:
+            targets[legacy[i]] = leaf
 
 
 class PendingSnapshot:

@@ -8,6 +8,10 @@ JAX package renders a pytree (a nested NAMED dict, dict keys sorted,
 sequence positions as string keys, ``None`` as no leaf), so the two
 packages write the same manifest for the same tree.  ``Replicated``
 marks a stateful whose whole state every rank holds identically.
+Snapshots of the leaf-list era (``<key>/leaves/<i>``) load into a
+``PyTreeState`` positionally.  ``DTensor`` parameters and optimizer
+states restore in place into their local tensors, so an ``nn.Module``
+and a ``torch.optim`` optimizer keep their own (sharded) tensors.
 """
 
 from __future__ import annotations
@@ -108,6 +112,14 @@ class PyTreeState:
     def load_state_dict(
         self, state_dict: Dict[str, Any], strict: bool = True
     ) -> None:
+        if self._is_legacy_format(state_dict):
+            # a snapshot of the leaf-list era: leaves in flattening order
+            leaves = list(state_dict["leaves"])
+            n = len(_tree_path_keys(self.tree))
+            if n != len(leaves):
+                raise ValueError(f"cannot load {len(leaves)} leaves into a tree with {n} leaves")
+            self.tree = _rebuild(self.tree, iter(leaves))
+            return
         new_leaves = []
         missing = []
         consumed = set()
@@ -141,6 +153,13 @@ class PyTreeState:
                     f"path(s) absent from template {surplus[:5]}"
                 )
         self.tree = _rebuild(self.tree, iter(new_leaves))
+
+    def _is_legacy_format(self, state_dict: Dict[str, Any]) -> bool:
+        """``{"leaves": [...]}`` is the leaf-list layout, unless the tree
+        itself has that shape (then both layouts coincide)."""
+        if set(state_dict) != {"leaves"} or not isinstance(state_dict["leaves"], (list, tuple)):
+            return False
+        return not all(keys[0] == "leaves" for keys, _ in _tree_path_keys(self.tree))
 
 
 class Replicated:
