@@ -4,7 +4,9 @@
     python3 chip_smoke.py
 
 Needs one CUDA card, ``nvcc`` (the kernels are built from ``csrc/`` on
-first use) and a writable temporary directory (the snapshot is written
+first use), ``g++`` (the native fast-I/O library is built from
+``_csrc/fastio.cpp`` on first use; the script fails when it does not
+build) and a writable temporary directory (the snapshot is written
 under ``$TMPDIR``).  It exits non-zero, printing no result, when there
 is no card or anything below fails.  In order:
 
@@ -34,9 +36,10 @@ is no card or anything below fails.  In order:
    for K4 + K5, ``copy_`` into the template's range for K6) are timed 5
    times: median, range, share of the bound, TFLOP/s for K3-K5; K1 both
    as ``pack_slab`` is called and as its launch alone;
-4. six paths, each with the launch counters set to 0 just before it
+4. seven paths, each with the launch counters set to 0 just before it
    and read just after (a path that starts processes adds the launches
-   they report):
+   they report), all with the fast-I/O engine at its defaults unless
+   the path says otherwise:
    a. serving, at full width: the repo's transformer (TransformerConfig
       defaults, depth cut to 2 layers, bf16, ~0.67 B parameters) takes
       one AdamW step, is snapshotted with ``Snapshot.take``, restored
@@ -45,6 +48,16 @@ is no card or anything below fails.  In order:
       counter, ``read_object``); then ring attention (ring size 1, so
       K3) on q/k/v projected from the restored layer-0 weights at
       s = 2048 against dense attention computed in f32 (tolerance 2e-2);
+   a2. fastio (after a, on a's state): take and restore under FASTIO=0
+      (the fs plugin's pure-Python legs), FASTIO=1 (the native engine,
+      digests fused into its writes) and FASTIO=1 + FASTIO_DIRECT=1
+      (O_DIRECT where the work directory takes it), 3 times each in
+      alternating order, each snapshot deleted after use: every restore
+      bitwise, every manifest's digests equal; it prints the library,
+      whether O_DIRECT is active, each setting's median and range and
+      its seven ``storage.fastio`` counters.  After c it also prints
+      the host digest rates: zlib against the native one-pass digest
+      over the same 256 MiB, which must agree;
    b. ring-attention gradient: ``torch.autograd.grad`` of the bf16 ring
       output on those q/k/v (K3 forward, K4/K5 backward) against f32
       dense attention's autograd gradient (tolerance 3e-2 of the largest
@@ -627,19 +640,164 @@ def phase_main_path(cfg, model, opt, root):
 
 
 def host_digest_rate():
-    """One thread's crc32 + adler32 rate over 256 MiB (the digests every
-    staged byte pays during take): where take's host time goes."""
+    """crc32 + adler32 over the same 256 MiB (the digests every staged
+    byte pays during take), median of 3: zlib's two passes on one thread,
+    the native one-pass ``tsnp_digest`` on one thread and on 4 threads at
+    once (the staging threads; the GIL is released), and the native
+    ``tsnp_copy_digest`` (the host slab pack).  Every result must equal
+    zlib's."""
     import zlib
+    from concurrent.futures import ThreadPoolExecutor
 
     import numpy as np
 
+    from torchsnapshot_tpu_torch import _csrc
+
+    lib = _csrc.load()
     buf = np.random.default_rng(0).integers(0, 256, 256 << 20, dtype=np.uint8)
-    t0 = time.perf_counter()
-    zlib.crc32(buf)
-    zlib.adler32(buf)
-    dt = time.perf_counter() - t0
-    print(f"host digest rate (crc32 + adler32, one thread): {buf.nbytes / dt / 1e9:.3f} GB/s; "
-          f"host cores: {os.cpu_count()}")
+    dst = np.empty_like(buf)
+    want = (zlib.crc32(buf), zlib.adler32(buf))
+
+    def median_s(fn):
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            got = fn()
+            times.append(time.perf_counter() - t0)
+            check(got == want, f"host digest {got} != zlib's {want}")
+        return sorted(times)[1]
+
+    zlib_s = median_s(lambda: (zlib.crc32(buf), zlib.adler32(buf)))
+    native_s = median_s(lambda: _csrc.digest(lib, buf))
+    with ThreadPoolExecutor(4) as pool:
+        def four():
+            res = list(pool.map(lambda _: _csrc.digest(lib, buf), range(4)))
+            check(all(r == want for r in res), "threaded native digest differs from zlib")
+            return res[0]
+        four_s = median_s(four)
+    copy_s = median_s(lambda: _csrc.copy_digest(lib, dst, buf))
+    check(bool((dst == buf).all()), "copy_digest copied the wrong bytes")
+    gb = buf.nbytes / 1e9
+    print(f"host digest rate (crc32 + adler32 of 256 MiB, median of 3, equal to zlib's): "
+          f"zlib one thread {gb / zlib_s:.3f} GB/s; native tsnp_digest one thread "
+          f"{gb / native_s:.3f} GB/s, 4 threads together {4 * gb / four_s:.3f} GB/s; "
+          f"native tsnp_copy_digest one thread {gb / copy_s:.3f} GB/s; host cores: {os.cpu_count()}")
+
+
+FASTIO_SETTINGS = {  # label → (FASTIO, FASTIO_DIRECT)
+    "FASTIO=0": (False, False),
+    "FASTIO=1": (True, False),
+    "FASTIO=1+FASTIO_DIRECT=1": (True, True),
+}
+FASTIO_REPEATS = 3
+FASTIO_COUNTERS = (
+    "FASTIO_BYTES_WRITTEN", "FASTIO_BYTES_READ", "FASTIO_FUSED_DIGESTS", "FASTIO_POOL_WAITS",
+    "FASTIO_DIRECT_PARTS", "FASTIO_BUFFERED_PARTS", "FASTIO_DONTNEED_READS",
+)
+
+
+# span totals (seconds summed over concurrent tasks) printed per run
+FASTIO_TAKE_SPANS = ("pipeline/staging", "pipeline/slab_pack", "pipeline/io", "fastio/write_file")
+FASTIO_RESTORE_SPANS = ("pipeline/io", "fastio/read_into", "pipeline/consume")
+
+
+def span_delta(before, after, names):
+    return json.dumps({n: round(after.get(n, 0.0) - before.get(n, 0.0), 4) for n in names})
+
+
+def snapshot_digests(root):
+    """The manifest's digests: each entry's crc32 and each stored object's
+    [crc32, adler32, size]."""
+    md = tts.Snapshot(root).metadata
+    return {k: getattr(e, "crc32", None) for k, e in md.manifest.items()}, md.objects
+
+
+def zero_state(model, opt):
+    with torch.no_grad():
+        for t in model.state_dict().values():
+            t.zero_()
+        for st in opt.state_dict()["state"].values():
+            for v in st.values():
+                if isinstance(v, torch.Tensor):
+                    v.zero_()
+
+
+def phase_fastio(cfg, model, opt, work):
+    """The serving state taken and restored under FASTIO=0 (the fs
+    plugin's pure-Python legs), FASTIO=1 (the engine, buffered) and
+    FASTIO=1 + FASTIO_DIRECT=1, ``FASTIO_REPEATS`` times each in
+    alternating order, each snapshot deleted after use.  Every restore
+    lands in a zeroed model and optimizer and must equal the state
+    bitwise; every snapshot's manifest digests must equal the first's."""
+    from torchsnapshot_tpu_torch import _csrc, knobs
+    from torchsnapshot_tpu_torch.storage.fs import FSStoragePlugin
+
+    root = os.path.join(work, "fastio")
+    os.makedirs(root)
+    with knobs.override_fastio_direct(True):
+        probe = FSStoragePlugin(root)
+    check(probe._fastio is not None, "the fast-I/O engine did not load with the knobs at their defaults")
+    direct = probe._fastio.direct
+    probe.sync_close()
+    print(f"fastio: library {_csrc.LOADED['path']} built from {_csrc.SOURCE}, g++ flags "
+          f"'{_csrc.LOADED['flags']}'; O_DIRECT on the work directory {root}: "
+          f"{'active' if direct else 'refused (buffered legs + posix_fadvise DONTNEED)'}")
+    nb = state_bytes(model, opt)
+    model2, opt2 = deterministic_state(cfg, 3)
+    labels = list(FASTIO_SETTINGS)
+    times = {label: {"take": [], "restore": []} for label in labels}
+    counts = {label: dict.fromkeys(FASTIO_COUNTERS, 0) for label in labels}
+    ref_digests = None
+    for rep in range(FASTIO_REPEATS):
+        for label in labels if rep % 2 == 0 else labels[::-1]:
+            fio, fdirect = FASTIO_SETTINGS[label]
+            snap_dir = os.path.join(root, f"rep{rep}")
+            zero_state(model2, opt2)
+            t0 = time.perf_counter()
+            os.sync()  # no earlier run's dirty pages in this one's way
+            sync_s = time.perf_counter() - t0
+            before, spans0 = tts.obs.counters(), tts.obs.span_totals()
+            with knobs.override_fastio(fio), knobs.override_fastio_direct(fdirect):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tts.Snapshot.take(snap_dir, {"model": model, "optim": opt})
+                times[label]["take"].append(time.perf_counter() - t0)
+                spans1 = tts.obs.span_totals()
+                t0 = time.perf_counter()
+                tts.Snapshot(snap_dir).restore({"model": model2, "optim": opt2})
+                torch.cuda.synchronize()
+                times[label]["restore"].append(time.perf_counter() - t0)
+            after, spans2 = tts.obs.counters(), tts.obs.span_totals()
+            print(f"fastio run {rep} {label}: take {times[label]['take'][-1]:.4f} s, span totals "
+                  f"{span_delta(spans0, spans1, FASTIO_TAKE_SPANS)}; restore "
+                  f"{times[label]['restore'][-1]:.4f} s, span totals "
+                  f"{span_delta(spans1, spans2, FASTIO_RESTORE_SPANS)}; os.sync before it {sync_s:.3f} s")
+            for c in FASTIO_COUNTERS:
+                name = getattr(tts.obs, c)
+                counts[label][c] += after.get(name, 0) - before.get(name, 0)
+            differs = same_state((model, opt), (model2, opt2))
+            check(differs is None, f"fastio {label} run {rep}: restored {differs} differs")
+            digests = snapshot_digests(snap_dir)
+            ref_digests = ref_digests or digests
+            check(digests == ref_digests, f"fastio {label} run {rep}: manifest digests differ")
+            shutil.rmtree(snap_dir)
+    check(counts["FASTIO=0"]["FASTIO_BYTES_WRITTEN"] == 0, "FASTIO=0 went through the engine")
+    check(counts["FASTIO=1"]["FASTIO_FUSED_DIGESTS"] > 0, "FASTIO=1 fused no digest into a write")
+    check((counts["FASTIO=1+FASTIO_DIRECT=1"]["FASTIO_DIRECT_PARTS"] > 0) == direct,
+          "FASTIO_DIRECT=1 did not take the direct legs the probe found")
+    for label in labels:
+        line = [f"fastio {label}: state {nb} bytes"]
+        for op in ("take", "restore"):
+            ts = sorted(times[label][op])
+            med = ts[len(ts) // 2]
+            line.append(f"{op} median {med:.4f} s [{ts[0]:.4f}-{ts[-1]:.4f}] "
+                        f"({nb / med / 1e9:.3f} GB/s), runs {[round(t, 4) for t in times[label][op]]}")
+        counters = {getattr(tts.obs, c): v for c, v in counts[label].items()}
+        print("; ".join(line) + f"; counters over its runs {json.dumps(counters)}")
+    print(f"fastio: {FASTIO_REPEATS} runs per setting in alternating order, every restore bitwise, "
+          "every manifest's digests equal; a buffered restore reads the files its take wrote just "
+          "before, from the page cache, so its seconds are not disk bandwidth")
+    del model2, opt2
 
 
 def phase_attention(cfg, model):
@@ -1368,6 +1526,15 @@ def main():
     t0 = time.perf_counter()
     kernels.build_all()
     print(f"kernel build: {time.perf_counter() - t0:.1f} s")
+    # the fast-I/O engine with the knobs at their defaults: a library that
+    # does not build raises here
+    from torchsnapshot_tpu_torch import _csrc
+
+    t0 = time.perf_counter()
+    check(_csrc.enabled_lib() is not None and tts.knobs.fastio_enabled(),
+          "the native fast-I/O library is off at the knobs' defaults")
+    print(f"native fast-I/O library: {_csrc.LOADED['path']} (g++ flags '{_csrc.LOADED['flags']}'), "
+          f"built or loaded in {time.perf_counter() - t0:.1f} s")
     for name, log in kernels.BUILD_LOG.items():
         for line in log.splitlines():
             if any(w in line for w in ("registers", "spill", "warning", "C75")):
@@ -1428,6 +1595,9 @@ def main():
             phase_attention(cfg, restored["model"])
 
         run_path("serving", ("slab_pack", "slab_unpack", "flash_attention_fwd"), serving)
+        run_path("fastio", ("slab_pack", "slab_unpack"), lambda: phase_fastio(cfg, model, opt, work))
+        gc.collect()
+        torch.cuda.empty_cache()
         run_path("ring_gradient", ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"),
                  lambda: phase_ring_gradient(cfg, restored["model"]))
         run_path("budgeted_reads", ("tile_update",), lambda: phase_budgeted_reads(model, work, snap_dir))

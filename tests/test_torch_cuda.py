@@ -714,3 +714,81 @@ def test_sharded_restore_into_a_non_contiguous_local_tensor(cuda_mesh, tmp_path)
     tts.Snapshot(str(tmp_path / "s")).restore({"app": dest})
     assert tarray.TILE_MISSES["layout"] == before + 1
     assert torch.equal(local, src)
+
+
+def _payload_files(root):
+    import os
+
+    out = {}
+    for dirpath, _dirs, files in os.walk(root):
+        for f in files:
+            if f != ".snapshot_metadata":
+                p = os.path.join(dirpath, f)
+                out[os.path.relpath(p, root)] = open(p, "rb").read()
+    return out
+
+
+def test_fastio_direct_take_and_restore_of_cuda_state(cuda, tmp_path, monkeypatch):
+    """CUDA model + AdamW state taken with the engine on O_DIRECT straight
+    from the pinned staging buffers (every file direct: DIRECT_MIN_BYTES
+    lowered to 1) and with FASTIO=0: byte-identical files and manifest
+    digests; the direct snapshot restores bitwise into another model."""
+    import torchsnapshot_tpu_torch as tts
+    from torchsnapshot_tpu_torch import knobs, obs
+    from torchsnapshot_tpu_torch.models.transformer import TransformerConfig, TransformerLM
+    from torchsnapshot_tpu_torch.storage import fastio
+
+    monkeypatch.setattr(fastio, "DIRECT_MIN_BYTES", 1)
+
+    def state(seed):
+        torch.manual_seed(seed)
+        model = TransformerLM(TransformerConfig.tiny(), device=cuda)
+        opt = torch.optim.AdamW(model.parameters(), lr=1e-3)
+        model(torch.randint(0, 256, (2, 16), device=cuda)).float().square().mean().backward()
+        opt.step()
+        return model, opt
+
+    model, opt = state(0)
+    with knobs.override_fastio(False):
+        tts.Snapshot.take(str(tmp_path / "py"), {"model": model, "optim": opt})
+    before = obs.counters().get(obs.FASTIO_DIRECT_PARTS, 0)
+    with knobs.override_fastio_direct(True):
+        tts.Snapshot.take(str(tmp_path / "direct"), {"model": model, "optim": opt})
+        assert obs.counters().get(obs.FASTIO_DIRECT_PARTS, 0) > before
+        fresh, fresh_opt = state(1)
+        tts.Snapshot(str(tmp_path / "direct")).restore({"model": fresh, "optim": fresh_opt})
+    assert _payload_files(tmp_path / "direct") == _payload_files(tmp_path / "py")
+    md = [tts.Snapshot(str(tmp_path / d)).metadata for d in ("py", "direct")]
+    assert md[0].objects == md[1].objects
+    for (k, a), b in zip(model.state_dict().items(), fresh.state_dict().values()):
+        assert torch.equal(a, b), k
+    s0, s1 = opt.state_dict()["state"], fresh_opt.state_dict()["state"]
+    for i in s0:
+        for k in s0[i]:
+            assert torch.equal(s0[i][k], s1[i][k]), (i, k)
+
+
+@pytest.mark.parametrize("template", [torch.bfloat16, torch.float32], ids=["copy", "cast"])
+def test_budgeted_read_tiles_filled_by_o_direct(cuda, tmp_path, monkeypatch, template):
+    """A budgeted read_object whose pinned tiles are read with O_DIRECT
+    gives the same tensor as under FASTIO=0, bitwise."""
+    import torchsnapshot_tpu_torch as tts
+    from torchsnapshot_tpu_torch import knobs, obs
+    from torchsnapshot_tpu_torch.storage import fastio
+
+    monkeypatch.setattr(fastio, "DIRECT_MIN_BYTES", 1)
+    src = _tile_of(torch.bfloat16, 3 * (1 << 20) + 77, "cpu", 65)
+    tts.Snapshot.take(str(tmp_path), {"app": tts.StateDict(w=src)})
+    snap = tts.Snapshot(str(tmp_path))
+    outs = {}
+    for fio, direct in ((False, False), (True, True)):
+        out = torch.zeros(src.shape, dtype=template, device=cuda)
+        before = obs.counters()
+        with knobs.override_fastio(fio), knobs.override_fastio_direct(direct), \
+                knobs.override_verify_on_restore(True):
+            assert snap.read_object("0/app/w", obj_out=out, memory_budget_bytes=1 << 20) is out
+        direct_parts = obs.counters().get(obs.FASTIO_DIRECT_PARTS, 0) - before.get(obs.FASTIO_DIRECT_PARTS, 0)
+        assert (direct_parts >= 6) == direct, direct_parts  # 6+ tiles of at most 1 MiB
+        outs[direct] = out
+    assert torch.equal(outs[True], outs[False])
+    assert torch.equal(outs[True].cpu(), src.to(template))

@@ -1,0 +1,1117 @@
+// Native file-I/O engine for the fs storage plugin.
+//
+// The reference delegates its native needs to PyTorch's C++ (TCPStore, CUDA
+// copies — SURVEY §2.9); this repo's runtime equivalent is this small
+// library: single-syscall-chain file writes/reads that run entirely outside
+// the GIL (called via ctypes from scheduler worker threads), plus a
+// slice-by-8 crc32c for blob integrity.
+//
+// Build: g++ -O3 -shared -fPIC -o fastio.so fastio.cpp  (see build_ext.py)
+
+#include <cerrno>
+#include <cstdint>
+#include <cstring>
+#include <fcntl.h>
+#include <sys/stat.h>
+#include <sys/types.h>
+#include <sys/uio.h>
+#include <unistd.h>
+
+// When the build links libz (-DTSNP_USE_ZLIB -lz), the fused digest
+// defers to its crc32/adler32 — system zlib ships SIMD (PCLMUL) crc on
+// most distros, ~2x this file's slice-by-8.  The table implementations
+// below remain the no-zlib fallback.
+#if defined(TSNP_USE_ZLIB)
+#include <zlib.h>
+#endif
+
+// ISA fast paths: compile-time guards are safe here because the build
+// uses -march=native and caches the .so under a CPU-feature fingerprint
+// (_csrc/__init__.py) — a binary can never run on a host older than the
+// one that compiled it.
+#if defined(__PCLMUL__) && defined(__SSE4_1__)
+#define TSNP_HAVE_CLMUL 1
+#endif
+#if defined(__AVX2__)
+#define TSNP_HAVE_AVX2 1
+#endif
+#if defined(TSNP_HAVE_CLMUL) || defined(TSNP_HAVE_AVX2)
+#include <immintrin.h>
+#endif
+
+extern "C" {
+
+// Write buf[0:size] to path (create/truncate). Returns 0 on success,
+// -errno on failure. fsync_mode: 0 = none (page-cache, benchmark mode),
+// 1 = fdatasync before close (durability).
+int tsnp_write_file(const char *path, const void *buf, int64_t size,
+                    int fsync_mode) {
+  int fd = open(path, O_WRONLY | O_CREAT | O_TRUNC | O_CLOEXEC, 0644);
+  if (fd < 0)
+    return -errno;
+  const char *p = static_cast<const char *>(buf);
+  int64_t remaining = size;
+  while (remaining > 0) {
+    ssize_t n = write(fd, p, static_cast<size_t>(remaining));
+    if (n < 0) {
+      if (errno == EINTR)
+        continue;
+      int err = errno;
+      close(fd);
+      return -err;
+    }
+    p += n;
+    remaining -= n;
+  }
+  int rc = 0;
+  if (fsync_mode == 1 && fdatasync(fd) != 0)
+    rc = -errno;
+  if (close(fd) != 0 && rc == 0)
+    rc = -errno;
+  return rc;
+}
+
+// tsnp_write_file, fused with the zlib (crc32, adler32) digest of the
+// written bytes: each 256KB block is digested while cache-hot from the
+// same pass that hands it to write(), so a checksummed direct write
+// touches the staged buffer ONCE instead of digest-pass + write-pass.
+// out[0] = crc32, out[1] = adler32.  Declared after the digest helpers;
+// defined at the bottom of this file.
+int tsnp_write_file_digest(const char *path, const void *buf, int64_t size,
+                           int fsync_mode, uint32_t *out);
+
+// Read length bytes at offset from path into buf. offset<0 means 0;
+// length<0 means "to EOF" (caller must size buf via tsnp_file_size).
+// Returns bytes read, or -errno.
+int64_t tsnp_read_file(const char *path, void *buf, int64_t offset,
+                       int64_t length) {
+  int fd = open(path, O_RDONLY | O_CLOEXEC);
+  if (fd < 0)
+    return -errno;
+  if (offset > 0 && lseek(fd, static_cast<off_t>(offset), SEEK_SET) < 0) {
+    int err = errno;
+    close(fd);
+    return -err;
+  }
+  char *p = static_cast<char *>(buf);
+  int64_t total = 0;
+  while (length < 0 || total < length) {
+    size_t want = length < 0 ? (1u << 20) : static_cast<size_t>(length - total);
+    if (want > (1u << 20))
+      want = 1u << 20;
+    ssize_t n = read(fd, p + total, want);
+    if (n < 0) {
+      if (errno == EINTR)
+        continue;
+      int err = errno;
+      close(fd);
+      return -err;
+    }
+    if (n == 0)
+      break;
+    total += n;
+  }
+  close(fd);
+  return total;
+}
+
+int64_t tsnp_file_size(const char *path) {
+  struct stat st;
+  if (stat(path, &st) != 0)
+    return -errno;
+  return static_cast<int64_t>(st.st_size);
+}
+
+// slice-by-8 table construction, shared by the crc32c (Castagnoli) and
+// zlib-crc32 variants below.
+static void init_slice8_tables(uint32_t poly, uint32_t table[8][256]) {
+  for (uint32_t i = 0; i < 256; i++) {
+    uint32_t crc = i;
+    for (int j = 0; j < 8; j++)
+      crc = (crc >> 1) ^ ((crc & 1) ? poly : 0);
+    table[0][i] = crc;
+  }
+  for (uint32_t i = 0; i < 256; i++) {
+    uint32_t crc = table[0][i];
+    for (int s = 1; s < 8; s++) {
+      crc = table[0][crc & 0xff] ^ (crc >> 8);
+      table[s][i] = crc;
+    }
+  }
+}
+
+// The word-at-a-time slice-by-8 folds `crc ^= (uint32_t)chunk` on a
+// memcpy'd 8-byte word, which is only correct when the low word holds
+// the FIRST four bytes — i.e. on little-endian hosts.  Big-endian hosts
+// take the (correct, slower) bytewise loops instead of silently
+// recording wrong checksums into manifests.
+#if defined(__BYTE_ORDER__) && (__BYTE_ORDER__ == __ORDER_LITTLE_ENDIAN__)
+#define TSNP_LITTLE_ENDIAN 1
+#else
+#define TSNP_LITTLE_ENDIAN 0
+#endif
+
+// crc32c (Castagnoli), slice-by-8.
+static uint32_t crc32c_table[8][256];
+// zlib-polynomial crc32 (0xEDB88320), slice-by-8 — bit-compatible with
+// python's zlib.crc32 (manifest checksums use that polynomial; crc32c
+// above is only for fs write verification).
+static uint32_t crc32z_table[8][256];
+
+// Eager init at library load: tsnp_crc32c / tsnp_copy_digest are called
+// concurrently from executor threads with the GIL released, so a lazy
+// check-then-init would be a data race (a thread could read a
+// partially-built higher slice).
+__attribute__((constructor)) static void tsnp_init_crc_tables() {
+  init_slice8_tables(0x82f63b78u, crc32c_table);
+  init_slice8_tables(0xEDB88320u, crc32z_table);
+}
+
+// ---------------------------------------------------------------- zlib crc32
+// Internal state convention: "state" is the inverted running register
+// (zlib value v == ~state); callers convert at the boundary.
+
+static uint32_t crc32z_slice8(uint32_t state, const uint8_t *s, int64_t n) {
+  uint32_t crc = state;
+#if TSNP_LITTLE_ENDIAN
+  while (n >= 8) {
+    uint64_t chunk;
+    memcpy(&chunk, s, 8);
+    crc ^= static_cast<uint32_t>(chunk);
+    uint32_t hi = static_cast<uint32_t>(chunk >> 32);
+    crc = crc32z_table[7][crc & 0xff] ^ crc32z_table[6][(crc >> 8) & 0xff] ^
+          crc32z_table[5][(crc >> 16) & 0xff] ^ crc32z_table[4][crc >> 24] ^
+          crc32z_table[3][hi & 0xff] ^ crc32z_table[2][(hi >> 8) & 0xff] ^
+          crc32z_table[1][(hi >> 16) & 0xff] ^ crc32z_table[0][hi >> 24];
+    s += 8;
+    n -= 8;
+  }
+#endif
+  while (n > 0) {
+    crc = crc32z_table[0][(crc ^ *s) & 0xff] ^ (crc >> 8);
+    s++;
+    n--;
+  }
+  return crc;
+}
+
+#if defined(TSNP_HAVE_CLMUL)
+// PCLMUL fold-by-4 for the reflected 0xEDB88320 polynomial (the classic
+// Gopal/Intel construction; constants are the standard IEEE-crc32 fold
+// multipliers).  Processes len bytes (len >= 64, len % 16 == 0) against
+// the inverted running state; returns the new inverted state.
+static uint32_t crc32z_clmul(uint32_t state, const uint8_t *buf,
+                             int64_t len) {
+  // _mm_set_epi64x takes (high, low): low qword folds pair with imm
+  // 0x00, high with 0x11 — k1/k3 are the low-qword multipliers
+  const __m128i k1k2 = _mm_set_epi64x(0x01c6e41596, 0x0154442bd4);
+  const __m128i k3k4 = _mm_set_epi64x(0x00ccaa009e, 0x01751997d0);
+  const __m128i k5k0 = _mm_set_epi64x(0x0000000000, 0x0163cd6124);
+  const __m128i poly = _mm_set_epi64x(0x01f7011641, 0x01db710641);
+  __m128i x1 = _mm_loadu_si128(reinterpret_cast<const __m128i *>(buf));
+  __m128i x2 = _mm_loadu_si128(reinterpret_cast<const __m128i *>(buf + 16));
+  __m128i x3 = _mm_loadu_si128(reinterpret_cast<const __m128i *>(buf + 32));
+  __m128i x4 = _mm_loadu_si128(reinterpret_cast<const __m128i *>(buf + 48));
+  x1 = _mm_xor_si128(x1, _mm_cvtsi32_si128(static_cast<int>(state)));
+  buf += 64;
+  len -= 64;
+  while (len >= 64) {
+    __m128i x5 = _mm_clmulepi64_si128(x1, k1k2, 0x00);
+    __m128i x6 = _mm_clmulepi64_si128(x2, k1k2, 0x00);
+    __m128i x7 = _mm_clmulepi64_si128(x3, k1k2, 0x00);
+    __m128i x8 = _mm_clmulepi64_si128(x4, k1k2, 0x00);
+    x1 = _mm_clmulepi64_si128(x1, k1k2, 0x11);
+    x2 = _mm_clmulepi64_si128(x2, k1k2, 0x11);
+    x3 = _mm_clmulepi64_si128(x3, k1k2, 0x11);
+    x4 = _mm_clmulepi64_si128(x4, k1k2, 0x11);
+    x1 = _mm_xor_si128(_mm_xor_si128(x1, x5),
+                       _mm_loadu_si128(reinterpret_cast<const __m128i *>(buf)));
+    x2 = _mm_xor_si128(_mm_xor_si128(x2, x6),
+                       _mm_loadu_si128(reinterpret_cast<const __m128i *>(buf + 16)));
+    x3 = _mm_xor_si128(_mm_xor_si128(x3, x7),
+                       _mm_loadu_si128(reinterpret_cast<const __m128i *>(buf + 32)));
+    x4 = _mm_xor_si128(_mm_xor_si128(x4, x8),
+                       _mm_loadu_si128(reinterpret_cast<const __m128i *>(buf + 48)));
+    buf += 64;
+    len -= 64;
+  }
+  // fold the four accumulators into one
+  __m128i x5 = _mm_clmulepi64_si128(x1, k3k4, 0x00);
+  x1 = _mm_clmulepi64_si128(x1, k3k4, 0x11);
+  x1 = _mm_xor_si128(_mm_xor_si128(x1, x5), x2);
+  x5 = _mm_clmulepi64_si128(x1, k3k4, 0x00);
+  x1 = _mm_clmulepi64_si128(x1, k3k4, 0x11);
+  x1 = _mm_xor_si128(_mm_xor_si128(x1, x5), x3);
+  x5 = _mm_clmulepi64_si128(x1, k3k4, 0x00);
+  x1 = _mm_clmulepi64_si128(x1, k3k4, 0x11);
+  x1 = _mm_xor_si128(_mm_xor_si128(x1, x5), x4);
+  // remaining whole 16-byte blocks
+  while (len >= 16) {
+    x5 = _mm_clmulepi64_si128(x1, k3k4, 0x00);
+    x1 = _mm_clmulepi64_si128(x1, k3k4, 0x11);
+    x1 = _mm_xor_si128(_mm_xor_si128(x1, x5),
+                       _mm_loadu_si128(reinterpret_cast<const __m128i *>(buf)));
+    buf += 16;
+    len -= 16;
+  }
+  // fold 128 -> 64 bits
+  const __m128i mask32 = _mm_setr_epi32(~0, 0, ~0, 0);
+  __m128i x0 = _mm_clmulepi64_si128(x1, k3k4, 0x10);
+  x1 = _mm_srli_si128(x1, 8);
+  x1 = _mm_xor_si128(x1, x0);
+  x0 = _mm_srli_si128(x1, 4);
+  x1 = _mm_and_si128(x1, mask32);
+  x1 = _mm_clmulepi64_si128(x1, k5k0, 0x00);
+  x1 = _mm_xor_si128(x1, x0);
+  // Barrett reduction 64 -> 32 bits
+  x0 = _mm_and_si128(x1, mask32);
+  x0 = _mm_clmulepi64_si128(x0, poly, 0x10);
+  x0 = _mm_and_si128(x0, mask32);
+  x0 = _mm_clmulepi64_si128(x0, poly, 0x00);
+  x1 = _mm_xor_si128(x1, x0);
+  return static_cast<uint32_t>(_mm_extract_epi32(x1, 1));
+}
+#endif  // TSNP_HAVE_CLMUL
+
+// zlib-value-convention running update: v' = update(v, bytes); matches
+// python zlib.crc32(bytes, v).
+static uint32_t crc32z_update(uint32_t v, const uint8_t *s, int64_t n) {
+  if (n <= 0)
+    return v;
+  uint32_t state = ~v;
+#if defined(TSNP_HAVE_CLMUL)
+  if (n >= 64) {
+    int64_t simd = n & ~static_cast<int64_t>(15);
+    state = crc32z_clmul(state, s, simd);
+    s += simd;
+    n -= simd;
+  }
+#elif defined(TSNP_USE_ZLIB)
+  // system zlib's crc32 is SIMD on most distros — use it when our own
+  // PCLMUL path wasn't compiled in.  Chunked: zlib takes uInt lengths,
+  // and an unchunked cast would silently truncate >=4GiB buffers.
+  while (n > 0) {
+    int64_t blk = n > (1 << 30) ? (1 << 30) : n;
+    v = static_cast<uint32_t>(
+        crc32(static_cast<uLong>(v), s, static_cast<uInt>(blk)));
+    s += blk;
+    n -= blk;
+  }
+  return v;
+#endif
+  state = crc32z_slice8(state, s, n);
+  return ~state;
+}
+
+// ---------------------------------------------------------------- adler32
+
+#if defined(TSNP_HAVE_AVX2)
+// AVX2 adler32: per 32-byte chunk c (local byte offset 32*c) keep three
+// exact vector accumulators —
+//   acc_cs  += chunk byte sums            (for S1)
+//   acc_ccs += c * chunk byte sums        (for the 32*sum(c*cs) term)
+//   acc_w   += sum_j j*s_j within chunk   (maddubs against 0..31)
+// — then close each <=4096-byte window with the same closed form the
+// scalar path uses: S2 = 32*sum(c*cs) + W, b' = b + m*a + m*S1 - S2.
+// All lanes stay far from overflow (cs<=2040/lane, c<128, W-lane <=
+// 31110 per chunk * 128 chunks).
+static void adler32_avx2_window(const uint8_t *s, int64_t m, uint32_t *pa,
+                                uint32_t *pb) {
+  const __m256i zero = _mm256_setzero_si256();
+  const __m256i jw = _mm256_setr_epi8(0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11,
+                                      12, 13, 14, 15, 16, 17, 18, 19, 20, 21,
+                                      22, 23, 24, 25, 26, 27, 28, 29, 30, 31);
+  const __m256i ones16 = _mm256_set1_epi16(1);
+  const uint32_t MOD = 65521u;
+  __m256i acc_cs = zero, acc_ccs = zero, acc_w = zero;
+  int64_t chunks = m / 32;
+  for (int64_t c = 0; c < chunks; c++) {
+    __m256i bytes =
+        _mm256_loadu_si256(reinterpret_cast<const __m256i *>(s + c * 32));
+    __m256i cs = _mm256_sad_epu8(bytes, zero);  // 4 x u64 partial sums
+    acc_cs = _mm256_add_epi64(acc_cs, cs);
+    acc_ccs = _mm256_add_epi64(
+        acc_ccs, _mm256_mul_epu32(cs, _mm256_set1_epi32(static_cast<int>(c))));
+    __m256i w16 = _mm256_maddubs_epi16(bytes, jw);  // u8 * s8 pairs -> s16
+    acc_w = _mm256_add_epi32(acc_w, _mm256_madd_epi16(w16, ones16));
+  }
+  // horizontal sums
+  uint64_t cs_l[4], ccs_l[4];
+  uint32_t w_l[8];
+  _mm256_storeu_si256(reinterpret_cast<__m256i *>(cs_l), acc_cs);
+  _mm256_storeu_si256(reinterpret_cast<__m256i *>(ccs_l), acc_ccs);
+  _mm256_storeu_si256(reinterpret_cast<__m256i *>(w_l), acc_w);
+  uint64_t S1v = cs_l[0] + cs_l[1] + cs_l[2] + cs_l[3];
+  uint64_t CCS = ccs_l[0] + ccs_l[1] + ccs_l[2] + ccs_l[3];
+  uint64_t W = 0;
+  for (int i = 0; i < 8; i++)
+    W += w_l[i];
+  int64_t done = chunks * 32;
+  uint64_t S1 = S1v, S2 = 32u * CCS + W;
+  // scalar tail of the window
+  for (int64_t k = done; k < m; k++) {
+    S1 += s[k];
+    S2 += static_cast<uint64_t>(k) * s[k];
+  }
+  uint64_t a = *pa, b = *pb;
+  uint64_t mm = static_cast<uint64_t>(m);
+  uint64_t bb = b + mm * a + mm * S1 - S2;
+  *pa = static_cast<uint32_t>((a + S1) % MOD);
+  *pb = static_cast<uint32_t>(bb % MOD);
+}
+#endif  // TSNP_HAVE_AVX2
+
+static uint32_t adler32_update(uint32_t adler, const uint8_t *s, int64_t n) {
+  if (n <= 0)
+    return adler;
+#if defined(TSNP_HAVE_AVX2)
+  uint32_t a = adler & 0xffff, b = (adler >> 16) & 0xffff;
+  while (n > 0) {
+    int64_t m = n > 4096 ? 4096 : n;
+    adler32_avx2_window(s, m, &a, &b);
+    s += m;
+    n -= m;
+  }
+  return (b << 16) | a;
+#elif defined(TSNP_USE_ZLIB)
+  // chunked for the same uInt-truncation reason as crc32z_update
+  while (n > 0) {
+    int64_t blk = n > (1 << 30) ? (1 << 30) : n;
+    adler = static_cast<uint32_t>(
+        adler32(static_cast<uLong>(adler), s, static_cast<uInt>(blk)));
+    s += blk;
+    n -= blk;
+  }
+  return adler;
+#else
+  const uint32_t MOD = 65521u;
+  uint32_t a = adler & 0xffff, b = (adler >> 16) & 0xffff;
+  while (n > 0) {
+    int64_t m = n > 5552 ? 5552 : n;
+    uint64_t s1 = 0, s2 = 0;
+    for (int64_t k = 0; k < m; k++) {
+      s1 += s[k];
+      s2 += static_cast<uint64_t>(k) * s[k];
+    }
+    uint64_t mm = static_cast<uint64_t>(m);
+    uint64_t bb = b + mm * a + mm * s1 - s2;
+    a = static_cast<uint32_t>((a + s1) % MOD);
+    b = static_cast<uint32_t>(bb % MOD);
+    s += m;
+    n -= m;
+  }
+  return (b << 16) | a;
+#endif
+}
+
+uint32_t tsnp_crc32c(const void *buf, int64_t size, uint32_t seed) {
+  uint32_t crc = ~seed;
+  const uint8_t *p = static_cast<const uint8_t *>(buf);
+#if TSNP_LITTLE_ENDIAN
+  while (size >= 8) {
+    uint64_t chunk;
+    memcpy(&chunk, p, 8);
+    crc ^= static_cast<uint32_t>(chunk);
+    uint32_t hi = static_cast<uint32_t>(chunk >> 32);
+    crc = crc32c_table[7][crc & 0xff] ^ crc32c_table[6][(crc >> 8) & 0xff] ^
+          crc32c_table[5][(crc >> 16) & 0xff] ^ crc32c_table[4][crc >> 24] ^
+          crc32c_table[3][hi & 0xff] ^ crc32c_table[2][(hi >> 8) & 0xff] ^
+          crc32c_table[1][(hi >> 16) & 0xff] ^ crc32c_table[0][hi >> 24];
+    p += 8;
+    size -= 8;
+  }
+#endif
+  while (size > 0) {
+    crc = crc32c_table[0][(crc ^ *p) & 0xff] ^ (crc >> 8);
+    p++;
+    size--;
+  }
+  return ~crc;
+}
+
+// Running zlib-polynomial crc32, bit-compatible with python's
+// zlib.crc32(data, seed).  PCLMUL fold-by-4 when compiled in, else
+// system zlib (SIMD on most distros), else slice-by-8.
+uint32_t tsnp_crc32z(const void *buf, int64_t size, uint32_t seed) {
+  return crc32z_update(seed, static_cast<const uint8_t *>(buf), size);
+}
+
+// Running adler32, bit-compatible with python's zlib.adler32(data, seed).
+uint32_t tsnp_adler32(const void *buf, int64_t size, uint32_t seed) {
+  return adler32_update(seed, static_cast<const uint8_t *>(buf), size);
+}
+
+// (crc32, adler32) of a buffer WITHOUT copying — the direct
+// (non-slabbed) write path digests the staged bytes in place.
+// Interleaved per 256KB block so the adler pass hits cache instead of
+// re-reading DRAM (same structure as tsnp_copy_digest).  Runs entirely
+// outside the GIL (ctypes).
+void tsnp_digest(const void *src, int64_t size, uint32_t *out) {
+  const uint8_t *p = static_cast<const uint8_t *>(src);
+  uint32_t crc = 0, adl = 1;
+  int64_t off = 0;
+  while (off < size) {
+    int64_t blk = size - off;
+    if (blk > 262144)
+      blk = 262144;
+    crc = crc32z_update(crc, p + off, blk);
+    adl = adler32_update(adl, p + off, blk);
+    off += blk;
+  }
+  out[0] = crc;
+  out[1] = adl;
+}
+
+int tsnp_write_file_digest(const char *path, const void *buf, int64_t size,
+                           int fsync_mode, uint32_t *out) {
+  int fd = open(path, O_WRONLY | O_CREAT | O_TRUNC | O_CLOEXEC, 0644);
+  if (fd < 0)
+    return -errno;
+  const uint8_t *p = static_cast<const uint8_t *>(buf);
+  uint32_t crc = 0, adl = 1;
+  int64_t remaining = size;
+  while (remaining > 0) {
+    int64_t blk = remaining > 262144 ? 262144 : remaining;
+    // digest first (pulls the block into cache), then write() (the
+    // kernel's copy reads it back out of cache)
+    crc = crc32z_update(crc, p, blk);
+    adl = adler32_update(adl, p, blk);
+    int64_t off = 0;
+    while (off < blk) {
+      ssize_t n = write(fd, p + off, static_cast<size_t>(blk - off));
+      if (n < 0) {
+        if (errno == EINTR)
+          continue;
+        int err = errno;
+        close(fd);
+        return -err;
+      }
+      off += n;
+    }
+    p += blk;
+    remaining -= blk;
+  }
+  out[0] = crc;
+  out[1] = adl;
+  int rc = 0;
+  if (fsync_mode == 1 && fdatasync(fd) != 0)
+    rc = -errno;
+  if (close(fd) != 0 && rc == 0)
+    rc = -errno;
+  return rc;
+}
+
+// ------------------------------------------------------- fast-I/O engine
+// Part-granular pwrite/pread entry points for storage/fastio.py: one
+// ctypes call per part, entirely outside the GIL, with the (crc32,
+// adler32) digest fused into the same pass that moves the bytes and
+// O_DIRECT alignment owned HERE (the Python layer never does sector
+// math).  See docs/fastio.md for the fallback ladder.
+
+static int pwrite_full(int fd, const void *p, int64_t n, int64_t off) {
+  const char *s = static_cast<const char *>(p);
+  while (n > 0) {
+    ssize_t w = pwrite(fd, s, static_cast<size_t>(n), static_cast<off_t>(off));
+    if (w < 0) {
+      if (errno == EINTR)
+        continue;
+      return -errno;
+    }
+    s += w;
+    off += w;
+    n -= w;
+  }
+  return 0;
+}
+
+static int64_t pread_full(int fd, void *p, int64_t n, int64_t off) {
+  char *d = static_cast<char *>(p);
+  int64_t got = 0;
+  while (got < n) {
+    ssize_t r = pread(fd, d + got, static_cast<size_t>(n - got),
+                      static_cast<off_t>(off + got));
+    if (r < 0) {
+      if (errno == EINTR)
+        continue;
+      return -static_cast<int64_t>(errno);
+    }
+    if (r == 0)
+      break;  // EOF: short read, caller surfaces it
+    got += r;
+  }
+  return got;
+}
+
+// Buffered digesting positional write: each 256KB block is digested
+// while cache-hot, but the write syscalls batch 64 blocks into ONE
+// pwritev (16MB per syscall) — the per-block write(2) chain of
+// tsnp_write_file_digest costs a syscall per 256KB, which at local-NVMe
+// rates is measurable pure overhead.
+static int pwrite_digest_stream(int fd, const uint8_t *p, int64_t n,
+                                int64_t off, int want, uint32_t *crc,
+                                uint32_t *adl) {
+  enum { BLK = 262144, NIOV = 64 };
+  struct iovec iov[NIOV];
+  while (n > 0) {
+    int cnt = 0;
+    int64_t batch = 0;
+    while (n > 0 && cnt < NIOV) {
+      int64_t blk = n > BLK ? BLK : n;
+      if (want) {
+        *crc = crc32z_update(*crc, p, blk);
+        *adl = adler32_update(*adl, p, blk);
+      }
+      iov[cnt].iov_base = const_cast<uint8_t *>(p);
+      iov[cnt].iov_len = static_cast<size_t>(blk);
+      cnt++;
+      batch += blk;
+      p += blk;
+      n -= blk;
+    }
+    int64_t done = 0;
+    int idx = 0;
+    while (done < batch) {
+      ssize_t w = pwritev(fd, iov + idx, cnt - idx,
+                          static_cast<off_t>(off + done));
+      if (w < 0) {
+        if (errno == EINTR)
+          continue;
+        return -errno;
+      }
+      done += w;
+      // advance the iovec cursor past the consumed bytes (a partial
+      // pwritev may stop mid-iovec)
+      while (idx < cnt && w >= static_cast<ssize_t>(iov[idx].iov_len)) {
+        w -= static_cast<ssize_t>(iov[idx].iov_len);
+        idx++;
+      }
+      if (idx < cnt && w > 0) {
+        iov[idx].iov_base = static_cast<char *>(iov[idx].iov_base) + w;
+        iov[idx].iov_len -= static_cast<size_t>(w);
+      }
+    }
+    off += batch;
+  }
+  return 0;
+}
+
+// Write src[0:size] at byte `offset` of an already-open file, fusing
+// the zlib (crc32, adler32) of src into the same pass when
+// want_digest (out[0]=crc32, out[1]=adler32).
+//
+// fd_direct >= 0 selects the O_DIRECT split: the sub-sector head
+// ([offset, align_up(offset))) and tail ([align_down(end), end)) go
+// buffered through fd, while the aligned body is copied through the
+// caller's `bounce` buffer (alignment-satisfying, bounce_cap an align
+// multiple) in one fused copy+digest pass and pwritten via fd_direct —
+// sector-aligned offset, length, and memory, as O_DIRECT requires.
+// The head/tail/body file ranges are disjoint, so mixing the two fds
+// on one file is coherent.  fd_direct < 0 writes everything buffered
+// via the pwritev-batched digesting stream.  Returns 0 or -errno.
+int tsnp_part_pwrite(int fd, int fd_direct, const void *src, int64_t size,
+                     int64_t offset, int64_t align, void *bounce,
+                     int64_t bounce_cap, int want_digest, uint32_t *out) {
+  const uint8_t *p = static_cast<const uint8_t *>(src);
+  uint32_t crc = 0, adl = 1;
+  int rc;
+  if (size > 0 && fd_direct >= 0 && align > 0 && bounce != nullptr &&
+      bounce_cap >= align) {
+    int64_t end = offset + size;
+    int64_t head_end = (offset + align - 1) / align * align;
+    if (head_end > end)
+      head_end = end;
+    int64_t body_end = end / align * align;
+    if (body_end < head_end)
+      body_end = head_end;  // span too small to hold an aligned body
+    int64_t head = head_end - offset;
+    if (head > 0) {
+      if (want_digest) {
+        crc = crc32z_update(crc, p, head);
+        adl = adler32_update(adl, p, head);
+      }
+      if ((rc = pwrite_full(fd, p, head, offset)) != 0)
+        return rc;
+    }
+    const uint8_t *q = p + head;
+    int64_t body = body_end - head_end;
+    int64_t cur = head_end;
+    while (body > 0) {
+      int64_t blk = body > bounce_cap ? bounce_cap : body;
+      // fused copy+digest into the aligned bounce, 256KB sub-blocks so
+      // the digest runs on cache-hot bytes (same structure as
+      // tsnp_copy_digest)
+      int64_t o = 0;
+      while (o < blk) {
+        int64_t sb = blk - o > 262144 ? 262144 : blk - o;
+        memcpy(static_cast<uint8_t *>(bounce) + o, q + o,
+               static_cast<size_t>(sb));
+        if (want_digest) {
+          crc = crc32z_update(crc, q + o, sb);
+          adl = adler32_update(adl, q + o, sb);
+        }
+        o += sb;
+      }
+      if ((rc = pwrite_full(fd_direct, bounce, blk, cur)) != 0)
+        return rc;
+      q += blk;
+      cur += blk;
+      body -= blk;
+    }
+    int64_t tail = end - body_end;
+    if (tail > 0) {
+      if (want_digest) {
+        crc = crc32z_update(crc, q, tail);
+        adl = adler32_update(adl, q, tail);
+      }
+      if ((rc = pwrite_full(fd, q, tail, body_end)) != 0)
+        return rc;
+    }
+  } else if (size > 0) {
+    if ((rc = pwrite_digest_stream(fd, p, size, offset, want_digest, &crc,
+                                   &adl)) != 0)
+      return rc;
+  }
+  if (want_digest) {
+    out[0] = crc;
+    out[1] = adl;
+  }
+  return 0;
+}
+
+// Read `size` bytes at `offset` into dst.  fd_direct >= 0 reads the
+// aligned body via O_DIRECT into the caller's bounce buffer (then one
+// memcpy to dst — the copy is the price of page-cache bypass; dst is
+// arbitrary caller memory) with the sub-sector head/tail read buffered
+// through fd; fd_direct < 0 reads everything buffered straight into
+// dst.  Returns bytes read (short only at EOF), or -errno.
+int64_t tsnp_part_pread(int fd, int fd_direct, void *dst, int64_t size,
+                        int64_t offset, int64_t align, void *bounce,
+                        int64_t bounce_cap) {
+  uint8_t *d = static_cast<uint8_t *>(dst);
+  if (size <= 0)
+    return 0;
+  if (fd_direct < 0 || align <= 0 || bounce == nullptr ||
+      bounce_cap < align)
+    return pread_full(fd, d, size, offset);
+  int64_t end = offset + size;
+  int64_t head_end = (offset + align - 1) / align * align;
+  if (head_end > end)
+    head_end = end;
+  int64_t body_end = end / align * align;
+  if (body_end < head_end)
+    body_end = head_end;
+  int64_t total = 0;
+  int64_t head = head_end - offset;
+  if (head > 0) {
+    int64_t n = pread_full(fd, d, head, offset);
+    if (n < 0)
+      return n;
+    total += n;
+    if (n < head)
+      return total;  // EOF inside the head
+  }
+  int64_t body = body_end - head_end;
+  int64_t cur = head_end;
+  while (body > 0) {
+    int64_t blk = body > bounce_cap ? bounce_cap : body;
+    int64_t n = pread_full(fd_direct, bounce, blk, cur);
+    if (n < 0)
+      return n;
+    if (n > 0)
+      memcpy(d + (cur - offset), bounce, static_cast<size_t>(n));
+    total += n;
+    if (n < blk)
+      return total;  // EOF inside the body
+    cur += blk;
+    body -= blk;
+  }
+  int64_t tail = end - body_end;
+  if (tail > 0) {
+    int64_t n = pread_full(fd, d + (body_end - offset), tail, body_end);
+    if (n < 0)
+      return n;
+    total += n;
+  }
+  return total;
+}
+
+// memcpy src -> dst while computing zlib crc32 AND adler32 of the bytes,
+// processed in 256KB blocks so each block is digested while still hot in
+// cache: memory traffic is one read + one write instead of the three
+// read passes of copy-then-crc-then-adler.  out[0] = crc32 (zlib
+// finalized), out[1] = adler32.  Runs entirely outside the GIL (ctypes).
+void tsnp_copy_digest(void *dst, const void *src, int64_t size,
+                      uint32_t *out) {
+  const uint8_t *p = static_cast<const uint8_t *>(src);
+  uint8_t *q = static_cast<uint8_t *>(dst);
+  uint32_t crc = 0, adl = 1;
+  int64_t off = 0;
+  while (off < size) {
+    int64_t blk = size - off;
+    if (blk > 262144)
+      blk = 262144;
+    memcpy(q + off, p + off, static_cast<size_t>(blk));
+    crc = crc32z_update(crc, p + off, blk);
+    adl = adler32_update(adl, p + off, blk);
+    off += blk;
+  }
+  out[0] = crc;
+  out[1] = adl;
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// "huff" block codec: static canonical-Huffman entropy coder (codec.py's
+// native backend).  Checkpoint float payloads after byte-shuffle
+// preconditioning are entropy-bound, not match-bound — the exponent byte
+// planes hold a handful of symbol values in near-random order, which an
+// LZ matcher can't exploit but an order-0 entropy coder compresses well
+// (~1.5x on noisy bf16).  Deflate's Huffman-only mode proves the ratio
+// but tops out ~65MB/s here; this flat table-driven coder runs several
+// times faster and, like everything in this file, entirely outside the
+// GIL so the staging executor's encode stage overlaps storage I/O.
+//
+// Stream layout: independent 128KB blocks, each
+//   [mode u8][raw_len i32le][payload]
+//   mode 0 raw:      payload = raw bytes (incompressible block)
+//   mode 1 huffman:  payload = [code lens 256 x 4bit][nbits u32le][bitstream]
+//   mode 2 constant: payload = the single byte value
+// Code lengths are capped at 12 bits (frequency flattening on overflow)
+// so decode is one 4K-entry table lookup per symbol.  The compressor
+// emits bit-REVERSED canonical codes into an LSB-first accumulator, so
+// the decoder's peeked low bits are exactly the table index (deflate's
+// trick).
+
+namespace {
+
+const int64_t kHuffBlock = 128 * 1024;
+const int kHuffMaxLen = 12;
+
+// Canonical code values (MSB-first semantics) from code lengths.
+void huff_canonical_codes(const uint8_t *lens, uint16_t *codes) {
+  int count[kHuffMaxLen + 1] = {0};
+  for (int i = 0; i < 256; i++)
+    count[lens[i]]++;
+  count[0] = 0;
+  uint32_t next[kHuffMaxLen + 1];
+  uint32_t code = 0;
+  for (int l = 1; l <= kHuffMaxLen; l++) {
+    code = (code + count[l - 1]) << 1;
+    next[l] = code;
+  }
+  for (int i = 0; i < 256; i++)
+    codes[i] = lens[i] ? static_cast<uint16_t>(next[lens[i]]++) : 0;
+}
+
+// Length-limited Huffman code lengths from symbol frequencies: two-queue
+// Huffman build, retried with flattened frequencies until the deepest
+// leaf fits kHuffMaxLen (the standard cheap substitute for package-merge;
+// the ratio loss on real blocks is <0.1%).
+void huff_build_lens(const uint32_t *freq_in, uint8_t *lens) {
+  uint32_t freq[256];
+  memcpy(freq, freq_in, sizeof(freq));
+  for (int attempt = 0;; attempt++) {
+    struct Node {
+      uint64_t f;
+      int l, r, sym;
+    };
+    Node nodes[512];
+    int order[256], n = 0;
+    for (int i = 0; i < 256; i++)
+      if (freq[i])
+        order[n++] = i;
+    memset(lens, 0, 256);
+    if (n == 0)
+      return;
+    if (n == 1) {
+      lens[order[0]] = 1;
+      return;
+    }
+    // insertion sort by frequency (256 symbols max; avoids <algorithm>)
+    for (int i = 1; i < n; i++) {
+      int v = order[i], j = i - 1;
+      while (j >= 0 && freq[order[j]] > freq[v]) {
+        order[j + 1] = order[j];
+        j--;
+      }
+      order[j + 1] = v;
+    }
+    for (int i = 0; i < n; i++) {
+      nodes[i].f = freq[order[i]];
+      nodes[i].l = nodes[i].r = -1;
+      nodes[i].sym = order[i];
+    }
+    int q1 = 0, q2 = n, q2e = n;
+    int root = -1;
+    for (int k = 0; k < n - 1; k++) {
+      int a, b;
+      a = (q1 < n && (q2 >= q2e || nodes[q1].f <= nodes[q2].f)) ? q1++ : q2++;
+      b = (q1 < n && (q2 >= q2e || nodes[q1].f <= nodes[q2].f)) ? q1++ : q2++;
+      nodes[q2e].f = nodes[a].f + nodes[b].f;
+      nodes[q2e].l = a;
+      nodes[q2e].r = b;
+      nodes[q2e].sym = -1;
+      root = q2e++;
+    }
+    uint8_t depth[512];
+    depth[root] = 0;
+    // children always precede their parent in creation order, so one
+    // top-down sweep from the root resolves every depth
+    for (int i = root; i >= n; i--) {
+      depth[nodes[i].l] = depth[i] + 1;
+      depth[nodes[i].r] = depth[i] + 1;
+    }
+    int maxd = 0;
+    for (int i = 0; i < n; i++)
+      if (depth[i] > maxd)
+        maxd = depth[i];
+    if (maxd <= kHuffMaxLen) {
+      for (int i = 0; i < n; i++)
+        lens[nodes[i].sym] = depth[i];
+      return;
+    }
+    for (int i = 0; i < 256; i++)
+      if (freq[i])
+        freq[i] = (freq[i] >> (2 * (attempt + 1))) + 1;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Byte-shuffle preconditioning (codec.py's filter): group byte plane i
+// of every `stride`-sized element together — dst[p*rows + r] =
+// src[r*stride + p].  Cache-blocked transpose, entirely outside the
+// GIL (the numpy reshape().T path holds it and costs an extra copy).
+// The sub-element tail (n % stride) is copied through unshuffled, so
+// the transform stays self-inverse for any length.
+void tsnp_byte_shuffle(const uint8_t *src, int64_t n, int64_t stride,
+                       uint8_t *dst) {
+  int64_t rows = n / stride;
+  const int64_t kBlock = 4096;
+  for (int64_t r0 = 0; r0 < rows; r0 += kBlock) {
+    int64_t r1 = r0 + kBlock < rows ? r0 + kBlock : rows;
+    for (int64_t p = 0; p < stride; p++) {
+      uint8_t *d = dst + p * rows + r0;
+      const uint8_t *s = src + r0 * stride + p;
+      for (int64_t r = r0; r < r1; r++) {
+        *d++ = *s;
+        s += stride;
+      }
+    }
+  }
+  memcpy(dst + rows * stride, src + rows * stride, n - rows * stride);
+}
+
+void tsnp_byte_unshuffle(const uint8_t *src, int64_t n, int64_t stride,
+                         uint8_t *dst) {
+  int64_t rows = n / stride;
+  const int64_t kBlock = 4096;
+  for (int64_t r0 = 0; r0 < rows; r0 += kBlock) {
+    int64_t r1 = r0 + kBlock < rows ? r0 + kBlock : rows;
+    for (int64_t p = 0; p < stride; p++) {
+      const uint8_t *s = src + p * rows + r0;
+      uint8_t *d = dst + r0 * stride + p;
+      for (int64_t r = r0; r < r1; r++) {
+        *d = *s++;
+        d += stride;
+      }
+    }
+  }
+  memcpy(dst + rows * stride, src + rows * stride, n - rows * stride);
+}
+
+// Compress src[0:n] into dst (capacity cap).  Returns the compressed
+// size, or -1 when dst is too small (callers size cap >= n + n/64 + 4096
+// so a real payload never hits it; a pathological all-raw stream grows
+// 5 bytes per 128KB block).
+int64_t tsnp_huff_compress(const uint8_t *src, int64_t n, uint8_t *dst,
+                           int64_t cap) {
+  uint8_t *op = dst;
+  const uint8_t *oend = dst + cap;
+  for (int64_t pos = 0; pos < n; pos += kHuffBlock) {
+    int bn = static_cast<int>(n - pos < kHuffBlock ? n - pos : kHuffBlock);
+    const uint8_t *bp = src + pos;
+    if (op + bn + 256 > oend)
+      return -1;
+    uint32_t freq[256] = {0};
+    for (int i = 0; i < bn; i++)
+      freq[bp[i]]++;
+    int nsym = 0, sym0 = 0;
+    for (int i = 0; i < 256; i++)
+      if (freq[i]) {
+        nsym++;
+        sym0 = i;
+      }
+    if (nsym == 1) {
+      *op++ = 2;
+      memcpy(op, &bn, 4);
+      op += 4;
+      *op++ = static_cast<uint8_t>(sym0);
+      continue;
+    }
+    uint8_t lens[256];
+    uint16_t codes[256], rcodes[256];
+    huff_build_lens(freq, lens);
+    huff_canonical_codes(lens, codes);
+    for (int s = 0; s < 256; s++) {
+      uint32_t c = codes[s], r = 0;
+      for (int b = 0; b < lens[s]; b++)
+        r = (r << 1) | ((c >> b) & 1);
+      rcodes[s] = static_cast<uint16_t>(r);
+    }
+    uint64_t bits = 0;
+    for (int i = 0; i < 256; i++)
+      bits += static_cast<uint64_t>(freq[i]) * lens[i];
+    int64_t est = 1 + 4 + 128 + 4 + static_cast<int64_t>((bits + 7) / 8);
+    if (est >= bn) {  // entropy coding wouldn't shrink this block
+      *op++ = 0;
+      memcpy(op, &bn, 4);
+      op += 4;
+      memcpy(op, bp, bn);
+      op += bn;
+      continue;
+    }
+    *op++ = 1;
+    memcpy(op, &bn, 4);
+    op += 4;
+    for (int i = 0; i < 256; i += 2)
+      *op++ = static_cast<uint8_t>(lens[i] | (lens[i + 1] << 4));
+    uint32_t nbits32 = static_cast<uint32_t>(bits);
+    memcpy(op, &nbits32, 4);
+    op += 4;
+    uint64_t acc = 0;
+    int nb = 0;
+    for (int i = 0; i < bn; i++) {
+      acc |= static_cast<uint64_t>(rcodes[bp[i]]) << nb;
+      nb += lens[bp[i]];
+      if (nb >= 32) {
+        memcpy(op, &acc, 4);
+        op += 4;
+        acc >>= 32;
+        nb -= 32;
+      }
+    }
+    while (nb > 0) {
+      *op++ = static_cast<uint8_t>(acc);
+      acc >>= 8;
+      nb -= 8;
+    }
+  }
+  return op - dst;
+}
+
+// Decompress src[0:n] into dst (capacity rawcap).  Returns the raw size,
+// or -1 on any malformed input (truncated block, bad mode byte, bit
+// stream shorter than its symbol count claims) — the Python layer maps
+// -1 to a typed corrupt-frame error.
+int64_t tsnp_huff_decompress(const uint8_t *src, int64_t n, uint8_t *dst,
+                             int64_t rawcap) {
+  const uint8_t *ip = src;
+  const uint8_t *iend = src + n;
+  uint8_t *op = dst;
+  uint8_t *oend = dst + rawcap;
+  while (ip < iend) {
+    if (ip + 5 > iend)
+      return -1;
+    uint8_t mode = *ip++;
+    int32_t bn;
+    memcpy(&bn, ip, 4);
+    ip += 4;
+    if (bn < 0 || op + bn > oend)
+      return -1;
+    if (mode == 0) {
+      if (ip + bn > iend)
+        return -1;
+      memcpy(op, ip, bn);
+      op += bn;
+      ip += bn;
+    } else if (mode == 2) {
+      if (ip >= iend)
+        return -1;
+      memset(op, *ip++, bn);
+      op += bn;
+    } else if (mode == 1) {
+      if (ip + 132 > iend)
+        return -1;
+      uint8_t lens[256];
+      for (int i = 0; i < 128; i++) {
+        lens[2 * i] = ip[i] & 15;
+        lens[2 * i + 1] = ip[i] >> 4;
+      }
+      ip += 128;
+      uint32_t nbits;
+      memcpy(&nbits, ip, 4);
+      ip += 4;
+      // Wire lengths are 4-bit nibbles (0..15) but the coder never
+      // emits above kHuffMaxLen=12 — larger values are corruption, and
+      // would index past count[]/next[] in huff_canonical_codes.
+      // Kraft check: an overfull length table (sum 2^-len > 1) is not a
+      // prefix code — canonical construction would assign code values
+      // wider than their lengths.  Undersubscribed tables are fine:
+      // their unused table slots stay 0xffff and decode fails cleanly
+      // on first hit.
+      uint64_t kraft = 0;
+      for (int s = 0; s < 256; s++) {
+        if (lens[s] > kHuffMaxLen)
+          return -1;
+        if (lens[s])
+          kraft += 1u << (kHuffMaxLen - lens[s]);
+      }
+      if (kraft > (1u << kHuffMaxLen))
+        return -1;
+      uint16_t codes[256];
+      huff_canonical_codes(lens, codes);
+      uint16_t table[1 << kHuffMaxLen];
+      memset(table, 0xff, sizeof(table));
+      for (int s = 0; s < 256; s++) {
+        int l = lens[s];
+        if (!l)
+          continue;
+        uint32_t c = codes[s], r = 0;
+        for (int b = 0; b < l; b++)
+          r = (r << 1) | ((c >> b) & 1);
+        for (uint32_t f = 0; f < (1u << (kHuffMaxLen - l)); f++)
+          table[r | (f << l)] = static_cast<uint16_t>(s | (l << 8));
+      }
+      const uint8_t *bs = ip;
+      int64_t nbytes = (static_cast<int64_t>(nbits) + 7) / 8;
+      if (bs + nbytes > iend)
+        return -1;
+      uint64_t acc = 0;
+      int nb = 0;
+      int64_t bpos = 0;
+      for (int i = 0; i < bn; i++) {
+        if (nb < kHuffMaxLen) {
+          if (bpos + 4 <= nbytes) {
+            uint32_t w;
+            memcpy(&w, bs + bpos, 4);
+            acc |= static_cast<uint64_t>(w) << nb;
+            bpos += 4;
+            nb += 32;
+          } else {
+            while (nb < kHuffMaxLen && bpos < nbytes) {
+              acc |= static_cast<uint64_t>(bs[bpos++]) << nb;
+              nb += 8;
+            }
+          }
+        }
+        uint16_t e = table[acc & ((1 << kHuffMaxLen) - 1)];
+        int l = e >> 8;
+        if (l == 0xff || l == 0 || l > nb)
+          return -1;  // invalid code or bit stream exhausted mid-symbol
+        *op++ = static_cast<uint8_t>(e);
+        acc >>= l;
+        nb -= l;
+      }
+      ip = bs + nbytes;
+    } else {
+      return -1;
+    }
+  }
+  return op - dst;
+}
+
+}  // extern "C"

@@ -27,6 +27,7 @@ import threading
 from concurrent.futures import Executor
 from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from . import knobs, obs
@@ -38,8 +39,11 @@ from .preparers.array import (
     HostArrayBufferStager,
 )
 from .serialization import BUFFER_PROTOCOL, string_to_dtype
+from .utils.checksums import copy_digest
 
 DEVICE_UNPACK_MISSES = {"host_template": 0, "cast": 0, "layout": 0}
+# host members this large are packed on the staging pool, off the loop
+_PACK_OFFLOAD_MIN_BYTES = 256 * 1024
 _MISS_LOCK = threading.Lock()
 
 
@@ -56,6 +60,9 @@ class BatchedBufferStager(BufferStager):
         )
         # the slab packed by ``offload()``, staged in place of the members
         self.packed: Optional[CudaTensorBufferStager] = None
+        # (start, end) → (crc32, adler32, size) of each member packed on
+        # the host, recorded during the pack
+        self.piece_digests: Optional[Dict[Tuple[int, int], Tuple[int, int, int]]] = None
 
     def offload(self, on_device: bool) -> int:
         """Make the slab independent of the live members now (an async
@@ -113,17 +120,39 @@ class BatchedBufferStager(BufferStager):
         return memoryview(slab)
 
     async def _stage_host_packed(self, executor: Optional[Executor]) -> memoryview:
-        # members stage one at a time: peak memory is the slab plus one
-        # member, matching get_staging_cost_bytes
-        slab = bytearray(self.total)
+        """Members stage one at a time (peak memory is the slab plus one
+        member, matching ``get_staging_cost_bytes``) and are copied into
+        the slab with their (crc32, adler32) computed in the same pass;
+        ``piece_digests`` records them, so the scheduler feeds the
+        members' checksum sinks and folds the slab's digest without
+        reading the slab again.  Members of at most ``NATIVE_MIN_BYTES``
+        take a Python copy and zlib (a native call costs more there);
+        with WRITE_CHECKSUMS off the pack is a plain copy."""
+        want_digests = knobs.write_checksums_enabled()
+        loop = asyncio.get_running_loop()
+        slab = np.empty(self.total, dtype=np.uint8)
         view = memoryview(slab)
+        pieces: Dict[Tuple[int, int], Tuple[int, int, int]] = {}
         offset = 0
         for s, cost in self.stagers:
             member = memoryview(await s.stage_buffer(executor)).cast("B")
             if member.nbytes != cost:
                 raise ValueError(f"member staged {member.nbytes} != {cost}")
-            view[offset:offset + cost] = member
+            dst = view[offset:offset + cost]
+            if not want_digests:
+                dst[:] = member
+            else:
+                if executor is not None and cost >= _PACK_OFFLOAD_MIN_BYTES:
+                    # a big copy leaves the loop thread free for other I/O
+                    d = await loop.run_in_executor(executor, copy_digest, dst, member)
+                else:
+                    d = copy_digest(dst, member)
+                pieces[(offset, offset + cost)] = (*d, cost)
             offset += cost
+            # before the next member stages: one member alive at a time
+            del member, dst
+        if want_digests:
+            self.piece_digests = pieces
         self.stagers = []
         return view
 

@@ -122,6 +122,12 @@ class WriteIO:
     # fdatasync'd, with the directory chain fsync'd too: set for the
     # commit-point write (.snapshot_metadata) only
     durable: bool = False
+    # the scheduler deferred this buffer's digest to the write: a plugin
+    # with ``supports_fused_digest`` computes (crc32, adler32) of the
+    # bytes in the pass that writes them and sets ``digests``; one that
+    # leaves it None has the scheduler compute them after the write
+    want_digest: bool = False
+    digests: Optional[Tuple[int, int]] = None
 
 
 @dataclass
@@ -147,6 +153,9 @@ def run_in_fresh_loop(coro: Coroutine) -> Any:
 
 
 class StoragePlugin(abc.ABC):
+    # whether ``write`` honours ``WriteIO.want_digest``
+    supports_fused_digest = False
+
     @abc.abstractmethod
     async def write(self, write_io: WriteIO) -> None: ...
 

@@ -27,6 +27,12 @@ _DISABLE_EAGER_HOST_STAGING = "DISABLE_EAGER_HOST_STAGING"
 _WRITE_CHECKSUMS = "WRITE_CHECKSUMS"
 _VERIFY_ON_RESTORE = "VERIFY_ON_RESTORE"
 _REPLICATION_VERIFY = "REPLICATION_VERIFY"
+_ENABLE_NATIVE_EXT = "ENABLE_NATIVE_EXT"
+_FS_VERIFY_WRITES = "FS_VERIFY_WRITES"
+_FS_SYNC_DATA = "FS_SYNC_DATA"
+_FASTIO = "FASTIO"
+_FASTIO_DIRECT = "FASTIO_DIRECT"
+_FASTIO_BUFFER_POOL_BYTES = "FASTIO_BUFFER_POOL_BYTES"
 
 _DEFAULTS = {
     # Arrays larger than this are chunked along dim 0 for pipelined I/O.
@@ -66,6 +72,27 @@ _DEFAULTS = {
     # ranks: "full" (array content crc32), "shape" (arrays by dtype and
     # shape; small non-array leaves still by content) or "off".
     _REPLICATION_VERIFY: "full",
+    # Native library (_csrc/fastio.cpp, built by g++ on first use) for
+    # the digests and the fs plugin's legs.  0 takes zlib and the
+    # pure-Python legs; with 1 a library that does not build raises.
+    _ENABLE_NATIVE_EXT: 1,
+    # Re-read every fs write and compare its crc32 (catches torn or
+    # corrupted local writes at save time).
+    _FS_VERIFY_WRITES: 0,
+    # fdatasync every fs data write, not only the metadata commit point.
+    _FS_SYNC_DATA: 0,
+    # The fast-I/O engine (storage/fastio.py): each fs write or read is
+    # one GIL-free native call, writes digest the bytes in the same
+    # pass.  0 keeps the fs plugin's pure-Python legs.
+    _FASTIO: 1,
+    # O_DIRECT for payloads of 1 MiB and up, around the page cache; a
+    # filesystem that refuses it gets buffered legs and
+    # posix_fadvise(DONTNEED) on reads.  Bytes and digests are the same.
+    _FASTIO_DIRECT: 0,
+    # Aligned bounce buffers of the O_DIRECT legs, in 4 MiB buffers
+    # (at least one); a part finding none waits (counted in
+    # storage.fastio.pool_waits).
+    _FASTIO_BUFFER_POOL_BYTES: 64 * 1024 * 1024,
 }
 
 _OVERRIDES: dict = {}
@@ -143,6 +170,30 @@ def get_replication_verify() -> str:
     return v
 
 
+def is_native_ext_enabled() -> bool:
+    return bool(_get_int(_ENABLE_NATIVE_EXT))
+
+
+def is_fs_verify_writes() -> bool:
+    return bool(_get_int(_FS_VERIFY_WRITES))
+
+
+def is_fs_sync_data() -> bool:
+    return bool(_get_int(_FS_SYNC_DATA))
+
+
+def fastio_enabled() -> bool:
+    return bool(_get_int(_FASTIO))
+
+
+def fastio_direct_enabled() -> bool:
+    return bool(_get_int(_FASTIO_DIRECT))
+
+
+def get_fastio_buffer_pool_bytes() -> int:
+    return max(4 * 1024 * 1024, _get_int(_FASTIO_BUFFER_POOL_BYTES))
+
+
 @contextlib.contextmanager
 def _override(name: str, value) -> Iterator[None]:
     had = name in _OVERRIDES
@@ -191,3 +242,27 @@ def override_verify_on_restore(value: bool):
 
 def override_replication_verify(value: str):
     return _override(_REPLICATION_VERIFY, value)
+
+
+def override_enable_native_ext(value: bool):
+    return _override(_ENABLE_NATIVE_EXT, int(value))
+
+
+def override_fs_verify_writes(value: bool):
+    return _override(_FS_VERIFY_WRITES, int(value))
+
+
+def override_fs_sync_data(value: bool):
+    return _override(_FS_SYNC_DATA, int(value))
+
+
+def override_fastio(value: bool):
+    return _override(_FASTIO, int(value))
+
+
+def override_fastio_direct(value: bool):
+    return _override(_FASTIO_DIRECT, int(value))
+
+
+def override_fastio_buffer_pool_bytes(value: int):
+    return _override(_FASTIO_BUFFER_POOL_BYTES, value)

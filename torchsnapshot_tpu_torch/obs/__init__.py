@@ -27,6 +27,17 @@ RESILIENCE_ABORTS = "resilience.aborts"
 COORDINATOR_STORE = "coordination.default.store"
 COORDINATOR_LOCAL = "coordination.default.local"
 EVENT_HANDLER_ERRORS = "event_handler.errors"
+# The fast-I/O engine (storage/fastio.py): bytes it moved, digests fused
+# into a write, waits for an exhausted bounce-buffer pool, legs that went
+# O_DIRECT or buffered, and reads that advised DONTNEED where the
+# filesystem refused O_DIRECT.
+FASTIO_BYTES_WRITTEN = "storage.fastio.bytes_written"
+FASTIO_BYTES_READ = "storage.fastio.bytes_read"
+FASTIO_FUSED_DIGESTS = "storage.fastio.fused_digests"
+FASTIO_POOL_WAITS = "storage.fastio.pool_waits"
+FASTIO_DIRECT_PARTS = "storage.fastio.direct_parts"
+FASTIO_BUFFERED_PARTS = "storage.fastio.buffered_parts"
+FASTIO_DONTNEED_READS = "storage.fastio.dontneed_reads"
 
 _LOCK = threading.Lock()
 _COUNTERS: Dict[str, int] = {}

@@ -16,11 +16,17 @@ Counterpart of ``torchsnapshot_tpu/scheduler.py``, same discipline:
   it is consumed.  A consumer may hand the storage a buffer of its own
   to read into (pinned tile memory, ``BufferConsumer.read_buffer``).
 - WRITE_CHECKSUMS off: no digests are computed at staging.
+- Digests: a whole-buffer write to a plugin that fuses digests
+  (``supports_fused_digest``, the fs plugin's fast-I/O engine) gets its
+  (crc32, adler32) from the pass that writes it; a slab folds the
+  per-member digests its stager recorded while packing; everything else
+  is digested at staging in one native pass per piece.  Every digest
+  lands before the write pipeline completes, so before any manifest is
+  serialised (the commit waits for the pipeline, ``async_take``'s too).
 
 The pipelines run on a dedicated event-loop thread; heavy work (device
 copies, checksums, deserialization) runs on a thread pool.  The codec,
-content-addressed store, striping and native digest engine of the JAX
-package are not ported in this slice.
+content-addressed store and striping of the JAX package are not ported.
 """
 
 from __future__ import annotations
@@ -33,7 +39,7 @@ import threading
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Awaitable, Callable, List, Optional
+from typing import Any, Awaitable, Callable, Dict, List, Optional, Tuple
 
 from . import knobs, obs
 from .io_types import (
@@ -44,7 +50,7 @@ from .io_types import (
     WriteReq,
     check_read_crc,
 )
-from .utils.checksums import adler32_fast, combine_piece_digests, crc32_fast
+from .utils.checksums import combine_piece_digests, crc32_fast, digest
 
 logger = logging.getLogger(__name__)
 
@@ -73,12 +79,19 @@ def _buf_nbytes(buf: Any) -> int:
     return 0 if buf is None else memoryview(buf).cast("B").nbytes
 
 
-def apply_checksum_sinks(buf: Any, wr: WriteReq) -> None:
+def apply_checksum_sinks(
+    buf: Any, wr: WriteReq, precomputed: Optional[Dict[Tuple[int, int], Tuple[int, int, int]]] = None
+) -> None:
     """Feed each sink the crc32 of its byte range of the staged buffer
-    and the digest sink the whole object's [crc32, adler32, size].  When
-    the sink ranges exactly tile the buffer (a slab), the object digest
-    folds from per-piece values instead of another pass."""
+    and the digest sink the whole object's [crc32, adler32, size].  Each
+    piece is read once (one native pass gives both digests), and a piece
+    in ``precomputed`` ({(start, end): (crc32, adler32, size)}, recorded
+    by a stager that digested the bytes as it packed them) is not read
+    at all.  When the sink ranges exactly tile the buffer (a slab), the
+    object digest folds from the per-piece values instead of another
+    pass."""
     view = memoryview(buf).cast("B")
+    pre = precomputed or {}
     sinks = list(wr.checksum_sinks or ())
     spans = [(0, view.nbytes) if rng is None else tuple(rng) for _, rng in sinks]
     ordered = sorted(set(spans))
@@ -92,17 +105,37 @@ def apply_checksum_sinks(buf: Any, wr: WriteReq) -> None:
     )
     pieces = {}
     for (sink, _), span in zip(sinks, spans):
-        piece = view[span[0]:span[1]]
-        crc = crc32_fast(piece)
+        hit = pre.get(span)
+        if hit is not None and hit[2] == span[1] - span[0]:
+            crc, adler = hit[0], hit[1]
+        elif can_fold:
+            crc, adler = digest(view[span[0]:span[1]])
+        else:
+            crc = crc32_fast(view[span[0]:span[1]])
         sink(crc)
         if can_fold:
-            pieces[span] = (crc, adler32_fast(piece), span[1] - span[0])
+            pieces[span] = (crc, adler, span[1] - span[0])
     if wr.digest_sink is None:
         return
     if can_fold:
         wr.digest_sink(list(combine_piece_digests([pieces[s] for s in ordered])))
     else:
-        wr.digest_sink([crc32_fast(view), adler32_fast(view), view.nbytes])
+        wr.digest_sink([*digest(view), view.nbytes])
+
+
+def _defers_digest(
+    wr: WriteReq, nbytes: int, storage: StoragePlugin, precomputed: Any
+) -> bool:
+    """Whether the digest of this staged buffer is left to its write: the
+    plugin fuses digests, every sink covers the whole buffer, and the
+    stager recorded no piece digests (a slab folds those instead)."""
+    return (
+        storage.supports_fused_digest
+        and precomputed is None
+        and all(
+            rng is None or tuple(rng) == (0, nbytes) for _, rng in wr.checksum_sinks or ()
+        )
+    )
 
 
 class _LoopThread:
@@ -134,13 +167,14 @@ class _Budget:
 
 
 class _WritePipeline:
-    __slots__ = ("write_req", "staging_cost", "buf", "buf_size")
+    __slots__ = ("write_req", "staging_cost", "buf", "buf_size", "defer_digest")
 
     def __init__(self, write_req: WriteReq) -> None:
         self.write_req = write_req
         self.staging_cost = write_req.buffer_stager.get_staging_cost_bytes()
         self.buf = None
         self.buf_size = 0
+        self.defer_digest = False
 
 
 async def _execute_write_pipelines(
@@ -165,14 +199,31 @@ async def _execute_write_pipelines(
             p.buf_size = _buf_nbytes(p.buf)
             wr = p.write_req
             if (wr.checksum_sinks or wr.digest_sink) and checksums:
-                await loop.run_in_executor(
-                    executor, apply_checksum_sinks, p.buf, wr
-                )
+                precomputed = getattr(wr.buffer_stager, "piece_digests", None)
+                if _defers_digest(wr, p.buf_size, storage, precomputed):
+                    # digested in the pass that writes the bytes (write_one)
+                    p.defer_digest = True
+                else:
+                    await loop.run_in_executor(
+                        executor, apply_checksum_sinks, p.buf, wr, precomputed
+                    )
         return p
 
     async def write_one(p: _WritePipeline) -> _WritePipeline:
-        with obs.span("pipeline/io", path=p.write_req.path, bytes=p.buf_size):
-            await storage.write(WriteIO(path=p.write_req.path, buf=p.buf))
+        wr = p.write_req
+        with obs.span("pipeline/io", path=wr.path, bytes=p.buf_size):
+            wio = WriteIO(path=wr.path, buf=p.buf, want_digest=p.defer_digest)
+            await storage.write(wio)
+        if p.defer_digest:
+            if wio.digests is None:
+                # the plugin did not fuse: the same values, one more pass
+                await loop.run_in_executor(executor, apply_checksum_sinks, p.buf, wr)
+            else:
+                crc, adler = wio.digests
+                for sink, _ in wr.checksum_sinks or ():
+                    sink(crc)
+                if wr.digest_sink is not None:
+                    wr.digest_sink([crc, adler, p.buf_size])
         return p
 
     def admit(p: _WritePipeline) -> None:

@@ -1,13 +1,23 @@
 """Local filesystem storage plugin.
 
-Counterpart of ``torchsnapshot_tpu/storage/fs.py`` without its native
-fast-I/O engine, retry policy, circuit breaker and failpoints.  The
-commit discipline is the same: every write lands in a unique sibling
-temp file and is ``os.replace``d onto its final name, so a failed write
-never leaves a partial file a reader would trust; a durable write
-(the ``.snapshot_metadata`` commit point) is fdatasync'd and its
-directory chain fsync'd.  Syscalls run on the plugin's own thread pool,
-off the scheduler's event loop.
+Counterpart of ``torchsnapshot_tpu/storage/fs.py``.  Writes and reads go
+through the native fast-I/O engine (``storage/fastio.py``), chosen once
+when the plugin is made: each is one GIL-free native call, a write
+digests its bytes in the same pass (``WriteIO.want_digest``), a read
+lands in ``ReadIO.into`` when the caller gave one, and ``FASTIO_DIRECT``
+moves payloads around the page cache.  ``FASTIO=0`` or
+``ENABLE_NATIVE_EXT=0`` keep the pure-Python legs, which write and read
+the same bytes.  Not ported: striped part handles, the retry policy,
+the circuit breaker, failpoints and mmap reads.
+
+The commit discipline is the same on both legs: every write lands in a
+unique sibling temp file and is ``os.replace``d onto its final name, so
+a failed write never leaves a partial file a reader would trust; a
+durable write (the ``.snapshot_metadata`` commit point, or every write
+under ``FS_SYNC_DATA``) is fdatasync'd, and the commit point's directory
+chain fsync'd.  ``FS_VERIFY_WRITES`` re-reads each file and compares its
+crc32.  Syscalls run on the plugin's own thread pool, off the
+scheduler's event loop.
 """
 
 from __future__ import annotations
@@ -16,11 +26,14 @@ import asyncio
 import os
 import uuid
 from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Optional, Tuple
 
 import numpy as np
 
-from .. import knobs
+from .. import _csrc, knobs
 from ..io_types import ReadIO, StoragePlugin, WriteIO
+from ..utils.checksums import crc32_fast
+from . import fastio
 
 
 def _tmp_name(full: str) -> str:
@@ -44,9 +57,26 @@ def _fsync_dir_chain(leaf_dir: str, stop_below: str) -> None:
         cur = os.path.dirname(cur)
 
 
+def _destination(into: Any, length: int) -> Any:
+    """``into`` when it is a writable buffer of ``length`` bytes, else a
+    fresh uninitialised one (np.empty: zeroing memory the read is about
+    to overwrite costs a full extra pass)."""
+    if into is not None:
+        view = memoryview(into).cast("B")
+        if not view.readonly and view.nbytes == length:
+            return into
+    return np.empty(length, dtype=np.uint8)
+
+
 class FSStoragePlugin(StoragePlugin):
     def __init__(self, root: str) -> None:
         self.root = root
+        # probed once here: the library (built on first use; raises when
+        # it cannot be built), the FASTIO knob, O_DIRECT support of root
+        self._fastio: Optional[fastio.FastIOEngine] = None
+        if knobs.fastio_enabled():
+            self._fastio = fastio.create_engine(_csrc.enabled_lib(), root)
+        self.supports_fused_digest = self._fastio is not None
         self._executor = ThreadPoolExecutor(
             max_workers=knobs.get_max_per_rank_io_concurrency(),
             thread_name_prefix="tsnp-torch-fsio",
@@ -60,15 +90,26 @@ class FSStoragePlugin(StoragePlugin):
             self._executor, fn, *args
         )
 
-    def _write_sync(self, full: str, buf, durable: bool) -> None:
+    def _write_file(self, tmp: str, view: memoryview, sync: bool, want_digest: bool):
+        if self._fastio is not None:
+            return self._fastio.write_file(tmp, view, sync, want_digest)
+        with open(tmp, "wb") as f:
+            f.write(view)
+            if sync:
+                f.flush()
+                os.fdatasync(f.fileno())
+        return None
+
+    def _write_sync(
+        self, full: str, buf, durable: bool, want_digest: bool
+    ) -> Optional[Tuple[int, int]]:
         os.makedirs(os.path.dirname(full), exist_ok=True)
+        view = memoryview(buf).cast("B")
         tmp = _tmp_name(full)
         try:
-            with open(tmp, "wb") as f:
-                f.write(memoryview(buf).cast("B"))
-                if durable:
-                    f.flush()
-                    os.fdatasync(f.fileno())
+            digests = self._write_file(
+                tmp, view, durable or knobs.is_fs_sync_data(), want_digest
+            )
             os.replace(tmp, full)
         except BaseException:
             try:
@@ -78,37 +119,42 @@ class FSStoragePlugin(StoragePlugin):
             raise
         if durable:
             _fsync_dir_chain(os.path.dirname(full), self.root)
+        if knobs.is_fs_verify_writes() and view.nbytes:
+            expected = digests[0] if digests is not None else crc32_fast(view)
+            got = crc32_fast(self._read_sync(full, None))
+            if got != expected:
+                raise OSError(
+                    5, f"crc32 mismatch after write ({got:#x} != {expected:#x})", full
+                )
+        return digests
 
     async def write(self, write_io: WriteIO) -> None:
-        await self._off_loop(
+        write_io.digests = await self._off_loop(
             self._write_sync, self._full(write_io.path), write_io.buf,
-            write_io.durable,
+            write_io.durable, write_io.want_digest,
         )
 
-    @staticmethod
-    def _read_sync(full: str, byte_range, into=None) -> np.ndarray:
-        with open(full, "rb") as f:
-            if byte_range is None:
-                start, length = 0, os.fstat(f.fileno()).st_size
-            else:
-                start, length = byte_range[0], byte_range[1] - byte_range[0]
-                f.seek(start)
-            if into is not None and memoryview(into).nbytes == length:
-                out = into  # the caller's buffer (pinned tile memory)
-            else:
-                # np.empty, not bytearray: zeroing memory the read is
-                # about to overwrite costs a full extra pass
-                out = np.empty(length, dtype=np.uint8)
+    def _read_sync(self, full: str, byte_range, into=None) -> Any:
+        if byte_range is None:
+            start, length = 0, os.stat(full).st_size
+        else:
+            start, length = byte_range[0], byte_range[1] - byte_range[0]
+        out = _destination(into, length)
+        if self._fastio is not None:
+            got = self._fastio.read_into(full, start, length, out) if length else 0
+        else:
             view = memoryview(out).cast("B")
             got = 0
-            while got < length:
-                n = f.readinto(view[got:])
-                if not n:
-                    raise OSError(
-                        5, f"short read: {got} of {length} bytes", full
-                    )
-                got += n
-            return out
+            with open(full, "rb") as f:
+                f.seek(start)
+                while got < length:
+                    n = f.readinto(view[got:])
+                    if not n:
+                        break
+                    got += n
+        if got != length:
+            raise OSError(5, f"short read: {got} of {length} bytes", full)
+        return out
 
     async def read(self, read_io: ReadIO) -> None:
         read_io.buf = await self._off_loop(

@@ -1,11 +1,15 @@
 """zlib crc32/adler32 digests and their combination (zlib's crc32_combine /
 adler32_combine, which the stdlib does not expose).
 
-Counterpart of ``torchsnapshot_tpu/utils/checksums.py``.  A slab write
-needs both per-member crc32s (manifest entries) and the whole-object
-(crc32, adler32, size) digest; folding the per-member values costs
-O(members · log(len)) integer math instead of another pass over the
-staged bytes.
+Counterpart of ``torchsnapshot_tpu/utils/checksums.py``.  The digests
+run in the native library (``_csrc``: PCLMUL crc32, AVX2 adler32, the
+GIL released) unless ``ENABLE_NATIVE_EXT=0``, and then in zlib; both give
+the same values.  Buffers of at most ``NATIVE_MIN_BYTES`` go to zlib in
+any case: for them the native call costs more than the digest.  A slab
+write needs both per-member crc32s (manifest entries) and the
+whole-object (crc32, adler32, size) digest; folding the per-member
+values costs O(members · log(len)) integer math instead of another pass
+over the staged bytes.
 """
 
 from __future__ import annotations
@@ -14,16 +18,52 @@ import threading
 import zlib
 from typing import Sequence, Tuple
 
+from .. import _csrc
+
 _CRC_POLY = 0xEDB88320
 _ADLER_MOD = 65521
 
+NATIVE_MIN_BYTES = 4096
+
+
+def _native(data):
+    """(library, byte view) when ``data`` goes native, else (None, view)."""
+    view = memoryview(data).cast("B")
+    if view.nbytes <= NATIVE_MIN_BYTES:
+        return None, view
+    return _csrc.enabled_lib(), view
+
 
 def crc32_fast(data, seed: int = 0) -> int:
-    return zlib.crc32(data, seed) & 0xFFFFFFFF
+    lib, view = _native(data)
+    if lib is None:
+        return zlib.crc32(view, seed) & 0xFFFFFFFF
+    return _csrc.crc32z(lib, view, seed)
 
 
 def adler32_fast(data, seed: int = 1) -> int:
-    return zlib.adler32(data, seed) & 0xFFFFFFFF
+    lib, view = _native(data)
+    if lib is None:
+        return zlib.adler32(view, seed) & 0xFFFFFFFF
+    return _csrc.adler32(lib, view, seed)
+
+
+def digest(data) -> Tuple[int, int]:
+    """(crc32, adler32) of ``data``, in one native pass."""
+    lib, view = _native(data)
+    if lib is None:
+        return zlib.crc32(view) & 0xFFFFFFFF, zlib.adler32(view) & 0xFFFFFFFF
+    return _csrc.digest(lib, view)
+
+
+def copy_digest(dst, src) -> Tuple[int, int]:
+    """Copy ``src`` into ``dst`` (writable, the same size) and return the
+    (crc32, adler32) of the bytes, in one native pass."""
+    lib, view = _native(src)
+    if lib is None:
+        memoryview(dst).cast("B")[:] = view
+        return zlib.crc32(view) & 0xFFFFFFFF, zlib.adler32(view) & 0xFFFFFFFF
+    return _csrc.copy_digest(lib, dst, view)
 
 
 def _gf2_matrix_times(mat: Sequence[int], vec: int) -> int:
