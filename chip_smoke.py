@@ -36,7 +36,7 @@ is no card or anything below fails.  In order:
    for K4 + K5, ``copy_`` into the template's range for K6) are timed 5
    times: median, range, share of the bound, TFLOP/s for K3-K5; K1 both
    as ``pack_slab`` is called and as its launch alone;
-4. seven paths, each with the launch counters set to 0 just before it
+4. eight paths, each with the launch counters set to 0 just before it
    and read just after (a path that starts processes adds the launches
    they report), all with the fast-I/O engine at its defaults unless
    the path says otherwise:
@@ -58,6 +58,19 @@ is no card or anything below fails.  In order:
       its seven ``storage.fastio`` counters.  After c it also prints
       the host digest rates: zlib against the native one-pass digest
       over the same 256 MiB, which must agree;
+   a3. trace (after a2, on a's state), with span tracing on: a sync
+      take, an ``async_take`` and its ``wait()``, a restore into a
+      zeroed model and optimizer (K2), and a budgeted ``read_object`` of
+      the embedding into an f32 template (K6).  Each prints its wall
+      seconds, its critical path (the operation's span partitioned by
+      which pipeline spans run; the parts add up to the span), the phase
+      rollup of its flight record, its span count, its 10 longest spans
+      and its Perfetto JSON under ``build/traces/``; the async take its
+      goodput (time to unblock, durability lag).  Each take's
+      ``.snapshot_obsrecord`` must read back with ``bytes_written`` equal
+      to the take's own counter delta.  Then the tracer's cost: sync
+      takes under TRACE=0 and TRACE=1, 3 each in alternating order,
+      medians and ranges;
    b. ring-attention gradient: ``torch.autograd.grad`` of the bf16 ring
       output on those q/k/v (K3 forward, K4/K5 backward) against f32
       dense attention's autograd gradient (tolerance 3e-2 of the largest
@@ -89,7 +102,8 @@ is no card or anything below fails.  In order:
       ``async_take`` with its commit barrier, and a take in which rank
       1's storage fails (both raise within 10 s, rank 0 a
       ``SnapshotAbortedError``, no metadata); then a restore at world 1
-      in this process, bitwise;
+      in this process, bitwise, and the sync take's flight record must
+      report ranks [0, 1] and the ranks' summed bytes_written;
    f. sharded (after e): the same full-width state as DTensors laid out
       by ``parallel/mesh.py``'s rules (embedding, LM head, wq/wk/wv/w1/
       gate split over dim 1, wo/w2 over dim 0, norms replicated, each
@@ -180,8 +194,10 @@ def nbytes(t):
     return t.numel() * t.element_size()
 
 
-def span_summary():
-    return json.dumps({k: round(v, 4) for k, v in sorted(tts.obs.span_totals().items())})
+def phases_of(record):
+    """Rank 0's phase rollup of a flight record: seconds (summed over
+    concurrent tasks) and count per phase."""
+    return json.dumps(record["per_rank"]["0"]["phases"], sort_keys=True)
 
 
 def first_device_slab(model):
@@ -598,14 +614,13 @@ def phase_main_path(cfg, model, opt, root):
     nb = state_bytes(model, opt)
 
     torch.cuda.synchronize()
-    tts.obs.reset()
+    tts.obs.reset_metrics()
     t0 = time.perf_counter()
     snap = tts.Snapshot.take(
         root, {"model": model, "optim": opt, "rng": tts.RNGState(), "meta": tts.StateDict(step=1)}
     )
     take_s = time.perf_counter() - t0
-    print(f"take span totals (s, summed over concurrent tasks): {span_summary()}")
-    tts.obs.reset()
+    print(f"take phases (flight record): {phases_of(tts.obs.aggregate.read_obsrecord(root))}")
 
     torch.manual_seed(1)
     model2 = TransformerLM(cfg, device="cuda")
@@ -616,7 +631,7 @@ def phase_main_path(cfg, model, opt, root):
     tts.Snapshot(root).restore({"model": model2, "optim": opt2, "rng": tts.RNGState(), "meta": meta2})
     torch.cuda.synchronize()
     restore_s = time.perf_counter() - t0
-    print(f"restore span totals (s, summed over concurrent tasks): {span_summary()}")
+    print(f"restore phases (flight record): {phases_of(tts.obs.aggregate.last_record('restore'))}")
 
     for (name, a), b in zip(model.state_dict().items(), model2.state_dict().values()):
         check(a.dtype == b.dtype and torch.equal(a, b), f"restored model tensor {name} differs")
@@ -696,15 +711,6 @@ FASTIO_COUNTERS = (
 )
 
 
-# span totals (seconds summed over concurrent tasks) printed per run
-FASTIO_TAKE_SPANS = ("pipeline/staging", "pipeline/slab_pack", "pipeline/io", "fastio/write_file")
-FASTIO_RESTORE_SPANS = ("pipeline/io", "fastio/read_into", "pipeline/consume")
-
-
-def span_delta(before, after, names):
-    return json.dumps({n: round(after.get(n, 0.0) - before.get(n, 0.0), 4) for n in names})
-
-
 def snapshot_digests(root):
     """The manifest's digests: each entry's crc32 and each stored object's
     [crc32, adler32, size]."""
@@ -756,22 +762,21 @@ def phase_fastio(cfg, model, opt, work):
             t0 = time.perf_counter()
             os.sync()  # no earlier run's dirty pages in this one's way
             sync_s = time.perf_counter() - t0
-            before, spans0 = tts.obs.counters(), tts.obs.span_totals()
+            before = tts.obs.counters()
             with knobs.override_fastio(fio), knobs.override_fastio_direct(fdirect):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 tts.Snapshot.take(snap_dir, {"model": model, "optim": opt})
                 times[label]["take"].append(time.perf_counter() - t0)
-                spans1 = tts.obs.span_totals()
                 t0 = time.perf_counter()
                 tts.Snapshot(snap_dir).restore({"model": model2, "optim": opt2})
                 torch.cuda.synchronize()
                 times[label]["restore"].append(time.perf_counter() - t0)
-            after, spans2 = tts.obs.counters(), tts.obs.span_totals()
-            print(f"fastio run {rep} {label}: take {times[label]['take'][-1]:.4f} s, span totals "
-                  f"{span_delta(spans0, spans1, FASTIO_TAKE_SPANS)}; restore "
-                  f"{times[label]['restore'][-1]:.4f} s, span totals "
-                  f"{span_delta(spans1, spans2, FASTIO_RESTORE_SPANS)}; os.sync before it {sync_s:.3f} s")
+            after = tts.obs.counters()
+            print(f"fastio run {rep} {label}: take {times[label]['take'][-1]:.4f} s, phases "
+                  f"{phases_of(tts.obs.aggregate.read_obsrecord(snap_dir))}; restore "
+                  f"{times[label]['restore'][-1]:.4f} s, phases "
+                  f"{phases_of(tts.obs.aggregate.last_record('restore'))}; os.sync before it {sync_s:.3f} s")
             for c in FASTIO_COUNTERS:
                 name = getattr(tts.obs, c)
                 counts[label][c] += after.get(name, 0) - before.get(name, 0)
@@ -798,6 +803,229 @@ def phase_fastio(cfg, model, opt, work):
           "every manifest's digests equal; a buffered restore reads the files its take wrote just "
           "before, from the page cache, so its seconds are not disk bandwidth")
     del model2, opt2
+
+
+TRACE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "traces")
+TRACE_COST_REPEATS = 3
+# span name -> its label on an operation's critical path (a storage write
+# or read whose parent is the operation itself, or no span on the async
+# commit thread, is its metadata commit or read; the pipeline's own sit
+# inside pipeline/io)
+CRITICAL_LABELS = {
+    "take/plan": "plan", "offload/eager": "offload", "pipeline/staging": "stage",
+    "pipeline/io": "io", "pipeline/consume": "consume", "obs/publish": "record",
+    "obs/write_obsrecord": "record", "obs/exchange_and_merge": "record",
+    "restore/load_stateful": "load",
+}
+
+
+def critical_path(spans, start_ns, end_ns, root_id):
+    """Partition [start_ns, end_ns] by which labelled spans are active:
+    label set -> seconds, summing to the window exactly.  ``load`` (a
+    restore key's whole span) shows only where nothing inside it runs."""
+    events = []
+    for s in spans:
+        label = CRITICAL_LABELS.get(s.name)
+        if s.name in ("storage/write", "storage/read") and s.parent_id in (root_id, None):
+            label = "metadata"
+        a, b = max(s.start_ns, start_ns), min(s.end_ns, end_ns)
+        if label and s.end_ns and b > a:
+            events += [(a, 1, label), (b, -1, label)]
+    active, out, prev = {}, {}, start_ns
+    for t, d, label in sorted(events) + [(end_ns, 0, None)]:
+        if t > prev:
+            on = sorted(k for k, c in active.items() if c > 0)
+            key = "+".join(k for k in on if k != "load") or ("load" if on else "other")
+            out[key] = out.get(key, 0) + t - prev
+            prev = t
+        if label:
+            active[label] = active.get(label, 0) + d
+    return {k: round(v / 1e9, 4) for k, v in sorted(out.items(), key=lambda kv: -kv[1])}
+
+
+def report_trace(op, wall_s, root_name, phases, window=None):
+    """Prints one traced operation: its wall seconds, the critical path of
+    its root span (or of ``window``), the phase rollup, the span count and
+    the 10 longest spans; writes its Perfetto JSON under ``TRACE_DIR``."""
+    tracer = tts.obs.get_tracer()
+    spans = tracer.spans()
+    roots = [s for s in spans if s.name == root_name]
+    check(len(roots) == 1, f"trace {op}: {len(roots)} {root_name!r} spans")
+    root = roots[0]
+    start_ns, end_ns = window or (root.start_ns, root.end_ns)
+    cp = critical_path(spans, start_ns, end_ns, root.span_id)
+    check(abs(sum(cp.values()) - (end_ns - start_ns) / 1e9) < 1e-3, f"trace {op}: the critical path does not add up")
+    longest = sorted(spans, key=lambda s: s.duration_ns, reverse=True)[:10]
+    os.makedirs(TRACE_DIR, exist_ok=True)
+    out = os.path.join(TRACE_DIR, f"{op}.json")
+    n = tts.obs.write_trace(out)
+    json.load(open(out))  # parses
+    print(f"trace {op}: wall {wall_s:.4f} s; critical path (s, adds up to {(end_ns - start_ns) / 1e9:.4f} s "
+          f"of the {root_name} span{' to the durable commit' if window else ''}): {json.dumps(cp)}; "
+          f"phases (summed over concurrent tasks): {phases}")
+    print(f"trace {op}: {n} spans ({tracer.dropped} dropped); 10 longest: "
+          + json.dumps([[s.name, round(s.duration_ns / 1e9, 4), s.attrs.get("path"), s.attrs.get("bytes")]
+                        for s in longest]))
+    print(f"trace {op}: perfetto {os.path.relpath(out)} {os.path.getsize(out)} bytes")
+    tracer.reset()
+
+
+def restore_legs(snap_dir, threads=16):
+    """What the restore's read and consume phases are made of, on the
+    snapshot's files (in the page cache): the largest files read at once
+    on ``threads`` threads (the read concurrency) into fresh host buffers,
+    as the restore reads, then again into the same, already-touched
+    buffers, then into pinned ones; and the largest file copied to the
+    card from a pageable and from a pinned buffer."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from torchsnapshot_tpu_torch.io_types import ReadIO
+    from torchsnapshot_tpu_torch.storage.fs import FSStoragePlugin
+
+    files = sorted(
+        (os.path.relpath(os.path.join(r, f), snap_dir) for r, _, fs in os.walk(snap_dir) for f in fs
+         if not f.startswith(".snapshot_")),
+        key=lambda f: -os.path.getsize(os.path.join(snap_dir, f)),
+    )[:threads]
+    sizes = [os.path.getsize(os.path.join(snap_dir, f)) for f in files]
+    storage = FSStoragePlugin(snap_dir)
+
+    def read_all(bufs):
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(threads) as pool:
+            list(pool.map(lambda fb: storage.sync_read(ReadIO(path=fb[0], into=fb[1])), zip(files, bufs)))
+        return time.perf_counter() - t0
+
+    fresh = [np.empty(n, dtype=np.uint8) for n in sizes]
+    fresh_s = read_all(fresh)
+    touched_s = read_all(fresh)
+    pinned = [torch.empty(n, dtype=torch.uint8, pin_memory=True) for n in sizes]
+    pinned_s = read_all([p.numpy() for p in pinned])
+    storage.sync_close()
+    dev = torch.empty(sizes[0], dtype=torch.uint8, device="cuda")
+    h2d = {}
+    for label, host in (("pageable", torch.from_numpy(fresh[0])), ("pinned", pinned[0])):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dev.copy_(host, non_blocking=True)
+        torch.cuda.synchronize()
+        h2d[label] = time.perf_counter() - t0
+        check(torch.equal(dev.cpu(), torch.from_numpy(fresh[0])), f"H2D from {label} memory differs")
+    gb, one = sum(sizes) / 1e9, sizes[0] / 1e9
+    print(f"restore legs: {len(files)} largest files ({sum(sizes)} bytes) read at once on {threads} threads "
+          f"from the page cache into fresh host buffers {fresh_s:.4f} s ({gb / fresh_s:.3f} GB/s), into the "
+          f"same buffers again {touched_s:.4f} s ({gb / touched_s:.3f} GB/s), into pinned buffers "
+          f"{pinned_s:.4f} s ({gb / pinned_s:.3f} GB/s); one file of {sizes[0]} bytes to the card from "
+          f"pageable memory {h2d['pageable']:.4f} s ({one / h2d['pageable']:.3f} GB/s), from pinned "
+          f"{h2d['pinned']:.4f} s ({one / h2d['pinned']:.3f} GB/s)")
+
+
+def phase_trace(cfg, model, opt, work):
+    """With TRACE=1 (``knobs.override_trace``), on the serving state: a
+    sync take, an async_take and its wait(), a restore into a zeroed
+    model and optimizer, and a budgeted read_object of the embedding into
+    an f32 CUDA template (K6).  Each prints its critical path, phases,
+    longest spans and Perfetto file; each take's flight record must read
+    back with bytes_written equal to the take's own counter delta.  Then
+    the tracer's cost: sync takes under TRACE=0 and TRACE=1, 3 each in
+    alternating order.  ``restore_legs`` times what the restore's phases
+    are made of."""
+    root = os.path.join(work, "trace")
+    os.makedirs(root)
+    knobs, agg, tracer = tts.knobs, tts.obs.aggregate, tts.obs.get_tracer()
+    app = {"model": model, "optim": opt}
+    nb = state_bytes(model, opt)
+    model2, opt2 = deterministic_state(cfg, 3)
+    zero_state(model2, opt2)
+
+    def written():
+        return tts.obs.counters().get(tts.obs.BYTES_WRITTEN, 0)
+
+    with knobs.override_trace(1):
+        for op in ("take", "async_take"):
+            snap_dir = os.path.join(root, op)
+            tracer.reset()
+            os.sync()
+            torch.cuda.synchronize()
+            w0, t0 = written(), time.perf_counter()
+            if op == "take":
+                tts.Snapshot.take(snap_dir, app)
+                window = None
+            else:
+                pending = tts.Snapshot.async_take(snap_dir, app)
+                unblock_s = time.perf_counter() - t0
+                pending.wait()
+                commits = [s for s in tracer.spans() if s.name == "goodput/durable_commit"]
+                first = min(s.start_ns for s in tracer.spans() if s.name == "async_take")
+                window = (first, commits[-1].end_ns)
+            wall_s = time.perf_counter() - t0
+            rec = agg.read_obsrecord(snap_dir)
+            check(rec["merged"]["counters"].get(tts.obs.BYTES_WRITTEN) == written() - w0 > 0,
+                  f"{op}: the flight record's bytes_written is not the take's counter delta")
+            report_trace(op, wall_s, op, phases_of(rec), window)
+            if op == "async_take":
+                gp = tts.obs.goodput.block()
+                check(gp["time_to_unblock_s"] < gp["durability_lag_s"], "async_take was durable before it unblocked")
+                print(f"trace async_take: goodput time to unblock {gp['time_to_unblock_s']} s (the call "
+                      f"returned after {unblock_s:.4f} s), durability lag {gp['durability_lag_s']} s, "
+                      f"overhead fraction {gp['overhead_fraction']}")
+        k2 = device_pack.LAUNCHES["slab_unpack"]
+        tracer.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tts.Snapshot(os.path.join(root, "take")).restore({"model": model2, "optim": opt2})
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        differs = same_state((model, opt), (model2, opt2))
+        check(differs is None and device_pack.LAUNCHES["slab_unpack"] > k2,
+              f"traced restore: {differs or 'no K2 launch'}")
+        report_trace("restore", wall_s, "restore", phases_of(agg.last_record("restore")))
+        del model2, opt2
+        restore_legs(os.path.join(root, "take"))
+        src = model.embed.weight.detach()
+        template = torch.empty(src.shape, device="cuda")
+        tracer.reset()
+        before = agg.capture()
+        k6 = device_pack.LAUNCHES["tile_update"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tts.Snapshot(os.path.join(root, "take")).read_object(
+            "0/model/embed.weight", obj_out=template, memory_budget_bytes=READ_BUDGET)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        check(torch.equal(template, src.float()) and device_pack.LAUNCHES["tile_update"] > k6,
+              "traced budgeted read: differs or launched no K6")
+        report_trace("read_object", wall_s, "read_object",
+                     json.dumps(agg.rank_payload(0, "read_object", before)["phases"], sort_keys=True))
+    for op in ("take", "async_take"):
+        shutil.rmtree(os.path.join(root, op))
+
+    times = {0: [], 1: []}
+    spans_per_take = []
+    for rep in range(TRACE_COST_REPEATS):
+        for trace in (0, 1) if rep % 2 == 0 else (1, 0):
+            snap_dir = os.path.join(root, f"cost{rep}_{trace}")
+            os.sync()
+            with knobs.override_trace(trace):
+                tracer.reset()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tts.Snapshot.take(snap_dir, app)
+                times[trace].append(time.perf_counter() - t0)
+                if trace:
+                    spans_per_take.append(len(tracer))
+            tracer.reset()
+            shutil.rmtree(snap_dir)
+    line = []
+    for trace in (0, 1):
+        ts = sorted(times[trace])
+        line.append(f"TRACE={trace} median {ts[len(ts) // 2]:.4f} s [{ts[0]:.4f}-{ts[-1]:.4f}], "
+                    f"runs {[round(t, 4) for t in times[trace]]}")
+    print(f"trace cost: sync take of {nb} bytes, {TRACE_COST_REPEATS} runs each in alternating order: "
+          + "; ".join(line) + f"; spans recorded per traced take {spans_per_take}")
+    shutil.rmtree(root)
 
 
 def phase_attention(cfg, model):
@@ -910,7 +1138,6 @@ def phase_resumable_training(cfg, root):
     # what async_take's own budget will read
     budget = host_offload.device_copy_budget_bytes(torch.device("cuda", torch.cuda.current_device()))
     torch.cuda.synchronize()
-    tts.obs.reset()
     t0 = time.perf_counter()
     pending = tts.Snapshot.async_take(
         root, {"model": model, "optim": opt, "rng": tts.RNGState(), "meta": tts.StateDict(step=1)}
@@ -927,7 +1154,7 @@ def phase_resumable_training(cfg, root):
     pending.wait()
     wait_s = time.perf_counter() - t1
     total_s = time.perf_counter() - t0
-    print(f"async_take span totals (s, summed over concurrent tasks): {span_summary()}")
+    print(f"async_take phases (flight record): {phases_of(tts.obs.aggregate.read_obsrecord(root))}")
     del model, opt, ballast, pending
     gc.collect()
     live = sum(host_offload._LIVE_COPY_BYTES.values())
@@ -1254,6 +1481,15 @@ def phase_many_ranks(cfg, work):
     check(diff is None, f"world-1 restore: {diff} differs")
     check(mine["rank"] == 0 and bool((mine["t"] == 0).all()), "world-1 restore: rank 0's per-rank state differs")
     print(f"many_ranks: restore at world 1 of the world-2 snapshot {restore_s:.3f} s, bitwise")
+    rec = tts.obs.aggregate.read_obsrecord(os.path.join(root, "sync"))
+    written = sum(res["take_bytes"] for res in results)
+    check(rec["ranks_reported"] == [0, 1] and rec["missing_ranks"] == [],
+          f"the world-2 take's flight record reports ranks {rec['ranks_reported']}")
+    check(rec["merged"]["counters"].get(tts.obs.BYTES_WRITTEN) == written,
+          "the world-2 take's flight record disagrees with the ranks' bytes_written")
+    print(f"many_ranks: the world-2 take's flight record: ranks {rec['ranks_reported']}, bytes_written "
+          f"{written} (the ranks' own counters), straggler {json.dumps(rec['straggler'])}, phases by rank "
+          f"{json.dumps({r: v['phases'] for r, v in rec['per_rank'].items()}, sort_keys=True)}")
     del model, opt, model2, opt2
     shutil.rmtree(root)
     launches = {}
@@ -1596,6 +1832,7 @@ def main():
 
         run_path("serving", ("slab_pack", "slab_unpack", "flash_attention_fwd"), serving)
         run_path("fastio", ("slab_pack", "slab_unpack"), lambda: phase_fastio(cfg, model, opt, work))
+        run_path("trace", ("slab_pack", "slab_unpack", "tile_update"), lambda: phase_trace(cfg, model, opt, work))
         gc.collect()
         torch.cuda.empty_cache()
         run_path("ring_gradient", ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"),

@@ -722,7 +722,8 @@ def _payload_files(root):
     out = {}
     for dirpath, _dirs, files in os.walk(root):
         for f in files:
-            if f != ".snapshot_metadata":
+            # the flight record holds this take's timings, not payload
+            if f not in (".snapshot_metadata", ".snapshot_obsrecord"):
                 p = os.path.join(dirpath, f)
                 out[os.path.relpath(p, root)] = open(p, "rb").read()
     return out
@@ -792,3 +793,48 @@ def test_budgeted_read_tiles_filled_by_o_direct(cuda, tmp_path, monkeypatch, tem
         outs[direct] = out
     assert torch.equal(outs[True], outs[False])
     assert torch.equal(outs[True].cpu(), src.to(template))
+
+
+def test_traced_take_and_restore_of_cuda_state(cuda, tmp_path):
+    """A traced take and restore of a small CUDA model (slabs through K1,
+    restored through K2): non-zero stage, write, read and consume phase
+    counts, a Perfetto JSON that parses, and a flight record whose
+    bytes_written is the take's own counter delta."""
+    import json
+
+    import torchsnapshot_tpu_torch as tts
+    from torchsnapshot_tpu_torch import knobs, obs
+    from torchsnapshot_tpu_torch.ops import device_pack as dp
+
+    def state(seed):
+        g = torch.Generator(device="cpu").manual_seed(seed)
+        return tts.StateDict(**{
+            f"w{i}": torch.randn(n, generator=g).to(torch.bfloat16).to(cuda)
+            for i, n in enumerate((300, 4097, 1 << 20, 33))
+        })
+
+    src, out = state(0), state(1)
+    path = str(tmp_path / "snap")
+    tracer = obs.get_tracer()
+    with knobs.override_trace(1), knobs.override_slab_size_threshold_bytes(1 << 16):
+        tracer.reset()
+        before = obs.counters().get(obs.BYTES_WRITTEN, 0)
+        k1, k2 = dp.LAUNCHES["slab_pack"], dp.LAUNCHES["slab_unpack"]
+        tts.Snapshot.take(path, {"m": src})
+        written = obs.counters()[obs.BYTES_WRITTEN] - before
+        tts.Snapshot(path).restore({"m": out})
+        torch.cuda.synchronize()
+        n = obs.write_trace(str(tmp_path / "trace.json"))
+    tracer.reset()
+    assert dp.LAUNCHES["slab_pack"] > k1 and dp.LAUNCHES["slab_unpack"] > k2
+    for k in src:
+        assert torch.equal(out[k], src[k])
+    rec = obs.aggregate.read_obsrecord(path)
+    assert rec["merged"]["counters"]["bytes_written"] == written > 0
+    take_phases = rec["per_rank"]["0"]["phases"]
+    restore_phases = obs.aggregate.last_record("restore")["per_rank"]["0"]["phases"]
+    assert take_phases["stage"]["count"] > 0 and take_phases["write"]["count"] > 0
+    assert restore_phases["read"]["count"] > 0 and restore_phases["consume"]["count"] > 0
+    events = json.load(open(tmp_path / "trace.json"))["traceEvents"]
+    names = {e["name"] for e in events if e["ph"] == "X"}
+    assert n > 0 and {"take", "restore", "pipeline/slab_pack", "pipeline/consume"} <= names

@@ -358,7 +358,8 @@ def _payload(root):
     out = {}
     for dirpath, _dirs, files in os.walk(root):
         for f in files:
-            if f != ".snapshot_metadata":
+            # the flight record holds this take's timings, not payload
+            if f not in (".snapshot_metadata", ".snapshot_obsrecord"):
                 p = os.path.join(dirpath, f)
                 out[os.path.relpath(p, root)] = open(p, "rb").read()
     return out

@@ -100,21 +100,30 @@ class Coordinator(abc.ABC):
         (explicit names must be unique per use).  Inside an
         ``abort_scope`` its waits are abort-aware."""
         name = name or self._next_uid("bar")
-        with obs.span("coordination/barrier"):
-            scope = self._current_abort_scope()
-            if scope is not None:
-                self.raise_if_poisoned(scope)
-            if self.world_size == 1:
-                return
-            # one deadline for the whole barrier
-            deadline = time.monotonic() + timeout_s
-            self.kv_set(f"{name}/arrive/{self.rank}", "1")
-            if self.rank == 0:
-                for r in range(self.world_size):
-                    self.kv_get(f"{name}/arrive/{r}", max(0.0, deadline - time.monotonic()))
-                self.kv_set(f"{name}/depart", "1")
-            else:
-                self.kv_get(f"{name}/depart", max(0.0, deadline - time.monotonic()))
+        # always-on barrier phase clock: the flight record's straggler
+        # attribution reads this rank's barrier-wait seconds (a fast
+        # rank's time hides here while it waits for the straggler)
+        t0 = time.monotonic()
+        try:
+            self._barrier_inner(name, timeout_s)
+        finally:
+            obs.histogram(obs.PHASE_BARRIER_S).observe(time.monotonic() - t0)
+
+    def _barrier_inner(self, name: str, timeout_s: float) -> None:
+        scope = self._current_abort_scope()
+        if scope is not None:
+            self.raise_if_poisoned(scope)
+        if self.world_size == 1:
+            return
+        # one deadline for the whole barrier
+        deadline = time.monotonic() + timeout_s
+        self.kv_set(f"{name}/arrive/{self.rank}", "1")
+        if self.rank == 0:
+            for r in range(self.world_size):
+                self.kv_get(f"{name}/arrive/{r}", max(0.0, deadline - time.monotonic()))
+            self.kv_set(f"{name}/depart", "1")
+        else:
+            self.kv_get(f"{name}/depart", max(0.0, deadline - time.monotonic()))
 
     # ---- cross-rank abort (resilience/abort.py) ------------------------
 

@@ -116,7 +116,7 @@ def eager_offload_write_reqs(write_reqs: List[WriteReq]) -> int:
     """Copy every source of ``write_reqs`` that the caller may mutate
     after ``async_take`` returns (see the module docstring).  Returns the
     bytes copied."""
-    with obs.span("offload/eager", reqs=len(write_reqs)):
+    with obs.span("offload/eager", reqs=len(write_reqs)) as sp:
         stats = {"device_copy_bytes": 0, "blocking_host_bytes": 0, "host_copy_bytes": 0}
         budgets: Dict[torch.device, int] = {}
         pools: Dict[torch.device, Any] = {}
@@ -145,6 +145,8 @@ def eager_offload_write_reqs(write_reqs: List[WriteReq]) -> int:
             budgets[device] -= cost
             _track_live_copy(st, device, cost, pools[device])
         moved = sum(stats.values())
+        if sp is not None:
+            sp.attrs["bytes"] = moved
     obs.counter(obs.BYTES_OFFLOADED).inc(moved)
     LAST_OFFLOAD_STATS.clear()
     LAST_OFFLOAD_STATS.update(stats)

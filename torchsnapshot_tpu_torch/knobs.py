@@ -33,6 +33,8 @@ _FS_SYNC_DATA = "FS_SYNC_DATA"
 _FASTIO = "FASTIO"
 _FASTIO_DIRECT = "FASTIO_DIRECT"
 _FASTIO_BUFFER_POOL_BYTES = "FASTIO_BUFFER_POOL_BYTES"
+_TRACE = "TRACE"
+_METRICS_TEXTFILE = "METRICS_TEXTFILE"
 
 _DEFAULTS = {
     # Arrays larger than this are chunked along dim 0 for pipelined I/O.
@@ -93,6 +95,13 @@ _DEFAULTS = {
     # (at least one); a part finding none waits (counted in
     # storage.fastio.pool_waits).
     _FASTIO_BUFFER_POOL_BYTES: 64 * 1024 * 1024,
+    # Record a span tree of every operation (obs/tracer.py).  Off by
+    # default: a disabled span costs one flag check and no allocation.
+    _TRACE: 0,
+    # Path of an OpenMetrics textfile rewritten after every take,
+    # async commit and restore ("{pid}" expands to the process id); ""
+    # writes none.
+    _METRICS_TEXTFILE: "",
 }
 
 _OVERRIDES: dict = {}
@@ -194,6 +203,17 @@ def get_fastio_buffer_pool_bytes() -> int:
     return max(4 * 1024 * 1024, _get_int(_FASTIO_BUFFER_POOL_BYTES))
 
 
+def is_trace_enabled() -> bool:
+    return bool(_get_int(_TRACE))
+
+
+def get_metrics_textfile() -> Optional[str]:
+    """Path for the OpenMetrics textfile dump, or None when export is off
+    (the default)."""
+    v = str(_get_raw(_METRICS_TEXTFILE) or "").strip()
+    return v or None
+
+
 @contextlib.contextmanager
 def _override(name: str, value) -> Iterator[None]:
     had = name in _OVERRIDES
@@ -266,3 +286,22 @@ def override_fastio_direct(value: bool):
 
 def override_fastio_buffer_pool_bytes(value: int):
     return _override(_FASTIO_BUFFER_POOL_BYTES, value)
+
+
+def override_metrics_textfile(value):
+    return _override(_METRICS_TEXTFILE, value or "")
+
+
+@contextlib.contextmanager
+def override_trace(value) -> Iterator[None]:
+    """Override TRACE and refresh the tracer's module-level enabled flag
+    on entry and on exit (the flag is the disabled path's one check, so
+    it tracks the knob instead of re-reading it per span)."""
+    from .obs import tracer as _tracer
+
+    try:
+        with _override(_TRACE, int(bool(int(value)))):
+            _tracer.refresh_enabled()
+            yield
+    finally:
+        _tracer.refresh_enabled()

@@ -41,7 +41,7 @@ from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Awaitable, Callable, Dict, List, Optional, Tuple
 
-from . import knobs, obs
+from . import knobs
 from .io_types import (
     ReadIO,
     ReadReq,
@@ -50,6 +50,8 @@ from .io_types import (
     WriteReq,
     check_read_crc,
 )
+from .obs import metrics as obs_metrics
+from .obs import tracer as obs_tracer
 from .utils.checksums import combine_piece_digests, crc32_fast, digest
 
 logger = logging.getLogger(__name__)
@@ -192,9 +194,34 @@ async def _execute_write_pipelines(
     io_concurrency = knobs.get_max_per_rank_io_concurrency()
     checksums = knobs.write_checksums_enabled()
     loop = asyncio.get_running_loop()
+    # observability, as the JAX package's write loop: counters, gauges and
+    # the phase clocks are always on (one locked add per transition);
+    # spans exist only under the TRACE knob.  Budget-admission spans open
+    # per request at pipeline start and close at admission; a flow id
+    # recorded at staging completion links each staging span to its
+    # storage-I/O span (the Perfetto arrow).  Stage seconds end once the
+    # host holds the bytes (the stagers wait on the device-to-host
+    # copy's event inside stage_buffer).
+    m_staged = obs_metrics.counter(obs_metrics.BYTES_STAGED)
+    m_written = obs_metrics.counter(obs_metrics.BYTES_WRITTEN)
+    m_budget = obs_metrics.gauge(obs_metrics.BUDGET_BYTES_IN_USE)
+    m_ioq = obs_metrics.gauge(obs_metrics.IO_QUEUE_DEPTH)
+    m_phase_stage = obs_metrics.histogram(obs_metrics.PHASE_STAGE_S)
+    m_phase_write = obs_metrics.histogram(obs_metrics.PHASE_WRITE_S)
+    tracer = obs_tracer.get_tracer()
+    adm_spans: dict = {}
+    flow_ids: dict = {}
+    if obs_tracer.ENABLED:
+        for p in pipelines:
+            adm_spans[id(p)] = tracer.begin(
+                "pipeline/budget_admission", path=p.write_req.path, bytes=p.staging_cost
+            )
 
     async def stage_one(p: _WritePipeline) -> _WritePipeline:
-        with obs.span("pipeline/staging", path=p.write_req.path):
+        with obs_tracer.span(
+            "pipeline/staging", path=p.write_req.path, cost=p.staging_cost
+        ) as sp:
+            t_stage = time.perf_counter()
             p.buf = await p.write_req.buffer_stager.stage_buffer(executor)
             p.buf_size = _buf_nbytes(p.buf)
             wr = p.write_req
@@ -207,27 +234,43 @@ async def _execute_write_pipelines(
                     await loop.run_in_executor(
                         executor, apply_checksum_sinks, p.buf, wr, precomputed
                     )
+            m_phase_stage.observe(time.perf_counter() - t_stage)
+            if sp is not None:
+                sp.attrs["bytes"] = p.buf_size
+                sp.flow_out = flow_ids[id(p)] = obs_tracer.next_flow_id()
         return p
 
     async def write_one(p: _WritePipeline) -> _WritePipeline:
         wr = p.write_req
-        with obs.span("pipeline/io", path=wr.path, bytes=p.buf_size):
-            wio = WriteIO(path=wr.path, buf=p.buf, want_digest=p.defer_digest)
-            await storage.write(wio)
-        if p.defer_digest:
-            if wio.digests is None:
-                # the plugin did not fuse: the same values, one more pass
-                await loop.run_in_executor(executor, apply_checksum_sinks, p.buf, wr)
-            else:
-                crc, adler = wio.digests
-                for sink, _ in wr.checksum_sinks or ():
-                    sink(crc)
-                if wr.digest_sink is not None:
-                    wr.digest_sink([crc, adler, p.buf_size])
+        with obs_tracer.span("pipeline/io", path=wr.path, bytes=p.buf_size) as sp:
+            if sp is not None:
+                fid = flow_ids.pop(id(p), None)
+                if fid is not None:
+                    sp.flow_in = fid
+            t_write = time.perf_counter()
+            try:
+                wio = WriteIO(path=wr.path, buf=p.buf, want_digest=p.defer_digest)
+                await storage.write(wio)
+                if p.defer_digest:
+                    if wio.digests is None:
+                        # the plugin did not fuse: the same values, one more pass
+                        await loop.run_in_executor(executor, apply_checksum_sinks, p.buf, wr)
+                    else:
+                        crc, adler = wio.digests
+                        for sink, _ in wr.checksum_sinks or ():
+                            sink(crc)
+                        if wr.digest_sink is not None:
+                            wr.digest_sink([crc, adler, p.buf_size])
+            finally:
+                m_phase_write.observe(time.perf_counter() - t_write)
         return p
 
     def admit(p: _WritePipeline) -> None:
         budget.used += p.staging_cost
+        m_budget.set(budget.used)
+        sp = adm_spans.pop(id(p), None)
+        if sp is not None:
+            tracer.end(sp, fire_event=True)
         staging_tasks.add(asyncio.ensure_future(stage_one(p)))
 
     try:
@@ -246,6 +289,7 @@ async def _execute_write_pipelines(
                 admit(ready_for_staging.popleft())
             while ready_for_io and len(io_tasks) < io_concurrency:
                 io_tasks.add(asyncio.ensure_future(write_one(ready_for_io.popleft())))
+            m_ioq.set(len(ready_for_io))
             if not staging_tasks and not io_tasks:
                 continue
             done, _ = await asyncio.wait(
@@ -257,13 +301,16 @@ async def _execute_write_pipelines(
                     staging_tasks.discard(task)
                     # correct the declared cost to the staged size
                     budget.used -= p.staging_cost - p.buf_size
-                    obs.counter(obs.BYTES_STAGED).inc(p.buf_size)
+                    m_budget.set(budget.used)
+                    m_staged.inc(p.buf_size)
                     ready_for_io.append(p)
+                    m_ioq.set(len(ready_for_io))
                 else:
                     io_tasks.discard(task)
                     stats["bytes_written"] += p.buf_size
-                    obs.counter(obs.BYTES_WRITTEN).inc(p.buf_size)
+                    m_written.inc(p.buf_size)
                     budget.used -= p.buf_size
+                    m_budget.set(budget.used)
                     p.buf = None
     except BaseException:
         for t in staging_tasks | io_tasks:
@@ -271,6 +318,12 @@ async def _execute_write_pipelines(
         raise
     finally:
         staging_done.set()
+        # requests never admitted (error or cancel) close their admission
+        # spans here, so the trace has no dangling opens
+        for sp in adm_spans.values():
+            sp.attrs["error"] = True
+            tracer.end(sp, fire_event=True)
+        adm_spans.clear()
 
 
 class PendingIOWork:
@@ -375,22 +428,52 @@ async def _execute_read_pipelines(
     consume_tasks: set = set()
     io_concurrency = knobs.get_max_per_rank_io_concurrency()
     verify = knobs.verify_on_restore()
+    # the write loop's instruments, direction-suffixed: an async_take's
+    # background drain can overlap a restore in this process.  Consume
+    # seconds end once the host-to-device copies and kernels K2/K6 are
+    # enqueued (a budgeted tile waits for its copy: its pinned buffer is
+    # reused).
+    m_read = obs_metrics.counter(obs_metrics.BYTES_READ)
+    m_budget = obs_metrics.gauge(obs_metrics.BUDGET_BYTES_IN_USE_READ)
+    m_ioq = obs_metrics.gauge(obs_metrics.IO_QUEUE_DEPTH_READ)
+    m_phase_read = obs_metrics.histogram(obs_metrics.PHASE_READ_S)
+    m_phase_consume = obs_metrics.histogram(obs_metrics.PHASE_CONSUME_S)
+    tracer = obs_tracer.get_tracer()
+    adm_spans: dict = {}
+    if obs_tracer.ENABLED:
+        for p in pipelines:
+            adm_spans[id(p)] = tracer.begin(
+                "pipeline/budget_admission", path=p.read_req.path, bytes=p.consuming_cost
+            )
 
     async def read_one(p: _ReadPipeline) -> _ReadPipeline:
         rr = p.read_req
-        with obs.span("pipeline/io", path=rr.path, op="read"):
-            into = None
-            if rr.byte_range is not None:
-                into = rr.buffer_consumer.read_buffer(
-                    rr.byte_range[1] - rr.byte_range[0]
-                )
-            read_io = ReadIO(path=rr.path, byte_range=rr.byte_range, into=into)
-            await storage.read(read_io)
-            p.buf = read_io.buf
+        with obs_tracer.span(
+            "pipeline/io", path=rr.path, cost=p.consuming_cost, op="read"
+        ) as sp:
+            t_read = time.perf_counter()
+            try:
+                into = None
+                if rr.byte_range is not None:
+                    into = rr.buffer_consumer.read_buffer(
+                        rr.byte_range[1] - rr.byte_range[0]
+                    )
+                read_io = ReadIO(path=rr.path, byte_range=rr.byte_range, into=into)
+                await storage.read(read_io)
+                p.buf = read_io.buf
+                if sp is not None:
+                    sp.attrs["bytes"] = _buf_nbytes(p.buf)
+            finally:
+                m_phase_read.observe(time.perf_counter() - t_read)
         return p
 
     async def consume_one(p: _ReadPipeline) -> _ReadPipeline:
-        with obs.span("pipeline/consume", path=p.read_req.path):
+        with obs_tracer.span(
+            "pipeline/consume", path=p.read_req.path, cost=p.consuming_cost
+        ) as sp:
+            if sp is not None:
+                sp.attrs["bytes"] = _buf_nbytes(p.buf)
+            t_consume = time.perf_counter()
             if p.read_req.expected_crc32 is not None and verify:
                 # before consume: a mismatch leaves the target untouched
                 await asyncio.get_running_loop().run_in_executor(
@@ -398,10 +481,15 @@ async def _execute_read_pipelines(
                 )
             await p.read_req.buffer_consumer.consume_buffer(p.buf, executor)
             p.buf = None
+            m_phase_consume.observe(time.perf_counter() - t_consume)
         return p
 
     def admit(p: _ReadPipeline) -> None:
         budget.used += p.consuming_cost
+        m_budget.set(budget.used)
+        sp = adm_spans.pop(id(p), None)
+        if sp is not None:
+            tracer.end(sp, fire_event=True)
         io_tasks.add(asyncio.ensure_future(read_one(p)))
 
     try:
@@ -416,6 +504,7 @@ async def _execute_read_pipelines(
                     ready_for_io.append(p)
             if ready_for_io and not io_tasks and not consume_tasks:
                 admit(ready_for_io.popleft())
+            m_ioq.set(len(ready_for_io))
             if not io_tasks and not consume_tasks:
                 continue
             done, _ = await asyncio.wait(
@@ -425,15 +514,21 @@ async def _execute_read_pipelines(
                 p = task.result()
                 if task in io_tasks:
                     io_tasks.discard(task)
-                    obs.counter(obs.BYTES_READ).inc(_buf_nbytes(p.buf))
+                    m_read.inc(_buf_nbytes(p.buf))
                     consume_tasks.add(asyncio.ensure_future(consume_one(p)))
                 else:
                     consume_tasks.discard(task)
                     budget.used -= p.consuming_cost
+                    m_budget.set(budget.used)
     except BaseException:
         for t in io_tasks | consume_tasks:
             t.cancel()
         raise
+    finally:
+        for sp in adm_spans.values():
+            sp.attrs["error"] = True
+            tracer.end(sp, fire_event=True)
+        adm_spans.clear()
 
 
 def sync_execute_read_reqs(

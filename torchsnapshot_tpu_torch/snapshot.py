@@ -27,6 +27,12 @@ the JAX package's:
 - ``read_object`` reads one leaf by ``"<rank>/<logical path>"``, in
   tiles of at most ``memory_budget_bytes`` when given.
 
+Every take writes the flight record ``.snapshot_obsrecord`` (each
+rank's metrics since the take began, merged by rank 0; ``obs/aggregate.py``)
+before ``.snapshot_metadata``, best-effort; a restore's merged record
+stays in-process on rank 0.  Goodput (time to unblock, durability lag)
+is stamped at the take's return and at its commit.
+
 Across ranks, state claimed replicated (``replicated`` globs, the
 ``Replicated`` marker, DDP-wrapped modules) is verified by fingerprint
 (``REPLICATION_VERIFY``) and written once, the writes balanced over the
@@ -367,22 +373,40 @@ def _commit(storage: Any, metadata: SnapshotMetadata) -> None:
     )
 
 
+def _write_obsrecord(coord: Coordinator, uid: str, storage: Any, path: str) -> None:
+    """Rank 0 merges the payloads every rank published under ``uid``
+    (waiting at most ``aggregate._COLLECT_TIMEOUT_S`` for the missing
+    ones) and writes ``.snapshot_obsrecord``, strictly before the commit
+    marker.  Best-effort: a failure is counted, never raised."""
+    try:
+        obs.aggregate.write_obsrecord(
+            storage, obs.aggregate.collect_and_merge(coord, uid, op="take", path=path)
+        )
+    except Exception as e:  # noqa: BLE001 — the record never fails a commit
+        obs.swallowed_exception("take.obsrecord", e)
+
+
 def _commit_protocol(
-    coord: Coordinator, uid: str, plan: _TakePlan, storage: Any, status: str
+    coord: Coordinator, uid: str, plan: _TakePlan, storage: Any, status: str,
+    obs_before: Dict[str, Any],
 ) -> Optional[SnapshotMetadata]:
     """Commit a take whose writes on this rank ended with ``status``
     ("ok" or an error).  KV only, under explicit keys of the commit uid,
     so the async commit thread may run it: each rank publishes its
-    manifest and its status; rank 0 waits for every rank, consolidates
-    and writes ``.snapshot_metadata`` only when all succeeded and the
-    scope is not poisoned, then publishes its verdict, which every rank
-    waits for.  Returns the metadata on rank 0, None elsewhere.  Run
-    inside ``coord.abort_scope(uid)``: a peer's poison ends every wait."""
+    flight-record payload (the metrics since ``obs_before``), its
+    manifest and its status; rank 0 waits for every rank, consolidates,
+    writes ``.snapshot_obsrecord`` and then ``.snapshot_metadata`` only
+    when all succeeded and the scope is not poisoned, then publishes its
+    verdict, which every rank waits for.  Returns the metadata on rank
+    0, None elsewhere.  Run inside ``coord.abort_scope(uid)``: a peer's
+    poison ends every wait."""
     rank, world = coord.rank, coord.world_size
+    obs.aggregate.publish(coord, uid, obs.aggregate.rank_payload(rank, "take", obs_before))
     if world == 1:
         metadata = _metadata_from(
             [{**plan.manifest, **plan.entries}], plan.object_digests, 1
         )
+        _write_obsrecord(coord, uid, storage, plan.path)
         _commit(storage, metadata)
         return metadata
     coord.kv_set(
@@ -410,6 +434,7 @@ def _commit_protocol(
                     [{k: entry_from_dict(v) for k, v in p["manifest"].items()} for p in payloads],
                     objects, world,
                 )
+                _write_obsrecord(coord, uid, storage, plan.path)
                 # never write the commit marker after the scope was poisoned
                 coord.raise_if_poisoned(uid)
                 _commit(storage, metadata)
@@ -451,6 +476,9 @@ class Snapshot:
         _validate_app_state(app_state)
         rank = coordinator.rank
         with log_event(Event("take", {"path": path, "rank": rank})):
+            # the flight record's window and the goodput clock start here
+            obs_before = obs.aggregate.capture()
+            gp_begin = obs.goodput.take_begin(path)
             uid = coordinator._next_uid("commit")
             plan = cls._plan_at_entry(path, app_state, replicated, coordinator, uid, is_async=False)
             storage = url_to_storage_plugin(plan.path)
@@ -459,7 +487,9 @@ class Snapshot:
                     execute_write_reqs(
                         plan.write_reqs, storage, get_process_memory_budget_bytes(), rank,
                     ).sync_complete()
-                    metadata = _commit_protocol(coordinator, uid, plan, storage, "ok")
+                    metadata = _commit_protocol(
+                        coordinator, uid, plan, storage, "ok", obs_before
+                    )
             except SnapshotAbortedError:
                 raise
             except BaseException as e:
@@ -467,6 +497,10 @@ class Snapshot:
                 raise
             finally:
                 storage.sync_close()
+            # a sync take is durable and unblocks at its return
+            obs.goodput.durable_commit(path)
+            obs.goodput.take_unblocked(path, gp_begin)
+            obs.maybe_write_metrics_textfile()
         snapshot = cls(plan.path, coordinator)
         # other ranks load the committed metadata when they need it
         snapshot._metadata_cache = metadata
@@ -498,6 +532,8 @@ class Snapshot:
         _validate_app_state(app_state)
         rank = coordinator.rank
         with log_event(Event("async_take", {"path": path, "rank": rank})):
+            obs_before = obs.aggregate.capture()
+            gp_begin = obs.goodput.take_begin(path)
             uid = coordinator._next_uid("commit")
             plan = cls._plan_at_entry(path, app_state, replicated, coordinator, uid, is_async=True)
             unblock_early = not knobs.is_eager_host_staging_disabled()
@@ -514,7 +550,13 @@ class Snapshot:
                 coordinator.poison(uid, cause=repr(e), site=f"async_take/rank{rank}")
                 storage.sync_close()
                 raise
-        return PendingSnapshot(plan.path, coordinator, plan, pending_io, storage, uid)
+        pending = PendingSnapshot(
+            plan.path, coordinator, plan, pending_io, storage, uid, obs_before
+        )
+        # the unblock point is this return: staging, I/O and the commit
+        # (with the flight-record exchange) drain in the background
+        obs.goodput.take_unblocked(path, gp_begin)
+        return pending
 
     @classmethod
     def _plan_at_entry(
@@ -724,6 +766,7 @@ class Snapshot:
         coordinator = self._coordinator
         rank, world = coordinator.rank, coordinator.world_size
         with log_event(Event("restore", {"path": self.path, "rank": rank})):
+            obs_before = obs.aggregate.capture()
             # one collective operation under the restore's own scope, the
             # metadata read included: a rank that fails anywhere poisons
             # it, and its peers' waits raise SnapshotAbortedError
@@ -759,6 +802,16 @@ class Snapshot:
                             # one load_state_dict at a time across ranks,
                             # in case one runs collectives
                             coordinator.barrier()
+                    # the restore's flight record is merged in-process
+                    # (the snapshot may be read-only): rank 0 keeps it as
+                    # obs.aggregate.last_record("restore").  Every rank
+                    # just left the last barrier, so the peers publish
+                    # within rank 0's bounded wait.
+                    obs.aggregate.exchange_and_merge(
+                        coordinator, uid,
+                        obs.aggregate.rank_payload(rank, "restore", obs_before),
+                        op="restore", path=self.path,
+                    )
             except SnapshotAbortedError:
                 raise
             except BaseException as e:
@@ -767,6 +820,7 @@ class Snapshot:
             finally:
                 if storage is not None:
                     storage.sync_close()
+            obs.maybe_write_metrics_textfile()
 
     def _load_stateful(
         self, key: str, stateful: Any, manifest_for_rank: Manifest,
@@ -941,8 +995,12 @@ class PendingSnapshot:
         pending_io: PendingIOWork,
         storage: Any,
         uid: str,
+        obs_before: Dict[str, Any],
     ) -> None:
         self.path = path
+        # metrics at async_take's entry: the commit thread deltas against
+        # them after the drain, so the record covers the background work
+        self._obs_before = obs_before
         self._coordinator = coordinator
         self._plan: Optional[_TakePlan] = plan
         self._pending_io: Optional[PendingIOWork] = pending_io
@@ -968,12 +1026,17 @@ class PendingSnapshot:
             if status == "ok" or coord.world_size > 1:
                 with coord.abort_scope(uid):
                     self._metadata = _commit_protocol(
-                        coord, uid, self._plan, self._storage, status
+                        coord, uid, self._plan, self._storage, status, self._obs_before
                     )
+                if status == "ok":
+                    # the commit marker landed (on rank 0; every rank
+                    # read rank 0's "ok" verdict)
+                    obs.goodput.durable_commit(self.path)
         except BaseException as e:  # noqa: BLE001 — surfaced by wait()
             if self._exc is None:
                 self._exc = e
         finally:
+            obs.maybe_write_metrics_textfile()
             # the drained work pinned the staged buffers; the handle may
             # outlive the commit
             self._pending_io = self._plan = None

@@ -17,7 +17,9 @@ durable write (the ``.snapshot_metadata`` commit point, or every write
 under ``FS_SYNC_DATA``) is fdatasync'd, and the commit point's directory
 chain fsync'd.  ``FS_VERIFY_WRITES`` re-reads each file and compares its
 crc32.  Syscalls run on the plugin's own thread pool, off the
-scheduler's event loop.
+scheduler's event loop.  Every write and read records the per-backend
+latency and byte metrics (``storage.fs.*``) and, traced, a
+``storage/write`` or ``storage/read`` span.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from typing import Any, Optional, Tuple
 
 import numpy as np
 
-from .. import _csrc, knobs
+from .. import _csrc, knobs, obs
 from ..io_types import ReadIO, StoragePlugin, WriteIO
 from ..utils.checksums import crc32_fast
 from . import fastio
@@ -68,6 +70,7 @@ def _destination(into: Any, length: int) -> Any:
     return np.empty(length, dtype=np.uint8)
 
 
+@obs.instrument_storage("fs")
 class FSStoragePlugin(StoragePlugin):
     def __init__(self, root: str) -> None:
         self.root = root
