@@ -36,7 +36,7 @@ is no card or anything below fails.  In order:
    for K4 + K5, ``copy_`` into the template's range for K6) are timed 5
    times: median, range, share of the bound, TFLOP/s for K3-K5; K1 both
    as ``pack_slab`` is called and as its launch alone;
-4. eight paths, each with the launch counters set to 0 just before it
+4. nine paths, each with the launch counters set to 0 just before it
    and read just after (a path that starts processes adds the launches
    they report), all with the fast-I/O engine at its defaults unless
    the path says otherwise:
@@ -118,13 +118,35 @@ is no card or anything below fails.  In order:
       bytes) and a restore at world 2 into the transposed layout; then,
       in this process, the restore at world 1 of that snapshot onto the
       (1, 1) mesh and into plain tensors, bitwise.  No box may miss the
-      device path (``TILE_MISSES``).
+      device path (``TILE_MISSES``);
+   g. lifecycle (after f): the full-width model as a fine-tune (the
+      embedding and LM head frozen, outside AdamW; the layers train)
+      under ``SnapshotManager(keep_last_n=2)``: ``save(step=0)``, a
+      step, ``save(step=1, incremental=True, async_=True)`` and
+      ``wait()``, a step, ``save(step=2, incremental=True)``.  Steps 1
+      and 2 must hold the frozen tensors as hardlinks of their base's
+      files, counted in ``bytes_deduped``; retention must delete step 0,
+      ``.snapshot_metadata`` first, and step 1 must still restore
+      bitwise.  Then ``restore_latest`` into a zeroed model and
+      optimizer (bitwise, K2, the next loss bitwise); a warm start with
+      ``restore(paths=["model/**"])`` (the optimizer keeps its fresh
+      state); the model restored with ``priority`` and without, 3 runs
+      each alternating, traced: when the first class's consumes ended
+      against the whole restore; f32 moments (a mixed-precision
+      master's) taken through a ``leaf_transform`` to bf16 and restored
+      into f32 templates whole and through a 32 MiB-budget
+      ``read_object`` (K6), equal to the bf16-rounded values; and
+      ``materialize`` on the card and the host, ``get_manifest``,
+      ``verify(deep=True)``, a copy with one flipped byte reported
+      ``corrupt``, and ``python -m torchsnapshot_tpu_torch verify
+      --deep`` exiting 0 on the step and 1 on the copy.
 
 Every kernel must have launched on these paths, and each path on the
 kernels it runs.  The line before the last is the card; the line before
 it the ``kernels`` JSON; the last line ``{"ok": true, "device": ...}``.
 """
 
+import fnmatch
 import gc
 import json
 import os
@@ -153,6 +175,7 @@ from torchsnapshot_tpu_torch.parallel.ring_attention import dense_attention, rin
 from torchsnapshot_tpu_torch.preparers import array as array_preparer
 from torchsnapshot_tpu_torch.preparers import prepare_write
 from torchsnapshot_tpu_torch.serialization import dtype_to_string
+from torchsnapshot_tpu_torch.storage.fs import FSStoragePlugin
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bandwidth, bf16 tensor rate
 HBM_BYTES_PER_S = 3.35e12
@@ -1749,6 +1772,304 @@ def phase_sharded(cfg, work):
     return launches
 
 
+LIFECYCLE_PRIORITY = ["model/embed*", "model/layer0.*"]
+LIFECYCLE_REPEATS = 3
+
+
+def fine_tune_state(cfg, seed):
+    """The full-width model laid out as a fine-tune: the embedding and the
+    LM head frozen (``requires_grad=False``, outside the optimizer), the
+    layers trained by AdamW."""
+    torch.manual_seed(seed)
+    model = TransformerLM(cfg, device="cuda")
+    for p in (model.embed.weight, model.lm_head.weight):
+        p.requires_grad_(False)
+    opt = torch.optim.AdamW([p for p in model.parameters() if p.requires_grad], lr=1e-4, weight_decay=0.01)
+    return model, opt
+
+
+def fine_tune_step(model, opt, tokens):
+    opt.zero_grad(set_to_none=True)
+    logits = model(tokens[:, :-1])
+    loss = torch.nn.functional.cross_entropy(logits.reshape(-1, logits.shape[-1]), tokens[:, 1:].reshape(-1))
+    loss.backward()
+    opt.step()
+    return loss.detach()
+
+
+def clone_state(model, opt, meta):
+    return (
+        {k: v.clone() for k, v in model.state_dict().items()},
+        {i: {k: v.clone() for k, v in st.items()} for i, st in opt.state_dict()["state"].items()},
+        dict(meta),
+    )
+
+
+def state_differs(saved, model, opt, meta):
+    """The first tensor of ``(model, opt, meta)`` that is not bitwise the
+    ``saved`` clone's, or None."""
+    params, moments, meta0 = saved
+    for name, v in model.state_dict().items():
+        if not (v.dtype == params[name].dtype and torch.equal(v, params[name])):
+            return f"model tensor {name}"
+    for i, st in opt.state_dict()["state"].items():
+        for k, v in st.items():
+            if not torch.equal(v, moments[i][k]):
+                return f"optimizer state {i}/{k}"
+    return None if dict(meta) == meta0 else f"meta {dict(meta)} != {meta0}"
+
+
+def spans_named(name):
+    return [s for s in tts.obs.get_tracer().spans() if s.name == name]
+
+
+def first_class_done(priority, model, snap):
+    """Restores the snapshot's model into ``model`` with ``priority``
+    (None: the default order), traced; returns (seconds from the
+    restore's start to the end of the last consume of an object holding a
+    member of the first class, seconds of the whole restore)."""
+    manifest = snap.get_manifest()
+    first = {
+        loc
+        for lpath, e in manifest.items()
+        if fnmatch.fnmatch(lpath.split("/", 1)[1], LIFECYCLE_PRIORITY[0])
+        for loc in [getattr(e, "location", None)] if loc
+    }
+    tracer = tts.obs.get_tracer()
+    with tts.knobs.override_trace(1):
+        tracer.reset()
+        torch.cuda.synchronize()
+        snap.restore({"model": model}, priority=priority)
+        torch.cuda.synchronize()
+        root = spans_named("restore")[-1]
+        ends = [s.end_ns for s in spans_named("pipeline/consume") if s.attrs.get("path") in first]
+    tracer.reset()
+    check(ends, "no consume of the first priority class was traced")
+    return (max(ends) - root.start_ns) / 1e9, (root.end_ns - root.start_ns) / 1e9
+
+
+def phase_lifecycle(cfg, work):
+    """``SnapshotManager`` on a fine-tune at full width (see the module
+    docstring, path g): incremental saves under retention, resume, warm
+    start, serving order, the checkpoint-precision transform, and
+    inspection."""
+    root = os.path.join(work, "lifecycle")
+    mgr = tts.SnapshotManager(root, keep_last_n=2)
+    model, opt = fine_tune_state(cfg, seed=31)
+    meta = tts.StateDict(step=0)
+    app = {"model": model, "optim": opt, "rng": tts.RNGState(), "meta": meta}
+    g = torch.Generator(device="cuda").manual_seed(32)
+
+    def batch():
+        return torch.randint(0, cfg.vocab, (1, 129), device="cuda", generator=g)
+
+    frozen = ("model/embed.weight", "model/lm_head.weight")
+    frozen_bytes = sum(nbytes(model.get_parameter(p.split("/", 1)[1])) for p in frozen)
+
+    def deduped():
+        return tts.obs.counters().get(tts.obs.BYTES_DEDUPED, 0)
+
+    # 1. incremental saves with retention: step 0 full (sync), step 1
+    # incremental async, step 2 incremental sync (retention evicts 0)
+    fine_tune_step(model, opt, batch())
+    saved, times, dedup = {}, {}, {}
+    deleted = []
+    real_delete = FSStoragePlugin.delete
+
+    async def recording_delete(plugin, path):
+        deleted.append((plugin.root, path))
+        return await real_delete(plugin, path)
+
+    for step in range(3):
+        if step:
+            fine_tune_step(model, opt, batch())
+        meta["step"] = step
+        saved[step] = clone_state(model, opt, meta)
+        d0 = deduped()
+        FSStoragePlugin.delete = recording_delete
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if step == 1:
+                handle = mgr.save(app, step=step, incremental=True, async_=True)
+                unblock_s = time.perf_counter() - t0
+                handle.wait()
+            else:
+                mgr.save(app, step=step, incremental=step > 0)
+            times[step] = time.perf_counter() - t0
+        finally:
+            FSStoragePlugin.delete = real_delete
+        dedup[step] = deduped() - d0
+        # the frozen tensors' files: step 0's inodes, then links to them
+        files = {lp: os.path.join(mgr.path_for_step(step), mgr.snapshot(step).get_manifest()[f"0/{lp}"].location)
+                 for lp in frozen}
+        if step == 0:
+            inodes = {lp: os.stat(f).st_ino for lp, f in files.items()}
+        else:
+            check(all(os.stat(f).st_ino == inodes[lp] and os.stat(f).st_nlink >= 2 for lp, f in files.items()),
+                  f"step {step}: the frozen tensors are not hardlinks of step 0's files")
+            check(dedup[step] >= frozen_bytes,
+                  f"step {step}: deduped {dedup[step]} < the frozen {frozen_bytes} bytes")
+    step0 = mgr.path_for_step(0)
+    gone = [p for r, p in deleted if r == step0]
+    check(mgr.steps() == [1, 2] and not os.path.exists(step0), f"retention kept {mgr.steps()}")
+    check(gone and gone[0] == ".snapshot_metadata", f"retention deleted {gone[:1]} of step 0 first")
+    model1, opt1 = fine_tune_state(cfg, seed=33)
+    fine_tune_step(model1, opt1, batch())
+    zero_state(model1, opt1)
+    meta1 = tts.StateDict(step=-1)
+    mgr.snapshot(1).restore({"model": model1, "optim": opt1, "rng": tts.RNGState(), "meta": meta1})
+    differs = state_differs(saved[1], model1, opt1, meta1)
+    check(differs is None, f"step 1 after retention: {differs}")
+    print(f"lifecycle saves: full (step 0, sync) {times[0]:.3f} s; incremental async (step 1) unblocked in "
+          f"{unblock_s:.4f} s, committed in {times[1]:.3f} s; incremental sync (step 2) {times[2]:.3f} s; "
+          f"deduped bytes {dedup[1]} and {dedup[2]} (the frozen tensors: {frozen_bytes}); retention deleted "
+          f"step 0 ({len(gone)} deletes, .snapshot_metadata first), step 1 restores bitwise")
+
+    # 2. resume: restore_latest into a zeroed model and optimizer
+    k2 = device_pack.LAUNCHES["slab_unpack"]
+    zero_state(model1, opt1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step = mgr.restore_latest({"model": model1, "optim": opt1, "rng": tts.RNGState(), "meta": meta1})
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    differs = state_differs(saved[2], model1, opt1, meta1)
+    check(step == 2 and differs is None, f"restore_latest: step {step}, {differs}")
+    check(device_pack.LAUNCHES["slab_unpack"] > k2, "restore_latest launched no K2")
+    tokens = batch()
+    loss = fine_tune_step(model, opt, tokens)
+    loss1 = fine_tune_step(model1, opt1, tokens)
+    check(torch.equal(loss, loss1), f"resumed loss {loss1.item()} != {loss.item()}")
+    print(f"lifecycle resume: restore_latest step {step} in {resume_s:.3f} s, bitwise; next loss "
+          f"{loss.item()!r} equal bitwise; K2 launches {device_pack.LAUNCHES['slab_unpack'] - k2}")
+    del model1, opt1
+
+    # 3. warm start: the parameters only, into a fresh optimizer
+    model3, opt3 = fine_tune_state(cfg, seed=34)
+    fine_tune_step(model3, opt3, batch())
+    fresh = {i: {k: v.clone() for k, v in st.items()} for i, st in opt3.state_dict()["state"].items()}
+    mgr.snapshot(2).restore({"model": model3, "optim": opt3}, paths=["model/**"])
+    params = saved[2][0]
+    check(all(torch.equal(v, params[k]) for k, v in model3.state_dict().items()), "warm start: parameters differ")
+    check(all(torch.equal(v, fresh[i][k]) for i, st in opt3.state_dict()["state"].items() for k, v in st.items()),
+          "warm start: the optimizer state did not keep its fresh values")
+    print("lifecycle warm start: restore(paths=['model/**']) restored the parameters bitwise; the optimizer "
+          "kept its fresh state")
+
+    # 4. serving order: the model restored with and without priority
+    snap = mgr.snapshot(2)
+    runs = {"priority": [], "default": []}
+    for rep in range(LIFECYCLE_REPEATS):
+        for kind in ("priority", "default") if rep % 2 == 0 else ("default", "priority"):
+            runs[kind].append(first_class_done(LIFECYCLE_PRIORITY if kind == "priority" else None,
+                                               model3, snap))
+    check(all(torch.equal(v, params[k]) for k, v in model3.state_dict().items()), "serving restores differ")
+    line = []
+    for kind, rs in runs.items():
+        line.append(f"{kind}: first class done at {[round(a, 4) for a, _ in rs]} s of restores "
+                    f"{[round(b, 4) for _, b in rs]} s")
+    print(f"lifecycle serving order ({LIFECYCLE_PRIORITY}, {LIFECYCLE_REPEATS} runs each, alternating; first "
+          f"class = objects holding {LIFECYCLE_PRIORITY[0]}): " + "; ".join(line))
+    del model3, opt3
+
+    # 5. checkpoint precision: f32 moments (a mixed-precision master's:
+    # the bf16 moments, each moved by a seeded fraction of its last bf16
+    # place) written as bf16, restored into f32 templates whole and
+    # through a budgeted read_object
+    master = tts.StateDict({
+        f"{i}.{k}": v.float() * (1 + (torch.rand(v.shape, device="cuda", generator=g) - 0.5) * 2 ** -8)
+        for i, st in opt.state_dict()["state"].items()
+        for k, v in st.items() if k in ("exp_avg", "exp_avg_sq")
+    })
+    ck = os.path.join(work, "lifecycle_bf16")
+
+    def to_bf16(path, leaf):
+        return leaf.to(torch.bfloat16) if isinstance(leaf, torch.Tensor) and leaf.dtype == torch.float32 else leaf
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tts.Snapshot.take(ck, {"master": master}, leaf_transform=to_bf16)
+    take_s = time.perf_counter() - t0
+    check(all(e.dtype == "bfloat16" for p, e in tts.Snapshot(ck).get_manifest().items() if hasattr(e, "dtype")),
+          "the transform did not store bf16")
+    want = {k: v.to(torch.bfloat16).float() for k, v in master.items()}
+    dest = tts.StateDict({k: torch.zeros_like(v) for k, v in master.items()})
+    tts.Snapshot(ck).restore({"master": dest})
+    check(all(dest[k].dtype == torch.float32 and torch.equal(dest[k], want[k]) for k in want),
+          "bf16 checkpoint restored into f32 differs from the bf16-rounded moments")
+    check(any(not torch.equal(want[k], master[k]) for k in want), "the moments had no precision to lose")
+    biggest = max(master, key=lambda k: master[k].numel())
+    template = torch.zeros_like(master[biggest])
+    k6 = device_pack.LAUNCHES["tile_update"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tts.Snapshot(ck).read_object(f"0/master/{biggest}", obj_out=template, memory_budget_bytes=READ_BUDGET)
+    torch.cuda.synchronize()
+    budget_s = time.perf_counter() - t0
+    check(torch.equal(template, want[biggest]), "budgeted bf16 read into f32 differs")
+    check(device_pack.LAUNCHES["tile_update"] > k6, "the budgeted cast read launched no K6")
+    print(f"lifecycle precision: {sum(nbytes(v) for v in master.values())} bytes of f32 moments taken as bf16 in "
+          f"{take_s:.3f} s; restored into f32 bitwise the bf16-rounded values; budgeted read of {biggest} "
+          f"({nbytes(template)} bytes f32, budget {READ_BUDGET}) {budget_s:.4f} s, "
+          f"{device_pack.LAUNCHES['tile_update'] - k6} K6 launches")
+    shutil.rmtree(ck)
+    del master, dest, want, template
+
+    # 6. inspection: materialize, get_manifest, verify, the CLI
+    step2 = mgr.path_for_step(2)
+    snap = tts.Snapshot(step2)
+    saved_flat = {}
+    for key, sd in (("model", saved[2][0]), ("optim", {"state": saved[2][1]})):
+        saved_flat.update(flatten(sd, prefix=key)[1])
+    for where in ("cuda", "cpu"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = snap.materialize(device=where)
+        torch.cuda.synchronize()
+        mat_s = time.perf_counter() - t0
+        got_flat = {}
+        for key in ("model", "optim"):
+            sd = got[key] if key == "model" else {"state": got[key]["state"]}
+            got_flat.update(flatten(sd, prefix=key)[1])
+        bad = [p for p, v in saved_flat.items()
+               if not (got_flat[p].device.type == where and torch.equal(got_flat[p].to(v.device), v))]
+        check(not bad and got["meta"]["step"] == 2, f"materialize({where}) differs: {bad[:3]}")
+        print(f"lifecycle materialize({where}): {len(got_flat)} tensors in {mat_s:.3f} s, equal to the state")
+        del got, got_flat
+    n_entries = len(snap.get_manifest())
+    t0 = time.perf_counter()
+    res = snap.verify(deep=True)
+    verify_s = time.perf_counter() - t0
+    check(res.ok and res.complete, f"deep verify: {res}")
+    # a copy of step 2 whose files are hardlinks, but for one object of
+    # its own with one byte flipped
+    bad_dir = os.path.join(work, "lifecycle_corrupt")
+    shutil.copytree(step2, bad_dir, copy_function=os.link)
+    victim = snap.get_manifest()["0/model/layer1.mlp.w2.weight"].location
+    os.remove(os.path.join(bad_dir, victim))
+    shutil.copyfile(os.path.join(step2, victim), os.path.join(bad_dir, victim))
+    with open(os.path.join(bad_dir, victim), "r+b") as f:
+        f.seek(4097)
+        b = f.read(1)
+        f.seek(4097)
+        f.write(bytes([b[0] ^ 0x20]))
+    bad_res = tts.Snapshot(bad_dir).verify(deep=True)
+    check(not bad_res.ok and [c[0] for c in bad_res.corrupt] == [victim], f"corrupted copy: {bad_res}")
+    cli = []
+    for path in (step2, bad_dir):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "torchsnapshot_tpu_torch", "verify", path, "--deep"],
+                              cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+                              timeout=300)
+        cli.append((proc.returncode, proc.stdout.strip()[:120], round(time.perf_counter() - t0, 2)))
+    check(cli[0][0] == 0 and cli[1][0] == 1, f"CLI verify exit codes {cli}")
+    print(f"lifecycle inspection: get_manifest {n_entries} entries; verify(deep=True) {verify_s:.3f} s: {res}; "
+          f"one flipped byte in {victim}: {str(bad_res)[:160]}; CLI verify --deep (exit, output, s): {cli}")
+    shutil.rmtree(bad_dir)
+    shutil.rmtree(root)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA GPU",
@@ -1855,6 +2176,9 @@ def main():
         gc.collect()
         torch.cuda.empty_cache()
         run_path("sharded", ("slab_pack", "tile_update"), lambda: phase_sharded(cfg, work))
+        gc.collect()
+        torch.cuda.empty_cache()
+        run_path("lifecycle", ("slab_pack", "slab_unpack", "tile_update"), lambda: phase_lifecycle(cfg, work))
 
     print(json.dumps({"kernels": list(records.values())}))
     print(card)

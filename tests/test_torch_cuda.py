@@ -838,3 +838,56 @@ def test_traced_take_and_restore_of_cuda_state(cuda, tmp_path):
     events = json.load(open(tmp_path / "trace.json"))["traceEvents"]
     names = {e["name"] for e in events if e["ph"] == "X"}
     assert n > 0 and {"take", "restore", "pipeline/slab_pack", "pipeline/consume"} <= names
+
+
+def _cuda_state(device, bump):
+    """Small CUDA tensors that share device slabs (K1) plus a changing one."""
+    g = torch.Generator(device="cpu").manual_seed(21)
+    frozen = {f"f{i}": torch.randn(257 + i, generator=g).to(torch.bfloat16).to(device) for i in range(6)}
+    return {**frozen, "hot": torch.full((300,), float(bump), device=device)}
+
+
+def test_incremental_take_of_cuda_state_links_unchanged_slabs(cuda, tmp_path):
+    """The frozen members' device slab (packed by K1 in both takes, at the
+    same location) is hardlinked; the changed tensor is written."""
+    import os
+
+    import torchsnapshot_tpu_torch as tts
+    from torchsnapshot_tpu_torch import knobs
+    from torchsnapshot_tpu_torch.ops import device_pack as dp
+
+    with knobs.override_slab_size_threshold_bytes(3000):
+        s1 = tts.Snapshot.take(str(tmp_path / "s1"), {"app": tts.StateDict(_cuda_state(cuda, 0))})
+        tts.obs.reset_metrics()
+        before = dp.LAUNCHES["slab_pack"]
+        s2 = tts.Snapshot.async_take(
+            str(tmp_path / "s2"), {"app": tts.StateDict(_cuda_state(cuda, 1))}, base=str(tmp_path / "s1")
+        ).wait()
+    assert dp.LAUNCHES["slab_pack"] > before
+    m1, m2 = s1.get_manifest(), s2.get_manifest()
+    slab = m2["0/app/f0"].location
+    assert "batched" in slab and slab == m1["0/app/f0"].location
+    assert os.stat(tmp_path / "s2" / slab).st_ino == os.stat(tmp_path / "s1" / slab).st_ino
+    hot = m2["0/app/hot"].location
+    assert os.stat(tmp_path / "s2" / hot).st_ino != os.stat(tmp_path / "s1" / hot).st_ino
+    assert tts.obs.counters()[tts.obs.BYTES_DEDUPED] >= os.path.getsize(tmp_path / "s2" / slab)
+    assert s2.verify(deep=True).ok
+
+
+def test_priority_restore_into_cuda_templates_is_bitwise(cuda, tmp_path):
+    import torchsnapshot_tpu_torch as tts
+    from torchsnapshot_tpu_torch import knobs
+    from torchsnapshot_tpu_torch.ops import device_pack as dp
+
+    want = _cuda_state(cuda, 3)
+    with knobs.override_slab_size_threshold_bytes(3000):
+        tts.Snapshot.take(str(tmp_path / "s"), {"app": tts.StateDict(want)})
+    dest = tts.StateDict({k: torch.zeros_like(v) for k, v in want.items()})
+    before = dp.LAUNCHES["slab_unpack"]
+    tts.Snapshot(str(tmp_path / "s")).restore({"app": dest}, priority=["app/hot", "app/f3"])
+    assert dp.LAUNCHES["slab_unpack"] > before
+    for k, v in want.items():
+        assert dest[k].is_cuda and torch.equal(dest[k], v), k
+    got = tts.Snapshot(str(tmp_path / "s")).materialize()["app"]
+    for k, v in want.items():
+        assert got[k].is_cuda and torch.equal(got[k], v), k

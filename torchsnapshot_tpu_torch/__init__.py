@@ -8,8 +8,12 @@ packed and unpacked on the device by hand-written CUDA kernels
 (``csrc/``).  Many ranks of one host take and restore together over a
 ``torch.distributed`` store (``TorchStoreCoordinator``) or a shared
 directory (``FileCoordinator``), and ``DTensor`` state is stored as
-sharded entries that restore into any layout at any world size.  It imports ``torch`` and ``numpy``,
-never ``jax`` and nothing of ``torchsnapshot_tpu``.
+sharded entries that restore into any layout at any world size.
+``SnapshotManager`` keeps step-numbered snapshots under one root with
+resume, incremental saves and bounded retention; ``verify_snapshot``
+audits a snapshot, and ``python -m torchsnapshot_tpu_torch`` does both
+from a shell.  It imports ``torch`` and ``numpy``, never ``jax`` and
+nothing of ``torchsnapshot_tpu``.
 
 Entry points place new tensors on ``cuda`` unless the caller asks for
 the CPU.
@@ -25,12 +29,19 @@ from .coordination import (  # noqa: F401
 )
 from .event import Event  # noqa: F401
 from .event_handlers import register_event_handler, unregister_event_handler  # noqa: F401
-from .snapshot import DegradedSnapshotError, EncodedPayloadError, Snapshot  # noqa: F401
+from .snapshot import DegradedSnapshotError, EncodedPayloadError, PendingSnapshot, Snapshot  # noqa: F401
+from .manager import SnapshotManager, delete_snapshot  # noqa: F401
+from .verify import VerifyResult, verify_snapshot  # noqa: F401
 from .resilience.abort import SnapshotAbortedError  # noqa: F401
 from .stateful import PyTreeState, Replicated, RNGState, StateDict, Stateful  # noqa: F401
 
 __all__ = [
     "Snapshot",
+    "PendingSnapshot",
+    "SnapshotManager",
+    "delete_snapshot",
+    "verify_snapshot",
+    "VerifyResult",
     "Coordinator",
     "FileCoordinator",
     "LocalCoordinator",

@@ -5,7 +5,8 @@ layout rules, so the two packages lay out the same state identically.
 Write requests below the slab threshold whose manifest records carry a
 byte range are packed into slab objects; the records are re-pointed at
 ``(slab_location, byte_range)``.  On read, ranged reads of one location
-merge into one spanning read whose consumer feeds each member.
+merge into one spanning read whose consumer feeds each member, at the
+lowest ``priority`` of its members.
 
 CUDA members slab apart from host members.  A slab whose members are all
 CUDA tensors packs on the device with kernel K1 and reaches the host in
@@ -401,6 +402,8 @@ def batch_read_requests(read_reqs: List[ReadReq]) -> List[ReadReq]:
                         path=path,
                         byte_range=[lo, hi],
                         buffer_consumer=_MergedRangeConsumer(lo, subs),
+                        # as early as its most urgent member asks
+                        priority=min(r.priority for r in run),
                     )
                 )
             run.clear()

@@ -11,7 +11,8 @@ Counterpart of ``torchsnapshot_tpu/io_types.py``:
   ``ReadReq`` carries an optional byte range for ranged reads and the
   payload's recorded crc32, checked by ``check_read_crc`` under the
   VERIFY_ON_RESTORE knob.
-- ``StoragePlugin``: async write/read/close against a backend.
+- ``StoragePlugin``: async write/read/delete/stat/link_from/close
+  against a backend.
 
 On the GPU the stager's device→host copy is a ``cudaMemcpyAsync`` into
 pinned host memory on a side copy stream, waited on by an event in a
@@ -86,6 +87,20 @@ class WriteReq:
     ] = None
     # receives the staged object's [crc32, adler32, size]
     digest_sink: Optional[Callable[[List[int]], None]] = None
+    # incremental takes: (base snapshot url, that base's object digest
+    # (crc32, adler32, size) at this same location).  When the staged
+    # object's digest equals it, the write becomes
+    # ``StoragePlugin.link_from`` (a hardlink on fs): two independent
+    # checksums and the exact length, so one crc32 collision cannot link
+    # stale content
+    dedup: Optional[Tuple[str, Tuple[int, int, int]]] = None
+    # the staged object's (crc32, adler32, size), set by the take's digest
+    # sink before the write is chosen; read by the dedup check
+    object_digest: Optional[Tuple[int, int, int]] = None
+    # the base snapshot's codec frame table for this location (None: the
+    # base stored it raw).  The port cannot decode frames, so a request
+    # whose base object is encoded is written, never linked
+    dedup_codec: Optional[dict] = None
 
 
 def check_read_crc(read_req: "ReadReq", buf: Any) -> None:
@@ -113,6 +128,9 @@ class ReadReq:
     # whole entry or chunk, never a tile); checked before consume when
     # the VERIFY_ON_RESTORE knob is on
     expected_crc32: Optional[int] = None
+    # restore ordering (``restore(priority=)``): lower values are admitted
+    # first, stable within a class.  An ordering hint only
+    priority: int = 0
 
 
 @dataclass
@@ -162,6 +180,26 @@ class StoragePlugin(abc.ABC):
     @abc.abstractmethod
     async def read(self, read_io: ReadIO) -> None: ...
 
+    async def delete(self, path: str) -> None:
+        """Remove one object; FileNotFoundError if absent."""
+        raise NotImplementedError
+
+    async def stat(self, path: str) -> int:
+        """Object size in bytes; FileNotFoundError if absent.  The default
+        reads the whole object; plugins override with a metadata call."""
+        read_io = ReadIO(path=path)
+        await self.read(read_io)
+        return memoryview(read_io.buf).cast("B").nbytes
+
+    async def link_from(self, base_url: str, path: str) -> None:
+        """Make ``path`` under this plugin's root hold the bytes of
+        ``path`` under ``base_url`` without moving them through this
+        process where the backend can (fs: a hardlink).  The result is
+        this snapshot's own: deleting the base leaves it intact.
+        NotImplementedError (or any error) makes the caller write the
+        bytes instead."""
+        raise NotImplementedError
+
     async def close(self) -> None:
         pass
 
@@ -170,6 +208,12 @@ class StoragePlugin(abc.ABC):
 
     def sync_read(self, read_io: ReadIO) -> None:
         run_in_fresh_loop(self.read(read_io))
+
+    def sync_delete(self, path: str) -> None:
+        run_in_fresh_loop(self.delete(path))
+
+    def sync_stat(self, path: str) -> int:
+        return run_in_fresh_loop(self.stat(path))
 
     def sync_close(self) -> None:
         run_in_fresh_loop(self.close())

@@ -35,6 +35,7 @@ _FASTIO_DIRECT = "FASTIO_DIRECT"
 _FASTIO_BUFFER_POOL_BYTES = "FASTIO_BUFFER_POOL_BYTES"
 _TRACE = "TRACE"
 _METRICS_TEXTFILE = "METRICS_TEXTFILE"
+_CAS = "CAS"
 
 _DEFAULTS = {
     # Arrays larger than this are chunked along dim 0 for pipelined I/O.
@@ -102,6 +103,9 @@ _DEFAULTS = {
     # async commit and restore ("{pid}" expands to the process id); ""
     # writes none.
     _METRICS_TEXTFILE: "",
+    # Content-addressed chunk store for SnapshotManager saves (cas/).  Not
+    # ported yet: 1 makes the manager raise NotImplementedError.
+    _CAS: 0,
 }
 
 _OVERRIDES: dict = {}
@@ -214,6 +218,10 @@ def get_metrics_textfile() -> Optional[str]:
     return v or None
 
 
+def cas_enabled() -> bool:
+    return bool(_get_int(_CAS))
+
+
 @contextlib.contextmanager
 def _override(name: str, value) -> Iterator[None]:
     had = name in _OVERRIDES
@@ -286,6 +294,10 @@ def override_fastio_direct(value: bool):
 
 def override_fastio_buffer_pool_bytes(value: int):
     return _override(_FASTIO_BUFFER_POOL_BYTES, value)
+
+
+def override_cas(value: bool):
+    return _override(_CAS, int(value))
 
 
 def override_metrics_textfile(value):

@@ -10,19 +10,28 @@ Counterpart of ``torchsnapshot_tpu/scheduler.py``, same discipline:
   for oversized items).  The budget is debited by the declared staging
   cost, corrected to the staged size, and credited when the write lands.
 - Concurrent storage operations are capped per process.
-- Read path: admit reads under the consuming-cost budget and chain each
-  completed read into a consume task; under VERIFY_ON_RESTORE a read
-  that covers one payload is checked against its recorded crc32 before
-  it is consumed.  A consumer may hand the storage a buffer of its own
-  to read into (pinned tile memory, ``BufferConsumer.read_buffer``).
+- Incremental takes: a request whose staged digest equals its ``dedup``
+  digest (the base snapshot's object at the same location) is linked
+  from the base (``StoragePlugin.link_from``) instead of written; its
+  bytes count in ``deduped_bytes`` and ``bytes_deduped``.  A link that
+  fails falls back to the write.
+- Read path: reads are stable-sorted by ``priority`` (all zero, the
+  common case, keeps the order untouched), admitted under the
+  consuming-cost budget, and each completed read chains into a consume
+  task; under VERIFY_ON_RESTORE a read that covers one payload is
+  checked against its recorded crc32 before it is consumed.  A consumer
+  may hand the storage a buffer of its own to read into (pinned tile
+  memory, ``BufferConsumer.read_buffer``).
 - WRITE_CHECKSUMS off: no digests are computed at staging.
 - Digests: a whole-buffer write to a plugin that fuses digests
   (``supports_fused_digest``, the fs plugin's fast-I/O engine) gets its
-  (crc32, adler32) from the pass that writes it; a slab folds the
-  per-member digests its stager recorded while packing; everything else
-  is digested at staging in one native pass per piece.  Every digest
-  lands before the write pipeline completes, so before any manifest is
-  serialised (the commit waits for the pipeline, ``async_take``'s too).
+  (crc32, adler32) from the pass that writes it, unless it carries a
+  ``dedup`` digest (link or write is decided on the digest, so it must
+  exist first); a slab folds the per-member digests of its pieces;
+  everything else is digested at staging in one native pass per piece.
+  Every digest lands before the write pipeline completes, so before any
+  manifest is serialised (the commit waits for the pipeline,
+  ``async_take``'s too).
 
 The pipelines run on a dedicated event-loop thread; heavy work (device
 copies, checksums, deserialization) runs on a thread pool.  The codec,
@@ -129,15 +138,34 @@ def _defers_digest(
     wr: WriteReq, nbytes: int, storage: StoragePlugin, precomputed: Any
 ) -> bool:
     """Whether the digest of this staged buffer is left to its write: the
-    plugin fuses digests, every sink covers the whole buffer, and the
-    stager recorded no piece digests (a slab folds those instead)."""
+    plugin fuses digests, no dedup decision waits on the digest, every
+    sink covers the whole buffer, and the stager recorded no piece
+    digests (a slab folds those instead)."""
     return (
         storage.supports_fused_digest
+        and wr.dedup is None
         and precomputed is None
         and all(
             rng is None or tuple(rng) == (0, nbytes) for _, rng in wr.checksum_sinks or ()
         )
     )
+
+
+async def _link_unchanged(p: "_WritePipeline", storage: StoragePlugin) -> bool:
+    """Link the request's object from its base snapshot when its staged
+    digest equals the base's; True when linked.  A failed link (a plugin
+    without ``link_from``, the base object gone) is logged and the
+    caller writes the bytes: dedup never decides correctness."""
+    wr = p.write_req
+    if wr.dedup is None or wr.dedup_codec is not None or wr.object_digest != wr.dedup[1]:
+        return False
+    try:
+        await storage.link_from(wr.dedup[0], wr.path)
+    except Exception as e:  # noqa: BLE001 — any failure writes instead
+        logger.info("dedup link for %r failed (%r); writing it", wr.path, e)
+        return False
+    p.deduped = True
+    return True
 
 
 class _LoopThread:
@@ -169,7 +197,7 @@ class _Budget:
 
 
 class _WritePipeline:
-    __slots__ = ("write_req", "staging_cost", "buf", "buf_size", "defer_digest")
+    __slots__ = ("write_req", "staging_cost", "buf", "buf_size", "defer_digest", "deduped")
 
     def __init__(self, write_req: WriteReq) -> None:
         self.write_req = write_req
@@ -177,6 +205,7 @@ class _WritePipeline:
         self.buf = None
         self.buf_size = 0
         self.defer_digest = False
+        self.deduped = False
 
 
 async def _execute_write_pipelines(
@@ -204,6 +233,7 @@ async def _execute_write_pipelines(
     # copy's event inside stage_buffer).
     m_staged = obs_metrics.counter(obs_metrics.BYTES_STAGED)
     m_written = obs_metrics.counter(obs_metrics.BYTES_WRITTEN)
+    m_deduped = obs_metrics.counter(obs_metrics.BYTES_DEDUPED)
     m_budget = obs_metrics.gauge(obs_metrics.BUDGET_BYTES_IN_USE)
     m_ioq = obs_metrics.gauge(obs_metrics.IO_QUEUE_DEPTH)
     m_phase_stage = obs_metrics.histogram(obs_metrics.PHASE_STAGE_S)
@@ -249,6 +279,8 @@ async def _execute_write_pipelines(
                     sp.flow_in = fid
             t_write = time.perf_counter()
             try:
+                if await _link_unchanged(p, storage):
+                    return p
                 wio = WriteIO(path=wr.path, buf=p.buf, want_digest=p.defer_digest)
                 await storage.write(wio)
                 if p.defer_digest:
@@ -307,8 +339,12 @@ async def _execute_write_pipelines(
                     m_ioq.set(len(ready_for_io))
                 else:
                     io_tasks.discard(task)
-                    stats["bytes_written"] += p.buf_size
-                    m_written.inc(p.buf_size)
+                    if p.deduped:  # a linked object moved no bytes
+                        stats["deduped_bytes"] += p.buf_size
+                        m_deduped.inc(p.buf_size)
+                    else:
+                        stats["bytes_written"] += p.buf_size
+                        m_written.inc(p.buf_size)
                     budget.used -= p.buf_size
                     m_budget.set(budget.used)
                     p.buf = None
@@ -361,7 +397,8 @@ class PendingIOWork:
         dt = max(time.monotonic() - self._stats["begin_ts"], 1e-9)
         gb = self._stats["bytes_written"] / 1e9
         logger.info(
-            "rank %d: wrote %.3f GB in %.2fs (%.2f GB/s)", self._rank, gb, dt, gb / dt
+            "rank %d: wrote %.3f GB in %.2fs (%.2f GB/s), linked %.3f GB unchanged",
+            self._rank, gb, dt, gb / dt, self._stats["deduped_bytes"] / 1e9,
         )
         return self._stats["bytes_written"]
 
@@ -388,7 +425,7 @@ def execute_write_reqs(
         key=lambda p: p.staging_cost,
         reverse=True,
     )
-    stats = {"bytes_written": 0, "begin_ts": time.monotonic()}
+    stats = {"bytes_written": 0, "deduped_bytes": 0, "begin_ts": time.monotonic()}
     staging_done = threading.Event()
     loop_thread = _LoopThread("tsnp-torch-write-loop")
     budget = _Budget(memory_budget_bytes)
@@ -537,11 +574,14 @@ def sync_execute_read_reqs(
     memory_budget_bytes: int,
     rank: int,
 ) -> int:
-    """Execute read requests under the memory budget; returns the bytes
-    the consumers were declared to need."""
+    """Execute read requests under the memory budget, lower ``priority``
+    first (a stable sort: the order within a class is kept); returns the
+    bytes the consumers were declared to need."""
     executor = ThreadPoolExecutor(
         max_workers=knobs.get_staging_threads(), thread_name_prefix="tsnp-torch-consume"
     )
+    if any(rr.priority for rr in read_reqs):
+        read_reqs = sorted(read_reqs, key=lambda rr: rr.priority)
     pipelines = [_ReadPipeline(rr) for rr in read_reqs]
     loop_thread = _LoopThread("tsnp-torch-read-loop")
     t0 = time.monotonic()

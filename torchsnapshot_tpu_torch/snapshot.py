@@ -1,5 +1,5 @@
 """The user-facing Snapshot API: take / async_take / restore /
-read_object / metadata.
+read_object / materialize / verify / metadata / get_manifest.
 
 Counterpart of ``torchsnapshot_tpu/snapshot.py``.  The orchestration is
 the JAX package's:
@@ -25,7 +25,16 @@ the JAX package's:
   collective operation: a rank that fails poisons the restore's scope
   and every peer raises ``SnapshotAbortedError``;
 - ``read_object`` reads one leaf by ``"<rank>/<logical path>"``, in
-  tiles of at most ``memory_budget_bytes`` when given.
+  tiles of at most ``memory_budget_bytes`` when given;
+- ``materialize`` reads one rank's whole view without templates, and
+  ``verify`` audits the stored objects (``verify.py``).
+
+Incremental takes (``base=``) link each object whose digest equals the
+base snapshot's object at the same location instead of writing it
+(``scheduler.py``; a hardlink on fs), so each snapshot owns its files
+and either can be deleted.  ``leaf_transform`` rewrites leaves before
+planning (a lower checkpoint precision, say); ``restore(paths=)``
+restores a subset and ``priority=`` orders the reads.
 
 Every take writes the flight record ``.snapshot_obsrecord`` (each
 rank's metrics since the take began, merged by rank 0; ``obs/aggregate.py``)
@@ -40,7 +49,7 @@ ranks.  ``DTensor`` leaves are sharded state: each box of the layout is
 written once, by a writer every rank elects alike from the per-rank
 loads (``preparers/sharded.py``).  Snapshots are interchangeable with
 the JAX package's: same manifest, same object layout, same checksums.
-Not ported: incremental and content-addressed takes, codecs, tiered
+Not ported: content-addressed takes (``cas=`` raises), codecs, tiered
 storage, topology and transport, liveness, write takeover and repair;
 a read of an object stored compressed or as chunk references raises
 ``EncodedPayloadError`` before any byte reaches a template.
@@ -49,11 +58,12 @@ a read of an object stored compressed or as chunk references raises
 from __future__ import annotations
 
 import dataclasses
+import fnmatch
 import logging
 import struct
 import threading
 import zlib
-from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -96,6 +106,33 @@ logger = logging.getLogger(__name__)
 
 SNAPSHOT_METADATA_FNAME = ".snapshot_metadata"
 AppState = Dict[str, Any]
+
+
+def _storage_for(path: str, options: Optional[Dict[str, Any]]) -> Any:
+    """The storage plugin of ``path``, given ``storage_options`` only when
+    set: tests and third parties replace ``url_to_storage_plugin`` with
+    one-argument factories."""
+    if options:
+        return url_to_storage_plugin(path, options)
+    return url_to_storage_plugin(path)
+
+
+def _read_priority_for(lpath: str, priority_globs: Sequence[str]) -> int:
+    """A logical path's read class under ``priority``: the index of the
+    first glob it matches (lower reads earlier), ``len(priority_globs)``
+    when none does.  The fnmatch dialect of the ``paths`` filter."""
+    for i, g in enumerate(priority_globs):
+        if fnmatch.fnmatch(lpath, g):
+            return i
+    return len(priority_globs)
+
+
+def _refuse_cas(cas: Any) -> None:
+    if cas not in (None, False):
+        raise NotImplementedError(
+            "take(cas=...) (the content-addressed chunk store) is not ported "
+            "yet (ROADMAP queue A item 5)"
+        )
 
 
 class EncodedPayloadError(RuntimeError):
@@ -450,10 +487,17 @@ def _commit_protocol(
 
 
 class Snapshot:
-    def __init__(self, path: str, coordinator: Optional[Coordinator] = None) -> None:
+    def __init__(
+        self,
+        path: str,
+        coordinator: Optional[Coordinator] = None,
+        storage_options: Optional[Dict[str, Any]] = None,
+    ) -> None:
         self.path = path
         self._coordinator = coordinator or get_default_coordinator()
         self._metadata_cache: Optional[SnapshotMetadata] = None
+        # forwarded to the storage plugin's constructor on every access
+        self._storage_options = storage_options
 
     # ------------------------------------------------------------------ take
 
@@ -464,6 +508,10 @@ class Snapshot:
         app_state: AppState,
         replicated: Sequence[str] = (),
         coordinator: Optional[Coordinator] = None,
+        base: Optional[str] = None,
+        leaf_transform: Optional[Callable[[str, Any], Any]] = None,
+        storage_options: Optional[Dict[str, Any]] = None,
+        cas: Optional[Any] = None,
     ) -> "Snapshot":
         """Save ``app_state`` (name → Stateful) to ``path`` from every rank
         of ``coordinator`` (default: ``get_default_coordinator()``).
@@ -471,7 +519,29 @@ class Snapshot:
         replication inference finds) and whose content every rank shares
         are stored once under ``replicated/``, their writes split across
         the ranks.  A rank whose writes fail raises its error and its
-        peers raise ``SnapshotAbortedError``; no metadata is written."""
+        peers raise ``SnapshotAbortedError``; no metadata is written.
+
+        ``base``: a committed snapshot to dedup against.  An object whose
+        (crc32, adler32, size) equals the base's object at the same
+        location is hardlinked from it instead of written; each snapshot
+        owns its files, so deleting the base leaves this one whole.
+        Rank 0 reads the base's objects table once and broadcasts it.  It
+        needs WRITE_CHECKSUMS on every rank; without them, with a base
+        that cannot be read, or with the base equal to ``path``, the take
+        is a full save (with a warning).
+
+        ``leaf_transform(logical_path, leaf) -> leaf`` rewrites every
+        flattened leaf before planning (a lower checkpoint precision, for
+        instance); it must return a leaf for every path, alike on every
+        rank.  Under ``async_take`` a transformed CUDA leaf is copied on
+        the device like any other: the port cannot tell a fresh tensor
+        from a view of live state, and the copy counts in the
+        device-copy budget.
+
+        ``storage_options`` go to the storage plugin's constructor
+        (``storage.url_to_storage_plugin``); ``cas`` (the
+        content-addressed chunk store) raises ``NotImplementedError``."""
+        _refuse_cas(cas)
         coordinator = coordinator or get_default_coordinator()
         _validate_app_state(app_state)
         rank = coordinator.rank
@@ -480,8 +550,11 @@ class Snapshot:
             obs_before = obs.aggregate.capture()
             gp_begin = obs.goodput.take_begin(path)
             uid = coordinator._next_uid("commit")
-            plan = cls._plan_at_entry(path, app_state, replicated, coordinator, uid, is_async=False)
-            storage = url_to_storage_plugin(plan.path)
+            plan = cls._plan_at_entry(
+                path, app_state, replicated, coordinator, uid, False, base,
+                leaf_transform, storage_options,
+            )
+            storage = _storage_for(plan.path, storage_options)
             try:
                 with coordinator.abort_scope(uid):
                     execute_write_reqs(
@@ -501,7 +574,7 @@ class Snapshot:
             obs.goodput.durable_commit(path)
             obs.goodput.take_unblocked(path, gp_begin)
             obs.maybe_write_metrics_textfile()
-        snapshot = cls(plan.path, coordinator)
+        snapshot = cls(plan.path, coordinator, storage_options)
         # other ranks load the committed metadata when they need it
         snapshot._metadata_cache = metadata
         return snapshot
@@ -513,6 +586,10 @@ class Snapshot:
         app_state: AppState,
         replicated: Sequence[str] = (),
         coordinator: Optional[Coordinator] = None,
+        base: Optional[str] = None,
+        leaf_transform: Optional[Callable[[str, Any], Any]] = None,
+        storage_options: Optional[Dict[str, Any]] = None,
+        cas: Optional[Any] = None,
     ) -> "PendingSnapshot":
         """Save ``app_state`` to ``path`` in the background.  Returns once
         the snapshot's content is independent of the live state: CUDA
@@ -525,9 +602,12 @@ class Snapshot:
         failure as ``SnapshotAbortedError``), in which case
         ``.snapshot_metadata`` was never written.  With the knob
         TORCHSNAPSHOT_TPU_TORCH_DISABLE_EAGER_HOST_STAGING=1 it returns
-        only after every write is staged in host memory."""
+        only after every write is staged in host memory.  ``base``,
+        ``leaf_transform``, ``storage_options`` and ``cas`` are
+        ``take``'s."""
         from .host_offload import eager_offload_write_reqs
 
+        _refuse_cas(cas)
         coordinator = coordinator or get_default_coordinator()
         _validate_app_state(app_state)
         rank = coordinator.rank
@@ -535,9 +615,12 @@ class Snapshot:
             obs_before = obs.aggregate.capture()
             gp_begin = obs.goodput.take_begin(path)
             uid = coordinator._next_uid("commit")
-            plan = cls._plan_at_entry(path, app_state, replicated, coordinator, uid, is_async=True)
+            plan = cls._plan_at_entry(
+                path, app_state, replicated, coordinator, uid, True, base,
+                leaf_transform, storage_options,
+            )
             unblock_early = not knobs.is_eager_host_staging_disabled()
-            storage = url_to_storage_plugin(plan.path)
+            storage = _storage_for(plan.path, storage_options)
             try:
                 if unblock_early:
                     eager_offload_write_reqs(plan.write_reqs)
@@ -551,7 +634,8 @@ class Snapshot:
                 storage.sync_close()
                 raise
         pending = PendingSnapshot(
-            plan.path, coordinator, plan, pending_io, storage, uid, obs_before
+            plan.path, coordinator, plan, pending_io, storage, uid, obs_before,
+            storage_options,
         )
         # the unblock point is this return: staging, I/O and the commit
         # (with the flight-record exchange) drain in the background
@@ -567,6 +651,9 @@ class Snapshot:
         coordinator: Coordinator,
         uid: str,
         is_async: bool,
+        base: Optional[str],
+        leaf_transform: Optional[Callable[[str, Any], Any]],
+        storage_options: Optional[Dict[str, Any]],
     ) -> _TakePlan:
         # a take must not perturb the RNG streams, and the state saved
         # is the state at entry: capture now, restore on the way out
@@ -581,7 +668,8 @@ class Snapshot:
         try:
             with coordinator.abort_scope(uid):
                 return cls._plan(
-                    path, app_state, replicated, coordinator, rng_states_at_entry, is_async
+                    path, app_state, replicated, coordinator, rng_states_at_entry,
+                    is_async, base, leaf_transform, storage_options,
                 )
         except SnapshotAbortedError:
             raise
@@ -603,10 +691,14 @@ class Snapshot:
         coordinator: Coordinator,
         rng_states_at_entry: Dict[str, Dict[str, Any]],
         is_async: bool,
+        base: Optional[str],
+        leaf_transform: Optional[Callable[[str, Any], Any]],
+        storage_options: Optional[Dict[str, Any]],
     ) -> _TakePlan:
         rank, world = coordinator.rank, coordinator.world_size
         replicated = _infer_replicated(replicated, app_state)
         local_mode = _safe_replication_verify_mode()
+        checksums = knobs.write_checksums_enabled()
         if world > 1:
             # rank 0's path wins; the replication globs are intersected
             # and the strictest verification mode wins, so every rank
@@ -618,16 +710,28 @@ class Snapshot:
                     "rank 0's", rank, path, path0,
                 )
                 path = path0
-            gathered = coordinator.all_gather_object((sorted(set(replicated)), local_mode))
+            # the base and the checksum setting gate the base table's
+            # broadcast below, so they are rank-agreed: rank 0's base wins,
+            # and dedup needs checksums on every rank
+            gathered = coordinator.all_gather_object(
+                (sorted(set(replicated)), local_mode, base, checksums)
+            )
+            base = gathered[0][2]
+            if base is not None and not all(g[3] for g in gathered):
+                logger.warning(
+                    "rank %d: WRITE_CHECKSUMS is off on some rank; incremental "
+                    "dedup is off for this take", rank,
+                )
+                base = None
             replicated_globs = sorted(
-                set(gathered[0][0]).intersection(*(set(g) for g, _ in gathered[1:]))
+                set(gathered[0][0]).intersection(*(set(g[0]) for g in gathered[1:]))
             )
             if set(replicated) != set(replicated_globs):
                 logger.warning(
                     "rank %d: replicated globs differ across ranks; using the "
                     "intersection %r", rank, replicated_globs,
                 )
-            verify_mode = _strictest_mode([m for _, m in gathered])
+            verify_mode = _strictest_mode([g[1] for g in gathered])
             keys = sorted(set().union(*coordinator.all_gather_object(sorted(app_state))))
         else:
             replicated_globs = sorted(set(replicated))
@@ -647,6 +751,10 @@ class Snapshot:
                 # one state_dict() at a time across ranks, in case one
                 # runs collectives
                 coordinator.barrier()
+        if leaf_transform is not None:
+            # before replication verification: fingerprints and written
+            # bytes are the transformed content's
+            flattened = {p: leaf_transform(p, v) for p, v in flattened.items()}
         verified = _verify_replicated_paths(flattened, replicated_globs, coordinator, verify_mode)
         # every rank's non-sharded write bytes pre-load the sharded-box
         # balance; the gathered vector is the same on every rank and is
@@ -725,11 +833,33 @@ class Snapshot:
             entries.update(shielded)
 
         object_digests: Dict[str, List[int]] = {}
-        if knobs.write_checksums_enabled():
+        if base is not None and base.rstrip("/") == path.rstrip("/"):
+            # a self-link would unlink the only copy before linking it
+            logger.warning(
+                "rank %d: incremental base equals the target path %r; "
+                "performing a full save", rank, path,
+            )
+            base = None
+        if checksums:
+            base_objects, base_codecs = (
+                _base_tables(base, storage_options, coordinator) if base is not None else ({}, {})
+            )
             for wr in write_reqs:
-                wr.digest_sink = (
-                    lambda d, p=wr.path: object_digests.__setitem__(p, list(d))
-                )
+                def sink(d: List[int], wr: WriteReq = wr) -> None:
+                    wr.object_digest = tuple(d)
+                    object_digests[wr.path] = list(d)
+
+                wr.digest_sink = sink
+                # (crc32, adler32, size): two checksums and the exact length
+                base_digest = base_objects.get(wr.path)
+                if isinstance(base_digest, (list, tuple)) and len(base_digest) == 3:
+                    wr.dedup = (base, tuple(int(x) for x in base_digest))
+                    wr.dedup_codec = base_codecs.get(wr.path)
+        elif base is not None:
+            logger.warning(
+                "rank %d: take(base=...) needs WRITE_CHECKSUMS=1; performing "
+                "a full save", rank,
+            )
         return _TakePlan(path, manifest, entries, write_reqs, object_digests, world)
 
     # --------------------------------------------------------------- restore
@@ -737,14 +867,17 @@ class Snapshot:
     @property
     def metadata(self) -> SnapshotMetadata:
         if self._metadata_cache is None:
-            storage = url_to_storage_plugin(self.path)
+            storage = _storage_for(self.path, self._storage_options)
             try:
                 read_io = ReadIO(path=SNAPSHOT_METADATA_FNAME)
                 storage.sync_read(read_io)
             except FileNotFoundError as e:
+                # missing (a cold start, or never committed) stays
+                # distinguishable from unreadable
                 raise FileNotFoundError(
                     f"no {SNAPSHOT_METADATA_FNAME} under {self.path!r} — "
-                    "not a committed snapshot"
+                    f"not a committed snapshot (a snapshot without "
+                    f"metadata was aborted before commit)"
                 ) from e
             finally:
                 storage.sync_close()
@@ -753,15 +886,34 @@ class Snapshot:
             )
         return self._metadata_cache
 
+    def get_manifest(self) -> Dict[str, Entry]:
+        return dict(self.metadata.manifest)
+
     def restore(
-        self, app_state: AppState, strict: bool = True, device: Any = "cuda"
+        self,
+        app_state: AppState,
+        strict: bool = True,
+        paths: Optional[Sequence[str]] = None,
+        priority: Optional[Sequence[str]] = None,
+        device: Any = "cuda",
     ) -> None:
         """Load the snapshot into ``app_state`` as the coordinator's rank
         sees it, at any world size: that rank's own entries (none for a
         rank the take did not have) and every replicated one.  Tensors in
         the current state are restore templates and are updated IN PLACE
         (cast to their dtype, on their device); a tensor leaf with no
-        tensor template comes back on ``device``."""
+        tensor template comes back on ``device``.
+
+        ``paths``: fnmatch globs of the logical paths to restore (for
+        instance ``["model/**"]`` to warm-start the parameters while the
+        optimizer keeps its fresh state).  Other leaves keep their
+        current values and are not read; ``strict`` still governs
+        app_state keys the snapshot lacks.
+
+        ``priority``: ordered fnmatch globs; reads of paths matching an
+        earlier glob are admitted first (unmatched paths last), so a
+        server can restore its first layers first.  Ordering only: every
+        leaf is restored."""
         _validate_app_state(app_state)
         coordinator = self._coordinator
         rank, world = coordinator.rank, coordinator.world_size
@@ -775,7 +927,7 @@ class Snapshot:
             try:
                 with coordinator.abort_scope(uid):
                     manifest_for_rank = get_manifest_for_rank(self.metadata, rank)
-                    storage = url_to_storage_plugin(self.path)
+                    storage = _storage_for(self.path, self._storage_options)
                     keys = sorted(app_state)
                     if world > 1:
                         gathered = coordinator.all_gather_object(keys)
@@ -789,6 +941,7 @@ class Snapshot:
                         location
                         for p, e in manifest_for_rank.items()
                         if any(p == k or p.startswith(k + "/") for k in keys)
+                        and (paths is None or path_is_replicated(p, paths))
                         for location in _entry_locations(e)
                     ))
                     # RNG state last, so no other restore can perturb it
@@ -796,7 +949,7 @@ class Snapshot:
                     for key in keys:
                         self._load_stateful(
                             key, app_state[key], manifest_for_rank, storage,
-                            strict, rank, device,
+                            strict, rank, device, paths, priority,
                         )
                         if world > 1:
                             # one load_state_dict at a time across ranks,
@@ -825,6 +978,8 @@ class Snapshot:
     def _load_stateful(
         self, key: str, stateful: Any, manifest_for_rank: Manifest,
         storage: Any, strict: bool, rank: int, device: Any,
+        paths: Optional[Sequence[str]] = None,
+        priority: Optional[Sequence[str]] = None,
     ) -> None:
         with obs.span("restore/load_stateful", key=key, rank=rank):
             key_manifest = {
@@ -839,6 +994,11 @@ class Snapshot:
                     )
                 logger.warning("skipping %r: not in snapshot", key)
                 return
+            if paths is not None and not any(
+                not is_container_entry(e) and path_is_replicated(p, paths)
+                for p, e in key_manifest.items()
+            ):
+                return  # nothing under this key matches the filter
             # a degraded path blocks this restore only when this rank's
             # view would read the dead rank's bytes: this rank is its
             # origin, or the entry is sharded (the merged boxes include
@@ -849,6 +1009,7 @@ class Snapshot:
                 p for p, e in key_manifest.items()
                 if p in degraded
                 and not is_container_entry(e)
+                and (paths is None or path_is_replicated(p, paths))
                 and (
                     rank == degraded[p].get("origin_rank")
                     or isinstance(e, ShardedArrayEntry)
@@ -870,7 +1031,17 @@ class Snapshot:
                 if is_container_entry(entry):
                     container_entries[lpath] = entry
                     continue
+                if paths is not None and not path_is_replicated(lpath, paths):
+                    # not read; its current value keeps its slot, so a
+                    # list or tuple keeps its length and order
+                    if lpath in targets:
+                        futures[lpath] = Future(targets[lpath])
+                    continue
                 reqs, fut = prepare_read(entry, obj_out=targets.get(lpath))
+                if priority:
+                    pri = _read_priority_for(lpath, priority)
+                    for r in reqs:
+                        r.priority = pri
                 read_reqs.extend(reqs)
                 futures[lpath] = fut
             if not knobs.is_batching_disabled():
@@ -885,9 +1056,9 @@ class Snapshot:
                     for lpath, fut in futures.items()
                 },
                 prefix=key,
-                allow_missing=not strict,
+                allow_missing=not strict or paths is not None,
             )
-            load_with_strict(stateful, state_dict, strict)
+            load_with_strict(stateful, state_dict, strict and paths is None)
 
     # ----------------------------------------------------------- read_object
 
@@ -941,7 +1112,7 @@ class Snapshot:
                 entry, obj_out=obj_out, buffer_size_limit_bytes=memory_budget_bytes
             )
             _refuse_encoded(self.metadata, [r.path for r in reqs])
-            storage = url_to_storage_plugin(self.path)
+            storage = _storage_for(self.path, self._storage_options)
             try:
                 sync_execute_read_reqs(
                     reqs, storage,
@@ -950,6 +1121,83 @@ class Snapshot:
             finally:
                 storage.sync_close()
             return _place(fut.obj, obj_out, device)
+
+    # ----------------------------------------------------- inspection
+
+    def materialize(
+        self,
+        rank: Optional[int] = None,
+        priority: Optional[Sequence[str]] = None,
+        device: Any = "cuda",
+    ) -> Dict[str, Any]:
+        """Read one rank's whole view (default: this process's rank) into
+        a nested state dict, with no templates and no app_state: one
+        entry per app_state key.  Tensors come back on ``device``
+        (``"cpu"`` for host tensors).  The JAX package returns read-only
+        numpy views backed by mmap; the port has no mmap reads yet
+        (ROADMAP queue A item 5), so each leaf is a tensor of its own.
+        ``priority`` orders the reads as ``restore``'s does.  A
+        ``PyTreeState``'s list and tuple nodes come back as index-keyed
+        dicts (its structure lives in the tree, not the manifest)."""
+        if rank is None:
+            rank = self._coordinator.rank
+        world = self.metadata.world_size
+        if not 0 <= rank < world:
+            # a grown-world view would hold only the replicated leaves
+            raise ValueError(f"rank {rank} out of range for world_size={world}")
+        with log_event(Event("materialize", {"path": self.path, "rank": rank})):
+            manifest = get_manifest_for_rank(self.metadata, rank)
+            containers = {p: e for p, e in manifest.items() if is_container_entry(e)}
+            _refuse_encoded(self.metadata, (
+                loc for e in manifest.values() for loc in _entry_locations(e)
+            ))
+            futures: Dict[str, Future] = {}
+            read_reqs: List[ReadReq] = []
+            for p, e in manifest.items():
+                if is_container_entry(e):
+                    continue
+                reqs, fut = prepare_read(e)
+                if priority:
+                    pri = _read_priority_for(p, priority)
+                    for r in reqs:
+                        r.priority = pri
+                read_reqs.extend(reqs)
+                futures[p] = fut
+            if not knobs.is_batching_disabled():
+                read_reqs = batch_read_requests(read_reqs)
+            storage = _storage_for(self.path, self._storage_options)
+            try:
+                sync_execute_read_reqs(
+                    read_reqs, storage, get_process_memory_budget_bytes(), rank
+                )
+            finally:
+                storage.sync_close()
+            leaves = {p: _place(fut.obj, None, device) for p, fut in futures.items()}
+            return {
+                key: inflate(containers, leaves, prefix=key)
+                for key in sorted({p.split("/", 1)[0] for p in manifest})
+            }
+
+    def publish_to(self, publisher: Any, step: int) -> str:
+        raise NotImplementedError(
+            "Snapshot.publish_to (live-weight publication) is not ported yet "
+            "(ROADMAP queue A item 7)"
+        )
+
+    def repair_degraded(self, *args: Any, **kwargs: Any) -> Any:
+        raise NotImplementedError(
+            "Snapshot.repair_degraded (write takeover and repair) is not ported "
+            "yet (ROADMAP queue A item 7)"
+        )
+
+    def verify(self, deep: bool = False) -> Any:
+        """Audit this rank's view (``verify.py``): every object the
+        manifest references exists with the size it claims; ``deep``
+        also re-reads every checksummed payload against its crc32 and
+        reads every other entry.  Returns a ``VerifyResult``."""
+        from .verify import verify_snapshot
+
+        return verify_snapshot(self, deep=deep)
 
 
 def _map_legacy_leaf_targets(
@@ -978,6 +1226,28 @@ def _map_legacy_leaf_targets(
             targets[legacy[i]] = leaf
 
 
+def _base_tables(
+    base: str, storage_options: Optional[Dict[str, Any]], coordinator: Coordinator
+) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """The base snapshot's objects table and codec tables, read once by
+    rank 0 and broadcast (every rank reading a large metadata object at
+    the start of each take is a thundering herd).  A base that cannot be
+    read gives empty tables: the take is a full save."""
+    tables: Tuple[Dict[str, Any], Dict[str, Any]] = ({}, {})
+    if coordinator.rank == 0:
+        try:
+            meta = Snapshot(base, storage_options=storage_options).metadata
+            tables = (meta.objects or {}, meta.codecs or {})
+        except Exception as e:  # noqa: BLE001 — any unusable base: full save
+            logger.warning(
+                "rank 0: incremental base %r unusable (%r); performing a full save",
+                base, e,
+            )
+    if coordinator.world_size > 1:
+        tables = coordinator.broadcast_object(tables, src=0)
+    return tables
+
+
 class PendingSnapshot:
     """Handle for an in-flight ``async_take``.  A background thread drains
     the writes, then runs the KV-only commit protocol under the take's
@@ -996,8 +1266,10 @@ class PendingSnapshot:
         storage: Any,
         uid: str,
         obs_before: Dict[str, Any],
+        storage_options: Optional[Dict[str, Any]] = None,
     ) -> None:
         self.path = path
+        self._storage_options = storage_options
         # metrics at async_take's entry: the commit thread deltas against
         # them after the drain, so the record covers the background work
         self._obs_before = obs_before
@@ -1050,7 +1322,7 @@ class PendingSnapshot:
         self._thread.join()
         if self._exc is not None:
             raise self._exc
-        snapshot = Snapshot(self.path, self._coordinator)
+        snapshot = Snapshot(self.path, self._coordinator, self._storage_options)
         # rank 0 holds the consolidated metadata; others load the committed one
         snapshot._metadata_cache = self._metadata
         return snapshot

@@ -7,12 +7,17 @@ digests its bytes in the same pass (``WriteIO.want_digest``), a read
 lands in ``ReadIO.into`` when the caller gave one, and ``FASTIO_DIRECT``
 moves payloads around the page cache.  ``FASTIO=0`` or
 ``ENABLE_NATIVE_EXT=0`` keep the pure-Python legs, which write and read
-the same bytes.  Not ported: striped part handles, the retry policy,
-the circuit breaker, failpoints and mmap reads.
+the same bytes.  ``delete``, ``stat`` and ``link_from`` (a hardlink of
+a base snapshot's object for incremental takes, a copy across devices)
+serve retention, verification and dedup.  Not ported: striped part
+handles, the retry policy, the circuit breaker, failpoints and mmap
+reads.
 
 The commit discipline is the same on both legs: every write lands in a
 unique sibling temp file and is ``os.replace``d onto its final name, so
-a failed write never leaves a partial file a reader would trust; a
+a failed write never leaves a partial file a reader would trust, and a
+later write to a path never goes through an inode that another
+snapshot's hardlink shares; a
 durable write (the ``.snapshot_metadata`` commit point, or every write
 under ``FS_SYNC_DATA``) is fdatasync'd, and the commit point's directory
 chain fsync'd.  ``FS_VERIFY_WRITES`` re-reads each file and compares its
@@ -25,7 +30,9 @@ latency and byte metrics (``storage.fs.*``) and, traced, a
 from __future__ import annotations
 
 import asyncio
+import errno
 import os
+import shutil
 import uuid
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Optional, Tuple
@@ -164,6 +171,31 @@ class FSStoragePlugin(StoragePlugin):
             self._read_sync, self._full(read_io.path), read_io.byte_range,
             read_io.into,
         )
+
+    async def delete(self, path: str) -> None:
+        await self._off_loop(os.remove, self._full(path))
+
+    async def stat(self, path: str) -> int:
+        return (await self._off_loop(os.stat, self._full(path))).st_size
+
+    def _link_sync(self, src: str, dst: str) -> None:
+        os.makedirs(os.path.dirname(dst), exist_ok=True)
+        if os.path.lexists(dst):
+            os.remove(dst)
+        try:
+            os.link(src, dst)
+        except OSError as e:
+            if e.errno != errno.EXDEV:
+                raise
+            # across devices: a copy, still no read through Python
+            shutil.copyfile(src, dst)
+
+    async def link_from(self, base_url: str, path: str) -> None:
+        """Hardlink the base snapshot's object: each snapshot holds its
+        own directory entry to the shared inode, so deleting either
+        leaves the other intact.  Across devices it is copied."""
+        src = os.path.join(base_url.split("://", 1)[-1], path)
+        await self._off_loop(self._link_sync, src, self._full(path))
 
     async def close(self) -> None:
         self._executor.shutdown(wait=False)
