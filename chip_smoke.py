@@ -36,7 +36,7 @@ is no card or anything below fails.  In order:
    for K4 + K5, ``copy_`` into the template's range for K6) are timed 5
    times: median, range, share of the bound, TFLOP/s for K3-K5; K1 both
    as ``pack_slab`` is called and as its launch alone;
-4. nine paths, each with the launch counters set to 0 just before it
+4. ten paths, each with the launch counters set to 0 just before it
    and read just after (a path that starts processes adds the launches
    they report), all with the fast-I/O engine at its defaults unless
    the path says otherwise:
@@ -51,7 +51,7 @@ is no card or anything below fails.  In order:
    a2. fastio (after a, on a's state): take and restore under FASTIO=0
       (the fs plugin's pure-Python legs), FASTIO=1 (the native engine,
       digests fused into its writes) and FASTIO=1 + FASTIO_DIRECT=1
-      (O_DIRECT where the work directory takes it), 3 times each in
+      (O_DIRECT where the work directory takes it), twice each in
       alternating order, each snapshot deleted after use: every restore
       bitwise, every manifest's digests equal; it prints the library,
       whether O_DIRECT is active, each setting's median and range and
@@ -71,6 +71,28 @@ is no card or anything below fails.  In order:
       to the take's own counter delta.  Then the tracer's cost: sync
       takes under TRACE=0 and TRACE=1, 3 each in alternating order,
       medians and ranges;
+   a4. stripe_codec (after a3, on a's state): the stripe engine and the
+      codec layer.  Striping is on at its defaults on every path (objects
+      of 128 MiB or more move as concurrent 64 MiB parts); here a sync
+      take and a restore must count one striped write and one striped
+      read per object the manifest holds at that size, restored bitwise,
+      then 3 takes and restores each at the default and at
+      STRIPE_MIN_OBJECT_SIZE_BYTES=0, alternating (medians, ranges).
+      CODEC=huff on the whole state plus f32 copies of one layer's
+      moments: parts must be encoded (no quiet degrade to raw); stored/raw
+      per dtype from the codec tables, encode and decode GB/s a thread
+      from the ``storage.codec.*_latency_s.huff`` histograms; the restore
+      bitwise with K2 on the decoded slabs; the embedding encoded in
+      40 MiB frames read into an f32 template under the 32 MiB budget
+      (K6, tiles straddling frames), equal to the cast on the card.
+      CODEC=zlib on the embedding and LM head, an incremental take over
+      it linking both (``bytes_deduped`` 524,288,000) and carrying their
+      frame tables, deep ``verify``, and a copy with one byte flipped
+      inside a frame that deep ``verify`` must fail.  Then a single
+      transient failure at the ``storage.fs.part.write`` failpoint (the
+      take commits after exactly one retry, each part written once) and a
+      permanent one (the take raises, leaving no ``.snapshot_metadata`` and
+      no temp file; the breakers are reset after);
    b. ring-attention gradient: ``torch.autograd.grad`` of the bf16 ring
       output on those q/k/v (K3 forward, K4/K5 backward) against f32
       dense attention's autograd gradient (tolerance 3e-2 of the largest
@@ -84,7 +106,14 @@ is no card or anything below fails.  In order:
       changes the state in place while the snapshot drains), ``wait()``,
       restore into a differently seeded model and optimizer: every
       tensor bitwise equal to the clone, and the step after the restore
-      gives the same loss bitwise;
+      gives the same loss bitwise.  Before that restore, with extra
+      ballast pushing the device-copy budget below half the smallest
+      object at the stripe threshold, 4 more ``async_take``s of the
+      state (default stripes and STRIPE_MIN_OBJECT_SIZE_BYTES=0,
+      alternating): the large leaves take blocking pinned copies and
+      part-stream from them at the default (``storage.stripe.
+      streamed_writes`` > 0), each snapshot's digests equal a sync
+      take's; unblock and durability lag per setting;
    d. budgeted reads (after b, out of a's snapshot, at full width):
       ``read_object`` of the embedding and the LM head, and of the
       embedding chunked into 64 MiB chunks, with a 32 MiB budget into
@@ -727,7 +756,9 @@ FASTIO_SETTINGS = {  # label → (FASTIO, FASTIO_DIRECT)
     "FASTIO=1": (True, False),
     "FASTIO=1+FASTIO_DIRECT=1": (True, True),
 }
-FASTIO_REPEATS = 3
+# two runs a setting (three until the stripe_codec path joined the script,
+# to keep the whole run near 300 s)
+FASTIO_REPEATS = 2
 FASTIO_COUNTERS = (
     "FASTIO_BYTES_WRITTEN", "FASTIO_BYTES_READ", "FASTIO_FUSED_DIGESTS", "FASTIO_POOL_WAITS",
     "FASTIO_DIRECT_PARTS", "FASTIO_BUFFERED_PARTS", "FASTIO_DONTNEED_READS",
@@ -826,6 +857,323 @@ def phase_fastio(cfg, model, opt, work):
           "every manifest's digests equal; a buffered restore reads the files its take wrote just "
           "before, from the page cache, so its seconds are not disk bandwidth")
     del model2, opt2
+
+
+STRIPE_REPEATS = 3
+# raw bytes a frame of the embedding read back in 32 MiB tiles: not a
+# divisor or multiple of the tile, so tiles straddle frames
+READ_FRAME_BYTES = 40 << 20
+STRIPE_COUNTERS = ("STRIPE_WRITES", "STRIPE_READS", "STRIPE_STREAMED_WRITES", "STRIPE_PARTS_WRITTEN",
+                   "STRIPE_PARTS_READ", "STRIPE_ABORTS")
+
+
+def counter_delta(before, names):
+    after = tts.obs.counters()
+    return {n: after.get(n, 0) - before.get(n, 0) for n in names}
+
+
+def median_range(ts):
+    ts = sorted(ts)
+    return f"median {ts[len(ts) // 2]:.4f} s [{ts[0]:.4f}-{ts[-1]:.4f}], runs {[round(t, 4) for t in ts]}"
+
+
+def temp_files(root):
+    return [f for _, _, fs in os.walk(root) for f in fs if ".tsnp-tmp-" in f]
+
+
+def object_dtypes(md):
+    """location → the dtypes of the entries stored in it."""
+    out = {}
+    for e in md.manifest.values():
+        dt = getattr(e, "dtype", None)
+        if isinstance(getattr(e, "location", None), str) and dt:
+            out.setdefault(e.location, set()).add(dt)
+        for piece in (getattr(e, "chunks", None) or ()) + (getattr(e, "shards", None) or ()):
+            out.setdefault(piece.location, set()).add(dt)
+    return out
+
+
+def codec_report(md):
+    """Stored/raw bytes per dtype (an object of mixed dtypes under
+    "mixed") from the codec tables, and the raw bytes of the frames that
+    were encoded (raw-fallback frames are raw + 24 bytes)."""
+    per, encoded_raw = {}, 0
+    dtypes = object_dtypes(md)
+    for loc, tbl in md.codecs.items():
+        ds = dtypes.get(loc, {"?"})
+        key = next(iter(ds)) if len(ds) == 1 else "mixed"
+        raw, stored = per.get(key, (0, 0))
+        per[key] = (raw + tbl["raw_size"], stored + sum(tbl["parts"]))
+        for i, n in enumerate(tbl["parts"]):
+            raw_i = min(tbl["part_size"], tbl["raw_size"] - i * tbl["part_size"])
+            if n != raw_i + 24:
+                encoded_raw += raw_i
+    return {k: {"raw": r, "stored": s, "ratio": round(s / r, 4)} for k, (r, s) in sorted(per.items())}, encoded_raw
+
+
+def expected_striped_reads(md, keys, threshold):
+    """Striped reads a restore of ``keys`` makes: each key reads its own
+    entries, a location's byte ranges merged into one spanning read (a
+    slab holding two keys' members is read once for each), a whole
+    object as one read; those of ``threshold`` bytes or more stripe."""
+    n = 0
+    for key in keys:
+        spans, whole = {}, set()
+        for p, e in md.manifest.items():
+            if not p.startswith(f"0/{key}/"):
+                continue
+            pieces = [(getattr(e, "location", None), getattr(e, "byte_range", None))]
+            pieces += [(c.location, c.byte_range) for c in getattr(e, "chunks", None) or ()]
+            for loc, rng in pieces:
+                if not isinstance(loc, str):
+                    continue
+                if rng is None:
+                    whole.add(loc)
+                else:
+                    lo, hi = spans.get(loc, (rng[0], rng[1]))
+                    spans[loc] = (min(lo, rng[0]), max(hi, rng[1]))
+        n += sum(1 for loc in whole if md.objects[loc][2] >= threshold)
+        n += sum(1 for lo, hi in spans.values() if hi - lo >= threshold)
+    return n
+
+
+def hist_delta(name, before):
+    h = tts.obs.histogram(name).to_dict()
+    return h["sum"] - before.get("sum", 0.0), h["count"] - before.get("count", 0)
+
+
+def flip_byte_in_frame(src, dst, loc, table):
+    """A copy of snapshot ``src`` at ``dst`` with the byte in the middle of
+    the second frame of ``loc`` flipped (the other files hardlinked)."""
+    shutil.copytree(src, dst, copy_function=os.link)
+    path = os.path.join(dst, loc)
+    data = bytearray(open(path, "rb").read())
+    os.remove(path)  # never write through the shared inode
+    pos = table["parts"][0] + table["parts"][1] // 2
+    data[pos] ^= 0xFF
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+def phase_stripe_codec(cfg, model, opt, work):
+    """The stripe engine and the codec layer on the serving state:
+    striping at the default knobs against STRIPE_MIN_OBJECT_SIZE_BYTES=0,
+    CODEC=huff on the whole state (restore K2, a budgeted read of the
+    encoded embedding through K6), CODEC=zlib on the embedding and LM
+    head with an incremental take that links them, a deep verify and a
+    corrupted frame, then a transient and a permanent part-write fault."""
+    from torchsnapshot_tpu_torch import codec as codec_mod
+    from torchsnapshot_tpu_torch import knobs, resilience
+    from torchsnapshot_tpu_torch.storage import stripe
+
+    root = os.path.join(work, "stripe_codec")
+    os.makedirs(root)
+    nb = state_bytes(model, opt)
+    model2, opt2 = deterministic_state(cfg, 5)
+    threshold = knobs.get_stripe_min_object_size_bytes()
+    part = knobs.get_stripe_part_size_bytes()
+    names = [getattr(tts.obs, c) for c in STRIPE_COUNTERS]
+    app = {"model": model, "optim": opt}
+
+    # 1. striping at the default knobs: one take and restore counted
+    snap_dir = os.path.join(root, "default")
+    before = tts.obs.counters()
+    t0 = time.perf_counter()
+    tts.Snapshot.take(snap_dir, app)
+    take_s = time.perf_counter() - t0
+    wrote = counter_delta(before, names)
+    md = tts.Snapshot(snap_dir).metadata
+    ref_digests = snapshot_digests(snap_dir)
+    big = sorted(loc for loc, rec in md.objects.items() if rec[2] >= threshold)
+    zero_state(model2, opt2)
+    before = tts.obs.counters()
+    t0 = time.perf_counter()
+    tts.Snapshot(snap_dir).restore({"model": model2, "optim": opt2})
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    read = counter_delta(before, names)
+    differs = same_state((model, opt), (model2, opt2))
+    check(differs is None, f"stripe_codec: restored {differs} differs")
+    check(wrote["storage.stripe.writes"] == len(big),
+          f"{wrote['storage.stripe.writes']} striped writes for {len(big)} objects of {threshold} bytes or more")
+    want_reads = expected_striped_reads(md, ("model", "optim"), threshold)
+    check(read["storage.stripe.reads"] == want_reads,
+          f"{read['storage.stripe.reads']} striped reads where the manifest implies {want_reads}")
+    check(wrote["storage.stripe.aborts"] == 0, "a striped write aborted")
+    print(f"stripe_codec striping: threshold {threshold} bytes, parts {part} bytes; {len(big)} of "
+          f"{len(md.objects)} objects at the threshold or above (sizes {[md.objects[b][2] for b in big]}); "
+          f"take {take_s:.4f} s counters {json.dumps(wrote)}; restore {restore_s:.4f} s counters "
+          f"{json.dumps(read)} ({want_reads} reads of the threshold or more, a slab holding both keys' "
+          f"members read once for each); restore bitwise")
+    shutil.rmtree(snap_dir)
+    times = {label: {"take": [], "restore": []} for label in ("striped", "STRIPE_MIN_OBJECT_SIZE_BYTES=0")}
+    for rep in range(STRIPE_REPEATS):
+        for label in (list(times) if rep % 2 == 0 else list(times)[::-1]):
+            snap_dir = os.path.join(root, f"rep{rep}")
+            zero_state(model2, opt2)
+            os.sync()
+            with knobs.override_stripe_min_object_size_bytes(threshold if label == "striped" else 0):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tts.Snapshot.take(snap_dir, app)
+                times[label]["take"].append(time.perf_counter() - t0)
+                t0 = time.perf_counter()
+                tts.Snapshot(snap_dir).restore({"model": model2, "optim": opt2})
+                torch.cuda.synchronize()
+                times[label]["restore"].append(time.perf_counter() - t0)
+            differs = same_state((model, opt), (model2, opt2))
+            check(differs is None, f"stripe_codec {label} run {rep}: restored {differs} differs")
+            shutil.rmtree(snap_dir)
+    for label, t in times.items():
+        print(f"stripe_codec {label}: state {nb} bytes; take {median_range(t['take'])}; "
+              f"restore {median_range(t['restore'])}")
+
+    # 3. CODEC=huff on the whole state, plus f32 copies of one layer's
+    # moments (a mixed-precision master keeps its moments in f32)
+    st = opt.state_dict()["state"]
+    w1 = [i for i, p in enumerate(model.parameters()) if p is model.layer0.mlp.w1.weight][0]
+    f32 = tts.StateDict(exp_avg=st[w1]["exp_avg"].float(), exp_avg_sq=st[w1]["exp_avg_sq"].float())
+    snap_dir = os.path.join(root, "huff")
+    enc_h, dec_h = "storage.codec.encode_latency_s.huff", "storage.codec.decode_latency_s.huff"
+    h0 = tts.obs.histogram(enc_h).to_dict()
+    before = tts.obs.counters()
+    with knobs.override_codec("huff"):
+        t0 = time.perf_counter()
+        tts.Snapshot.take(snap_dir, {"model": model, "optim": opt, "f32": f32})
+        take_s = time.perf_counter() - t0
+    enc_s, enc_parts = hist_delta(enc_h, h0)
+    c = counter_delta(before, ("storage.codec.parts_encoded", "storage.codec.parts_raw_fallback",
+                                "storage.codec.bytes_in", "storage.codec.bytes_out"))
+    check(c["storage.codec.parts_encoded"] > 0, "CODEC=huff encoded no part (a quiet degrade to raw)")
+    md = tts.Snapshot(snap_dir).metadata
+    per_dtype, encoded_raw = codec_report(md)
+    check(md.codecs and "bfloat16" in per_dtype and "float32" in per_dtype,
+          f"huff codec tables cover {sorted(per_dtype)}")
+    zero_state(model2, opt2)
+    f32_back = tts.StateDict(exp_avg=torch.zeros_like(f32["exp_avg"]), exp_avg_sq=torch.zeros_like(f32["exp_avg_sq"]))
+    h0 = tts.obs.histogram(dec_h).to_dict()
+    k2 = device_pack.LAUNCHES["slab_unpack"]
+    t0 = time.perf_counter()
+    tts.Snapshot(snap_dir).restore({"model": model2, "optim": opt2, "f32": f32_back})
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    dec_s, dec_parts = hist_delta(dec_h, h0)
+    check(device_pack.LAUNCHES["slab_unpack"] > k2, "the huff restore launched no K2")
+    differs = same_state((model, opt), (model2, opt2))
+    check(differs is None and all(torch.equal(f32[k], f32_back[k]) for k in f32),
+          f"huff restore: {differs or 'the f32 moments'} differ")
+    print(f"stripe_codec huff: take {take_s:.4f} s of {nb + 2 * nbytes(f32['exp_avg'])} bytes; counters "
+          f"{json.dumps(c)}; stored/raw per dtype {json.dumps(per_dtype)}; encode {enc_parts} parts, "
+          f"{c['storage.codec.bytes_in'] / max(enc_s, 1e-9) / 1e9:.3f} GB/s a thread "
+          f"({c['storage.codec.bytes_in']} bytes in {enc_s:.3f} s summed over parts); decode {dec_parts} "
+          f"frames, {encoded_raw / max(dec_s, 1e-9) / 1e9:.3f} GB/s a thread ({encoded_raw} bytes in "
+          f"{dec_s:.3f} s); restore {restore_s:.4f} s, bitwise, K2 launches "
+          f"{device_pack.LAUNCHES['slab_unpack'] - k2}")
+    shutil.rmtree(snap_dir)
+    # the embedding alone in 40 MiB frames, read back into an f32 template
+    # in 32 MiB tiles (K6), several of which straddle two frames
+    emb = model.embed.weight.detach()
+    snap_dir = os.path.join(root, "huff_embed")
+    with knobs.override_codec("huff"), knobs.override_stripe_part_size_bytes(READ_FRAME_BYTES):
+        tts.Snapshot.take(snap_dir, {"m": tts.StateDict(embed=emb)})
+    table = tts.Snapshot(snap_dir).metadata.codecs["0/m/embed"]
+    tile = READ_BUDGET
+    straddle = sum(
+        1 for lo in range(0, nbytes(emb), tile)
+        if lo // READ_FRAME_BYTES != (min(lo + tile, nbytes(emb)) - 1) // READ_FRAME_BYTES
+    )
+    check(straddle > 0 and len(table["parts"]) > 1, "no tile of the budgeted read straddles two frames")
+    tmpl = torch.zeros(emb.shape, dtype=torch.float32, device="cuda")
+    k6 = device_pack.LAUNCHES["tile_update"]
+    t0 = time.perf_counter()
+    tts.Snapshot(snap_dir).read_object("0/m/embed", obj_out=tmpl, memory_budget_bytes=READ_BUDGET)
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    launches = device_pack.LAUNCHES["tile_update"] - k6
+    check(launches > 0 and torch.equal(tmpl, emb.float()), "the budgeted read of the encoded embedding differs")
+    print(f"stripe_codec huff budgeted read: embedding {nbytes(emb)} bytes in {len(table['parts'])} frames "
+          f"of {READ_FRAME_BYTES} raw bytes, stored {sum(table['parts'])}; {READ_BUDGET}-byte budget into "
+          f"f32: {launches} K6 launches, {straddle} tiles straddle two frames, {read_s:.4f} s, equal to the "
+          f"cast on the card")
+    del tmpl
+    shutil.rmtree(snap_dir)
+
+    # 4. CODEC=zlib on the embedding and LM head (a fine-tune's frozen
+    # tensors), an incremental take linking them, deep verify, a flipped
+    # byte inside a frame
+    frozen = {"frozen": tts.StateDict(embed=model.embed.weight.detach(), lm_head=model.lm_head.weight.detach())}
+    base, inc = os.path.join(root, "zlib_base"), os.path.join(root, "zlib_inc")
+    with knobs.override_codec("zlib"):
+        t0 = time.perf_counter()
+        tts.Snapshot.take(base, frozen)
+        zlib_s = time.perf_counter() - t0
+        before = tts.obs.counters()
+        t0 = time.perf_counter()
+        tts.Snapshot.take(inc, frozen, base=base)
+        inc_s = time.perf_counter() - t0
+    deduped = counter_delta(before, (tts.obs.BYTES_DEDUPED,))[tts.obs.BYTES_DEDUPED]
+    bm, im = tts.Snapshot(base).metadata, tts.Snapshot(inc).metadata
+    check(deduped == 2 * nbytes(model.embed.weight) == 524_288_000, f"incremental zlib take deduped {deduped} bytes")
+    check(im.codecs == bm.codecs and set(im.codecs) == set(im.objects), "the linked objects' codec tables were not carried")
+    for loc in im.codecs:
+        check(os.stat(os.path.join(inc, loc)).st_ino == os.stat(os.path.join(base, loc)).st_ino,
+              f"{loc} is not a hardlink of its base")
+    t0 = time.perf_counter()
+    res = tts.Snapshot(inc).verify(deep=True)
+    verify_s = time.perf_counter() - t0
+    check(res.ok and res.complete, f"deep verify of the zlib snapshot: {res}")
+    loc, table = sorted(im.codecs.items())[0]
+    bad = os.path.join(root, "zlib_bad")
+    flip_byte_in_frame(inc, bad, loc, table)
+    res_bad = tts.Snapshot(bad).verify(deep=True)
+    check(not res_bad.ok, "deep verify passed a flipped byte inside a frame")
+    print(f"stripe_codec zlib: embedding and LM head ({2 * nbytes(model.embed.weight)} bytes) stored "
+          f"{sum(sum(t['parts']) for t in bm.codecs.values())} bytes in {zlib_s:.3f} s; incremental take "
+          f"{inc_s:.3f} s, bytes_deduped {deduped}, tables carried; deep verify {verify_s:.3f} s {res}; "
+          f"a flipped byte in a frame of {loc}: {res_bad}")
+    for d in (base, inc, bad):
+        shutil.rmtree(d)
+
+    # 5. faults at storage.fs.part.write: one transient, then permanent
+    snap_dir = os.path.join(root, "fault")
+    before = tts.obs.counters()
+    try:
+        with knobs.override_retry_backoff_cap_s(0.05), \
+                knobs.override_failpoints("storage.fs.part.write=eintr::1"):
+            tts.Snapshot.take(snap_dir, app)
+        fault = counter_delta(before, ("resilience.retries", "resilience.fs.retries",
+                                       "resilience.failpoints_fired", *names))
+        md = tts.Snapshot(snap_dir).metadata
+        parts = sum(len(stripe.plan_parts(rec[2], part)) for rec in md.objects.values() if rec[2] >= threshold)
+        check(fault["resilience.retries"] == fault["resilience.fs.retries"] == 1
+              and fault["resilience.failpoints_fired"] == 1,
+              f"one transient part fault: {json.dumps(fault)}")
+        check(fault["storage.stripe.parts_written"] == parts and fault["storage.stripe.aborts"] == 0,
+              f"{fault['storage.stripe.parts_written']} parts written for {parts}")
+        check(snapshot_digests(snap_dir) == ref_digests,
+              "the take after a transient fault differs from the first take (digests)")
+        shutil.rmtree(snap_dir)
+        print(f"stripe_codec transient fault: committed after one retry, {parts} parts each written once "
+              f"(the failed attempt sent none), every digest equal to the first take's; counters "
+              f"{json.dumps(fault)}")
+        failed = None
+        with knobs.override_failpoints("storage.fs.part.write=io"):
+            try:
+                tts.Snapshot.take(snap_dir, app)
+            except OSError as e:
+                failed = e
+        check(failed is not None, "a permanent part-write failure did not fail the take")
+        check(not os.path.exists(os.path.join(snap_dir, ".snapshot_metadata")),
+              "a failed take wrote .snapshot_metadata")
+        check(not temp_files(snap_dir), f"a failed take left temp files {temp_files(snap_dir)}")
+        print(f"stripe_codec permanent fault: the take raised {failed!r}; no .snapshot_metadata, no temp "
+              f"file; fs breaker {resilience.get_breaker('fs').state} (reset after)")
+    finally:
+        resilience.release_hangs()
+        resilience.reset_breakers()
+    shutil.rmtree(root)
+    del model2, opt2, f32, f32_back
+    print(f"stripe_codec: codecs available {codec_mod.available_codecs()}")
 
 
 TRACE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "traces")
@@ -1113,6 +1461,66 @@ def step_peak(model, opt, tokens):
     return loss, torch.cuda.max_memory_reserved()
 
 
+STREAM_SETTINGS = ("striped", "STRIPE_MIN_OBJECT_SIZE_BYTES=0", "STRIPE_MIN_OBJECT_SIZE_BYTES=0", "striped")
+
+
+def pressure_async_takes(model, opt, root):
+    """``async_take`` of the training state with the device-copy budget
+    pushed below half the smallest object at the stripe threshold (extra
+    ballast grown until the budget async_take reads is that low), so
+    every tensor takes a blocking pinned copy and the large leaves
+    part-stream from those copies: at the default stripe knobs and at
+    STRIPE_MIN_OBJECT_SIZE_BYTES=0, alternating, each waited for and
+    deleted.  Each snapshot's digests (every entry's crc32, every
+    object's crc32, adler32 and size) must equal those of a sync take of
+    the same state; the default runs must stream, the others must not."""
+    from torchsnapshot_tpu_torch import knobs
+
+    device = torch.device("cuda", torch.cuda.current_device())
+    threshold = knobs.get_stripe_min_object_size_bytes()
+    leaf = min(nbytes(t) for t in model.state_dict().values() if nbytes(t) >= threshold)
+    extra = []
+    for _ in range(400):
+        if host_offload.device_copy_budget_bytes(device) < leaf // 2:
+            break
+        extra.append(torch.empty(256 << 20, dtype=torch.uint8, device="cuda"))
+    budget = host_offload.device_copy_budget_bytes(device)
+    check(budget < leaf // 2, f"the device-copy budget stayed at {budget} bytes")
+    app = {"model": model, "optim": opt}
+    ref_dir = os.path.join(root, "pressure_ref")
+    tts.Snapshot.take(ref_dir, app)
+    ref = snapshot_digests(ref_dir)
+    shutil.rmtree(ref_dir)
+    runs = {label: {"unblock": [], "lag": [], "streamed": 0} for label in STREAM_SETTINGS}
+    for i, label in enumerate(STREAM_SETTINGS):
+        snap_dir = os.path.join(root, f"pressure{i}")
+        before = tts.obs.counters()
+        with knobs.override_stripe_min_object_size_bytes(threshold if label == "striped" else 0):
+            t0 = time.perf_counter()
+            pending = tts.Snapshot.async_take(snap_dir, app)
+            unblock_s = time.perf_counter() - t0
+            offload = dict(host_offload.LAST_OFFLOAD_STATS)
+            pending.wait()
+            lag_s = time.perf_counter() - t0
+        streamed = counter_delta(before, (tts.obs.STRIPE_STREAMED_WRITES,))[tts.obs.STRIPE_STREAMED_WRITES]
+        check((streamed > 0) == (label == "striped"), f"pressure run {i} ({label}): {streamed} streamed writes")
+        check(snapshot_digests(snap_dir) == ref, f"pressure run {i} ({label}): digests differ from the sync take's")
+        runs[label]["unblock"].append(unblock_s)
+        runs[label]["lag"].append(lag_s)
+        runs[label]["streamed"] += streamed
+        print(f"stripe_codec streamed async_take run {i} ({label}): unblock {unblock_s:.4f} s, to commit "
+              f"{lag_s:.4f} s, device copies {offload['device_copy_bytes']} bytes, blocking host copies "
+              f"{offload['blocking_host_bytes']} bytes, streamed writes "
+              f"{streamed}, goodput {json.dumps(tts.obs.goodput.block())}")
+        shutil.rmtree(snap_dir)
+    del extra
+    for label in ("striped", "STRIPE_MIN_OBJECT_SIZE_BYTES=0"):
+        r = runs[label]
+        print(f"stripe_codec streamed async_take {label}: device-copy budget {budget} bytes (below half of "
+              f"{leaf}); unblock {median_range(r['unblock'])}; durability lag {median_range(r['lag'])}; "
+              f"streamed writes {r['streamed']}; digests equal to a sync take's")
+
+
 def phase_resumable_training(cfg, root):
     """train_step at s = 2048 on a batch whose activations fill most of
     the card, async_take, the next train_step while the snapshot drains,
@@ -1178,6 +1586,7 @@ def phase_resumable_training(cfg, root):
     wait_s = time.perf_counter() - t1
     total_s = time.perf_counter() - t0
     print(f"async_take phases (flight record): {phases_of(tts.obs.aggregate.read_obsrecord(root))}")
+    pressure_async_takes(model, opt, os.path.dirname(root))
     del model, opt, ballast, pending
     gc.collect()
     live = sum(host_offload._LIVE_COPY_BYTES.values())
@@ -2154,6 +2563,8 @@ def main():
         run_path("serving", ("slab_pack", "slab_unpack", "flash_attention_fwd"), serving)
         run_path("fastio", ("slab_pack", "slab_unpack"), lambda: phase_fastio(cfg, model, opt, work))
         run_path("trace", ("slab_pack", "slab_unpack", "tile_update"), lambda: phase_trace(cfg, model, opt, work))
+        run_path("stripe_codec", ("slab_pack", "slab_unpack", "tile_update"),
+                 lambda: phase_stripe_codec(cfg, model, opt, work))
         gc.collect()
         torch.cuda.empty_cache()
         run_path("ring_gradient", ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"),

@@ -891,3 +891,71 @@ def test_priority_restore_into_cuda_templates_is_bitwise(cuda, tmp_path):
     got = tts.Snapshot(str(tmp_path / "s")).materialize()["app"]
     for k, v in want.items():
         assert got[k].is_cuda and torch.equal(got[k], v), k
+
+
+def _stripe_knobs(codec):
+    import contextlib
+
+    from torchsnapshot_tpu_torch import knobs
+
+    stack = contextlib.ExitStack()
+    stack.enter_context(knobs.override_stripe_part_size_bytes(64 << 10))
+    stack.enter_context(knobs.override_stripe_min_object_size_bytes(128 << 10))
+    stack.enter_context(knobs.override_codec(codec))
+    stack.enter_context(knobs.override_slab_size_threshold_bytes(3000))
+    return stack
+
+
+@pytest.mark.parametrize("codec", ["raw", "zlib", "huff"])
+def test_striped_and_encoded_take_and_restore_of_cuda_state(cuda, tmp_path, codec):
+    """CUDA tensors over the stripe threshold stage whole (one D2H copy)
+    and take the whole-staged striped write; a slab packed by K1 is
+    encoded like any object; the restore decodes the frames and K2
+    unpacks them, bitwise."""
+    import torchsnapshot_tpu_torch as tts
+    from torchsnapshot_tpu_torch.ops import device_pack as dp
+
+    want = dict(_cuda_state(cuda, 4))
+    want["big"] = _rand((300, 257), torch.float32, cuda, 11)  # 308 KB: 5 parts
+    tts.obs.reset_metrics()
+    with _stripe_knobs(codec):
+        tts.Snapshot.take(str(tmp_path / "s"), {"app": tts.StateDict(want)})
+        counts = tts.obs.counters()
+        assert counts.get("storage.stripe.writes", 0) >= 1
+        assert counts.get("storage.stripe.streamed_writes", 0) == 0  # device stagers stage whole
+        if codec != "raw":
+            assert counts.get("storage.codec.parts_encoded", 0) > 0
+            assert tts.Snapshot(str(tmp_path / "s")).metadata.codecs
+        dest = tts.StateDict({k: torch.zeros_like(v) for k, v in want.items()})
+        before = dp.LAUNCHES["slab_unpack"]
+        tts.Snapshot(str(tmp_path / "s")).restore({"app": dest})
+        assert dp.LAUNCHES["slab_unpack"] > before
+    for k, v in want.items():
+        assert dest[k].is_cuda and torch.equal(dest[k], v), k
+    assert tts.verify_snapshot(str(tmp_path / "s"), deep=True).ok
+
+
+def test_part_streamed_async_take_of_offloaded_cuda_state(cuda, tmp_path, monkeypatch):
+    """With no device-copy budget, ``async_take`` copies each CUDA tensor
+    to pinned host memory before it returns; such offloaded leaves then
+    part-stream (and encode per part), and restore bitwise; a budgeted
+    read of the encoded tensor into an f32 template lands through K6."""
+    import torchsnapshot_tpu_torch as tts
+    from torchsnapshot_tpu_torch import host_offload
+    from torchsnapshot_tpu_torch.ops import device_pack as dp
+
+    monkeypatch.setattr(host_offload, "device_copy_budget_bytes", lambda device: 0)
+    want = {"big": _rand((300, 257), torch.bfloat16, cuda, 12), "b2": _rand((600, 257), torch.bfloat16, cuda, 13)}
+    tts.obs.reset_metrics()
+    with _stripe_knobs("huff"):
+        tts.Snapshot.async_take(str(tmp_path / "s"), {"app": tts.StateDict(want)}).wait()
+        assert tts.obs.counters().get("storage.stripe.streamed_writes", 0) == 2
+        dest = tts.StateDict({k: torch.zeros_like(v) for k, v in want.items()})
+        tts.Snapshot(str(tmp_path / "s")).restore({"app": dest})
+        tmpl = torch.zeros(600, 257, device=cuda)
+        before = dp.LAUNCHES["tile_update"]
+        tts.Snapshot(str(tmp_path / "s")).read_object("0/app/b2", obj_out=tmpl, memory_budget_bytes=50000)
+        assert dp.LAUNCHES["tile_update"] > before
+    for k, v in want.items():
+        assert torch.equal(dest[k], v), k
+    assert torch.equal(tmpl, want["b2"].float())

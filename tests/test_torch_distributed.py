@@ -551,3 +551,60 @@ def test_world_one_take_with_replicated_marker_matches_jax_manifest(tmp_path):
     jm = jts.Snapshot(str(tmp_path / "j")).metadata.manifest
     assert sorted(pm) == sorted(jm)
     assert pm["0/app/w"].replicated and jm["0/app/w"].replicated
+
+
+def test_rank_local_app_state_keys_restore_in_both_packages(tmp_path):
+    """Rank 0 holds ``{"a", "extra", "rng"}`` and rank 1 ``{"a"}``: the
+    take writes the union of the keys, and the restore loops over the
+    union, loading on each rank only the keys it holds (every rank runs
+    every barrier, RNG state last by a flag every rank agrees on).  The
+    port restores its own snapshot bitwise (and rank 0's RNG stream),
+    the JAX package restores it, and the port restores a JAX snapshot
+    with the same rank-local keys.  Exact comparisons."""
+    run_workers(tmp_path, 2, """
+        def app(fill):
+            st = {"a": tts.StateDict(w=torch.arange(64, dtype=torch.float32) + rank + fill)}
+            if rank == 0:
+                st["extra"] = tts.StateDict(x=torch.full((16,), 7.0 + fill))
+                st["rng"] = tts.RNGState()
+            return st
+        torch.manual_seed(123)
+        tts.Snapshot.take(snap_dir, app(0), coordinator=coord)
+        after = torch.rand(3)
+        dest = {k: v for k, v in app(100).items()}
+        for k in ("a", "extra"):
+            if k in dest:
+                next(iter(dest[k].values())).zero_()
+        tts.Snapshot(snap_dir, coordinator=coord).restore(dest, device="cpu")
+        assert torch.equal(dest["a"]["w"], torch.arange(64, dtype=torch.float32) + rank)
+        if rank == 0:
+            assert torch.equal(dest["extra"]["x"], torch.full((16,), 7.0))
+            assert torch.equal(torch.rand(3), after)
+        print("ok")
+        """)
+    assert sorted(tts.Snapshot(str(tmp_path / "snap")).metadata.manifest) == sorted(
+        jts.Snapshot(str(tmp_path / "snap")).metadata.manifest
+    )
+    run_workers(tmp_path, 2, """
+        dest = {"a": StateDict(w=np.zeros(64, np.float32))}
+        if rank == 0:
+            dest["extra"] = StateDict(x=np.zeros(16, np.float32))
+        Snapshot(snap_dir, coordinator=coord).restore(dest)
+        assert (dest["a"]["w"] == np.arange(64, dtype=np.float32) + rank).all()
+        if rank == 0:
+            assert (dest["extra"]["x"] == 7.0).all()
+        jax_dir = snap_dir + "_jax"
+        st = {"a": StateDict(w=np.arange(32, dtype=np.float64) * (rank + 1))}
+        if rank == 0:
+            st["extra"] = StateDict(x=np.full(5, 3, np.int64))
+        Snapshot.take(jax_dir, st, coordinator=coord)
+        """, package="jax", kv="kv2")
+    run_workers(tmp_path, 2, """
+        dest = {"a": tts.StateDict(w=torch.zeros(32, dtype=torch.float64))}
+        if rank == 0:
+            dest["extra"] = tts.StateDict(x=torch.zeros(5, dtype=torch.int64))
+        tts.Snapshot(snap_dir + "_jax", coordinator=coord).restore(dest, device="cpu")
+        assert torch.equal(dest["a"]["w"], torch.arange(32, dtype=torch.float64) * (rank + 1))
+        if rank == 0:
+            assert torch.equal(dest["extra"]["x"], torch.full((5,), 3, dtype=torch.int64))
+        """, kv="kv3")

@@ -142,25 +142,26 @@ def test_objects_table_and_chained_links(tmp_path):
 
 @pytest.mark.parametrize("case", ["checksums_off", "bogus_base", "base_is_target", "base_encoded"])
 def test_unusable_base_gives_a_full_save(tmp_path, case, caplog):
-    """WRITE_CHECKSUMS=0, a base that does not exist, the base equal to
-    the target and a base object stored encoded each give a full save:
-    nothing is linked, and the snapshot restores bitwise in both
-    packages."""
+    """WRITE_CHECKSUMS=0, a base that does not exist and the base equal to
+    the target each give a full save: nothing is linked.  A base whose
+    objects are stored encoded (zlib frames) is usable: every object is
+    linked and its frame table carried verbatim, as the JAX package does.
+    Either way the snapshot restores bitwise in both packages."""
     state = _state(3)
     target = tmp_path / ("s1" if case == "base_is_target" else "s2")
     base = str(tmp_path / ("missing" if case == "bogus_base" else "s1"))
     with jknobs.override_disable_batching(True), tknobs.override_disable_batching(True), \
             tknobs.override_write_checksums(case != "checksums_off"):
-        _take("port", str(tmp_path / "s1"), state)
-        if case == "base_encoded":
-            # the base's metadata says its objects are codec frames: the
-            # port cannot decode frames, so it writes raw bytes
-            path = tmp_path / "s1" / ".snapshot_metadata"
-            md = tts.Snapshot(str(tmp_path / "s1")).metadata
-            md.codecs = {loc: {"codec": "zlib"} for loc in md.objects}
-            path.write_text(md.to_yaml())
+        with tknobs.override_codec("zlib" if case == "base_encoded" else "raw"):
+            _take("port", str(tmp_path / "s1"), state)
         _take("port", str(target), state, base=base)
-    if case != "base_is_target":
+    if case == "base_encoded":
+        base_md = tts.Snapshot(str(tmp_path / "s1")).metadata
+        assert base_md.codecs and set(base_md.codecs) == set(base_md.objects)
+        assert _linked(str(tmp_path), "s1", "s2") == set(base_md.objects)
+        assert tts.Snapshot(str(target)).metadata.codecs == base_md.codecs
+        assert tts.verify_snapshot(str(target), deep=True).ok
+    elif case != "base_is_target":
         assert not _linked(str(tmp_path), "s1", target.name)
     if case in ("checksums_off", "bogus_base", "base_is_target"):
         assert "full save" in caplog.text

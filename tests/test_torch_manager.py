@@ -184,18 +184,21 @@ def test_unported_features_are_refused_by_name(tmp_path):
     with pytest.raises(ValueError, match="keep_last_n"):
         tts.SnapshotManager(str(tmp_path), keep_last_n=0)
     refusals = [
-        (lambda: tts.SnapshotManager(str(tmp_path), tier={"fast_root": "x"}), "item 5"),
-        (lambda: tts.SnapshotManager(str(tmp_path), cas=True), "item 5"),
-        (lambda: tts.SnapshotManager(str(tmp_path), cas=str(tmp_path / "cas")), "item 5"),
-        (lambda: tts.SnapshotManager(str(tmp_path), publisher=object()), "item 7"),
+        (lambda: tts.SnapshotManager(str(tmp_path), tier={"fast_root": "x"}), "item 3.5"),
+        (lambda: tts.SnapshotManager(str(tmp_path), cas=True), "item 3.3"),
+        (lambda: tts.SnapshotManager(str(tmp_path), cas=str(tmp_path / "cas")), "item 3.3"),
+        (lambda: tts.SnapshotManager(str(tmp_path), publisher=object()), "item 5"),
     ]
     mgr = tts.SnapshotManager(str(tmp_path))
-    refusals += [(mgr.repromote, "item 5"), (mgr.cas_gc, "item 5"), (mgr.fsck, "item 5"), (mgr.repair, "item 7")]
+    refusals += [
+        (mgr.repromote, "item 3.5"), (mgr.cas_gc, "item 3.3"), (mgr.fsck, "item 3.3"),
+        (mgr.repair, "item 5"),
+    ]
     for fn, item in refusals:
         with pytest.raises(NotImplementedError, match=f"queue A {item}"):
             fn()
     with tknobs.override_cas(True):
-        with pytest.raises(NotImplementedError, match="queue A item 5"):
+        with pytest.raises(NotImplementedError, match="queue A item 3.3"):
             tts.SnapshotManager(str(tmp_path))
     # the knob is overridden in either direction by the argument
     with tknobs.override_cas(True):

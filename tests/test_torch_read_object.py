@@ -306,39 +306,53 @@ def test_no_template_cpu_read_returns_a_tensor_of_the_stored_shape(tmp_path):
 
 @pytest.mark.parametrize("encoding", ["codec", "cas"])
 def test_encoded_objects_raise_a_typed_error_before_any_byte_lands(tmp_path, encoding):
-    """A JAX snapshot whose object is stored compressed (zlib frames,
-    striped) or as CAS chunk references: every read path of the port
-    raises ``EncodedPayloadError`` naming the location and its table,
-    and the template is never written (it stays all zeros)."""
+    """A JAX snapshot whose object is stored as CAS chunk references:
+    every read path of the port raises ``EncodedPayloadError`` naming the
+    location and its table, and the template is never written (it stays
+    all zeros).  One stored compressed (zlib frames of 4 MiB) is decoded
+    by every read path: budgeted tiles that straddle frame boundaries,
+    whole reads and the restore give the array bitwise."""
     w = np.random.default_rng(7).standard_normal(1 << 22).astype(np.float32)  # 16 MiB
     path = str(tmp_path / "run" / "s")
     if encoding == "codec":
-        with jknobs.override_codec("zlib"), jknobs.override_stripe_min_object_size_bytes(4 << 20):
+        with jknobs.override_codec("zlib"), jknobs.override_stripe_part_size_bytes(4 << 20), \
+                jknobs.override_stripe_min_object_size_bytes(8 << 20):
             jts.Snapshot.take(path, {"m": jts.StateDict(w=w)})
-        table = "codec frame table"
+        assert len(jts.Snapshot(path).metadata.codecs["0/m/w"]["parts"]) == 4
     else:
         jts.Snapshot.take(path, {"m": jts.StateDict(w=w)}, cas=True)
-        table = "CAS chunk table"
     # the JAX package reads its own snapshot back bitwise
     np.testing.assert_array_equal(jts.Snapshot(path).read_object("0/m/w"), w)
     snap = tts.Snapshot(path)
     tmpl = torch.zeros(w.size)
-    for budget in (1 << 20, None):
-        with pytest.raises(tts.EncodedPayloadError, match=table) as e:
+    # a budget that does not divide the 4 MiB frames: tiles cross them
+    for budget in ((1 << 20) + 12, None):
+        if encoding == "codec":
+            got = snap.read_object("0/m/w", obj_out=tmpl, memory_budget_bytes=budget, device="cpu")
+            assert got is tmpl and tmpl.numpy().tobytes() == w.tobytes()
+            tmpl.zero_()
+            got = snap.read_object("0/m/w", memory_budget_bytes=budget, device="cpu")
+            assert got.numpy().tobytes() == w.tobytes()
+            continue
+        with pytest.raises(tts.EncodedPayloadError, match="CAS chunk table") as e:
             snap.read_object("0/m/w", obj_out=tmpl, memory_budget_bytes=budget, device="cpu")
         assert e.value.location == "0/m/w"
-        with pytest.raises(tts.EncodedPayloadError, match=table):
+        with pytest.raises(tts.EncodedPayloadError, match="CAS chunk table"):
             snap.read_object("0/m/w", memory_budget_bytes=budget, device="cpu")
     dest = tts.StateDict(w=tmpl)
-    with pytest.raises(tts.EncodedPayloadError, match=table):
+    if encoding == "codec":
+        snap.restore({"m": dest}, device="cpu")
+        assert tmpl.numpy().tobytes() == w.tobytes()
+        return
+    with pytest.raises(tts.EncodedPayloadError, match="CAS chunk table"):
         snap.restore({"m": dest})
     assert not tmpl.any()
 
 
-
 def test_encoded_object_under_a_later_key_refuses_the_whole_restore(tmp_path):
-    """A restore refuses an encoded object before any key restores: an
-    earlier key's template stays untouched when a later key holds it."""
+    """A restore refuses a chunk-referenced (CAS) object before any key
+    restores: an earlier key's template stays untouched when a later key
+    holds it."""
     path = str(tmp_path / "s")
     w = torch.from_numpy(np.random.default_rng(8).standard_normal(64).astype(np.float32))
     with tts.knobs.override_disable_batching(True):  # an object of its own each
@@ -346,9 +360,9 @@ def test_encoded_object_under_a_later_key_refuses_the_whole_restore(tmp_path):
     snap = tts.Snapshot(path)
     location = snap.metadata.manifest["0/m/w"].location
     assert location != snap.metadata.manifest["0/a/v"].location
-    snap.metadata.codecs = {location: [[0, 64]]}  # the table's contents are not read
+    snap.metadata.cas = {"chunks": {location: {}}}  # the table's contents are not read
     first, later = torch.zeros(64), torch.zeros(64)
-    with pytest.raises(tts.EncodedPayloadError, match="codec frame table") as e:
+    with pytest.raises(tts.EncodedPayloadError, match="CAS chunk table") as e:
         snap.restore({"a": tts.StateDict(v=first), "m": tts.StateDict(w=later)}, device="cpu")
     assert e.value.location == location
     assert not first.any() and not later.any()

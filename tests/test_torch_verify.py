@@ -97,19 +97,39 @@ def test_verify_of_a_slabbed_snapshot_equals_jax(tmp_path):
 
 @pytest.mark.parametrize("encoding", ["codec", "cas"])
 def test_encoded_snapshot_raises_the_typed_error(tmp_path, encoding):
+    """A snapshot of chunk references raises ``EncodedPayloadError`` (the
+    port does not assemble CAS chunks).  A compressed one (zlib frames)
+    is verified as the JAX package verifies it: stored sizes from its
+    codec table, deep reads decoded; one flipped byte inside a frame
+    fails both."""
     w = np.random.default_rng(7).standard_normal(1 << 22).astype(np.float32)  # 16 MiB
     path = str(tmp_path / "run" / "s")
     if encoding == "codec":
-        with jknobs.override_codec("zlib"), jknobs.override_stripe_min_object_size_bytes(4 << 20):
+        with jknobs.override_codec("zlib"), jknobs.override_stripe_part_size_bytes(4 << 20), \
+                jknobs.override_stripe_min_object_size_bytes(8 << 20):
             jts.Snapshot.take(path, {"m": jts.StateDict(w=w)})
-        table = "codec frame table"
     else:
         jts.Snapshot.take(path, {"m": jts.StateDict(w=w)}, cas=True)
-        table = "CAS chunk table"
     assert jts.verify_snapshot(path, deep=True).ok
+    if encoding == "cas":
+        for deep in (False, True):
+            with pytest.raises(tts.EncodedPayloadError, match="CAS chunk table"):
+                tts.verify_snapshot(path, deep=deep)
+        return
     for deep in (False, True):
-        with pytest.raises(tts.EncodedPayloadError, match=table):
-            tts.verify_snapshot(path, deep=deep)
+        got = tts.verify_snapshot(path, deep=deep)
+        assert got.ok and _fields(got) == _fields(jts.verify_snapshot(path, deep=deep))
+    md = jts.Snapshot(path).metadata
+    (loc, table), = md.codecs.items()
+    # a byte in the middle of the second frame's payload
+    with open(os.path.join(path, loc), "r+b") as f:
+        f.seek(table["parts"][0] + table["parts"][1] // 2)
+        b = f.read(1)
+        f.seek(-1, os.SEEK_CUR)
+        f.write(bytes([b[0] ^ 0xFF]))
+    assert tts.verify_snapshot(path).ok
+    got = tts.verify_snapshot(path, deep=True)
+    assert not got.ok and _fields(got) == _fields(jts.verify_snapshot(path, deep=True))
 
 
 def test_verify_result_text_and_raise(tmp_path):

@@ -61,7 +61,7 @@ _U32 = ctypes.c_uint32
 _U32P = ctypes.POINTER(ctypes.c_uint32)
 
 # C signatures: symbol → (restype, argtypes).  The byte-shuffle and
-# Huffman entry points of fastio.cpp serve the codec, not ported yet.
+# Huffman entry points serve the codec (codec.py).
 _SIGNATURES = {
     "tsnp_write_file": (_I, [ctypes.c_char_p, _P, _I64, _I]),
     "tsnp_write_file_digest": (_I, [ctypes.c_char_p, _P, _I64, _I, _U32P]),
@@ -77,6 +77,12 @@ _SIGNATURES = {
     "tsnp_part_pwrite": (_I, [_I, _I, _P, _I64, _I64, _I64, _P, _I64, _I, _U32P]),
     # fd, fd_direct, dst, size, offset, align, bounce, bounce_cap
     "tsnp_part_pread": (_I64, [_I, _I, _P, _I64, _I64, _I64, _P, _I64]),
+    # src, n, stride, dst
+    "tsnp_byte_shuffle": (None, [_P, _I64, _I64, _P]),
+    "tsnp_byte_unshuffle": (None, [_P, _I64, _I64, _P]),
+    # src, n, dst, capacity → compressed (raw) size, or -1
+    "tsnp_huff_compress": (_I64, [_P, _I64, _P, _I64]),
+    "tsnp_huff_decompress": (_I64, [_P, _I64, _P, _I64]),
 }
 
 
@@ -267,3 +273,56 @@ def copy_digest(lib: ctypes.CDLL, dst, src) -> Tuple[int, int]:
         buffer_address(dview), buffer_address(sview), sview.nbytes, out
     )
     return (int(out[0]), int(out[1]))
+
+
+def byte_shuffle(lib: ctypes.CDLL, data, stride: int, inverse: bool = False):
+    """Byte-shuffle ``data`` (byte plane ``p`` of every ``stride``-byte
+    element together; a tail shorter than one element is copied through)
+    or, ``inverse``, undo it: one GIL-free pass into a new uint8 array."""
+    import numpy as np
+
+    view = _view(data)
+    out = np.empty(view.nbytes, dtype=np.uint8)
+    if view.nbytes:
+        fn = lib.tsnp_byte_unshuffle if inverse else lib.tsnp_byte_shuffle
+        fn(buffer_address(view), view.nbytes, stride, out.ctypes.data)
+    return out
+
+
+def huff_compress(lib: ctypes.CDLL, data, headroom: int = 0):
+    """The native block-Huffman stream of ``data`` as a uint8 array,
+    after ``headroom`` bytes reserved for the caller (the codec writes
+    its frame header there, so the frame is built in place).  On
+    incompressible data the stream may exceed the input by about 5 bytes
+    per 128 KiB block."""
+    import numpy as np
+
+    view = _view(data)
+    if view.nbytes == 0:
+        return np.empty(headroom, dtype=np.uint8)
+    cap = view.nbytes + view.nbytes // 64 + 4096
+    out = np.empty(headroom + cap, dtype=np.uint8)
+    rc = lib.tsnp_huff_compress(buffer_address(view), view.nbytes, out.ctypes.data + headroom, cap)
+    if rc < 0:
+        raise RuntimeError(f"tsnp_huff_compress overflowed its {cap}-byte capacity")
+    ret = out[: headroom + rc]
+    # a slice pins the whole capacity while the frame lives: copy it out
+    # when compression saved enough to matter
+    if out.nbytes - ret.nbytes > (1 << 20):
+        ret = ret.copy()
+    return ret
+
+
+def huff_decompress(lib: ctypes.CDLL, data, raw_len: int):
+    """Decode a native block-Huffman stream to exactly ``raw_len`` bytes
+    (a uint8 array); ``ValueError`` on a malformed stream."""
+    import numpy as np
+
+    view = _view(data)
+    out = np.empty(raw_len, dtype=np.uint8)
+    if raw_len == 0 and view.nbytes == 0:
+        return out
+    rc = lib.tsnp_huff_decompress(buffer_address(view), view.nbytes, out.ctypes.data, raw_len)
+    if rc != raw_len:
+        raise ValueError(f"corrupt huff stream: decoded {rc} of {raw_len} expected bytes")
+    return out

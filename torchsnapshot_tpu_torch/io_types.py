@@ -12,7 +12,12 @@ Counterpart of ``torchsnapshot_tpu/io_types.py``:
   payload's recorded crc32, checked by ``check_read_crc`` under the
   VERIFY_ON_RESTORE knob.
 - ``StoragePlugin``: async write/read/delete/stat/link_from/close
-  against a backend.
+  against a backend, and ``begin_striped_write`` for a plugin that takes
+  an object as concurrent parts (``StripedWriteHandle``,
+  ``storage/stripe.py``).
+- A stager that can produce its bytes part by part (``part_plan``,
+  ``stage_part``, ``release_source``) lets the scheduler overlap a large
+  object's staging and writes within the object.
 
 On the GPU the stager's device→host copy is a ``cudaMemcpyAsync`` into
 pinned host memory on a side copy stream, waited on by an event in a
@@ -27,6 +32,8 @@ import concurrent.futures
 from concurrent.futures import Executor
 from dataclasses import dataclass, field
 from typing import Any, Callable, Coroutine, Generic, List, Optional, Tuple, TypeVar
+
+import numpy as np
 
 T = TypeVar("T")
 
@@ -44,6 +51,10 @@ class Future(Generic[T]):
 
 
 class BufferStager(abc.ABC):
+    # byte-shuffle stride the codec applies before compressing this
+    # stager's bytes (``codec.filter_for_dtype``; 0: no filter)
+    codec_filter_stride: int = 0
+
     @abc.abstractmethod
     async def stage_buffer(self, executor: Optional[Executor] = None) -> Any:
         """Produce the bytes to write (bytes / memoryview / uint8 array).
@@ -52,6 +63,24 @@ class BufferStager(abc.ABC):
     @abc.abstractmethod
     def get_staging_cost_bytes(self) -> int:
         """Peak host memory consumed while the staged buffer is alive."""
+
+    # part streaming: the defaults stage whole
+    def part_plan(self, part_size_bytes: int) -> Optional[List[Tuple[int, int]]]:
+        """``[start, end)`` spans that exactly tile the staged bytes (the
+        last may be short), known before staging, or None when this
+        stager stages whole only."""
+        return None
+
+    async def stage_part(
+        self, span: Tuple[int, int], executor: Optional[Executor] = None
+    ) -> Any:
+        """The bytes of one span of ``part_plan``, independent of the
+        other parts' buffers."""
+        raise NotImplementedError
+
+    def release_source(self) -> None:
+        """Drop the staging source after the last ``stage_part`` call,
+        whether it succeeded or not."""
 
 
 class BufferConsumer(abc.ABC):
@@ -98,9 +127,12 @@ class WriteReq:
     # sink before the write is chosen; read by the dedup check
     object_digest: Optional[Tuple[int, int, int]] = None
     # the base snapshot's codec frame table for this location (None: the
-    # base stored it raw).  The port cannot decode frames, so a request
-    # whose base object is encoded is written, never linked
+    # base stored it raw); a linked object's table is carried verbatim
+    # into this snapshot's ``codecs`` through ``codec_sink``
     dedup_codec: Optional[dict] = None
+    # receives the object's codec frame table when the write encodes it
+    # (codec.py); writes without a sink are never encoded
+    codec_sink: Optional[Callable[[dict], None]] = None
 
 
 def check_read_crc(read_req: "ReadReq", buf: Any) -> None:
@@ -158,6 +190,21 @@ class ReadIO:
     into: Any = None
 
 
+def resolve_read_destination(into: Any, length: int) -> Any:
+    """The buffer a ``length``-byte read lands in: ``into`` itself when it
+    is a writable buffer of exactly that length (callers test honour by
+    identity), else a fresh uninitialised one (zeroing memory the read
+    is about to overwrite would cost a full extra pass)."""
+    if into is not None:
+        try:
+            v = memoryview(into).cast("B")
+            if not v.readonly and v.nbytes == length:
+                return into
+        except (TypeError, ValueError):
+            pass
+    return np.empty(length, dtype=np.uint8)
+
+
 def run_in_fresh_loop(coro: Coroutine) -> Any:
     """Run ``coro`` to completion from sync code, also when the calling
     thread already runs an event loop (then on a private loop in a
@@ -170,9 +217,53 @@ def run_in_fresh_loop(coro: Coroutine) -> Any:
         return pool.submit(asyncio.run, coro).result()
 
 
+class StripedWriteHandle(abc.ABC):
+    """One striped write of one object, from
+    ``StoragePlugin.begin_striped_write``.  Parts may be written
+    concurrently and in any order; then exactly one of ``complete`` (the
+    atomic publish) or ``abort`` (leaves nothing behind) ends it.  Retry,
+    failpoints and the breaker act inside ``write_part``, so a transient
+    re-sends one part."""
+
+    # whether write_part honours ``want_digest`` by digesting the part in
+    # the pass that writes it
+    supports_fused_digest: bool = False
+    # the smallest part the backend takes in any position but the last
+    # (0: no floor); an encoded frame below it is stored raw
+    min_part_bytes: int = 0
+
+    @abc.abstractmethod
+    async def write_part(
+        self, index: int, offset: int, buf: Any, want_digest: bool = False
+    ) -> Optional[Tuple[int, int]]:
+        """Write ``buf`` at byte ``offset`` as part ``index``; returns its
+        (crc32, adler32) when ``want_digest`` and the handle fuses
+        digests, else None."""
+
+    @abc.abstractmethod
+    async def complete(self) -> None:
+        """Publish the assembled object atomically."""
+
+    @abc.abstractmethod
+    async def abort(self) -> None:
+        """Tear down without publishing; idempotent, never raises over
+        the failure that caused it."""
+
+
 class StoragePlugin(abc.ABC):
     # whether ``write`` honours ``WriteIO.want_digest``
     supports_fused_digest = False
+    # whether ``begin_striped_write`` is implemented (ranged reads need
+    # no flag: every plugin honours ``ReadIO.byte_range``)
+    supports_striped_write = False
+    # whether the striped handles honour ``want_digest``, known before a
+    # handle exists
+    supports_fused_part_digest = False
+
+    async def begin_striped_write(self, path: str, total_size: int) -> StripedWriteHandle:
+        """Open a striped write of at most ``total_size`` bytes to
+        ``path``; called only when ``supports_striped_write``."""
+        raise NotImplementedError
 
     @abc.abstractmethod
     async def write(self, write_io: WriteIO) -> None: ...

@@ -36,6 +36,18 @@ _FASTIO_BUFFER_POOL_BYTES = "FASTIO_BUFFER_POOL_BYTES"
 _TRACE = "TRACE"
 _METRICS_TEXTFILE = "METRICS_TEXTFILE"
 _CAS = "CAS"
+_FAILPOINTS = "FAILPOINTS"
+_FAILPOINT_SEED = "FAILPOINT_SEED"
+_RETRY_MAX_ATTEMPTS = "RETRY_MAX_ATTEMPTS"
+_RETRY_PROGRESS_WINDOW_S = "RETRY_PROGRESS_WINDOW_S"
+_RETRY_BACKOFF_CAP_S = "RETRY_BACKOFF_CAP_S"
+_BREAKER_THRESHOLD = "BREAKER_THRESHOLD"
+_BREAKER_COOLDOWN_S = "BREAKER_COOLDOWN_S"
+_STRIPE_PART_SIZE_BYTES = "STRIPE_PART_SIZE_BYTES"
+_STRIPE_MIN_OBJECT_SIZE_BYTES = "STRIPE_MIN_OBJECT_SIZE_BYTES"
+_CODEC = "CODEC"
+_CODEC_LEVEL = "CODEC_LEVEL"
+_CODEC_MIN_RATIO = "CODEC_MIN_RATIO"
 
 _DEFAULTS = {
     # Arrays larger than this are chunked along dim 0 for pipelined I/O.
@@ -104,8 +116,45 @@ _DEFAULTS = {
     # writes none.
     _METRICS_TEXTFILE: "",
     # Content-addressed chunk store for SnapshotManager saves (cas/).  Not
-    # ported yet: 1 makes the manager raise NotImplementedError.
+    # ported yet: 1 makes the manager raise NotImplementedError (ROADMAP
+    # queue A item 3.3).
     _CAS: 0,
+    # Fault injection (resilience/failpoints.py):
+    # "site=error[:probability[:count]],..." specs; "" is disarmed.  Read
+    # at import and by override_failpoints: set the variable before
+    # importing the package.
+    _FAILPOINTS: "",
+    # Seed of each spec's own random stream: the same spec and seed fire
+    # at the same evaluations.
+    _FAILPOINT_SEED: 0,
+    # Shared retry policy (resilience/retry.py): attempts per operation,
+    # and the window without progress anywhere (any completion refreshes
+    # it) after which an operation gives up.
+    _RETRY_MAX_ATTEMPTS: 6,
+    _RETRY_PROGRESS_WINDOW_S: 120.0,
+    # Backoff: min(2**attempt, cap) seconds times a jitter in [0.5, 1.5).
+    _RETRY_BACKOFF_CAP_S: 32.0,
+    # Circuit breaker (resilience/breaker.py): consecutive failed
+    # operations before a backend fails fast, and how long it does so
+    # before one probe is let through.
+    _BREAKER_THRESHOLD: 5,
+    _BREAKER_COOLDOWN_S: 30.0,
+    # Striped storage I/O (storage/stripe.py): objects of at least
+    # STRIPE_MIN_OBJECT_SIZE_BYTES move as concurrent parts of
+    # STRIPE_PART_SIZE_BYTES, written and read in parallel.  0 turns
+    # striping off; a threshold is floored at one part plus one byte.
+    _STRIPE_PART_SIZE_BYTES: 64 * 1024 * 1024,
+    _STRIPE_MIN_OBJECT_SIZE_BYTES: 128 * 1024 * 1024,
+    # Per-part compression (codec.py): "raw" (off), "zlib", "zstd" and
+    # "lz4" (optional modules: a missing one writes raw with one
+    # warning) or "huff" (the native block-Huffman coder).  Digests stay
+    # over the raw bytes.
+    _CODEC: "raw",
+    # The codec's level; 0 is each codec's own default.
+    _CODEC_LEVEL: 0,
+    # A part keeps its encoded frame only when raw size >= ratio * frame
+    # size; others are stored raw behind a 24-byte header.
+    _CODEC_MIN_RATIO: 1.05,
 }
 
 _OVERRIDES: dict = {}
@@ -222,6 +271,62 @@ def cas_enabled() -> bool:
     return bool(_get_int(_CAS))
 
 
+def get_failpoints() -> str:
+    return str(_get_raw(_FAILPOINTS) or "")
+
+
+def get_failpoint_seed() -> int:
+    return _get_int(_FAILPOINT_SEED)
+
+
+def get_retry_max_attempts() -> int:
+    return max(1, _get_int(_RETRY_MAX_ATTEMPTS))
+
+
+def get_retry_progress_window_s() -> float:
+    return float(_get_raw(_RETRY_PROGRESS_WINDOW_S))
+
+
+def get_retry_backoff_cap_s() -> float:
+    return float(_get_raw(_RETRY_BACKOFF_CAP_S))
+
+
+def get_breaker_threshold() -> int:
+    return max(1, _get_int(_BREAKER_THRESHOLD))
+
+
+def get_breaker_cooldown_s() -> float:
+    return float(_get_raw(_BREAKER_COOLDOWN_S))
+
+
+def get_stripe_part_size_bytes() -> int:
+    return max(1, _get_int(_STRIPE_PART_SIZE_BYTES))
+
+
+def get_stripe_min_object_size_bytes() -> Optional[int]:
+    """The striping threshold, or None when striping is off (0).  Floored
+    at one part plus one byte, so a striped object has two parts at
+    least."""
+    v = _get_int(_STRIPE_MIN_OBJECT_SIZE_BYTES)
+    if v <= 0:
+        return None
+    return max(v, get_stripe_part_size_bytes() + 1)
+
+
+def get_codec() -> str:
+    """The write-side codec's name; ``codec.resolve_codec`` degrades an
+    unknown or missing one to raw."""
+    return str(_get_raw(_CODEC)).lower()
+
+
+def get_codec_level() -> int:
+    return _get_int(_CODEC_LEVEL)
+
+
+def get_codec_min_ratio() -> float:
+    return max(1.0, float(_get_raw(_CODEC_MIN_RATIO)))
+
+
 @contextlib.contextmanager
 def _override(name: str, value) -> Iterator[None]:
     had = name in _OVERRIDES
@@ -302,6 +407,64 @@ def override_cas(value: bool):
 
 def override_metrics_textfile(value):
     return _override(_METRICS_TEXTFILE, value or "")
+
+
+def override_failpoint_seed(value: int):
+    return _override(_FAILPOINT_SEED, value)
+
+
+def override_retry_max_attempts(value: int):
+    return _override(_RETRY_MAX_ATTEMPTS, value)
+
+
+def override_retry_progress_window_s(value: float):
+    return _override(_RETRY_PROGRESS_WINDOW_S, value)
+
+
+def override_retry_backoff_cap_s(value: float):
+    return _override(_RETRY_BACKOFF_CAP_S, value)
+
+
+def override_breaker_threshold(value: int):
+    return _override(_BREAKER_THRESHOLD, value)
+
+
+def override_breaker_cooldown_s(value: float):
+    return _override(_BREAKER_COOLDOWN_S, value)
+
+
+def override_stripe_part_size_bytes(value: int):
+    return _override(_STRIPE_PART_SIZE_BYTES, value)
+
+
+def override_stripe_min_object_size_bytes(value: int):
+    return _override(_STRIPE_MIN_OBJECT_SIZE_BYTES, value)
+
+
+def override_codec(value: str):
+    return _override(_CODEC, value)
+
+
+def override_codec_level(value: int):
+    return _override(_CODEC_LEVEL, value)
+
+
+def override_codec_min_ratio(value: float):
+    return _override(_CODEC_MIN_RATIO, value)
+
+
+@contextlib.contextmanager
+def override_failpoints(value: str) -> Iterator[None]:
+    """Override FAILPOINTS and re-arm the failpoint registry on entry and
+    on exit.  A malformed spec raises here."""
+    from .resilience import failpoints as _failpoints
+
+    try:
+        with _override(_FAILPOINTS, value or ""):
+            _failpoints.refresh_from_knobs(strict=True)
+            yield
+    finally:
+        _failpoints.refresh_from_knobs(strict=False)
 
 
 @contextlib.contextmanager

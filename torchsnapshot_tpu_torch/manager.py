@@ -17,11 +17,11 @@ layout, so either package's manager reads the other's root:
   writes the index and runs retention, after the take's commit.
 
 ``save(incremental=True)`` dedups against the newest committed step
-(``Snapshot.take(base=)``).  Not ported yet: tiered storage (``tier=``)
-and the content-addressed chunk store (``cas=``, the CAS knob,
-``cas_gc``, ``fsck``), both ROADMAP queue A item 5; live-weight
-publication (``publisher=``), ``repromote`` and ``repair``, queue A
-item 7.  Each raises ``NotImplementedError``.
+(``Snapshot.take(base=)``).  Not ported yet: tiered storage (``tier=``,
+``repromote``), ROADMAP queue A item 3.5; the content-addressed chunk
+store (``cas=``, the CAS knob, ``cas_gc``, ``fsck``), item 3.3;
+live-weight publication (``publisher=``) and ``repair``, item 5.  Each
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -48,7 +48,7 @@ logger = logging.getLogger(__name__)
 INDEX_FNAME = "manager_index.json"
 
 
-def _not_ported(what: str, item: int) -> NotImplementedError:
+def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"SnapshotManager {what} is not ported yet (ROADMAP queue A item {item})"
     )
@@ -101,7 +101,7 @@ def delete_snapshot(
                     )
             if metadata is not None and (metadata.cas or {}).get("chunks"):
                 # chunk references are released by the chunk store's GC
-                raise _not_ported("deletion of a content-addressed snapshot", 5)
+                raise _not_ported("deletion of a content-addressed snapshot", "3.3")
             try:
                 storage.sync_delete(SNAPSHOT_METADATA_FNAME)
             except FileNotFoundError:
@@ -158,13 +158,13 @@ class SnapshotManager:
         if keep_last_n is not None and keep_last_n < 1:
             raise ValueError(f"keep_last_n must be >= 1, got {keep_last_n}")
         if tier is not None:
-            raise _not_ported("tier= (tiered storage)", 5)
+            raise _not_ported("tier= (tiered storage)", "3.5")
         if cas is None:
             cas = knobs.cas_enabled()
         if cas not in (False, 0):
-            raise _not_ported("cas= (the content-addressed chunk store)", 5)
+            raise _not_ported("cas= (the content-addressed chunk store)", "3.3")
         if publisher is not None:
-            raise _not_ported("publisher= (live-weight publication)", 7)
+            raise _not_ported("publisher= (live-weight publication)", "5")
         self.root = root.rstrip("/")
         self.keep_last_n = keep_last_n
         self.prefix = prefix
@@ -394,16 +394,16 @@ class SnapshotManager:
     # ------------------------------------------------ not ported yet
 
     def repromote(self) -> List[int]:
-        raise _not_ported("repromote (tiered storage)", 5)
+        raise _not_ported("repromote (tiered storage)", "3.5")
 
     def cas_gc(self, grace_s: Optional[float] = None) -> Optional[Dict[str, Any]]:
-        raise _not_ported("cas_gc (the content-addressed chunk store)", 5)
+        raise _not_ported("cas_gc (the content-addressed chunk store)", "3.3")
 
     def fsck(self) -> Optional[Dict[str, Any]]:
-        raise _not_ported("fsck (the content-addressed chunk store)", 5)
+        raise _not_ported("fsck (the content-addressed chunk store)", "3.3")
 
     def repair(self, *args: Any, **kwargs: Any) -> Any:
-        raise _not_ported("repair (write takeover and degraded repair)", 7)
+        raise _not_ported("repair (write takeover and degraded repair)", "5")
 
 
 class _ManagedPendingSnapshot:

@@ -52,6 +52,7 @@ import numpy as np
 import torch
 
 from .. import knobs, obs
+from ..codec import filter_for_dtype
 from ..io_types import BufferConsumer, BufferStager, Future, ReadReq, WriteReq
 from ..manifest import ArrayEntry, ChunkedArrayEntry, Shard
 from ..serialization import (
@@ -142,6 +143,24 @@ class CudaTensorBufferStager(BufferStager):
             self.tensor = None
         return self.nbytes
 
+    # part streaming: a stager whose bytes ``offload(on_device=False)``
+    # already copied to pinned host memory is an offloaded async leaf and
+    # streams its parts like a host array; staging from the device (one
+    # D2H copy) it stages whole, as the JAX package's device stager does
+    def part_plan(self, part_size_bytes: int) -> Optional[List[Tuple[int, int]]]:
+        if self.host is None:
+            return None
+        from ..storage.stripe import plan_parts
+
+        return plan_parts(self.nbytes, part_size_bytes)
+
+    async def stage_part(self, span: Tuple[int, int], executor: Optional[Executor] = None) -> memoryview:
+        return memoryview(self.host)[span[0] : span[1]]
+
+    def release_source(self) -> None:
+        self.host = None
+        self.tensor = None
+
     async def stage_buffer(self, executor: Optional[Executor] = None) -> memoryview:
         if self.host is not None:
             arr, self.host = self.host, None
@@ -186,6 +205,30 @@ class HostArrayBufferStager(BufferStager):
         # the staged size: a slab lays its members out by this
         return array_nbytes(self.arr) if self.arr is not None else 0
 
+    # part streaming: each part is a zero-copy view of the array.  An
+    # async take that still needs its defensive copy stages whole: per
+    # part copies would move its unblock point to the end of the upload
+    # (``offload()`` clears the flag once the copy is taken)
+    def part_plan(self, part_size_bytes: int) -> Optional[List[Tuple[int, int]]]:
+        arr = self.arr
+        if self.defensive_copy or arr is None:
+            return None
+        if isinstance(arr, torch.Tensor):
+            if not arr.is_contiguous():
+                return None
+        elif not arr.flags["C_CONTIGUOUS"] or arr.dtype.byteorder == ">":
+            # staging whole would copy it anyway
+            return None
+        from ..storage.stripe import plan_parts
+
+        return plan_parts(array_nbytes(arr), part_size_bytes)
+
+    async def stage_part(self, span: Tuple[int, int], executor: Optional[Executor] = None) -> memoryview:
+        return array_as_memoryview(self.arr)[span[0] : span[1]]
+
+    def release_source(self) -> None:
+        self.arr = None
+
 
 def _host_copy(arr: Any) -> Any:
     if isinstance(arr, torch.Tensor):
@@ -194,11 +237,16 @@ def _host_copy(arr: Any) -> Any:
 
 
 def _stager_for(obj: Any, is_async: bool = False) -> BufferStager:
+    """The stager of an array's bytes, with the codec's byte-shuffle
+    stride for its dtype (float payloads shuffle before compressing)."""
     if is_cuda_tensor(obj):
-        return CudaTensorBufferStager(obj)
-    if isinstance(obj, torch.Tensor) and obj.device.type != "cpu":
+        stager: BufferStager = CudaTensorBufferStager(obj)
+    elif isinstance(obj, torch.Tensor) and obj.device.type != "cpu":
         raise TypeError(f"unsupported tensor device {obj.device}")
-    return HostArrayBufferStager(obj, defensive_copy=is_async)
+    else:
+        stager = HostArrayBufferStager(obj, defensive_copy=is_async)
+    stager.codec_filter_stride = filter_for_dtype(array_dtype_str(obj))
+    return stager
 
 
 def materialize_into_template(src: torch.Tensor, obj_out: Any) -> Any:

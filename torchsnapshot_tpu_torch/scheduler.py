@@ -33,9 +33,33 @@ Counterpart of ``torchsnapshot_tpu/scheduler.py``, same discipline:
   manifest is serialised (the commit waits for the pipeline,
   ``async_take``'s too).
 
+- Striping (``storage/stripe.py``): a staged object of at least
+  ``STRIPE_MIN_OBJECT_SIZE_BYTES`` is written as concurrent parts
+  through the plugin's striped handle, its digest fused into the part
+  writes where the handles fuse (``supports_fused_part_digest``).  An
+  object whose stager can produce parts (``part_plan``: host arrays and
+  offloaded leaves, never slabs, whose members carry interior checksum
+  ranges) and has no dedup decision pending is part-streamed instead: it
+  reserves a window of ``_STREAM_WINDOW_PARTS`` parts from the budget,
+  and each part is staged, digested and written while later parts
+  stage.  Reads of at least the threshold fan out as parallel ranged
+  part reads (the size of a whole-object read from a cheap ``stat``).
+- Codec (``codec.py``), resolved once per run: a request with a
+  ``codec_sink`` is encoded after its raw digests, part by part on the
+  staging executor (frames of the stripe part size), and its frame
+  table goes to the sink; storage I/O and the budget then see stored
+  bytes.  A read of an object with a frame table (``codec_tables``)
+  reads and decodes the frames that cover its raw range.  A request
+  linked from an incremental base that stored it encoded carries the
+  base's frame table verbatim.
+- Failpoints ``scheduler.stage``, ``scheduler.write`` and
+  ``scheduler.read`` fire per request, ``scheduler.stage.part`` and
+  ``scheduler.codec.encode`` per part.
+
 The pipelines run on a dedicated event-loop thread; heavy work (device
-copies, checksums, deserialization) runs on a thread pool.  The codec,
-content-addressed store and striping of the JAX package are not ported.
+copies, checksums, encodes, deserialization) runs on a thread pool.  The
+content-addressed store of the JAX package is not ported (ROADMAP queue
+A item 3.3), nor are mmap reads (item 3.4).
 """
 
 from __future__ import annotations
@@ -50,6 +74,9 @@ from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Awaitable, Callable, Dict, List, Optional, Tuple
 
+import numpy as np
+
+from . import codec as codec_mod
 from . import knobs
 from .io_types import (
     ReadIO,
@@ -61,9 +88,15 @@ from .io_types import (
 )
 from .obs import metrics as obs_metrics
 from .obs import tracer as obs_tracer
+from .resilience.failpoints import failpoint
+from .storage import stripe
 from .utils.checksums import combine_piece_digests, crc32_fast, digest
 
 logger = logging.getLogger(__name__)
+
+# parts of one streamed object in flight (staged and not yet written):
+# this many parts are the object's whole budget reservation
+_STREAM_WINDOW_PARTS = 4
 
 _MAX_PER_RANK_MEMORY_BUDGET_BYTES = 32 * 1024 * 1024 * 1024
 _AVAILABLE_MEMORY_MULTIPLIER = 0.6
@@ -135,14 +168,22 @@ def apply_checksum_sinks(
 
 
 def _defers_digest(
-    wr: WriteReq, nbytes: int, storage: StoragePlugin, precomputed: Any
+    wr: WriteReq, nbytes: int, storage: StoragePlugin, precomputed: Any, will_encode: bool
 ) -> bool:
     """Whether the digest of this staged buffer is left to its write: the
-    plugin fuses digests, no dedup decision waits on the digest, every
-    sink covers the whole buffer, and the stager recorded no piece
+    plugin fuses digests (its striped handles do, for an object that will
+    stripe), no dedup decision waits on the digest, the write stores the
+    raw bytes (a fused digest of frames would not be the raw digest),
+    every sink covers the whole buffer, and the stager recorded no piece
     digests (a slab folds those instead)."""
+    fuses = (
+        storage.supports_fused_part_digest
+        if stripe.write_eligible(nbytes, storage)
+        else storage.supports_fused_digest
+    )
     return (
-        storage.supports_fused_digest
+        fuses
+        and not will_encode
         and wr.dedup is None
         and precomputed is None
         and all(
@@ -151,21 +192,62 @@ def _defers_digest(
     )
 
 
+def _dedup_matches(wr: WriteReq) -> bool:
+    return wr.dedup is not None and wr.object_digest == wr.dedup[1]
+
+
 async def _link_unchanged(p: "_WritePipeline", storage: StoragePlugin) -> bool:
-    """Link the request's object from its base snapshot when its staged
-    digest equals the base's; True when linked.  A failed link (a plugin
+    """Link the request's object from its base snapshot when its raw
+    digest equals the base's; True when linked.  The linked object is a
+    copy of the base's stored bytes, so a base object stored encoded
+    brings its frame table along, verbatim.  A failed link (a plugin
     without ``link_from``, the base object gone) is logged and the
-    caller writes the bytes: dedup never decides correctness."""
+    caller writes the raw bytes: dedup never decides correctness."""
     wr = p.write_req
-    if wr.dedup is None or wr.dedup_codec is not None or wr.object_digest != wr.dedup[1]:
+    if not _dedup_matches(wr):
         return False
     try:
         await storage.link_from(wr.dedup[0], wr.path)
     except Exception as e:  # noqa: BLE001 — any failure writes instead
         logger.info("dedup link for %r failed (%r); writing it", wr.path, e)
         return False
+    if wr.codec_sink is not None and wr.dedup_codec is not None:
+        wr.codec_sink(dict(wr.dedup_codec))
     p.deduped = True
     return True
+
+
+async def _encode_staged_buffer(
+    buf: Any, wr: WriteReq, spec: "codec_mod.WriteSpec", executor: ThreadPoolExecutor
+) -> Any:
+    """The compress stage of a whole-staged write: the staged buffer's
+    parts (the stripe part size) encoded concurrently on the staging
+    executor, assembled into the stored byte stream; the frame table,
+    with the stored bytes' digest, goes to the request's codec sink."""
+    view = memoryview(buf).cast("B")
+    raw_size = view.nbytes
+    if raw_size == 0:
+        return buf  # nothing to encode: stays a raw object without a table
+    part_size = knobs.get_stripe_part_size_bytes()
+    spans = stripe.plan_parts(raw_size, part_size)
+    stride = wr.buffer_stager.codec_filter_stride
+    frames = await asyncio.gather(*(
+        codec_mod.encode_frame_async(view[lo:hi], spec, stride, executor, path=wr.path, part=i)
+        for i, (lo, hi) in enumerate(spans)
+    ))
+    frame_lens = [len(f) for f in frames]
+    out = np.empty(sum(frame_lens), dtype=np.uint8)
+    pos = 0
+    for i, n in enumerate(frame_lens):
+        out[pos : pos + n] = np.frombuffer(frames[i], dtype=np.uint8)
+        frames[i] = None  # peak memory: raw + stored, not raw + 2 x stored
+        pos += n
+    stored_digest = None
+    if knobs.write_checksums_enabled():
+        crc, adler = await asyncio.get_running_loop().run_in_executor(executor, digest, out)
+        stored_digest = [crc, adler, out.nbytes]
+    wr.codec_sink(codec_mod.make_table(spec.codec, part_size, raw_size, frame_lens, stored_digest))
+    return out
 
 
 class _LoopThread:
@@ -197,15 +279,50 @@ class _Budget:
 
 
 class _WritePipeline:
-    __slots__ = ("write_req", "staging_cost", "buf", "buf_size", "defer_digest", "deduped")
+    __slots__ = (
+        "write_req", "staging_cost", "admission_cost", "stream_spans", "buf", "buf_size",
+        "defer_digest", "deduped",
+    )
 
     def __init__(self, write_req: WriteReq) -> None:
         self.write_req = write_req
         self.staging_cost = write_req.buffer_stager.get_staging_cost_bytes()
+        # what admission debits: the staging cost, or a window of parts
+        # for a part-streamed object
+        self.admission_cost = self.staging_cost
+        # the part spans of a part-streamed object
+        self.stream_spans: Optional[List[Tuple[int, int]]] = None
         self.buf = None
         self.buf_size = 0
         self.defer_digest = False
         self.deduped = False
+
+
+def _plan_streams(pipelines: List[_WritePipeline], storage: StoragePlugin) -> None:
+    """Mark the part-streamed pipelines: a stager with a part plan, a
+    plugin with striped handles, an object over the stripe threshold,
+    only whole-object checksum sinks (slab members want the assembled
+    buffer) and no dedup decision pending (link or write needs the
+    object's digest before any byte moves)."""
+    part_size = knobs.get_stripe_part_size_bytes()
+    for p in pipelines:
+        wr = p.write_req
+        if (
+            wr.dedup is None
+            and stripe.write_eligible(p.staging_cost, storage)
+            and all(rng is None for _, rng in wr.checksum_sinks or ())
+        ):
+            spans = wr.buffer_stager.part_plan(part_size)
+            if spans and len(spans) > 1 and spans[-1][1] == p.staging_cost:
+                p.stream_spans = spans
+                p.admission_cost = min(p.staging_cost, _STREAM_WINDOW_PARTS * part_size)
+
+
+def _feed_digest_sinks(wr: WriteReq, crc: int, adler: int, size: int) -> None:
+    for sink, _ in wr.checksum_sinks or ():
+        sink(crc)
+    if wr.digest_sink is not None:
+        wr.digest_sink([crc, adler, size])
 
 
 async def _execute_write_pipelines(
@@ -216,10 +333,14 @@ async def _execute_write_pipelines(
     stats: dict,
     staging_done: threading.Event,
 ) -> None:
+    # resolved once per run: CODEC=raw makes the layer vanish
+    codec_spec = codec_mod.resolve_write_spec()
+    _plan_streams(pipelines, storage)
     ready_for_staging = deque(pipelines)
     ready_for_io: deque = deque()
     staging_tasks: set = set()
     io_tasks: set = set()
+    stream_tasks: set = set()
     io_concurrency = knobs.get_max_per_rank_io_concurrency()
     checksums = knobs.write_checksums_enabled()
     loop = asyncio.get_running_loop()
@@ -237,6 +358,7 @@ async def _execute_write_pipelines(
     m_budget = obs_metrics.gauge(obs_metrics.BUDGET_BYTES_IN_USE)
     m_ioq = obs_metrics.gauge(obs_metrics.IO_QUEUE_DEPTH)
     m_phase_stage = obs_metrics.histogram(obs_metrics.PHASE_STAGE_S)
+    m_phase_encode = obs_metrics.histogram(obs_metrics.PHASE_ENCODE_S)
     m_phase_write = obs_metrics.histogram(obs_metrics.PHASE_WRITE_S)
     tracer = obs_tracer.get_tracer()
     adm_spans: dict = {}
@@ -248,16 +370,16 @@ async def _execute_write_pipelines(
             )
 
     async def stage_one(p: _WritePipeline) -> _WritePipeline:
-        with obs_tracer.span(
-            "pipeline/staging", path=p.write_req.path, cost=p.staging_cost
-        ) as sp:
+        wr = p.write_req
+        with obs_tracer.span("pipeline/staging", path=wr.path, cost=p.staging_cost) as sp:
             t_stage = time.perf_counter()
-            p.buf = await p.write_req.buffer_stager.stage_buffer(executor)
+            failpoint("scheduler.stage", path=wr.path)
+            p.buf = await wr.buffer_stager.stage_buffer(executor)
             p.buf_size = _buf_nbytes(p.buf)
-            wr = p.write_req
+            will_encode = codec_spec is not None and wr.codec_sink is not None
             if (wr.checksum_sinks or wr.digest_sink) and checksums:
                 precomputed = getattr(wr.buffer_stager, "piece_digests", None)
-                if _defers_digest(wr, p.buf_size, storage, precomputed):
+                if _defers_digest(wr, p.buf_size, storage, precomputed, will_encode):
                     # digested in the pass that writes the bytes (write_one)
                     p.defer_digest = True
                 else:
@@ -265,10 +387,34 @@ async def _execute_write_pipelines(
                         executor, apply_checksum_sinks, p.buf, wr, precomputed
                     )
             m_phase_stage.observe(time.perf_counter() - t_stage)
+            if will_encode and not _dedup_matches(wr):
+                # digests above are the raw bytes'; from here on storage
+                # and the budget see the stored frames.  A request that
+                # will link skips the encode
+                t_enc = time.perf_counter()
+                p.buf = await _encode_staged_buffer(p.buf, wr, codec_spec, executor)
+                p.buf_size = _buf_nbytes(p.buf)
+                m_phase_encode.observe(time.perf_counter() - t_enc)
             if sp is not None:
                 sp.attrs["bytes"] = p.buf_size
                 sp.flow_out = flow_ids[id(p)] = obs_tracer.next_flow_id()
         return p
+
+    async def write_buf(p: _WritePipeline) -> None:
+        wr = p.write_req
+        if stripe.write_eligible(p.buf_size, storage):
+            d = await stripe.striped_write(storage, wr.path, p.buf, want_digests=p.defer_digest)
+            fused = None if d is None else (d[0], d[1])
+        else:
+            wio = WriteIO(path=wr.path, buf=p.buf, want_digest=p.defer_digest)
+            await storage.write(wio)
+            fused = wio.digests
+        if p.defer_digest:
+            if fused is None:
+                # the plugin did not fuse: the same values, one more pass
+                await loop.run_in_executor(executor, apply_checksum_sinks, p.buf, wr)
+            else:
+                _feed_digest_sinks(wr, fused[0], fused[1], p.buf_size)
 
     async def write_one(p: _WritePipeline) -> _WritePipeline:
         wr = p.write_req
@@ -279,53 +425,74 @@ async def _execute_write_pipelines(
                     sp.flow_in = fid
             t_write = time.perf_counter()
             try:
-                if await _link_unchanged(p, storage):
-                    return p
-                wio = WriteIO(path=wr.path, buf=p.buf, want_digest=p.defer_digest)
-                await storage.write(wio)
-                if p.defer_digest:
-                    if wio.digests is None:
-                        # the plugin did not fuse: the same values, one more pass
-                        await loop.run_in_executor(executor, apply_checksum_sinks, p.buf, wr)
-                    else:
-                        crc, adler = wio.digests
-                        for sink, _ in wr.checksum_sinks or ():
-                            sink(crc)
-                        if wr.digest_sink is not None:
-                            wr.digest_sink([crc, adler, p.buf_size])
+                failpoint("scheduler.write", path=wr.path)
+                if not await _link_unchanged(p, storage):
+                    await write_buf(p)
             finally:
                 m_phase_write.observe(time.perf_counter() - t_write)
         return p
 
+    async def stream_one(p: _WritePipeline) -> _WritePipeline:
+        """Part-streamed write through the stripe engine: budget, retries,
+        failpoints and metrics act per part inside it."""
+        wr = p.write_req
+        want = bool(wr.checksum_sinks or wr.digest_sink) and checksums
+
+        def on_part_done(n: int) -> None:
+            stats["bytes_written"] += n
+            m_written.inc(n)
+
+        with obs_tracer.span(
+            "pipeline/stream", path=wr.path, bytes=p.staging_cost, parts=len(p.stream_spans)
+        ):
+            # the per-request failpoints fire for streamed objects too
+            failpoint("scheduler.stage", path=wr.path)
+            failpoint("scheduler.write", path=wr.path)
+            digests = await stripe.streamed_part_write(
+                storage, wr.path, wr.buffer_stager, p.stream_spans, executor,
+                window_parts=_STREAM_WINDOW_PARTS, on_part_staged=m_staged.inc,
+                on_part_done=on_part_done, want_digests=want,
+                codec_spec=codec_spec if wr.codec_sink is not None else None,
+                filter_stride=wr.buffer_stager.codec_filter_stride, codec_sink=wr.codec_sink,
+            )
+        if want and digests:
+            _feed_digest_sinks(wr, *combine_piece_digests(digests))
+        return p
+
     def admit(p: _WritePipeline) -> None:
-        budget.used += p.staging_cost
+        budget.used += p.admission_cost
         m_budget.set(budget.used)
         sp = adm_spans.pop(id(p), None)
         if sp is not None:
             tracer.end(sp, fire_event=True)
-        staging_tasks.add(asyncio.ensure_future(stage_one(p)))
+        if p.stream_spans is not None:
+            stream_tasks.add(asyncio.ensure_future(stream_one(p)))
+        else:
+            staging_tasks.add(asyncio.ensure_future(stage_one(p)))
 
     try:
-        while ready_for_staging or staging_tasks or ready_for_io or io_tasks:
-            if not (ready_for_staging or staging_tasks):
+        while ready_for_staging or staging_tasks or stream_tasks or ready_for_io or io_tasks:
+            # a streamed object's source is read until its last part
+            # stages, so staging is done only when its stream is
+            if not (ready_for_staging or staging_tasks or stream_tasks):
                 staging_done.set()
             # admit every pending request that fits (largest first); when
             # nothing fits and nothing is in flight, admit the largest
             for _ in range(len(ready_for_staging)):
                 p = ready_for_staging.popleft()
-                if budget.fits(p.staging_cost):
+                if budget.fits(p.admission_cost):
                     admit(p)
                 else:
                     ready_for_staging.append(p)
-            if ready_for_staging and not (staging_tasks or io_tasks or ready_for_io):
+            if ready_for_staging and not (staging_tasks or stream_tasks or io_tasks or ready_for_io):
                 admit(ready_for_staging.popleft())
             while ready_for_io and len(io_tasks) < io_concurrency:
                 io_tasks.add(asyncio.ensure_future(write_one(ready_for_io.popleft())))
             m_ioq.set(len(ready_for_io))
-            if not staging_tasks and not io_tasks:
+            if not staging_tasks and not io_tasks and not stream_tasks:
                 continue
             done, _ = await asyncio.wait(
-                staging_tasks | io_tasks, return_when=asyncio.FIRST_COMPLETED
+                staging_tasks | io_tasks | stream_tasks, return_when=asyncio.FIRST_COMPLETED
             )
             for task in done:
                 p = task.result()
@@ -337,6 +504,11 @@ async def _execute_write_pipelines(
                     m_staged.inc(p.buf_size)
                     ready_for_io.append(p)
                     m_ioq.set(len(ready_for_io))
+                elif task in stream_tasks:
+                    # bytes were counted per part; the window returns
+                    stream_tasks.discard(task)
+                    budget.used -= p.admission_cost
+                    m_budget.set(budget.used)
                 else:
                     io_tasks.discard(task)
                     if p.deduped:  # a linked object moved no bytes
@@ -349,8 +521,14 @@ async def _execute_write_pipelines(
                     m_budget.set(budget.used)
                     p.buf = None
     except BaseException:
-        for t in staging_tasks | io_tasks:
+        for t in staging_tasks | io_tasks | stream_tasks:
             t.cancel()
+        # let the cancelled writes and the cleanups they spawned (a striped
+        # handle's shielded abort unlinks its temp file) finish before the
+        # loop stops
+        others = asyncio.all_tasks() - {asyncio.current_task()}
+        if others:
+            await asyncio.wait(others, timeout=stripe.WAIT_DEADLINE_S)
         raise
     finally:
         staging_done.set()
@@ -459,6 +637,7 @@ async def _execute_read_pipelines(
     storage: StoragePlugin,
     budget: _Budget,
     executor: ThreadPoolExecutor,
+    codec_tables: Optional[Dict[str, Any]] = None,
 ) -> None:
     ready_for_io = deque(pipelines)
     io_tasks: set = set()
@@ -483,6 +662,40 @@ async def _execute_read_pipelines(
                 "pipeline/budget_admission", path=p.read_req.path, bytes=p.consuming_cost
             )
 
+    # a striped whole-object read needs the object's length: a stat,
+    # but never the base class's, which reads the object
+    cheap_stat = type(storage).stat is not StoragePlugin.stat
+
+    async def read_bytes(p: _ReadPipeline, sp: Any) -> Any:
+        rr = p.read_req
+        into = None
+        if rr.byte_range is not None:
+            into = rr.buffer_consumer.read_buffer(rr.byte_range[1] - rr.byte_range[0])
+        table = codec_tables.get(rr.path) if codec_tables else None
+        if table is not None:
+            # the range is raw: read and decode the frames that cover it
+            # (frames are the parts, so this subsumes striping)
+            if sp is not None:
+                sp.attrs["codec"] = table.get("codec")
+            return await codec_mod.framed_read(
+                storage, rr.path, table, byte_range=rr.byte_range, into=into, executor=executor
+            )
+        if rr.byte_range is not None:
+            offset, length = rr.byte_range[0], rr.byte_range[1] - rr.byte_range[0]
+        elif cheap_stat and stripe.read_eligible(p.consuming_cost):
+            offset, length = 0, await storage.stat(rr.path)
+        else:
+            offset, length = 0, 0
+        if stripe.read_eligible(length):
+            if sp is not None:
+                sp.attrs["striped"] = True
+            return await stripe.striped_read(
+                storage, rr.path, offset=offset, length=length, into=into
+            )
+        read_io = ReadIO(path=rr.path, byte_range=rr.byte_range, into=into)
+        await storage.read(read_io)
+        return read_io.buf
+
     async def read_one(p: _ReadPipeline) -> _ReadPipeline:
         rr = p.read_req
         with obs_tracer.span(
@@ -490,14 +703,8 @@ async def _execute_read_pipelines(
         ) as sp:
             t_read = time.perf_counter()
             try:
-                into = None
-                if rr.byte_range is not None:
-                    into = rr.buffer_consumer.read_buffer(
-                        rr.byte_range[1] - rr.byte_range[0]
-                    )
-                read_io = ReadIO(path=rr.path, byte_range=rr.byte_range, into=into)
-                await storage.read(read_io)
-                p.buf = read_io.buf
+                failpoint("scheduler.read", path=rr.path)
+                p.buf = await read_bytes(p, sp)
                 if sp is not None:
                     sp.attrs["bytes"] = _buf_nbytes(p.buf)
             finally:
@@ -573,10 +780,13 @@ def sync_execute_read_reqs(
     storage: StoragePlugin,
     memory_budget_bytes: int,
     rank: int,
+    codec_tables: Optional[Dict[str, Any]] = None,
 ) -> int:
     """Execute read requests under the memory budget, lower ``priority``
     first (a stable sort: the order within a class is kept); returns the
-    bytes the consumers were declared to need."""
+    bytes the consumers were declared to need.  ``codec_tables``:
+    location → frame table of the objects stored encoded (the
+    metadata's ``codecs``); their byte ranges stay raw above this call."""
     executor = ThreadPoolExecutor(
         max_workers=knobs.get_staging_threads(), thread_name_prefix="tsnp-torch-consume"
     )
@@ -588,7 +798,7 @@ def sync_execute_read_reqs(
     try:
         loop_thread.submit(
             _execute_read_pipelines(
-                pipelines, storage, _Budget(memory_budget_bytes), executor
+                pipelines, storage, _Budget(memory_budget_bytes), executor, codec_tables
             )
         ).result()
     finally:

@@ -49,10 +49,15 @@ ranks.  ``DTensor`` leaves are sharded state: each box of the layout is
 written once, by a writer every rank elects alike from the per-rank
 loads (``preparers/sharded.py``).  Snapshots are interchangeable with
 the JAX package's: same manifest, same object layout, same checksums.
-Not ported: content-addressed takes (``cas=`` raises), codecs, tiered
-storage, topology and transport, liveness, write takeover and repair;
-a read of an object stored compressed or as chunk references raises
-``EncodedPayloadError`` before any byte reaches a template.
+Objects stored compressed (the metadata's ``codecs`` frame tables,
+``codec.py``) are decoded by the read pipeline, so restore,
+``read_object`` (whole or budgeted, raw byte ranges across frames) and
+``materialize`` read them as they read raw ones.  Not ported:
+content-addressed takes (``cas=`` raises; ROADMAP queue A item 3.3),
+tiered storage (item 3.5), topology and transport, liveness, write
+takeover and repair (item 5); a read of an object stored as chunk
+references raises ``EncodedPayloadError`` before any byte reaches a
+template.
 """
 
 from __future__ import annotations
@@ -131,15 +136,15 @@ def _refuse_cas(cas: Any) -> None:
     if cas not in (None, False):
         raise NotImplementedError(
             "take(cas=...) (the content-addressed chunk store) is not ported "
-            "yet (ROADMAP queue A item 5)"
+            "yet (ROADMAP queue A item 3.3)"
         )
 
 
 class EncodedPayloadError(RuntimeError):
-    """A read of an object the snapshot stores encoded: compressed (a
-    codec frame table in the metadata's ``codecs``) or as content
-    addressed chunk references (a chunk table in its ``cas``).  The port
-    does not decode either yet; raised before any byte is read."""
+    """A read of an object the snapshot stores as content-addressed
+    chunk references (a chunk table in the metadata's ``cas``), which
+    the port does not assemble yet (ROADMAP queue A item 3.3); raised
+    before any byte is read.  Compressed objects decode."""
 
     def __init__(self, location: str, table: str) -> None:
         self.location = location
@@ -175,11 +180,8 @@ def _entry_locations(entry: Entry) -> List[str]:
 
 
 def _refuse_encoded(metadata: SnapshotMetadata, locations: Iterable[str]) -> None:
-    codecs = metadata.codecs or {}
     chunks = (metadata.cas or {}).get("chunks") or {}
     for location in locations:
-        if location in codecs:
-            raise EncodedPayloadError(location, "codec frame table")
         if location in chunks:
             raise EncodedPayloadError(location, "CAS chunk table")
 
@@ -367,16 +369,21 @@ class _TakePlan:
     write_reqs: List[WriteReq]
     object_digests: Dict[str, List[int]]
     world: int
+    # location → codec frame table of each object this rank stored
+    # encoded (or linked from a base that did), filled by the writes
+    object_codecs: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
     def local_payload(self) -> Dict[str, Any]:
         return {
             "manifest": {p: e.to_dict() for p, e in {**self.manifest, **self.entries}.items()},
             "objects": self.object_digests,
+            "codecs": self.object_codecs,
         }
 
 
 def _metadata_from(
-    manifests: List[Dict[str, Entry]], objects: Dict[str, List[int]], world: int
+    manifests: List[Dict[str, Entry]], objects: Dict[str, List[int]], world: int,
+    codecs: Optional[Dict[str, Any]] = None,
 ) -> SnapshotMetadata:
     """The consolidated metadata of every rank's manifest.  A replicated
     chunked entry whose chunks were split across ranks carries on each
@@ -395,7 +402,7 @@ def _metadata_from(
                 c.crc32 = chunk_crcs.get((c.location, tuple(c.byte_range or ())))
     return SnapshotMetadata(
         version=MANIFEST_VERSION, world_size=world, manifest=consolidated,
-        objects=objects,
+        objects=objects, codecs=dict(codecs or {}),
     )
 
 
@@ -441,7 +448,7 @@ def _commit_protocol(
     obs.aggregate.publish(coord, uid, obs.aggregate.rank_payload(rank, "take", obs_before))
     if world == 1:
         metadata = _metadata_from(
-            [{**plan.manifest, **plan.entries}], plan.object_digests, 1
+            [{**plan.manifest, **plan.entries}], plan.object_digests, 1, plan.object_codecs
         )
         _write_obsrecord(coord, uid, storage, plan.path)
         _commit(storage, metadata)
@@ -465,11 +472,13 @@ def _commit_protocol(
                     coord._decode(coord.kv_get(f"{uid}/manifest/{r}")) for r in range(world)
                 ]
                 objects: Dict[str, List[int]] = {}
+                codecs: Dict[str, Any] = {}
                 for p in payloads:
                     objects.update(p["objects"])
+                    codecs.update(p.get("codecs") or {})
                 metadata = _metadata_from(
                     [{k: entry_from_dict(v) for k, v in p["manifest"].items()} for p in payloads],
-                    objects, world,
+                    objects, world, codecs,
                 )
                 _write_obsrecord(coord, uid, storage, plan.path)
                 # never write the commit marker after the scope was poisoned
@@ -833,6 +842,14 @@ class Snapshot:
             entries.update(shielded)
 
         object_digests: Dict[str, List[int]] = {}
+        object_codecs: Dict[str, Any] = {}
+        for wr in write_reqs:
+            # every write gets a sink: an encoded write or a link of an
+            # encoded base object reports its frame table here
+            def codec_sink(table: Dict[str, Any], wr: WriteReq = wr) -> None:
+                object_codecs[wr.path] = table
+
+            wr.codec_sink = codec_sink
         if base is not None and base.rstrip("/") == path.rstrip("/"):
             # a self-link would unlink the only copy before linking it
             logger.warning(
@@ -860,7 +877,9 @@ class Snapshot:
                 "rank %d: take(base=...) needs WRITE_CHECKSUMS=1; performing "
                 "a full save", rank,
             )
-        return _TakePlan(path, manifest, entries, write_reqs, object_digests, world)
+        return _TakePlan(
+            path, manifest, entries, write_reqs, object_digests, world, object_codecs
+        )
 
     # --------------------------------------------------------------- restore
 
@@ -888,6 +907,24 @@ class Snapshot:
 
     def get_manifest(self) -> Dict[str, Entry]:
         return dict(self.metadata.manifest)
+
+    def _codec_tables(self) -> Optional[Dict[str, Any]]:
+        """location → frame table of each object stored compressed; None
+        when nothing is.  A structurally invalid table (version skew) is
+        dropped with a warning: the read then sees frames where raw bytes
+        were expected and fails at the parse or digest, never silently."""
+        from .codec import validate_table
+
+        tables = {}
+        for loc, tbl in (self.metadata.codecs or {}).items():
+            if validate_table(tbl):
+                tables[loc] = tbl
+            else:
+                logger.warning(
+                    "manifest codec table for %r is structurally invalid (version "
+                    "skew?); treating the object as raw", loc,
+                )
+        return tables or None
 
     def restore(
         self,
@@ -928,29 +965,36 @@ class Snapshot:
                 with coordinator.abort_scope(uid):
                     manifest_for_rank = get_manifest_for_rank(self.metadata, rank)
                     storage = _storage_for(self.path, self._storage_options)
-                    keys = sorted(app_state)
+                    # (key, is RNG state) of this rank's app_state; over
+                    # ranks, the union of the keys (a rank-local stateful
+                    # is restored where it lives), a key RNG state when
+                    # any rank holds it so: every rank loops the same
+                    # keys in the same order, barrier by barrier
+                    local = [(k, isinstance(app_state[k], RNGState)) for k in sorted(app_state)]
                     if world > 1:
-                        gathered = coordinator.all_gather_object(keys)
-                        if any(g != keys for g in gathered):
-                            raise ValueError(
-                                f"restore: the ranks' app_state keys differ: {gathered}"
-                            )
-                    # every object the keys would read, refused before
-                    # any key restores if one is stored encoded
+                        flags: Dict[str, bool] = {}
+                        for g in coordinator.all_gather_object(local):
+                            for k, is_rng in g:
+                                flags[k] = flags.get(k, False) or is_rng
+                    else:
+                        flags = dict(local)
+                    # RNG state last, so no other restore can perturb it
+                    keys = sorted(flags, key=lambda k: (flags[k], k))
+                    # every chunk-referenced object this rank's keys would
+                    # read, refused before any key restores
                     _refuse_encoded(self.metadata, (
                         location
                         for p, e in manifest_for_rank.items()
-                        if any(p == k or p.startswith(k + "/") for k in keys)
+                        if any(p == k or p.startswith(k + "/") for k in app_state)
                         and (paths is None or path_is_replicated(p, paths))
                         for location in _entry_locations(e)
                     ))
-                    # RNG state last, so no other restore can perturb it
-                    keys.sort(key=lambda k: isinstance(app_state[k], RNGState))
                     for key in keys:
-                        self._load_stateful(
-                            key, app_state[key], manifest_for_rank, storage,
-                            strict, rank, device, paths, priority,
-                        )
+                        if key in app_state:
+                            self._load_stateful(
+                                key, app_state[key], manifest_for_rank, storage,
+                                strict, rank, device, paths, priority,
+                            )
                         if world > 1:
                             # one load_state_dict at a time across ranks,
                             # in case one runs collectives
@@ -1047,7 +1091,8 @@ class Snapshot:
             if not knobs.is_batching_disabled():
                 read_reqs = batch_read_requests(read_reqs)
             sync_execute_read_reqs(
-                read_reqs, storage, get_process_memory_budget_bytes(), rank
+                read_reqs, storage, get_process_memory_budget_bytes(), rank,
+                codec_tables=self._codec_tables(),
             )
             state_dict = inflate(
                 container_entries,
@@ -1117,6 +1162,7 @@ class Snapshot:
                 sync_execute_read_reqs(
                     reqs, storage,
                     memory_budget_bytes or get_process_memory_budget_bytes(), rank=0,
+                    codec_tables=self._codec_tables(),
                 )
             finally:
                 storage.sync_close()
@@ -1135,7 +1181,7 @@ class Snapshot:
         entry per app_state key.  Tensors come back on ``device``
         (``"cpu"`` for host tensors).  The JAX package returns read-only
         numpy views backed by mmap; the port has no mmap reads yet
-        (ROADMAP queue A item 5), so each leaf is a tensor of its own.
+        (ROADMAP queue A item 3.4), so each leaf is a tensor of its own.
         ``priority`` orders the reads as ``restore``'s does.  A
         ``PyTreeState``'s list and tuple nodes come back as index-keyed
         dicts (its structure lives in the tree, not the manifest)."""
@@ -1168,7 +1214,8 @@ class Snapshot:
             storage = _storage_for(self.path, self._storage_options)
             try:
                 sync_execute_read_reqs(
-                    read_reqs, storage, get_process_memory_budget_bytes(), rank
+                    read_reqs, storage, get_process_memory_budget_bytes(), rank,
+                    codec_tables=self._codec_tables(),
                 )
             finally:
                 storage.sync_close()
@@ -1181,13 +1228,13 @@ class Snapshot:
     def publish_to(self, publisher: Any, step: int) -> str:
         raise NotImplementedError(
             "Snapshot.publish_to (live-weight publication) is not ported yet "
-            "(ROADMAP queue A item 7)"
+            "(ROADMAP queue A item 5)"
         )
 
     def repair_degraded(self, *args: Any, **kwargs: Any) -> Any:
         raise NotImplementedError(
             "Snapshot.repair_degraded (write takeover and repair) is not ported "
-            "yet (ROADMAP queue A item 7)"
+            "yet (ROADMAP queue A item 5)"
         )
 
     def verify(self, deep: bool = False) -> Any:

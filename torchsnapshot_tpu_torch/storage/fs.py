@@ -9,9 +9,19 @@ moves payloads around the page cache.  ``FASTIO=0`` or
 ``ENABLE_NATIVE_EXT=0`` keep the pure-Python legs, which write and read
 the same bytes.  ``delete``, ``stat`` and ``link_from`` (a hardlink of
 a base snapshot's object for incremental takes, a copy across devices)
-serve retention, verification and dedup.  Not ported: striped part
-handles, the retry policy, the circuit breaker, failpoints and mmap
-reads.
+serve retention, verification and dedup.  Not ported: mmap reads
+(ROADMAP queue A item 3.4).
+
+Writes, reads and stats run under the shared retry policy
+(``resilience/retry.py``: EINTR and EAGAIN retry, anything else is
+fatal) and feed the ``fs`` circuit breaker; the failpoint sites are
+``storage.fs.write``, ``storage.fs.write.sync`` (before the rename
+commits a file), ``storage.fs.read`` and ``storage.fs.part.write``.
+``begin_striped_write`` opens a striped write (``storage/stripe.py``):
+parts are written at their offsets into a preallocated sibling temp
+file, each through the fast-I/O engine with its digest fused into the
+write, each retried on its own; ``complete`` trims the file to the
+bytes written and renames it into place, ``abort`` unlinks it.
 
 The commit discipline is the same on both legs: every write lands in a
 unique sibling temp file and is ``os.replace``d onto its final name, so
@@ -30,19 +40,22 @@ latency and byte metrics (``storage.fs.*``) and, traced, a
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import errno
 import os
 import shutil
+import threading
 import uuid
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Optional, Tuple
+from typing import Any, Dict, Iterator, Optional, Tuple
 
-import numpy as np
 
 from .. import _csrc, knobs, obs
-from ..io_types import ReadIO, StoragePlugin, WriteIO
+from ..io_types import ReadIO, StoragePlugin, StripedWriteHandle, WriteIO, resolve_read_destination
+from ..resilience import classify_fs, get_breaker, lazy_shared_progress, retry_call
+from ..resilience.failpoints import failpoint
 from ..utils.checksums import crc32_fast
-from . import fastio
+from . import fastio, stripe
 
 
 def _tmp_name(full: str) -> str:
@@ -66,15 +79,11 @@ def _fsync_dir_chain(leaf_dir: str, stop_below: str) -> None:
         cur = os.path.dirname(cur)
 
 
-def _destination(into: Any, length: int) -> Any:
-    """``into`` when it is a writable buffer of ``length`` bytes, else a
-    fresh uninitialised one (np.empty: zeroing memory the read is about
-    to overwrite costs a full extra pass)."""
-    if into is not None:
-        view = memoryview(into).cast("B")
-        if not view.readonly and view.nbytes == length:
-            return into
-    return np.empty(length, dtype=np.uint8)
+def _unlink_quiet(path: str) -> None:
+    try:
+        os.unlink(path)
+    except OSError:
+        pass
 
 
 @obs.instrument_storage("fs")
@@ -87,6 +96,8 @@ class FSStoragePlugin(StoragePlugin):
         if knobs.fastio_enabled():
             self._fastio = fastio.create_engine(_csrc.enabled_lib(), root)
         self.supports_fused_digest = self._fastio is not None
+        # the striped handles fuse part digests on the same condition
+        self.supports_fused_part_digest = self.supports_fused_digest
         self._executor = ThreadPoolExecutor(
             max_workers=knobs.get_max_per_rank_io_concurrency(),
             thread_name_prefix="tsnp-torch-fsio",
@@ -98,6 +109,14 @@ class FSStoragePlugin(StoragePlugin):
     async def _off_loop(self, fn, *args):
         return await asyncio.get_running_loop().run_in_executor(
             self._executor, fn, *args
+        )
+
+    async def _retry(self, fn, op_name: str, breaker: Any = None):
+        """``fn`` on the plugin's threads under the shared retry policy."""
+        return await retry_call(
+            fn, op_name=op_name, backend="fs", classify=classify_fs,
+            progress=lazy_shared_progress(self, "fs"), executor=self._executor,
+            breaker=breaker,
         )
 
     def _write_file(self, tmp: str, view: memoryview, sync: bool, want_digest: bool):
@@ -120,12 +139,10 @@ class FSStoragePlugin(StoragePlugin):
             digests = self._write_file(
                 tmp, view, durable or knobs.is_fs_sync_data(), want_digest
             )
+            failpoint("storage.fs.write.sync", path=full)
             os.replace(tmp, full)
         except BaseException:
-            try:
-                os.unlink(tmp)
-            except OSError:
-                pass
+            _unlink_quiet(tmp)
             raise
         if durable:
             _fsync_dir_chain(os.path.dirname(full), self.root)
@@ -139,9 +156,14 @@ class FSStoragePlugin(StoragePlugin):
         return digests
 
     async def write(self, write_io: WriteIO) -> None:
-        write_io.digests = await self._off_loop(
-            self._write_sync, self._full(write_io.path), write_io.buf,
-            write_io.durable, write_io.want_digest,
+        full = self._full(write_io.path)
+
+        def attempt():
+            failpoint("storage.fs.write", path=write_io.path)
+            return self._write_sync(full, write_io.buf, write_io.durable, write_io.want_digest)
+
+        write_io.digests = await self._retry(
+            attempt, f"write {write_io.path}", breaker=get_breaker("fs")
         )
 
     def _read_sync(self, full: str, byte_range, into=None) -> Any:
@@ -149,7 +171,7 @@ class FSStoragePlugin(StoragePlugin):
             start, length = 0, os.stat(full).st_size
         else:
             start, length = byte_range[0], byte_range[1] - byte_range[0]
-        out = _destination(into, length)
+        out = resolve_read_destination(into, length)
         if self._fastio is not None:
             got = self._fastio.read_into(full, start, length, out) if length else 0
         else:
@@ -167,16 +189,20 @@ class FSStoragePlugin(StoragePlugin):
         return out
 
     async def read(self, read_io: ReadIO) -> None:
-        read_io.buf = await self._off_loop(
-            self._read_sync, self._full(read_io.path), read_io.byte_range,
-            read_io.into,
-        )
+        full = self._full(read_io.path)
+
+        def attempt():
+            failpoint("storage.fs.read", path=read_io.path)
+            return self._read_sync(full, read_io.byte_range, read_io.into)
+
+        read_io.buf = await self._retry(attempt, f"read {read_io.path}")
 
     async def delete(self, path: str) -> None:
         await self._off_loop(os.remove, self._full(path))
 
     async def stat(self, path: str) -> int:
-        return (await self._off_loop(os.stat, self._full(path))).st_size
+        full = self._full(path)
+        return await self._retry(lambda: os.stat(full).st_size, f"stat {path}")
 
     def _link_sync(self, src: str, dst: str) -> None:
         os.makedirs(os.path.dirname(dst), exist_ok=True)
@@ -199,3 +225,153 @@ class FSStoragePlugin(StoragePlugin):
 
     async def close(self) -> None:
         self._executor.shutdown(wait=False)
+
+    # ------------------------------------------------- striped writes
+
+    supports_striped_write = True
+
+    async def begin_striped_write(self, path: str, total_size: int) -> "_FSStripedWriteHandle":
+        full = self._full(path)
+        tmp = _tmp_name(full)
+        # a caller cancelled while the open runs in its thread must not
+        # orphan the temp file: whichever side comes second cleans up
+        lock = threading.Lock()
+        state: Dict[str, Any] = {"abandoned": False, "opened": None}
+
+        def _undo(fds: Tuple[int, int]) -> None:
+            for fd in fds:
+                if fd >= 0:
+                    os.close(fd)
+            _unlink_quiet(tmp)
+
+        def _open():
+            os.makedirs(os.path.dirname(full), exist_ok=True)
+            fd = os.open(tmp, os.O_RDWR | os.O_CREAT | os.O_EXCL | os.O_CLOEXEC, 0o644)
+            fd_direct = -1
+            try:
+                os.ftruncate(fd, total_size)
+                if self._fastio is not None:
+                    # one O_DIRECT fd for every part's aligned body; -1
+                    # when the direct leg is off
+                    fd_direct = self._fastio.open_direct(tmp)
+            except BaseException:
+                _undo((fd, fd_direct))
+                raise
+            with lock:
+                if not state["abandoned"]:
+                    state["opened"] = (fd, fd_direct)
+                    return fd, fd_direct
+            _undo((fd, fd_direct))
+            return None
+
+        try:
+            fd, fd_direct = await self._off_loop(_open)
+        except BaseException:
+            with lock:
+                state["abandoned"] = True
+                opened = state["opened"]
+            if opened is not None:
+                _undo(opened)
+            raise
+        return _FSStripedWriteHandle(self, path, full, tmp, fd, fd_direct)
+
+
+class _FSStripedWriteHandle(StripedWriteHandle):
+    """Offset-parallel part writes into a preallocated sibling temp file.
+    A part is one GIL-free call of the fast-I/O engine, its (crc32,
+    adler32) fused into the pass that writes it; with ``FASTIO=0`` it is
+    an ``os.pwrite`` loop and the stripe engine digests the bytes in one
+    more pass.  Each part, and the commit, retries on its own and feeds
+    the ``fs`` breaker.  ``complete`` trims the file to the highest byte written
+    (encoded parts are smaller than the preallocation), fdatasyncs it
+    under ``FS_SYNC_DATA`` and renames it onto the final name; ``abort``
+    closes and unlinks it, so no partial file is ever visible."""
+
+    def __init__(self, plugin: FSStoragePlugin, path: str, full: str, tmp: str, fd: int, fd_direct: int) -> None:
+        self._plugin = plugin
+        self._path = path
+        self._final = full
+        self._tmp = tmp
+        self._fd = fd
+        self._fd_direct = fd_direct
+        self._closed = False
+        self.supports_fused_digest = plugin._fastio is not None
+        self._hwm = 0
+        # threads using the fds now: a cancelled part's thread may still be
+        # writing, so abort closes the fds (whose numbers the process may
+        # reuse) only once none is
+        self._active = 0
+        self._idle = threading.Condition()
+
+    @contextlib.contextmanager
+    def _using_fds(self) -> Iterator[None]:
+        with self._idle:
+            if self._closed:
+                raise OSError(errno.EBADF, "striped write already closed", self._tmp)
+            self._active += 1
+        try:
+            yield
+        finally:
+            with self._idle:
+                self._active -= 1
+                self._idle.notify_all()
+
+    async def write_part(self, index: int, offset: int, buf, want_digest: bool = False):
+        view = memoryview(buf).cast("B")
+        self._hwm = max(self._hwm, offset + view.nbytes)
+        engine = self._plugin._fastio
+
+        def attempt():
+            failpoint("storage.fs.part.write", path=self._path, part=index)
+            with self._using_fds():
+                if engine is not None:
+                    return engine.pwrite_part(self._fd, self._fd_direct, offset, view, want_digest)
+                pos = 0
+                while pos < view.nbytes:
+                    pos += os.pwrite(self._fd, view[pos:], offset + pos)
+                return None
+
+        return await self._plugin._retry(
+            attempt, f"write {self._path} [part {index}]", breaker=get_breaker("fs")
+        )
+
+    async def complete(self) -> None:
+        durable = knobs.is_fs_sync_data()
+
+        def commit() -> None:
+            failpoint("storage.fs.write.sync", path=self._path)
+            with self._using_fds():
+                if os.fstat(self._fd).st_size != self._hwm:
+                    os.ftruncate(self._fd, self._hwm)
+                if durable:
+                    os.fdatasync(self._fd)
+            self._close_fd()
+            os.replace(self._tmp, self._final)
+
+        # the commit retries its transients like a whole-file write's sync
+        # (the JAX package's handle does not retry it); the fd stays open
+        # until the commit succeeds, and abort closes it otherwise
+        try:
+            await self._plugin._retry(commit, f"commit {self._path}", breaker=get_breaker("fs"))
+        except BaseException:
+            await self.abort()
+            raise
+
+    def _close_fd(self) -> None:
+        """Close the fds once no thread uses them (at most
+        ``stripe.WAIT_DEADLINE_S`` of waiting)."""
+        with self._idle:
+            self._idle.wait_for(lambda: self._active == 0, timeout=stripe.WAIT_DEADLINE_S)
+            if self._closed:
+                return
+            self._closed = True
+        if self._fd_direct >= 0:
+            os.close(self._fd_direct)
+        os.close(self._fd)
+
+    async def abort(self) -> None:
+        def cleanup() -> None:
+            self._close_fd()
+            _unlink_quiet(self._tmp)
+
+        await self._plugin._off_loop(cleanup)

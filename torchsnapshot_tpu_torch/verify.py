@@ -16,18 +16,24 @@ the same ``VerifyResult``:
 Primitive entries live in the metadata and are checked by parsing.  A
 snapshot committed degraded lists the paths lost with a dead rank under
 ``degraded`` (excluded from the audit; ``complete`` is then false).  An
-object stored compressed or as content-addressed chunks raises
-``EncodedPayloadError``, as a restore of it does: the port decodes
-neither yet (ROADMAP queue A item 5), and such an object is never
-counted as verified.
+object stored compressed is checked against its codec table: its stored
+size is the sum of its frames, and deep mode decodes its frames and
+compares the raw bytes' crc32s (a frame that fails to decode is
+``unreadable``).  An object stored as content-addressed chunks raises
+``EncodedPayloadError``, as a restore of it does: the port does not
+assemble them yet (ROADMAP queue A item 3.3).
 """
 
 from __future__ import annotations
 
 import asyncio
 import logging
+import os
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
+
+from . import codec
 
 from .event import Event
 from .event_handlers import log_event
@@ -162,16 +168,23 @@ def _crc_targets(manifest: Dict[str, Entry]) -> List[Tuple[str, Optional[List[in
 
 
 def _check_crcs(
-    storage: Any, manifest: Dict[str, Entry], result: VerifyResult, extents: Dict[str, int]
+    storage: Any, manifest: Dict[str, Entry], result: VerifyResult, extents: Dict[str, int],
+    codec_tables: Dict[str, Any],
 ) -> set:
     """Deep mode: read every checksummed payload again and compare its
-    crc32.  Returns the ``(location, byte_range)`` keys that verified.
-    Reads are admitted under the process staging budget (each holds its
-    whole payload), one oversized payload alone."""
+    crc32 (an encoded object's payload decoded from its frames: the
+    recorded crc32s are the raw bytes').  Returns the ``(location,
+    byte_range)`` keys that verified.  Reads are admitted under the
+    process staging budget (each holds its whole payload), one oversized
+    payload alone."""
     targets = _crc_targets(manifest)
     if not targets:
         return set()
     budget_cap = get_process_memory_budget_bytes()
+    # frames decode here, off the loop the reads overlap on
+    decode_pool = ThreadPoolExecutor(
+        max_workers=max(1, os.cpu_count() or 1), thread_name_prefix="tsnp-torch-verify"
+    )
 
     def size_of(loc: str, byte_range: Any) -> int:
         return int(byte_range[1]) - int(byte_range[0]) if byte_range else extents.get(loc, 0)
@@ -189,9 +202,17 @@ def _check_crcs(
                 in_use += nbytes
             try:
                 async with sem:
-                    read_io = ReadIO(path=loc, byte_range=list(byte_range) if byte_range else None)
-                    await storage.read(read_io)
-                    return loc, byte_range, crc, crc32_fast(memoryview(read_io.buf).cast("B")), None
+                    rng = list(byte_range) if byte_range else None
+                    table = codec_tables.get(loc)
+                    if table is not None:
+                        buf = await codec.framed_read(
+                            storage, loc, table, byte_range=rng, executor=decode_pool
+                        )
+                    else:
+                        read_io = ReadIO(path=loc, byte_range=rng)
+                        await storage.read(read_io)
+                        buf = read_io.buf
+                    return loc, byte_range, crc, crc32_fast(memoryview(buf).cast("B")), None
             except Exception as e:  # noqa: BLE001 — reported per payload
                 return loc, byte_range, crc, None, e
             finally:
@@ -202,7 +223,11 @@ def _check_crcs(
         return await asyncio.gather(*(one(*t) for t in targets))
 
     verified = set()
-    for loc, byte_range, crc, actual, err in run_in_fresh_loop(gather()):
+    try:
+        outcomes = run_in_fresh_loop(gather())
+    finally:
+        decode_pool.shutdown(wait=False)
+    for loc, byte_range, crc, actual, err in outcomes:
         if err is not None:
             # a missing object is already reported by the stat pass
             if not isinstance(err, FileNotFoundError):
@@ -246,6 +271,7 @@ def _verify_impl(snapshot: Any, deep: bool, rank: int) -> VerifyResult:
     metadata = snapshot.metadata
     manifest = dict(get_manifest_for_rank(metadata, rank))
     _refuse_encoded(metadata, (loc for e in manifest.values() for loc in _entry_locations(e)))
+    codec_tables = snapshot._codec_tables() or {}
     # paths lost with a dead rank are absent by contract; the same view
     # rule as restore's decides which of them this rank's audit would read
     degraded_meta = metadata.degraded or {}
@@ -270,6 +296,12 @@ def _verify_impl(snapshot: Any, deep: bool, rank: int) -> VerifyResult:
             for loc, rec in (metadata.objects or {}).items()
             if isinstance(rec, (list, tuple)) and len(rec) == 3
         }
+        # an encoded object stores its frames: its size is theirs
+        for loc, tbl in codec_tables.items():
+            stored = codec.table_stored_size(tbl)
+            exact_sizes[loc] = stored
+            if loc in extents:
+                extents[loc] = stored
         for location, outcome in _stat_all(storage, sorted(extents)):
             if isinstance(outcome, FileNotFoundError):
                 result.missing.append(location)
@@ -283,7 +315,9 @@ def _verify_impl(snapshot: Any, deep: bool, rank: int) -> VerifyResult:
                 elif outcome < extents[location]:
                     result.truncated.append((location, extents[location], outcome))
 
-        crc_verified = _check_crcs(storage, manifest, result, extents) if deep else set()
+        crc_verified = (
+            _check_crcs(storage, manifest, result, extents, codec_tables) if deep else set()
+        )
         for lpath, entry in sorted(manifest.items()):
             if is_container_entry(entry):
                 continue
@@ -299,7 +333,8 @@ def _verify_impl(snapshot: Any, deep: bool, rank: int) -> VerifyResult:
             try:
                 read_reqs, fut = prepare_read(entry)
                 sync_execute_read_reqs(
-                    list(read_reqs), storage, get_process_memory_budget_bytes(), rank
+                    list(read_reqs), storage, get_process_memory_budget_bytes(), rank,
+                    codec_tables=codec_tables or None,
                 )
                 if fut.obj is None:
                     raise RuntimeError("read produced no value")
