@@ -36,7 +36,7 @@ is no card or anything below fails.  In order:
    for K4 + K5, ``copy_`` into the template's range for K6) are timed 5
    times: median, range, share of the bound, TFLOP/s for K3-K5; K1 both
    as ``pack_slab`` is called and as its launch alone;
-4. ten paths, each with the launch counters set to 0 just before it
+4. eleven paths, each with the launch counters set to 0 just before it
    and read just after (a path that starts processes adds the launches
    they report), all with the fast-I/O engine at its defaults unless
    the path says otherwise:
@@ -52,7 +52,8 @@ is no card or anything below fails.  In order:
       (the fs plugin's pure-Python legs), FASTIO=1 (the native engine,
       digests fused into its writes) and FASTIO=1 + FASTIO_DIRECT=1
       (O_DIRECT where the work directory takes it), twice each in
-      alternating order, each snapshot deleted after use: every restore
+      alternating order, the restores under MMAP=0 (a mapped read never
+      reaches the engine), each snapshot deleted after use: every restore
       bitwise, every manifest's digests equal; it prints the library,
       whether O_DIRECT is active, each setting's median and range and
       its seven ``storage.fastio`` counters.  After c it also prints
@@ -76,8 +77,9 @@ is no card or anything below fails.  In order:
       of 128 MiB or more move as concurrent 64 MiB parts); here a sync
       take and a restore must count one striped write and one striped
       read per object the manifest holds at that size, restored bitwise,
-      then 3 takes and restores each at the default and at
-      STRIPE_MIN_OBJECT_SIZE_BYTES=0, alternating (medians, ranges).
+      then 2 takes and restores each at the default and at
+      STRIPE_MIN_OBJECT_SIZE_BYTES=0, alternating (medians, ranges); these
+      restores run under MMAP=0, since a mapped read is never striped.
       CODEC=huff on the whole state plus f32 copies of one layer's
       moments: parts must be encoded (no quiet degrade to raw); stored/raw
       per dtype from the codec tables, encode and decode GB/s a thread
@@ -159,7 +161,7 @@ is no card or anything below fails.  In order:
       bitwise.  Then ``restore_latest`` into a zeroed model and
       optimizer (bitwise, K2, the next loss bitwise); a warm start with
       ``restore(paths=["model/**"])`` (the optimizer keeps its fresh
-      state); the model restored with ``priority`` and without, 3 runs
+      state); the model restored with ``priority`` and without, 2 runs
       each alternating, traced: when the first class's consumes ended
       against the whole restore; f32 moments (a mixed-precision
       master's) taken through a ``leaf_transform`` to bf16 and restored
@@ -168,7 +170,32 @@ is no card or anything below fails.  In order:
       ``materialize`` on the card and the host, ``get_manifest``,
       ``verify(deep=True)``, a copy with one flipped byte reported
       ``corrupt``, and ``python -m torchsnapshot_tpu_torch verify
-      --deep`` exiting 0 on the step and 1 on the copy.
+      --deep`` exiting 0 on the step and 1 on the copy;
+   h. cas_mmap (after g): the same fine-tune under
+      ``SnapshotManager(cas=True, keep_last_n=2)``: step 0 sync (the
+      chunks written plus shared equal the bytes taken), a training
+      step, step 1 incremental async and traced with the device-copy
+      budget pushed below half the embedding, so the frozen embedding and
+      LM head take blocking pinned copies and stream chunk by chunk
+      (``cas/stream_write`` spans; at least their 524,288,000 bytes
+      shared), step 2 sync, each save's seconds beside g's hardlinked
+      ones; ``restore_latest`` into a zeroed state (K2 on slabs assembled
+      from the pool, bitwise, the next loss bitwise) and a 32 MiB-budget
+      ``read_object`` of the embedding into an f32 template (K6, tiles
+      straddling chunks); retention deleting step 0 metadata first and
+      releasing its refs, ``cas_gc(grace_s=0)`` sweeping exactly the
+      chunks no committed step references, deep ``verify`` of steps 1 and
+      2, ``fsck()`` rebuilding a deleted ``index.json`` with the same live
+      keys, ``python -m torchsnapshot_tpu_torch cas <pool> --json``.  Then
+      mapped against copying reads on a's state: where the work
+      directory lives and how fast a mapped file reads there, 2 restores
+      under MMAP=1 and 2 under MMAP=0, alternating, each bitwise into a
+      zeroed state (``storage.mmap.reads`` equal to the restore's reads
+      under MMAP=1, 0 under MMAP=0); ``materialize(device="cpu")``
+      returning tensors over the mappings (a written one leaves its file
+      unchanged) and ``materialize(device="cuda")`` bitwise; and the CLI's
+      ``stats --json``, ``doctor`` and ``trace`` (on the card, Perfetto
+      under ``build/traces/``) on the CAS step.
 
 Every kernel must have launched on these paths, and each path on the
 kernels it runs.  The line before the last is the card; the line before
@@ -203,7 +230,7 @@ from torchsnapshot_tpu_torch.ops import device_pack, flash_attention, kernels
 from torchsnapshot_tpu_torch.parallel.ring_attention import dense_attention, ring_attention
 from torchsnapshot_tpu_torch.preparers import array as array_preparer
 from torchsnapshot_tpu_torch.preparers import prepare_write
-from torchsnapshot_tpu_torch.serialization import dtype_to_string
+from torchsnapshot_tpu_torch.serialization import dtype_to_string, string_to_dtype
 from torchsnapshot_tpu_torch.storage.fs import FSStoragePlugin
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bandwidth, bf16 tensor rate
@@ -788,7 +815,8 @@ def phase_fastio(cfg, model, opt, work):
     FASTIO=1 + FASTIO_DIRECT=1, ``FASTIO_REPEATS`` times each in
     alternating order, each snapshot deleted after use.  Every restore
     lands in a zeroed model and optimizer and must equal the state
-    bitwise; every snapshot's manifest digests must equal the first's."""
+    bitwise; every snapshot's manifest digests must equal the first's.
+    The restores run under MMAP=0, so they read through the engine."""
     from torchsnapshot_tpu_torch import _csrc, knobs
     from torchsnapshot_tpu_torch.storage.fs import FSStoragePlugin
 
@@ -817,7 +845,8 @@ def phase_fastio(cfg, model, opt, work):
             os.sync()  # no earlier run's dirty pages in this one's way
             sync_s = time.perf_counter() - t0
             before = tts.obs.counters()
-            with knobs.override_fastio(fio), knobs.override_fastio_direct(fdirect):
+            # MMAP=0: a mapped restore never reaches the engine's reads
+            with knobs.override_fastio(fio), knobs.override_fastio_direct(fdirect), knobs.override_mmap(False):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 tts.Snapshot.take(snap_dir, {"model": model, "optim": opt})
@@ -859,7 +888,7 @@ def phase_fastio(cfg, model, opt, work):
     del model2, opt2
 
 
-STRIPE_REPEATS = 3
+STRIPE_REPEATS = 2
 # raw bytes a frame of the embedding read back in 32 MiB tiles: not a
 # divisor or multiple of the tile, so tiles straddle frames
 READ_FRAME_BYTES = 40 << 20
@@ -988,7 +1017,9 @@ def phase_stripe_codec(cfg, model, opt, work):
     zero_state(model2, opt2)
     before = tts.obs.counters()
     t0 = time.perf_counter()
-    tts.Snapshot(snap_dir).restore({"model": model2, "optim": opt2})
+    # MMAP=0 here and in the comparison below: a mapped read is never striped
+    with knobs.override_mmap(False):
+        tts.Snapshot(snap_dir).restore({"model": model2, "optim": opt2})
     torch.cuda.synchronize()
     restore_s = time.perf_counter() - t0
     read = counter_delta(before, names)
@@ -1012,7 +1043,8 @@ def phase_stripe_codec(cfg, model, opt, work):
             snap_dir = os.path.join(root, f"rep{rep}")
             zero_state(model2, opt2)
             os.sync()
-            with knobs.override_stripe_min_object_size_bytes(threshold if label == "striped" else 0):
+            with knobs.override_stripe_min_object_size_bytes(threshold if label == "striped" else 0), \
+                    knobs.override_mmap(False):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 tts.Snapshot.take(snap_dir, app)
@@ -2182,7 +2214,10 @@ def phase_sharded(cfg, work):
 
 
 LIFECYCLE_PRIORITY = ["model/embed*", "model/layer0.*"]
-LIFECYCLE_REPEATS = 3
+LIFECYCLE_REPEATS = 2
+# phase_lifecycle's save seconds, printed beside cas_mmap's
+LIFECYCLE_SAVE_S = {}
+MMAP_REPEATS = 2  # restores per MMAP setting, alternating
 
 
 def fine_tune_state(cfg, seed):
@@ -2330,6 +2365,8 @@ def phase_lifecycle(cfg, work):
     mgr.snapshot(1).restore({"model": model1, "optim": opt1, "rng": tts.RNGState(), "meta": meta1})
     differs = state_differs(saved[1], model1, opt1, meta1)
     check(differs is None, f"step 1 after retention: {differs}")
+    LIFECYCLE_SAVE_S.update(full=times[0], unblock=unblock_s, incremental_async=times[1],
+                            incremental_sync=times[2])
     print(f"lifecycle saves: full (step 0, sync) {times[0]:.3f} s; incremental async (step 1) unblocked in "
           f"{unblock_s:.4f} s, committed in {times[1]:.3f} s; incremental sync (step 2) {times[2]:.3f} s; "
           f"deduped bytes {dedup[1]} and {dedup[2]} (the frozen tensors: {frozen_bytes}); retention deleted "
@@ -2479,6 +2516,321 @@ def phase_lifecycle(cfg, work):
     shutil.rmtree(root)
 
 
+def mount_of(path):
+    """(mount point, filesystem type) holding ``path``, from /proc/mounts."""
+    path = os.path.realpath(path)
+    best = ("/", "?")
+    with open("/proc/mounts") as f:
+        for line in f:
+            mnt, fstype = line.split()[1:3]
+            if (path == mnt or path.startswith(mnt.rstrip("/") + "/")) and len(mnt) >= len(best[0]):
+                best = (mnt, fstype)
+    return best
+
+
+def map_against_read(path):
+    """One file to the card, page cache warm, best of 3 each: mapped
+    (``mmap_read``, then the host-to-device copy straight from its pages)
+    against read into a fresh buffer first (the copying restore's legs)."""
+    import numpy as np
+
+    from torchsnapshot_tpu_torch.storage.fs import mmap_read
+
+    size = os.path.getsize(path)
+    best = {}
+    for label in ("mapped", "read", "mapped", "read", "mapped", "read"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if label == "mapped":
+            host = mmap_read(path, None)
+        else:
+            host = np.empty(size, np.uint8)
+            with open(path, "rb", buffering=0) as f:
+                check(f.readinto(host) == size, f"short read of {path}")
+        dev = torch.frombuffer(memoryview(host), dtype=torch.uint8).to("cuda")
+        torch.cuda.synchronize()
+        best[label] = min(best.get(label, 1e9), time.perf_counter() - t0)
+        del host, dev
+    return size, best
+
+
+def cas_pool_keys(pool):
+    return {f for _, _, files in os.walk(os.path.join(pool, "objects")) for f in files}
+
+
+def phase_cas_mmap(cfg, work):
+    """The chunk store on the fine-tune and mapped reads on the serving
+    state (see the module docstring, path h)."""
+    import zlib
+
+    from torchsnapshot_tpu_torch import cas as cas_mod
+    from torchsnapshot_tpu_torch import knobs
+    from torchsnapshot_tpu_torch.io_types import is_mmap_backed
+
+    root = os.path.join(work, "cas_mmap")
+    pool = os.path.join(root, "cas")
+    mgr = tts.SnapshotManager(root, keep_last_n=2, cas=True)
+    model, opt = fine_tune_state(cfg, seed=41)
+    meta = tts.StateDict(step=0)
+    app = {"model": model, "optim": opt, "rng": tts.RNGState(), "meta": meta}
+    g = torch.Generator(device="cuda").manual_seed(42)
+
+    def batch():
+        return torch.randint(0, cfg.vocab, (1, 129), device="cuda", generator=g)
+
+    frozen_bytes = nbytes(model.embed.weight) + nbytes(model.lm_head.weight)
+    cas_names = (tts.obs.CAS_BYTES_WRITTEN, tts.obs.CAS_BYTES_SHARED)
+    device = torch.device("cuda", torch.cuda.current_device())
+
+    # 1. saves: step 0 sync, step 1 incremental async under pressure
+    # (traced), step 2 sync (retention evicts step 0)
+    saved, times, moved = {}, {}, {}
+    deleted = []
+    real_delete = FSStoragePlugin.delete
+
+    async def recording_delete(plugin, path):
+        deleted.append((plugin.root, path))
+        return await real_delete(plugin, path)
+
+    fine_tune_step(model, opt, batch())
+    for step in range(3):
+        if step:
+            fine_tune_step(model, opt, batch())
+        meta["step"] = step
+        saved[step] = clone_state(model, opt, meta)
+        extra = []
+        if step == 1:
+            # blocking pinned copies for the large leaves: they stream
+            for _ in range(400):
+                if host_offload.device_copy_budget_bytes(device) < nbytes(model.embed.weight) // 2:
+                    break
+                extra.append(torch.empty(256 << 20, dtype=torch.uint8, device="cuda"))
+            budget = host_offload.device_copy_budget_bytes(device)
+            check(budget < nbytes(model.embed.weight) // 2, f"the device-copy budget stayed at {budget} bytes")
+        before = tts.obs.counters()
+        FSStoragePlugin.delete = recording_delete
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if step == 1:
+                with knobs.override_trace(1):
+                    tts.obs.get_tracer().reset()
+                    handle = mgr.save(app, step=step, incremental=True, async_=True)
+                    unblock_s = time.perf_counter() - t0
+                    offload = dict(host_offload.LAST_OFFLOAD_STATS)
+                    handle.wait()
+                    streams = len(spans_named("cas/stream_write"))
+                tts.obs.get_tracer().reset()
+            else:
+                mgr.save(app, step=step, incremental=step > 0)
+            times[step] = time.perf_counter() - t0
+        finally:
+            FSStoragePlugin.delete = real_delete
+        del extra
+        moved[step] = counter_delta(before, cas_names)
+        tables = mgr.snapshot(step).metadata.cas["chunks"]
+        taken = sum(int(t["size"]) for t in tables.values())
+        check(sum(moved[step].values()) == taken,
+              f"step {step}: {moved[step]} written and shared, {taken} bytes taken")
+        check(not [f for f in os.listdir(mgr.path_for_step(step)) if not f.startswith(".")],
+              f"step {step} holds per-step objects")
+    check(streams > 0, "step 1 streamed no chunk (no cas/stream_write span)")
+    check(moved[1][tts.obs.CAS_BYTES_SHARED] >= frozen_bytes,
+          f"step 1 shared {moved[1][tts.obs.CAS_BYTES_SHARED]} < the frozen {frozen_bytes} bytes")
+    step0 = mgr.path_for_step(0)
+    gone = [p for r, p in deleted if r == step0]
+    check(mgr.steps() == [1, 2] and not os.path.exists(step0), f"retention kept {mgr.steps()}")
+    check(gone and gone[0] == ".snapshot_metadata", f"retention deleted {gone[:1]} of step 0 first")
+    index = cas_mod.ChunkIndex.load(cas_mod.ChunkStore(pool))
+    check(not any(cas_mod.norm_ref(step0) in e["refs"] for e in index.chunks.values()),
+          "retention left step 0's refs in the index")
+    lc = LIFECYCLE_SAVE_S
+    print(f"cas_mmap saves (chunk {knobs.get_cas_chunk_size_bytes()} bytes): step 0 sync {times[0]:.3f} s "
+          f"[hardlinked lifecycle full {lc.get('full', float('nan')):.3f} s], written/shared {json.dumps(moved[0])}; "
+          f"step 1 incremental async unblock {unblock_s:.4f} s, committed {times[1]:.3f} s [lifecycle "
+          f"{lc.get('unblock', float('nan')):.4f} / {lc.get('incremental_async', float('nan')):.3f} s], device-copy "
+          f"budget {budget} bytes, device copies {offload['device_copy_bytes']} bytes, blocking host copies "
+          f"{offload['blocking_host_bytes']} bytes, {streams} cas/stream_write spans, written/shared "
+          f"{json.dumps(moved[1])}; step 2 sync {times[2]:.3f} s [lifecycle "
+          f"{lc.get('incremental_sync', float('nan')):.3f} s], written/shared {json.dumps(moved[2])}; retention "
+          f"deleted step 0 ({len(gone)} deletes, .snapshot_metadata first) and released its refs")
+
+    # 2. restore from the pool
+    model1, opt1 = fine_tune_state(cfg, seed=43)
+    fine_tune_step(model1, opt1, batch())
+    zero_state(model1, opt1)
+    meta1 = tts.StateDict(step=-1)
+    k2 = device_pack.LAUNCHES["slab_unpack"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step = mgr.restore_latest({"model": model1, "optim": opt1, "rng": tts.RNGState(), "meta": meta1})
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    differs = state_differs(saved[2], model1, opt1, meta1)
+    check(step == 2 and differs is None, f"cas restore_latest: step {step}, {differs}")
+    check(device_pack.LAUNCHES["slab_unpack"] > k2, "the restore from the pool launched no K2")
+    tokens = batch()
+    loss, loss1 = fine_tune_step(model, opt, tokens), fine_tune_step(model1, opt1, tokens)
+    check(torch.equal(loss, loss1), f"resumed loss {loss1.item()} != {loss.item()}")
+    del model1, opt1
+    template = torch.zeros(model.embed.weight.shape, dtype=torch.float32, device="cuda")
+    k6 = device_pack.LAUNCHES["tile_update"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr.snapshot(2).read_object("0/model/embed.weight", obj_out=template, memory_budget_bytes=READ_BUDGET)
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    check(torch.equal(template, saved[2][0]["embed.weight"].float()), "budgeted read of the pooled embedding differs")
+    check(device_pack.LAUNCHES["tile_update"] > k6, "the budgeted read from the pool launched no K6")
+    print(f"cas_mmap restore: restore_latest step 2 from the pool in {resume_s:.3f} s, bitwise, K2 launches "
+          f"{device_pack.LAUNCHES['slab_unpack'] - k2}, next loss {loss.item()!r} equal bitwise; read_object of "
+          f"the embedding into f32 under {READ_BUDGET} bytes {read_s:.4f} s, K6 launches "
+          f"{device_pack.LAUNCHES['tile_update'] - k6}, equal to the cast")
+    del template
+
+    # 3. GC and audit
+    referenced = set()
+    for s_ in (1, 2):
+        for t in mgr.snapshot(s_).metadata.cas["chunks"].values():
+            referenced.update(t["keys"])
+    pool_before = cas_pool_keys(pool)
+    t0 = time.perf_counter()
+    swept = mgr.cas_gc(grace_s=0)
+    gc_s = time.perf_counter() - t0
+    check(set(cas_mod.ChunkIndex.load(cas_mod.ChunkStore(pool)).chunks) == referenced == cas_pool_keys(pool),
+          "cas_gc did not leave exactly the chunks committed steps reference")
+    verify_s = []
+    for s_ in (1, 2):
+        t0 = time.perf_counter()
+        res = mgr.snapshot(s_).verify(deep=True)
+        verify_s.append(round(time.perf_counter() - t0, 3))
+        check(res.ok and res.complete, f"deep verify of step {s_}: {res}")
+    live = cas_mod.ChunkIndex.load(cas_mod.ChunkStore(pool)).live_keys()
+    os.remove(os.path.join(pool, cas_mod.CHUNK_INDEX_FNAME))
+    t0 = time.perf_counter()
+    rebuilt = mgr.fsck()
+    fsck_s = time.perf_counter() - t0
+    check(cas_mod.ChunkIndex.load(cas_mod.ChunkStore(pool)).live_keys() == live, "fsck rebuilt other live keys")
+    proc = subprocess.run([sys.executable, "-m", "torchsnapshot_tpu_torch", "cas", pool, "--json"],
+                          cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+                          timeout=300)
+    check(proc.returncode == 0, f"cas --json exited {proc.returncode}: {proc.stderr[-300:]}")
+    rollup = json.loads(proc.stdout)["index"]
+    print(f"cas_mmap gc: {len(pool_before)} chunks in the pool, cas_gc(grace_s=0) {gc_s:.3f} s swept "
+          f"{swept['swept_chunks']} ({swept['swept_bytes']} bytes), {len(referenced)} referenced kept; deep verify "
+          f"steps 1, 2 {verify_s} s; fsck {fsck_s:.3f} s rebuilt {rebuilt['chunks']} chunks, the same "
+          f"{len(live)} live keys; cas --json: {rollup['live_chunks']} live, {rollup['live_bytes']} bytes, "
+          f"refcounts {rollup['refcount_histogram']}")
+
+    # 5. the CLI on the CAS step (the pool state is 3's)
+    cli = {}
+    traces = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "traces")
+    os.makedirs(traces, exist_ok=True)
+    out_file = os.path.join(traces, "materialize.json")
+    for name, argv in (("stats", ["stats", mgr.path_for_step(2), "--json"]),
+                       ("doctor", ["doctor", mgr.path_for_step(2)]),
+                       ("trace", ["trace", mgr.path_for_step(2), "--out", out_file])):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "torchsnapshot_tpu_torch", *argv],
+                              cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+                              timeout=300)
+        check(proc.returncode == 0, f"{name} exited {proc.returncode}: {proc.stderr[-300:]}")
+        cli[name] = (round(time.perf_counter() - t0, 2), proc.stdout)
+    cas_stats = json.loads(cli["stats"][1])["cas"]
+    check(cas_stats["chunked_objects"] > 0 and "cas:" in cli["doctor"][1], "stats/doctor show no chunks")
+    print(f"cas_mmap CLI: stats --json {cli['stats'][0]} s ({cas_stats['chunked_objects']} chunked objects, "
+          f"{cas_stats['distinct_chunks']} chunks); doctor {cli['doctor'][0]} s "
+          f"({[ln.strip() for ln in cli['doctor'][1].splitlines() if ln.strip().startswith('cas:')]}); trace on the "
+          f"card {cli['trace'][0]} s: {cli['trace'][1].strip()}, {os.path.getsize(out_file)} bytes")
+    del model, opt, app, saved
+    shutil.rmtree(root)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 4. mapped against copying reads on the serving state
+    where, fstype = mount_of(work)
+    model, opt = deterministic_state(cfg, 3)
+    model2, opt2 = deterministic_state(cfg, 4)
+    snap_dir = os.path.join(work, "mmap")
+    tts.Snapshot.take(snap_dir, {"model": model, "optim": opt})
+    md = tts.Snapshot(snap_dir).metadata
+    big = max(md.objects, key=lambda loc: md.objects[loc][2])
+    size, legs = map_against_read(os.path.join(snap_dir, big))
+    print(f"cas_mmap map: the work directory {work} is on {where} ({fstype}); {big} ({size} bytes) to the card "
+          f"mapped {legs['mapped']:.4f} s ({size / legs['mapped'] / 1e9:.3f} GB/s) against read into a fresh "
+          f"buffer first {legs['read']:.4f} s ({size / legs['read'] / 1e9:.3f} GB/s), best of 3")
+    real_read = FSStoragePlugin.read
+    asked = []
+
+    async def counting_read(plugin, read_io):
+        if not read_io.path.startswith("."):  # the metadata is read whole, never mapped
+            asked.append(read_io.want_mmap)
+        return await real_read(plugin, read_io)
+
+    runs = {"MMAP=1": [], "MMAP=0": []}
+    mapped_bytes = 0
+    for rep in range(MMAP_REPEATS):
+        for label in (("MMAP=1", "MMAP=0") if rep % 2 == 0 else ("MMAP=0", "MMAP=1")):
+            zero_state(model2, opt2)
+            asked.clear()
+            before = tts.obs.counters()
+            FSStoragePlugin.read = counting_read
+            try:
+                with knobs.override_mmap(label == "MMAP=1"):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    tts.Snapshot(snap_dir).restore({"model": model2, "optim": opt2})
+                    torch.cuda.synchronize()
+                    runs[label].append(time.perf_counter() - t0)
+            finally:
+                FSStoragePlugin.read = real_read
+            d = counter_delta(before, (tts.obs.MMAP_READS, tts.obs.MMAP_BYTES_MAPPED))
+            differs = same_state((model, opt), (model2, opt2))
+            check(differs is None, f"mmap {label} run {rep}: restored {differs} differs")
+            want = len(asked) if label == "MMAP=1" else 0
+            check(all(asked) == (label == "MMAP=1") and d[tts.obs.MMAP_READS] == want,
+                  f"mmap {label} run {rep}: {d[tts.obs.MMAP_READS]} mapped reads of {len(asked)} reads")
+            mapped_bytes += d[tts.obs.MMAP_BYTES_MAPPED]
+            print(f"cas_mmap restore {label} run {rep}: {runs[label][-1]:.4f} s, {len(asked)} reads, "
+                  f"{d[tts.obs.MMAP_READS]} mapped ({d[tts.obs.MMAP_BYTES_MAPPED]} bytes), phases "
+                  f"{phases_of(tts.obs.aggregate.last_record('restore'))}")
+    nb = state_bytes(model, opt)
+    for label, ts in runs.items():
+        print(f"cas_mmap restore {label}: state {nb} bytes; {median_range(ts)}")
+    print(f"cas_mmap: storage.mmap.bytes_mapped over the MMAP=1 restores {mapped_bytes}")
+    del model2, opt2
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    got = tts.Snapshot(snap_dir).materialize(device="cpu")
+    cpu_s = time.perf_counter() - t0
+    leaves = {p: t for p, t in flatten(got["model"], prefix="model")[1].items() if isinstance(t, torch.Tensor)}
+    leaves.update({p: t for p, t in flatten(got["optim"], prefix="optim")[1].items() if isinstance(t, torch.Tensor)})
+    # a slab member at an offset its dtype does not divide is copied to
+    # align it (torch needs aligned storage); the rest stay views
+    unaligned = {
+        p.split("/", 1)[1] for p, e in md.manifest.items()
+        if getattr(e, "byte_range", None) and e.byte_range[0] % string_to_dtype(e.dtype).itemsize
+    }
+    unmapped = [p for p, t in leaves.items() if not is_mmap_backed(t) and p not in unaligned]
+    check(not unmapped, f"materialize(cpu) leaves not over a mapping: {unmapped[:3]}")
+    emb = md.manifest["0/model/embed.weight"].location
+    got["model"]["embed.weight"].fill_(1.0)
+    with open(os.path.join(snap_dir, emb), "rb") as f:
+        check(zlib.crc32(f.read()) == md.objects[emb][0], "writing a materialized leaf changed its file")
+    del got, leaves
+    t0 = time.perf_counter()
+    got = tts.Snapshot(snap_dir).materialize(device="cuda")
+    torch.cuda.synchronize()
+    cuda_s = time.perf_counter() - t0
+    bad = [k for k, v in model.state_dict().items() if not torch.equal(got["model"][k], v)]
+    check(not bad, f"materialize(cuda) differs: {bad[:3]}")
+    print(f"cas_mmap materialize: cpu {cpu_s:.3f} s, every aligned leaf over a mapping ({len(unaligned)} "
+          f"unaligned slab members copied), a written leaf left its file's crc32; cuda {cuda_s:.3f} s, bitwise")
+    del got, model, opt
+    shutil.rmtree(snap_dir)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA GPU",
@@ -2590,6 +2942,9 @@ def main():
         gc.collect()
         torch.cuda.empty_cache()
         run_path("lifecycle", ("slab_pack", "slab_unpack", "tile_update"), lambda: phase_lifecycle(cfg, work))
+        gc.collect()
+        torch.cuda.empty_cache()
+        run_path("cas_mmap", ("slab_pack", "slab_unpack", "tile_update"), lambda: phase_cas_mmap(cfg, work))
 
     print(json.dumps({"kernels": list(records.values())}))
     print(card)

@@ -1,11 +1,14 @@
 """``python -m torchsnapshot_tpu_torch`` against ``python -m
-torchsnapshot_tpu``: ``ls``, ``manifest``, ``verify``, ``steps`` and
-``delete`` print the same lines and exit with the same codes on the same
-snapshot and root, written by either package.  The commands the port
-lacks exit 1 naming their ROADMAP item.  One run through a subprocess
-checks the module entry point itself.
+torchsnapshot_tpu``: ``ls``, ``manifest``, ``verify``, ``steps``,
+``delete``, ``stats``, ``doctor`` and ``cas`` print the same lines and
+exit with the same codes on the same snapshot, root and chunk pool,
+written by either package; ``trace --device cpu`` writes a Perfetto file
+with the JAX CLI's read-path span names.  The commands the port lacks
+exit 1 naming their ROADMAP item.  One run through a subprocess checks
+the module entry point itself.
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -99,8 +102,7 @@ def test_steps_and_delete_print_what_jax_prints(tmp_path, writer, capsys):
 
 
 def test_unported_commands_name_their_roadmap_item(tmp_path, capsys):
-    for cmd, item in (("stats", "2"), ("doctor", "2"), ("trace", "2"), ("tiers", "3.5"),
-                      ("cas", "3.3"), ("convert", "4"), ("lint", "8")):
+    for cmd, item in (("tiers", "3.5"), ("convert", "4"), ("lint", "8")):
         rc, out, err = _run(port_main, [cmd, str(tmp_path), "--json"], capsys)
         assert rc == 1 and out == "" and f"queue A item {item}" in err, (cmd, err)
 
@@ -113,3 +115,90 @@ def test_module_entry_point_runs(tmp_path):
         cwd=REPO, capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0 and proc.stdout.startswith("OK ("), proc.stdout + proc.stderr
+
+
+def _cas_root(root, pkg=tts):
+    """A chunk-store manager root with two steps (the second changes one
+    tensor), taken by the port."""
+    from torchsnapshot_tpu_torch import knobs
+
+    with knobs.override_cas_chunk_size_bytes(4096):
+        mgr = tts.SnapshotManager(root, cas=True)
+        for step in (1, 2):
+            mgr.save(_state("port", 1 if step == 1 else 3), step=step)
+    return mgr
+
+
+def test_stats_doctor_and_cas_print_what_jax_prints(tmp_path, capsys):
+    root = str(tmp_path / "root")
+    mgr = _cas_root(root)
+    s1, s2 = mgr.path_for_step(1), mgr.path_for_step(2)
+    plain = str(tmp_path / "plain")
+    jts.Snapshot.take(plain, _state("jax", 4))
+    # stats' cache section reports this process's mapped reads, as the JAX
+    # CLI's does: a fresh CLI process has none
+    tts.obs.reset_metrics()
+    jts.obs.reset_metrics()
+    for path in (s1, s2, plain):
+        for extra in ([], ["--json"], ["--top", "2"]):
+            rc, out, _ = _both(["stats", path, *extra], capsys)
+            assert rc == 0 and path in out
+    assert json.loads(_both(["stats", s2, "--json"], capsys)[1])["cas"]["chunked_objects"] > 0
+    for argv in (["doctor", s1], ["doctor", s2, "--json"], ["doctor", s1, "--diff", s2],
+                 ["doctor", s1, "--diff", s2, "--json"]):
+        rc, out, _ = _both(argv, capsys)
+        assert rc == 0 and out
+    assert "cas:" in _both(["doctor", s1], capsys)[1]
+    for argv in (["cas", f"{root}/cas"], ["cas", f"{root}/cas", "--json"],
+                 ["cas", f"{root}/cas", "--fsck", "--json"]):
+        rc, out, _ = _both(argv, capsys)
+        assert rc == 0 and "live" in out
+    # gc: on two pools built alike (refs are absolute paths), step 1 deleted
+    # by hand (metadata only), so the sweep has chunks to take
+    outs = []
+    for pkg_main, name in ((port_main, "p"), (jax_main, "j")):
+        r = str(tmp_path / name)
+        _cas_root(r)
+        os.remove(f"{r}/step_0000000001/.snapshot_metadata")
+        for argv in (["cas", f"{r}/cas", "--gc", "--grace", "0", "--json"], ["cas", f"{r}/cas", "--gc"]):
+            rc, out, err = _run(pkg_main, argv, capsys)
+            outs.append((rc, out.replace(r, "<root>"), err))
+    assert outs[:2] == outs[2:] and json.loads(outs[0][1])["gc"]["swept_chunks"] > 0
+    # ls reads the manifest only; delete leaves the pool's chunks to GC
+    # (step 1's refs are released, step 2's chunks stay)
+    assert _both(["ls", s1], capsys)[0] == 0
+    pool = set(os.listdir(f"{root}/cas/objects"))
+    rc, out, _ = _run(port_main, ["delete", s1, "--yes"], capsys)
+    assert rc == 0 and out == f"deleted {s1}\n" and not os.path.exists(s1)
+    assert set(os.listdir(f"{root}/cas/objects")) == pool
+    index = jts.cas.ChunkIndex.load(jts.cas.ChunkStore(f"{root}/cas"))
+    assert not any(s1 in e["refs"] for e in index.chunks.values())
+    assert jts.verify_snapshot(s2, deep=True).ok and tts.verify_snapshot(s2, deep=True).ok
+    # a corrupt index: the same message and code
+    with open(f"{root}/cas/index.json", "ab") as f:
+        f.write(b"x")
+    for argv in (["cas", f"{root}/cas"], ["cas", f"{root}/cas", "--json"]):
+        assert _both(argv, capsys)[0] == 1
+    # fleet roots are not ported
+    os.makedirs(tmp_path / "cont" / "steps")
+    rc, out, err = _run(port_main, ["stats", str(tmp_path / "cont")], capsys)
+    assert rc == 1 and out == "" and "queue A item 5" in err
+
+
+_READ_PATH = ("materialize", "pipeline/budget_admission", "pipeline/io", "pipeline/consume",
+              "storage/read", "storage/mmap_read")
+
+
+def test_trace_writes_perfetto_with_the_jax_read_path_spans(tmp_path, capsys):
+    path = str(tmp_path / "s")
+    tts.Snapshot.take(path, _state("port", 5))
+    names = {}
+    for pkg_main, argv in ((port_main, ["--device", "cpu"]), (jax_main, [])):
+        out_file = str(tmp_path / f"{len(names)}.json")
+        rc, out, _ = _run(pkg_main, ["trace", path, "--out", out_file, *argv], capsys)
+        assert rc == 0 and out.startswith("wrote ") and out.endswith(f" spans to {out_file}\n")
+        events = json.load(open(out_file))["traceEvents"]
+        names[len(names)] = sorted(
+            e["name"] for e in events if e.get("ph") == "X" and e["name"] in _READ_PATH
+        )
+    assert names[0] == names[1] and "storage/mmap_read" in names[0]

@@ -959,3 +959,87 @@ def test_part_streamed_async_take_of_offloaded_cuda_state(cuda, tmp_path, monkey
     for k, v in want.items():
         assert torch.equal(dest[k], v), k
     assert torch.equal(tmpl, want["b2"].float())
+
+
+@pytest.mark.parametrize("mode", ["take", "async_take"])
+def test_cas_take_and_restore_of_cuda_state(cuda, tmp_path, monkeypatch, mode):
+    """A content-addressed take of CUDA state: K1 packs the slab and the
+    chunks are cut from the staged bytes; with no device-copy budget
+    ``async_take``'s offloaded large leaf streams chunk by chunk.  A second
+    take of the same state writes nothing new.  The restore assembles
+    the chunks and K2 unpacks the slab, bitwise; a budgeted read of the
+    large leaf into an f32 template lands through K6 in tiles that
+    straddle chunks."""
+    import torchsnapshot_tpu_torch as tts
+    from torchsnapshot_tpu_torch import host_offload, knobs
+    from torchsnapshot_tpu_torch.ops import device_pack as dp
+
+    if mode == "async_take":
+        monkeypatch.setattr(host_offload, "device_copy_budget_bytes", lambda device: 0)
+    want = dict(_cuda_state(cuda, 5))
+    want["big"] = _rand((300, 257), torch.bfloat16, cuda, 14)  # 154 KB
+    tts.obs.reset_metrics()
+    with _stripe_knobs("raw") as stack:
+        stack.enter_context(knobs.override_cas_chunk_size_bytes(32 << 10))
+        before = dp.LAUNCHES["slab_pack"]
+        for step in (0, 1):
+            path = str(tmp_path / f"s{step}")
+            if mode == "take":
+                tts.Snapshot.take(path, {"app": tts.StateDict(want)}, cas=True)
+            else:
+                tts.Snapshot.async_take(path, {"app": tts.StateDict(want)}, cas=True).wait()
+            counts = tts.obs.counters()
+            if step == 0:
+                written = counts["cas.bytes_written"]
+                assert dp.LAUNCHES["slab_pack"] > before and written > 0
+        assert counts["cas.bytes_written"] == written  # the second take moved nothing
+        dest = tts.StateDict({k: torch.zeros_like(v) for k, v in want.items()})
+        before = dp.LAUNCHES["slab_unpack"]
+        tts.Snapshot(str(tmp_path / "s1")).restore({"app": dest})
+        assert dp.LAUNCHES["slab_unpack"] > before
+        tmpl = torch.zeros(300, 257, device=cuda)
+        before = dp.LAUNCHES["tile_update"]
+        tts.Snapshot(str(tmp_path / "s1")).read_object("0/app/big", obj_out=tmpl, memory_budget_bytes=50000)
+        assert dp.LAUNCHES["tile_update"] > before
+    for k, v in want.items():
+        assert dest[k].is_cuda and torch.equal(dest[k], v), k
+    assert torch.equal(tmpl, want["big"].float())
+    assert tts.verify_snapshot(str(tmp_path / "s1"), deep=True).ok
+
+
+def test_mapped_slab_reaches_k2_with_no_host_copy(cuda, tmp_path, monkeypatch):
+    """Under MMAP (the default) the slab's read is a private map, and the
+    host-to-device copy K2 consumes is made straight from its pages: the
+    tensor handed to the copy lies inside the mapping, and no bytearray
+    is made on the way."""
+    import builtins
+
+    import torchsnapshot_tpu_torch as tts
+    from torchsnapshot_tpu_torch.io_types import is_mmap_backed
+    from torchsnapshot_tpu_torch.ops import device_pack as dp
+
+    want = dict(_cuda_state(cuda, 6))
+    path = str(tmp_path / "s")
+    with _stripe_knobs("raw"):
+        tts.Snapshot.take(path, {"app": tts.StateDict(want)})
+    sources = []
+    real_from = torch.frombuffer
+
+    def spy_from(buf, *a, **kw):
+        t = real_from(buf, *a, **kw)
+        sources.append(is_mmap_backed(t))
+        return t
+
+    made = []
+    real_bytearray = builtins.bytearray
+    monkeypatch.setattr(dp.torch, "frombuffer", spy_from)
+    monkeypatch.setattr(dp, "bytearray", lambda *a: made.append(1) or real_bytearray(*a), raising=False)
+    dest = tts.StateDict({k: torch.zeros_like(v) for k, v in want.items()})
+    before = (dp.LAUNCHES["slab_unpack"], tts.obs.counters().get("storage.mmap.reads", 0))
+    with _stripe_knobs("raw"):
+        tts.Snapshot(path).restore({"app": dest})
+    assert dp.LAUNCHES["slab_unpack"] > before[0]
+    assert tts.obs.counters()["storage.mmap.reads"] > before[1]
+    assert sources and all(sources) and not made
+    for k, v in want.items():
+        assert torch.equal(dest[k], v), k

@@ -16,6 +16,7 @@ import torch
 
 import torchsnapshot_tpu as jts
 import torchsnapshot_tpu_torch as tts
+from torchsnapshot_tpu import knobs as jknobs
 from torchsnapshot_tpu_torch import knobs as tknobs
 from torchsnapshot_tpu_torch.manager import INDEX_FNAME
 from torchsnapshot_tpu_torch.storage import fs as tfs
@@ -181,25 +182,34 @@ def test_two_rank_incremental_manager_save(tmp_path):
 
 
 def test_unported_features_are_refused_by_name(tmp_path):
+    """Tiers, publication and repair are refused by name; the chunk store
+    (``cas=``, the CAS knob, ``cas_gc``, ``fsck``) is configured and runs
+    as the JAX manager's does."""
     with pytest.raises(ValueError, match="keep_last_n"):
         tts.SnapshotManager(str(tmp_path), keep_last_n=0)
     refusals = [
         (lambda: tts.SnapshotManager(str(tmp_path), tier={"fast_root": "x"}), "item 3.5"),
-        (lambda: tts.SnapshotManager(str(tmp_path), cas=True), "item 3.3"),
-        (lambda: tts.SnapshotManager(str(tmp_path), cas=str(tmp_path / "cas")), "item 3.3"),
         (lambda: tts.SnapshotManager(str(tmp_path), publisher=object()), "item 5"),
     ]
     mgr = tts.SnapshotManager(str(tmp_path))
-    refusals += [
-        (mgr.repromote, "item 3.5"), (mgr.cas_gc, "item 3.3"), (mgr.fsck, "item 3.3"),
-        (mgr.repair, "item 5"),
-    ]
+    refusals += [(mgr.repromote, "item 3.5"), (mgr.repair, "item 5")]
     for fn, item in refusals:
         with pytest.raises(NotImplementedError, match=f"queue A {item}"):
             fn()
-    with tknobs.override_cas(True):
-        with pytest.raises(NotImplementedError, match="queue A item 3.3"):
-            tts.SnapshotManager(str(tmp_path))
+    root = str(tmp_path / "root")
+    for cas in (True, 1, str(tmp_path / "pool"), {"chunk_size_bytes": 8192}, None, False):
+        assert tts.SnapshotManager(root, cas=cas).cas == jts.SnapshotManager(root, cas=cas).cas
+    for on in (True, False):
+        with tknobs.override_cas(on), jknobs.override_cas(on):
+            assert tts.SnapshotManager(root).cas == jts.SnapshotManager(root).cas
     # the knob is overridden in either direction by the argument
     with tknobs.override_cas(True):
         assert tts.SnapshotManager(str(tmp_path), cas=False).steps() == []
+        assert tts.SnapshotManager(str(tmp_path), cas=False).cas is None
+    # without the chunk store cas_gc and fsck do nothing, as in the JAX package
+    for pkg in (tts, jts):
+        assert pkg.SnapshotManager(root).cas_gc() is None and pkg.SnapshotManager(root).fsck() is None
+    # an empty pool: the same GC and rebuild summaries
+    assert tts.SnapshotManager(root, cas=True).cas_gc(grace_s=0) == \
+        jts.SnapshotManager(root, cas=True).cas_gc(grace_s=0)
+    assert tts.SnapshotManager(root, cas=True).fsck() == jts.SnapshotManager(root, cas=True).fsck()

@@ -252,9 +252,11 @@ def test_log_event_fires_span_events_and_entry_points_load(traced, monkeypatch):
 
 # The main-path span names compared exactly.  Left out, with the reason:
 # - "topology/detect": the JAX package's topology subsystem, not ported;
-# - "storage/mmap_read", "fastio/read_into": the JAX package maps small
-#   metadata reads (mmap reads are not ported), the port reads them
-#   through the fast-I/O engine;
+# - "storage/mmap_read", "fastio/read_into": which reads each package
+#   maps follows its templates (the JAX package reads into a numpy
+#   template of the stored dtype in place and maps the rest, the port maps
+#   every raw read without a buffer of its own); the others go through
+#   the fast-I/O engine;
 # - "fastio/write_file": the same engine in both, but run on the fs
 #   plugin's own thread pool, where neither package carries a parent.
 _MAIN_PATH = (

@@ -243,11 +243,17 @@ def test_storage_options_are_forwarded_and_unported_ones_refused(tmp_path, monke
             _take(pkg, str(tmp_path / f"bad_{pkg}"), seed=9, storage_options={"bogus": 1})
     with pytest.raises(NotImplementedError, match="queue A item 3.5"):
         _take("port", str(tmp_path / "tier"), seed=9, storage_options={"tier": {"fast_url": "x"}})
-    for cas in (True, str(tmp_path / "cas")):
-        with pytest.raises(NotImplementedError, match="queue A item 3.3"):
-            _take("port", str(tmp_path / "cas_take"), seed=9, cas=cas)
-        with pytest.raises(NotImplementedError, match="queue A item 3.3"):
-            tts.Snapshot.async_take(str(tmp_path / "cas_async"), _templates("port", 9), cas=cas)
+    # the chunk store: the port's take and async_take restore in the JAX package
+    for i, cas in enumerate((True, str(tmp_path / "pool"))):
+        _take("port", str(tmp_path / f"cas_take{i}"), seed=9, cas=cas)
+        tts.Snapshot.async_take(str(tmp_path / f"cas_async{i}"), _templates("port", 9), cas=cas).wait()
+        for name in (f"cas_take{i}", f"cas_async{i}"):
+            assert tts.Snapshot(str(tmp_path / name)).metadata.cas["chunks"]
+            got = _templates("jax", seed=1)
+            jts.Snapshot(str(tmp_path / name)).restore(got)
+            want = _arrays(9)
+            for k, v in want.items():
+                assert _bytes(got["model"][k]) == _bytes(v), (name, k)
     with pytest.raises(NotImplementedError, match="queue A item 5"):
         snap.publish_to(object(), 1)
     with pytest.raises(NotImplementedError, match="queue A item 5"):

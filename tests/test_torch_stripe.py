@@ -122,10 +122,20 @@ def test_striped_and_streamed_fs_files_equal_jax(tmp_path, mode):
         dest = jts.StateDict({k: np.zeros_like(v) for k, v in state.items()})
         jts.Snapshot(paths["port"]).restore({"app": dest})
         tdest = tts.StateDict({k: torch.zeros(v.shape, dtype=torch.from_numpy(v).dtype) for k, v in state.items()})
-        tts.Snapshot(paths["jax"]).restore({"app": tdest}, device="cpu")
+        # reads that copy stripe; a mapped read (MMAP, the default) never does
+        with tknobs.override_mmap(False):
+            tts.Snapshot(paths["jax"]).restore({"app": tdest}, device="cpu")
     assert _delta(c1, "storage.stripe.reads") == [2]
     for k, v in state.items():
         assert dest[k].tobytes() == v.tobytes() == tdest[k].numpy().tobytes()
+    c2 = _counts()
+    with _stripes():
+        mdest = tts.StateDict({k: torch.zeros(v.shape, dtype=torch.from_numpy(v).dtype) for k, v in state.items()})
+        tts.Snapshot(paths["jax"]).restore({"app": mdest}, device="cpu")
+    reads, mapped = _delta(c2, "storage.stripe.reads", "storage.mmap.reads")
+    assert reads == 0 and mapped == len(state)
+    for k, v in state.items():
+        assert mdest[k].numpy().tobytes() == v.tobytes()
 
 
 @pytest.mark.parametrize("backend", ["fs", "memory"])

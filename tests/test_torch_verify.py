@@ -97,11 +97,11 @@ def test_verify_of_a_slabbed_snapshot_equals_jax(tmp_path):
 
 @pytest.mark.parametrize("encoding", ["codec", "cas"])
 def test_encoded_snapshot_raises_the_typed_error(tmp_path, encoding):
-    """A snapshot of chunk references raises ``EncodedPayloadError`` (the
-    port does not assemble CAS chunks).  A compressed one (zlib frames)
-    is verified as the JAX package verifies it: stored sizes from its
-    codec table, deep reads decoded; one flipped byte inside a frame
-    fails both."""
+    """No encoding is refused: a snapshot of CAS chunk references is
+    verified as the JAX package verifies it (its chunks stated in the
+    pool, deep reads assembled from it), and so is a compressed one
+    (zlib frames: stored sizes from its codec table, deep reads decoded);
+    one flipped byte inside a frame or a chunk fails both."""
     w = np.random.default_rng(7).standard_normal(1 << 22).astype(np.float32)  # 16 MiB
     path = str(tmp_path / "run" / "s")
     if encoding == "codec":
@@ -109,17 +109,24 @@ def test_encoded_snapshot_raises_the_typed_error(tmp_path, encoding):
                 jknobs.override_stripe_min_object_size_bytes(8 << 20):
             jts.Snapshot.take(path, {"m": jts.StateDict(w=w)})
     else:
-        jts.Snapshot.take(path, {"m": jts.StateDict(w=w)}, cas=True)
+        with jknobs.override_cas_chunk_size_bytes(4 << 20):
+            jts.Snapshot.take(path, {"m": jts.StateDict(w=w)}, cas=True)
     assert jts.verify_snapshot(path, deep=True).ok
-    if encoding == "cas":
-        for deep in (False, True):
-            with pytest.raises(tts.EncodedPayloadError, match="CAS chunk table"):
-                tts.verify_snapshot(path, deep=deep)
-        return
     for deep in (False, True):
         got = tts.verify_snapshot(path, deep=deep)
         assert got.ok and _fields(got) == _fields(jts.verify_snapshot(path, deep=deep))
     md = jts.Snapshot(path).metadata
+    if encoding == "cas":
+        key = md.cas["chunks"]["0/m/w"]["keys"][1]
+        with open(os.path.join(str(tmp_path / "run" / "cas"), "objects", key[:2], key), "r+b") as f:
+            f.seek(12345)
+            b = f.read(1)
+            f.seek(-1, os.SEEK_CUR)
+            f.write(bytes([b[0] ^ 0xFF]))
+        assert tts.verify_snapshot(path).ok
+        got = tts.verify_snapshot(path, deep=True)
+        assert not got.ok and _fields(got) == _fields(jts.verify_snapshot(path, deep=True))
+        return
     (loc, table), = md.codecs.items()
     # a byte in the middle of the second frame's payload
     with open(os.path.join(path, loc), "r+b") as f:

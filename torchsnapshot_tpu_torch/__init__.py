@@ -29,7 +29,7 @@ from .coordination import (  # noqa: F401
 )
 from .event import Event  # noqa: F401
 from .event_handlers import register_event_handler, unregister_event_handler  # noqa: F401
-from .snapshot import DegradedSnapshotError, EncodedPayloadError, PendingSnapshot, Snapshot  # noqa: F401
+from .snapshot import DegradedSnapshotError, PendingSnapshot, Snapshot  # noqa: F401
 from .manager import SnapshotManager, delete_snapshot  # noqa: F401
 from .verify import VerifyResult, verify_snapshot  # noqa: F401
 from .resilience.abort import SnapshotAbortedError  # noqa: F401
@@ -49,7 +49,6 @@ __all__ = [
     "get_default_coordinator",
     "SnapshotAbortedError",
     "DegradedSnapshotError",
-    "EncodedPayloadError",
     "Replicated",
     "PyTreeState",
     "RNGState",

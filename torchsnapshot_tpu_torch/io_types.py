@@ -18,6 +18,10 @@ Counterpart of ``torchsnapshot_tpu/io_types.py``:
 - A stager that can produce its bytes part by part (``part_plan``,
   ``stage_part``, ``release_source``) lets the scheduler overlap a large
   object's staging and writes within the object.
+- ``ReadIO.want_mmap`` asks a plugin with ``supports_mmap_read`` for a
+  zero-copy read: a buffer over a private file-backed mapping, which
+  ``is_mmap_backed`` recognises (through numpy views, memoryviews and
+  tensors made over them).
 
 On the GPU the stager's device→host copy is a ``cudaMemcpyAsync`` into
 pinned host memory on a side copy stream, waited on by an event in a
@@ -28,10 +32,14 @@ from __future__ import annotations
 
 import abc
 import asyncio
+import bisect
 import concurrent.futures
+import mmap as _mmap
+import threading
+import weakref
 from concurrent.futures import Executor
 from dataclasses import dataclass, field
-from typing import Any, Callable, Coroutine, Generic, List, Optional, Tuple, TypeVar
+from typing import Any, Callable, Coroutine, Dict, Generic, List, Optional, Tuple, TypeVar
 
 import numpy as np
 
@@ -102,6 +110,11 @@ class BufferConsumer(abc.ABC):
         one."""
         return None
 
+    def provides_read_buffer(self) -> bool:
+        """Whether ``read_buffer`` hands out a buffer of its own (pinned
+        tiles): such a read lands there and is never served mapped."""
+        return False
+
 
 @dataclass
 class WriteReq:
@@ -133,6 +146,10 @@ class WriteReq:
     # receives the object's codec frame table when the write encodes it
     # (codec.py); writes without a sink are never encoded
     codec_sink: Optional[Callable[[dict], None]] = None
+    # content-addressed takes (``cas.CasWriteContext``): the staged bytes
+    # go to the chunk pool as content-keyed chunks and the object's chunk
+    # table to the context's sink; never combined with ``dedup`` or a codec
+    cas: Optional[Any] = None
 
 
 def check_read_crc(read_req: "ReadReq", buf: Any) -> None:
@@ -188,6 +205,61 @@ class ReadIO:
     # a writable buffer of exactly the read's length: a plugin may read
     # into it and set ``buf = into`` (consumers test ``buf is into``)
     into: Any = None
+    # zero-copy request: a plugin with ``supports_mmap_read`` may serve the
+    # read as a uint8 array over a private, writable file-backed mapping
+    # (writes to it never reach the file); callers test honour with
+    # ``is_mmap_backed(buf)``.  Never set together with ``into``
+    want_mmap: bool = False
+
+
+# address ranges of the live mappings ``register_mapping`` was given:
+# torch.frombuffer keeps no Python reference to its buffer, so a tensor
+# over a mapping is recognised by where its memory lies
+_MAPS_LOCK = threading.Lock()
+_MAP_STARTS: List[int] = []
+_MAP_ENDS: Dict[int, int] = {}
+
+
+def _unregister(start: int) -> None:
+    with _MAPS_LOCK:
+        if _MAP_ENDS.pop(start, None) is not None:
+            del _MAP_STARTS[bisect.bisect_left(_MAP_STARTS, start)]
+
+
+def register_mapping(arr: np.ndarray) -> None:
+    """Record the memory of ``arr`` (a uint8 array over an ``mmap.mmap``)
+    as mapped for as long as ``arr`` lives."""
+    start = arr.ctypes.data
+    if not arr.nbytes:
+        return
+    with _MAPS_LOCK:
+        if start in _MAP_ENDS:
+            return
+        bisect.insort(_MAP_STARTS, start)
+        _MAP_ENDS[start] = start + arr.nbytes
+    weakref.finalize(arr, _unregister, start)
+
+
+def _in_mapping(ptr: int) -> bool:
+    with _MAPS_LOCK:
+        i = bisect.bisect_right(_MAP_STARTS, ptr) - 1
+        return i >= 0 and ptr < _MAP_ENDS[_MAP_STARTS[i]]
+
+
+def is_mmap_backed(buf: Any) -> bool:
+    """True when ``buf`` is (a view over) an ``mmap.mmap``: walks numpy's
+    ``.base`` and memoryview's ``.obj`` chain, and takes a tensor by the
+    address of its memory (inside a registered mapping)."""
+    o = buf
+    for _ in range(8):  # ownership chains are shallow; bound the walk
+        if o is None:
+            return False
+        if isinstance(o, _mmap.mmap):
+            return True
+        if hasattr(o, "data_ptr") and hasattr(o, "untyped_storage"):
+            return o.numel() > 0 and _in_mapping(o.data_ptr())
+        o = o.obj if isinstance(o, memoryview) else getattr(o, "base", None)
+    return False
 
 
 def resolve_read_destination(into: Any, length: int) -> Any:
@@ -259,6 +331,12 @@ class StoragePlugin(abc.ABC):
     # whether the striped handles honour ``want_digest``, known before a
     # handle exists
     supports_fused_part_digest = False
+    # whether ``read`` honours ``ReadIO.want_mmap``
+    supports_mmap_read = False
+    # stricter: every read this plugin serves stays off the heap (a local
+    # file map that never declines); the read scheduler admits mapped
+    # reads outside the budget, and never stripes them, on this flag only
+    mmap_budget_exempt = False
 
     async def begin_striped_write(self, path: str, total_size: int) -> StripedWriteHandle:
         """Open a striped write of at most ``total_size`` bytes to

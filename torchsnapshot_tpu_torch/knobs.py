@@ -36,6 +36,9 @@ _FASTIO_BUFFER_POOL_BYTES = "FASTIO_BUFFER_POOL_BYTES"
 _TRACE = "TRACE"
 _METRICS_TEXTFILE = "METRICS_TEXTFILE"
 _CAS = "CAS"
+_CAS_CHUNK_SIZE_BYTES = "CAS_CHUNK_SIZE_BYTES"
+_CAS_GC_GRACE_S = "CAS_GC_GRACE_S"
+_MMAP = "MMAP"
 _FAILPOINTS = "FAILPOINTS"
 _FAILPOINT_SEED = "FAILPOINT_SEED"
 _RETRY_MAX_ATTEMPTS = "RETRY_MAX_ATTEMPTS"
@@ -115,10 +118,25 @@ _DEFAULTS = {
     # async commit and restore ("{pid}" expands to the process id); ""
     # writes none.
     _METRICS_TEXTFILE: "",
-    # Content-addressed chunk store for SnapshotManager saves (cas/).  Not
-    # ported yet: 1 makes the manager raise NotImplementedError (ROADMAP
-    # queue A item 3.3).
+    # Content-addressed chunk store (cas/): SnapshotManager saves store
+    # payload bytes as content-keyed chunks in a pool shared by the
+    # root's steps (<root>/cas), write only the chunks no committed step
+    # holds, and retention releases refs instead of deleting bytes.  0 =
+    # per-step objects; SnapshotManager(cas=...) overrides it.
     _CAS: 0,
+    # Chunk granularity of content addressing (floored at 4096): an
+    # unchanged slice of a mutated tensor keeps its key from step to step.
+    _CAS_CHUNK_SIZE_BYTES: 16 * 1024 * 1024,
+    # Two-phase GC: a chunk whose last ref goes is only marked orphaned;
+    # the sweep deletes it this many seconds later (above the longest
+    # take, so a take that dedups against it commits its ref first).
+    _CAS_GC_GRACE_S: 900.0,
+    # Zero-copy reads: raw reads with no destination buffer of their own
+    # (no codec frames, no chunk table, no pinned tile) are served by the
+    # fs plugin as private file-backed mappings, admitted outside the
+    # read budget (the pages are the page cache's and reclaimable).  0 =
+    # every read copies into a buffer of its own.
+    _MMAP: 1,
     # Fault injection (resilience/failpoints.py):
     # "site=error[:probability[:count]],..." specs; "" is disarmed.  Read
     # at import and by override_failpoints: set the variable before
@@ -268,7 +286,21 @@ def get_metrics_textfile() -> Optional[str]:
 
 
 def cas_enabled() -> bool:
+    """Content addressing for SnapshotManager saves by default (the
+    manager's ``cas=`` overrides it either way)."""
     return bool(_get_int(_CAS))
+
+
+def get_cas_chunk_size_bytes() -> int:
+    return max(4096, _get_int(_CAS_CHUNK_SIZE_BYTES))
+
+
+def get_cas_gc_grace_s() -> float:
+    return max(0.0, float(_get_raw(_CAS_GC_GRACE_S)))
+
+
+def mmap_enabled() -> bool:
+    return bool(_get_int(_MMAP))
 
 
 def get_failpoints() -> str:
@@ -403,6 +435,18 @@ def override_fastio_buffer_pool_bytes(value: int):
 
 def override_cas(value: bool):
     return _override(_CAS, int(value))
+
+
+def override_cas_chunk_size_bytes(value: int):
+    return _override(_CAS_CHUNK_SIZE_BYTES, value)
+
+
+def override_cas_gc_grace_s(value: float):
+    return _override(_CAS_GC_GRACE_S, value)
+
+
+def override_mmap(value: bool):
+    return _override(_MMAP, int(value))
 
 
 def override_metrics_textfile(value):

@@ -17,11 +17,14 @@ layout, so either package's manager reads the other's root:
   writes the index and runs retention, after the take's commit.
 
 ``save(incremental=True)`` dedups against the newest committed step
-(``Snapshot.take(base=)``).  Not ported yet: tiered storage (``tier=``,
-``repromote``), ROADMAP queue A item 3.5; the content-addressed chunk
-store (``cas=``, the CAS knob, ``cas_gc``, ``fsck``), item 3.3;
-live-weight publication (``publisher=``) and ``repair``, item 5.  Each
-raises ``NotImplementedError``.
+(``Snapshot.take(base=)``).  With the chunk store (``cas=``, or the
+``CAS`` knob) every save stores its payload as chunks in ``<root>/cas``
+and dedups against every committed step, retention deletes a step's
+metadata first and then releases its chunk refs, and ``cas_gc`` and
+``fsck`` (rank 0) mark, sweep and rebuild the pool's index.  Not ported
+yet: tiered storage (``tier=``, ``repromote``), ROADMAP queue A item
+3.5; live-weight publication (``publisher=``) and ``repair``, item 5.
+Each raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -73,11 +76,18 @@ def delete_snapshot(
     path: str,
     manifest: Optional[Dict[str, Entry]] = None,
     metadata: Optional[SnapshotMetadata] = None,
+    release_cas: bool = True,
 ) -> None:
     """Delete one snapshot, committed or aborted, metadata first (see the
     module docstring).  ``manifest`` or ``metadata``, when the caller has
     them, spare the metadata read.  A snapshot whose metadata does not
-    parse loses its metadata, and its objects stay behind (logged)."""
+    parse loses its metadata, and its objects stay behind (logged).
+
+    Chunk-referenced objects have no per-step file: with ``release_cas``
+    the step's refs are released in the pool index after the metadata
+    goes (chunks left unreferenced are orphan-marked for the sweep; chunks
+    other steps share stay).  A failed release is logged and left to the
+    next ``cas_gc`` or ``fsck``."""
     with log_event(Event("delete_snapshot", {"path": path})), obs.span(
         "manager/delete_snapshot", path=path
     ):
@@ -99,9 +109,8 @@ def delete_snapshot(
                         "data objects may be left behind",
                         SNAPSHOT_METADATA_FNAME, path, e,
                     )
-            if metadata is not None and (metadata.cas or {}).get("chunks"):
-                # chunk references are released by the chunk store's GC
-                raise _not_ported("deletion of a content-addressed snapshot", "3.3")
+            cas_info = (metadata.cas or {}) if metadata is not None else {}
+            chunked = set(cas_info.get("chunks") or {})
             try:
                 storage.sync_delete(SNAPSHOT_METADATA_FNAME)
             except FileNotFoundError:
@@ -109,11 +118,28 @@ def delete_snapshot(
             reclaimed = 0
             extents = _expected_extents_safe(manifest) if manifest is not None else {}
             for loc in entry_locations(manifest) if manifest is not None else ():
+                if loc in chunked:
+                    continue  # its bytes are the pool's
                 try:
                     storage.sync_delete(loc)
                     reclaimed += extents.get(loc, 0)
                 except FileNotFoundError:
                     pass  # idempotent: a partial earlier GC
+            if release_cas and chunked:
+                from . import cas as cas_mod
+
+                # strictly after the metadata: a crash in between leaves refs
+                # of an uncommitted step, which the mark phase reclaims.  Only
+                # chunks whose last ref went count as reclaimed
+                try:
+                    reclaimed += cas_mod.release_step(
+                        cas_mod.resolve_root(path, str(cas_info.get("root"))), path
+                    )
+                except Exception as e:  # noqa: BLE001 — the delete itself succeeded
+                    logger.warning(
+                        "chunk-ref release for deleted %r failed (%r); the next "
+                        "cas gc/fsck will reconcile", path, e,
+                    )
             if reclaimed:
                 obs.counter(obs.GC_BYTES_RECLAIMED).inc(reclaimed)
         finally:
@@ -143,7 +169,11 @@ class SnapshotManager:
 
     ``keep_last_n`` counts committed snapshots; the newest N survive.
     Retention runs on rank 0 after each committed save (an async save's
-    when it is waited on, or at the next save)."""
+    when it is waited on, or at the next save).
+
+    ``cas``: the content-addressed chunk store (None defers to the ``CAS``
+    knob; ``True`` puts the pool at ``<root>/cas``, a string names its
+    root, a dict may add ``chunk_size_bytes``)."""
 
     def __init__(
         self,
@@ -159,13 +189,19 @@ class SnapshotManager:
             raise ValueError(f"keep_last_n must be >= 1, got {keep_last_n}")
         if tier is not None:
             raise _not_ported("tier= (tiered storage)", "3.5")
-        if cas is None:
-            cas = knobs.cas_enabled()
-        if cas not in (False, 0):
-            raise _not_ported("cas= (the content-addressed chunk store)", "3.3")
         if publisher is not None:
             raise _not_ported("publisher= (live-weight publication)", "5")
         self.root = root.rstrip("/")
+        if cas is None:
+            cas = knobs.cas_enabled()
+        if isinstance(cas, (bool, int)):
+            cas = {} if cas else None
+        elif isinstance(cas, str):
+            cas = {"root": cas}
+        if cas is not None:
+            cas = dict(cas)
+            cas.setdefault("root", f"{self.root}/cas")
+        self.cas: Optional[Dict[str, Any]] = cas
         self.keep_last_n = keep_last_n
         self.prefix = prefix
         self._coordinator = coordinator
@@ -290,14 +326,17 @@ class SnapshotManager:
         ``Snapshot.take``/``async_take`` (``leaf_transform``,
         ``storage_options``).  ``incremental=True`` dedups against the
         newest committed step (``take(base=)``); with none committed it
-        is a full save.  ``async_=True`` returns a handle whose
-        ``wait()`` also indexes the step and applies retention."""
+        is a full save, and under ``cas`` the chunk store dedups every
+        save already.  ``async_=True`` returns a handle whose ``wait()``
+        also indexes the step and applies retention."""
         with log_event(
             Event("manager_save", {"root": self.root, "step": step, "async": async_})
         ):
             path = self.path_for_step(step)
+            if self.cas is not None:
+                take_kwargs["cas"] = self.cas
             base: Optional[str] = None
-            if incremental:
+            if incremental and self.cas is None:
                 prev = self._coord.broadcast_object(
                     self.latest_step() if self._coord.rank == 0 else None, src=0
                 )
@@ -373,10 +412,15 @@ class SnapshotManager:
 
     def gc(self) -> None:
         """Delete all but the newest ``keep_last_n`` committed snapshots
-        (rank 0).  Safe to call at any time."""
+        and, with the chunk store, mark and sweep its pool (rank 0).  Safe
+        to call at any time."""
         with log_event(Event("manager_gc", {"root": self.root})):
-            if self._coord.rank == 0 and self.keep_last_n is not None:
+            if self._coord.rank != 0:
+                return
+            if self.keep_last_n is not None:
                 self._apply_retention(self._committed())
+            if self.cas is not None:
+                self.cas_gc()
 
     def _apply_retention(self, committed: Dict[int, Snapshot]) -> None:
         if self.keep_last_n is None:
@@ -396,11 +440,35 @@ class SnapshotManager:
     def repromote(self) -> List[int]:
         raise _not_ported("repromote (tiered storage)", "3.5")
 
+    def _candidate_paths(self) -> List[str]:
+        return [
+            self.path_for_step(s) for s in sorted(set(self._read_index()) | set(self._scan_fs()))
+        ]
+
     def cas_gc(self, grace_s: Optional[float] = None) -> Optional[Dict[str, Any]]:
-        raise _not_ported("cas_gc (the content-addressed chunk store)", "3.3")
+        """Mark and sweep the chunk pool (rank 0): refs are checked
+        against the commit markers, chunks with no committed ref are
+        orphan-marked, and marks older than the grace window
+        (``CAS_GC_GRACE_S`` unless ``grace_s``) are checked again and
+        deleted.  The sweep's summary, None without the chunk store."""
+        with obs.span("manager/cas_gc", root=self.root):
+            if self.cas is None or self._coord.rank != 0:
+                return None
+            from . import cas as cas_mod
+
+            return cas_mod.run_gc(self.cas["root"], self._candidate_paths(), grace_s=grace_s)
 
     def fsck(self) -> Optional[Dict[str, Any]]:
-        raise _not_ported("fsck (the content-addressed chunk store)", "3.3")
+        """Rebuild the chunk index from this root's committed manifests
+        (after a corrupt index, or a crash between a take's ref update and
+        its marker).  The rebuild's summary, None without the chunk
+        store."""
+        with obs.span("manager/fsck", root=self.root):
+            if self.cas is None:
+                return None
+            from . import cas as cas_mod
+
+            return cas_mod.fsck(self.cas["root"], self._candidate_paths())
 
     def repair(self, *args: Any, **kwargs: Any) -> Any:
         raise _not_ported("repair (write takeover and degraded repair)", "5")

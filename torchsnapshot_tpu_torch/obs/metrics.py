@@ -125,7 +125,7 @@ FASTIO_FUSED_DIGESTS = "storage.fastio.fused_digests"
 FASTIO_POOL_WAITS = "storage.fastio.pool_waits"
 FASTIO_DONTNEED_READS = "storage.fastio.dontneed_reads"
 # Zero-copy mmap reads (io_types.ReadIO.want_mmap): reads served as
-# read-only file-backed mappings instead of heap copies, and the bytes
+# private file-backed mappings instead of heap copies, and the bytes
 # mapped (pages fault in lazily — mapped ≠ resident).
 MMAP_READS = "storage.mmap.reads"
 MMAP_BYTES_MAPPED = "storage.mmap.bytes_mapped"

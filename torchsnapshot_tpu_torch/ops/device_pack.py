@@ -280,7 +280,9 @@ def unpack_slab_to_device(
 ) -> None:
     """ONE host-to-device copy of the slab in ``buf`` and ONE K2 launch
     decoding every member into its CUDA template in place.  Waits for
-    the launch, so a fault surfaces in the restore that caused it."""
+    the launch, so a fault surfaces in the restore that caused it.  A
+    mapped slab (private, writable) is copied to the card straight from
+    its pages; only a read-only buffer is copied on the host first."""
     view = memoryview(buf).cast("B")
     check_members_in_bounds(view.nbytes, members)
     if view.readonly:

@@ -53,7 +53,7 @@ import torch
 
 from .. import knobs, obs
 from ..codec import filter_for_dtype
-from ..io_types import BufferConsumer, BufferStager, Future, ReadReq, WriteReq
+from ..io_types import BufferConsumer, BufferStager, Future, ReadReq, WriteReq, is_mmap_backed
 from ..manifest import ArrayEntry, ChunkedArrayEntry, Shard
 from ..serialization import (
     BUFFER_PROTOCOL,
@@ -278,8 +278,11 @@ class ArrayBufferConsumer(BufferConsumer):
 
     def _consume(self, buf: Any) -> Any:
         src = tensor_from_buffer(buf, self.entry.dtype, tuple(self.entry.shape))
-        if self.obj_out is None:
-            # the tensor may share ``buf``'s memory: own it
+        if self.obj_out is None and not is_mmap_backed(buf):
+            # the tensor may share ``buf``'s memory (a reused or slab
+            # buffer): own it.  Over a private mapping it stays a view, as
+            # the JAX package's mapped reads do: a write to it reaches a
+            # private copy of the page, never the file
             src = src.clone()
         return materialize_into_template(src, self.obj_out)
 
@@ -378,6 +381,8 @@ class _HostTileTarget:
     numpy array's memory seen through ``torch.from_numpy``), cast to its
     dtype by ``copy_``."""
 
+    provides_buffer = False
+
     def __init__(self, flat: torch.Tensor) -> None:
         self.flat = flat
 
@@ -404,6 +409,8 @@ class _DeviceTileTarget:
     comes first); each tile waits for its own copies before its buffers
     are released, so the read is complete on the device when it
     returns."""
+
+    provides_buffer = True
 
     def __init__(self, dst: torch.Tensor, stored: torch.dtype) -> None:
         self.dst = dst.detach()  # the template's storage, outside autograd
@@ -519,6 +526,9 @@ class _TiledConsumer(BufferConsumer):
     def read_buffer(self, nbytes: int) -> Any:
         self._into = self.target.read_buffer(nbytes)
         return None if self._into is None else self._into[0]
+
+    def provides_read_buffer(self) -> bool:
+        return self.target.provides_buffer
 
     def _land(self, buf: Any) -> None:
         start, end = self.elem_range

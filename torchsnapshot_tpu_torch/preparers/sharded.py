@@ -528,6 +528,9 @@ class _ShardConsumer(BufferConsumer):
         self._into = self.target.tiles.read_buffer(nbytes)
         return None if self._into is None else self._into[0]
 
+    def provides_read_buffer(self) -> bool:
+        return self.target.tiles is not None and self.target.tiles.provides_buffer
+
     def _land(self, buf: Any) -> None:
         if self.crc_fold is not None:  # one row tile of a budgeted fetch
             self.crc_fold.record(self.crc_key, buf)

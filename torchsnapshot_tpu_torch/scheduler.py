@@ -52,14 +52,28 @@ Counterpart of ``torchsnapshot_tpu/scheduler.py``, same discipline:
   reads and decodes the frames that cover its raw range.  A request
   linked from an incremental base that stored it encoded carries the
   base's frame table verbatim.
+- Content-addressed takes (``cas/``): a request with a ``cas`` context
+  is never encoded and never defers its digests (the keys are raw
+  digests, needed before any write).  A whole-staged one goes through
+  ``chunked_write``, which writes only the chunks the pool lacks; one
+  whose stager has a part plan at the chunk size, at the stripe
+  threshold or above, streams chunk by chunk (``cas_streamed_write``) in
+  a window of ``_STREAM_WINDOW_PARTS`` chunks.  Written chunks count in
+  ``bytes_written``, skipped ones in ``bytes_deduped``.  A read of an
+  object with a chunk table (``cas_reads``) assembles its raw range from
+  the pool; chunked objects are never encoded or striped.
+- Mapped reads: with the ``MMAP`` knob on a plugin that is
+  ``mmap_budget_exempt`` (fs), a raw read with no buffer of its
+  consumer's, no frame table and no chunk table asks for a map
+  (``ReadIO.want_mmap``), is admitted at cost 0 and is never striped; a
+  read the plugin declines to map is debited its cost once it lands.
+  Consumers build tensors over the mapped pages with no host copy.
 - Failpoints ``scheduler.stage``, ``scheduler.write`` and
   ``scheduler.read`` fire per request, ``scheduler.stage.part`` and
   ``scheduler.codec.encode`` per part.
 
 The pipelines run on a dedicated event-loop thread; heavy work (device
-copies, checksums, encodes, deserialization) runs on a thread pool.  The
-content-addressed store of the JAX package is not ported (ROADMAP queue
-A item 3.3), nor are mmap reads (item 3.4).
+copies, checksums, encodes, deserialization) runs on a thread pool.
 """
 
 from __future__ import annotations
@@ -78,6 +92,7 @@ import numpy as np
 
 from . import codec as codec_mod
 from . import knobs
+from .cas import store as cas_store
 from .io_types import (
     ReadIO,
     ReadReq,
@@ -85,6 +100,7 @@ from .io_types import (
     WriteIO,
     WriteReq,
     check_read_crc,
+    is_mmap_backed,
 )
 from .obs import metrics as obs_metrics
 from .obs import tracer as obs_tracer
@@ -185,6 +201,7 @@ def _defers_digest(
         fuses
         and not will_encode
         and wr.dedup is None
+        and wr.cas is None
         and precomputed is None
         and all(
             rng is None or tuple(rng) == (0, nbytes) for _, rng in wr.checksum_sinks or ()
@@ -281,7 +298,7 @@ class _Budget:
 class _WritePipeline:
     __slots__ = (
         "write_req", "staging_cost", "admission_cost", "stream_spans", "buf", "buf_size",
-        "defer_digest", "deduped",
+        "defer_digest", "deduped", "cas_written", "cas_shared",
     )
 
     def __init__(self, write_req: WriteReq) -> None:
@@ -296,6 +313,9 @@ class _WritePipeline:
         self.buf_size = 0
         self.defer_digest = False
         self.deduped = False
+        # a chunked object's bytes written to the pool and found there
+        self.cas_written = 0
+        self.cas_shared = 0
 
 
 def _plan_streams(pipelines: List[_WritePipeline], storage: StoragePlugin) -> None:
@@ -303,10 +323,26 @@ def _plan_streams(pipelines: List[_WritePipeline], storage: StoragePlugin) -> No
     plugin with striped handles, an object over the stripe threshold,
     only whole-object checksum sinks (slab members want the assembled
     buffer) and no dedup decision pending (link or write needs the
-    object's digest before any byte moves)."""
+    object's digest before any byte moves).  A chunked object streams in
+    chunk-size parts at the same threshold, with no plugin capability
+    needed (each chunk is a whole-object write)."""
     part_size = knobs.get_stripe_part_size_bytes()
+    stream_floor = knobs.get_stripe_min_object_size_bytes()
     for p in pipelines:
         wr = p.write_req
+        if wr.cas is not None:
+            if (
+                stream_floor is not None
+                and p.staging_cost >= stream_floor
+                and all(rng is None for _, rng in wr.checksum_sinks or ())
+            ):
+                spans = wr.buffer_stager.part_plan(wr.cas.chunk_size)
+                if spans and len(spans) > 1 and spans[-1][1] == p.staging_cost:
+                    p.stream_spans = spans
+                    p.admission_cost = min(
+                        p.staging_cost, _STREAM_WINDOW_PARTS * wr.cas.chunk_size
+                    )
+            continue
         if (
             wr.dedup is None
             and stripe.write_eligible(p.staging_cost, storage)
@@ -376,7 +412,8 @@ async def _execute_write_pipelines(
             failpoint("scheduler.stage", path=wr.path)
             p.buf = await wr.buffer_stager.stage_buffer(executor)
             p.buf_size = _buf_nbytes(p.buf)
-            will_encode = codec_spec is not None and wr.codec_sink is not None
+            # chunk keys are raw digests: a chunked object is never encoded
+            will_encode = codec_spec is not None and wr.codec_sink is not None and wr.cas is None
             if (wr.checksum_sinks or wr.digest_sink) and checksums:
                 precomputed = getattr(wr.buffer_stager, "piece_digests", None)
                 if _defers_digest(wr, p.buf_size, storage, precomputed, will_encode):
@@ -426,7 +463,13 @@ async def _execute_write_pipelines(
             t_write = time.perf_counter()
             try:
                 failpoint("scheduler.write", path=wr.path)
-                if not await _link_unchanged(p, storage):
+                if wr.cas is not None:
+                    # only the chunks the pool lacks move; the chunk table,
+                    # not a per-step object, reaches the manifest
+                    _, p.cas_written, p.cas_shared = await cas_store.chunked_write(
+                        wr.cas, wr.path, p.buf, executor
+                    )
+                elif not await _link_unchanged(p, storage):
                     await write_buf(p)
             finally:
                 m_phase_write.observe(time.perf_counter() - t_write)
@@ -448,13 +491,22 @@ async def _execute_write_pipelines(
             # the per-request failpoints fire for streamed objects too
             failpoint("scheduler.stage", path=wr.path)
             failpoint("scheduler.write", path=wr.path)
-            digests = await stripe.streamed_part_write(
-                storage, wr.path, wr.buffer_stager, p.stream_spans, executor,
-                window_parts=_STREAM_WINDOW_PARTS, on_part_staged=m_staged.inc,
-                on_part_done=on_part_done, want_digests=want,
-                codec_spec=codec_spec if wr.codec_sink is not None else None,
-                filter_stride=wr.buffer_stager.codec_filter_stride, codec_sink=wr.codec_sink,
-            )
+            if wr.cas is not None:
+                # a chunk found in the pool reports 0 bytes written and
+                # counts as deduped
+                digests = await cas_store.cas_streamed_write(
+                    wr.cas, wr.path, wr.buffer_stager, p.stream_spans, executor,
+                    window_parts=_STREAM_WINDOW_PARTS, on_part_staged=m_staged.inc,
+                    on_part_done=on_part_done, on_part_shared=m_deduped.inc,
+                )
+            else:
+                digests = await stripe.streamed_part_write(
+                    storage, wr.path, wr.buffer_stager, p.stream_spans, executor,
+                    window_parts=_STREAM_WINDOW_PARTS, on_part_staged=m_staged.inc,
+                    on_part_done=on_part_done, want_digests=want,
+                    codec_spec=codec_spec if wr.codec_sink is not None else None,
+                    filter_stride=wr.buffer_stager.codec_filter_stride, codec_sink=wr.codec_sink,
+                )
         if want and digests:
             _feed_digest_sinks(wr, *combine_piece_digests(digests))
         return p
@@ -511,7 +563,12 @@ async def _execute_write_pipelines(
                     m_budget.set(budget.used)
                 else:
                     io_tasks.discard(task)
-                    if p.deduped:  # a linked object moved no bytes
+                    if p.write_req.cas is not None:
+                        # what moved; the chunks found in the pool are the dedup
+                        stats["bytes_written"] += p.cas_written
+                        m_written.inc(p.cas_written)
+                        m_deduped.inc(p.cas_shared)
+                    elif p.deduped:  # a linked object moved no bytes
                         stats["deduped_bytes"] += p.buf_size
                         m_deduped.inc(p.buf_size)
                     else:
@@ -624,11 +681,15 @@ def execute_write_reqs(
 
 
 class _ReadPipeline:
-    __slots__ = ("read_req", "consuming_cost", "buf")
+    __slots__ = ("read_req", "consuming_cost", "admission_cost", "use_mmap", "buf")
 
     def __init__(self, read_req: ReadReq) -> None:
         self.read_req = read_req
         self.consuming_cost = read_req.buffer_consumer.get_consuming_cost_bytes()
+        # what admission debits: the consuming cost, 0 for a mapped read
+        # (file-backed, reclaimable pages hold no heap the budget guards)
+        self.admission_cost = self.consuming_cost
+        self.use_mmap = False
         self.buf = None
 
 
@@ -638,7 +699,23 @@ async def _execute_read_pipelines(
     budget: _Budget,
     executor: ThreadPoolExecutor,
     codec_tables: Optional[Dict[str, Any]] = None,
+    cas_reads: Optional[Tuple[Any, Dict[str, Any]]] = None,
 ) -> None:
+    cas_tables = cas_reads[1] if cas_reads is not None else {}
+    # keyed on the strict flag: a plugin that may decline into a heap
+    # buffer keeps its budgeted, striped reads.  Frames and chunks need a
+    # transform, and a consumer's own buffer (a pinned tile) wants the
+    # bytes there, so those reads copy
+    if knobs.mmap_enabled() and getattr(storage, "mmap_budget_exempt", False):
+        for p in pipelines:
+            rr = p.read_req
+            if (
+                not (rr.byte_range is not None and rr.buffer_consumer.provides_read_buffer())
+                and not (codec_tables and rr.path in codec_tables)
+                and rr.path not in cas_tables
+            ):
+                p.use_mmap = True
+                p.admission_cost = 0
     ready_for_io = deque(pipelines)
     io_tasks: set = set()
     consume_tasks: set = set()
@@ -666,11 +743,39 @@ async def _execute_read_pipelines(
     # but never the base class's, which reads the object
     cheap_stat = type(storage).stat is not StoragePlugin.stat
 
+    async def read_mapped(p: _ReadPipeline, sp: Any) -> Any:
+        """One map serves any size (striping would only buy page-cache
+        copies).  A read the plugin declines to map is heap: it is
+        debited its cost now (a transient overshoot stalls admission
+        until its consume credits it back)."""
+        rr = p.read_req
+        read_io = ReadIO(path=rr.path, byte_range=rr.byte_range, want_mmap=True)
+        await storage.read(read_io)
+        mapped = is_mmap_backed(read_io.buf)
+        if _buf_nbytes(read_io.buf) and not mapped:
+            p.admission_cost = p.consuming_cost
+            budget.used += p.admission_cost
+            m_budget.set(budget.used)
+        if sp is not None:
+            sp.attrs["mmap"] = mapped
+        return read_io.buf
+
     async def read_bytes(p: _ReadPipeline, sp: Any) -> Any:
         rr = p.read_req
+        if p.use_mmap:
+            return await read_mapped(p, sp)
         into = None
         if rr.byte_range is not None:
             into = rr.buffer_consumer.read_buffer(rr.byte_range[1] - rr.byte_range[0])
+        ctable = cas_tables.get(rr.path)
+        if ctable is not None:
+            # no per-step object exists: the raw range is assembled from
+            # the pool (chunked objects are never encoded or striped)
+            if sp is not None:
+                sp.attrs["cas"] = True
+            return await cas_store.chunked_read(
+                cas_reads[0], rr.path, ctable, byte_range=rr.byte_range, into=into
+            )
         table = codec_tables.get(rr.path) if codec_tables else None
         if table is not None:
             # the range is raw: read and decode the frames that cover it
@@ -729,7 +834,7 @@ async def _execute_read_pipelines(
         return p
 
     def admit(p: _ReadPipeline) -> None:
-        budget.used += p.consuming_cost
+        budget.used += p.admission_cost
         m_budget.set(budget.used)
         sp = adm_spans.pop(id(p), None)
         if sp is not None:
@@ -742,7 +847,7 @@ async def _execute_read_pipelines(
                 if len(io_tasks) >= io_concurrency:
                     break
                 p = ready_for_io.popleft()
-                if budget.fits(p.consuming_cost):
+                if budget.fits(p.admission_cost):
                     admit(p)
                 else:
                     ready_for_io.append(p)
@@ -762,7 +867,7 @@ async def _execute_read_pipelines(
                     consume_tasks.add(asyncio.ensure_future(consume_one(p)))
                 else:
                     consume_tasks.discard(task)
-                    budget.used -= p.consuming_cost
+                    budget.used -= p.admission_cost
                     m_budget.set(budget.used)
     except BaseException:
         for t in io_tasks | consume_tasks:
@@ -781,12 +886,15 @@ def sync_execute_read_reqs(
     memory_budget_bytes: int,
     rank: int,
     codec_tables: Optional[Dict[str, Any]] = None,
+    cas_reads: Optional[Tuple[Any, Dict[str, Any]]] = None,
 ) -> int:
     """Execute read requests under the memory budget, lower ``priority``
     first (a stable sort: the order within a class is kept); returns the
     bytes the consumers were declared to need.  ``codec_tables``:
     location → frame table of the objects stored encoded (the
-    metadata's ``codecs``); their byte ranges stay raw above this call."""
+    metadata's ``codecs``); ``cas_reads``: ``(ChunkStore, {location →
+    chunk table})`` of the objects stored as chunk references.  Byte
+    ranges of either stay raw above this call."""
     executor = ThreadPoolExecutor(
         max_workers=knobs.get_staging_threads(), thread_name_prefix="tsnp-torch-consume"
     )
@@ -798,7 +906,8 @@ def sync_execute_read_reqs(
     try:
         loop_thread.submit(
             _execute_read_pipelines(
-                pipelines, storage, _Budget(memory_budget_bytes), executor, codec_tables
+                pipelines, storage, _Budget(memory_budget_bytes), executor, codec_tables,
+                cas_reads,
             )
         ).result()
     finally:

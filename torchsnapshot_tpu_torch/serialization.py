@@ -132,8 +132,9 @@ def array_as_memoryview(obj: Any) -> memoryview:
 def tensor_from_buffer(buf: Any, dtype_str: str, shape: Tuple[int, ...]) -> torch.Tensor:
     """A host tensor of ``dtype_str``/``shape`` over the raw bytes of
     ``buf``.  It shares memory with ``buf`` when ``buf`` is writable and
-    suitably aligned; a copy otherwise (torch wants writable buffers, and
-    slab members sit at unaligned offsets)."""
+    suitably aligned (a mapped read is: its private map is writable); a
+    copy otherwise (torch has no read-only tensors, and slab members sit
+    at unaligned offsets)."""
     dtype = string_to_dtype(dtype_str)
     shape = tuple(int(s) for s in shape)
     nbytes = serialized_size_bytes(shape, dtype_str)

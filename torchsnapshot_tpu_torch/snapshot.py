@@ -52,12 +52,18 @@ the JAX package's: same manifest, same object layout, same checksums.
 Objects stored compressed (the metadata's ``codecs`` frame tables,
 ``codec.py``) are decoded by the read pipeline, so restore,
 ``read_object`` (whole or budgeted, raw byte ranges across frames) and
-``materialize`` read them as they read raw ones.  Not ported:
-content-addressed takes (``cas=`` raises; ROADMAP queue A item 3.3),
-tiered storage (item 3.5), topology and transport, liveness, write
-takeover and repair (item 5); a read of an object stored as chunk
-references raises ``EncodedPayloadError`` before any byte reaches a
-template.
+``materialize`` read them as they read raw ones.
+
+Content-addressed takes (``cas=``, ``cas/``) store every object as
+content-keyed chunks in a pool shared by a root's steps: rank 0 reads
+the pool index's live keys once and broadcasts them, each rank writes
+only the chunks the pool lacks, the per-rank chunk tables merge at
+commit into the metadata's ``cas`` section (its root recorded relative
+under the manager layout), and rank 0 registers the step's refs in the
+index strictly before ``.snapshot_metadata``.  Every read path
+assembles chunk-referenced objects from the pool.  Not ported: tiered
+storage (ROADMAP queue A item 3.5), topology and transport, liveness,
+write takeover and repair (item 5).
 """
 
 from __future__ import annotations
@@ -68,7 +74,7 @@ import logging
 import struct
 import threading
 import zlib
-from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -132,28 +138,43 @@ def _read_priority_for(lpath: str, priority_globs: Sequence[str]) -> int:
     return len(priority_globs)
 
 
-def _refuse_cas(cas: Any) -> None:
-    if cas not in (None, False):
-        raise NotImplementedError(
-            "take(cas=...) (the content-addressed chunk store) is not ported "
-            "yet (ROADMAP queue A item 3.3)"
-        )
+def _normalize_cas_config(cas: Any, path: str) -> Optional[Dict[str, Any]]:
+    """A take's ``cas`` argument as ``{"root", "chunk_size"}``, or None
+    (off).  ``True`` places the pool beside the snapshot (``<parent>/cas``,
+    the manager layout), a string names the pool root, a dict may also
+    give ``chunk_size_bytes``."""
+    if not cas:
+        return None
+    cfg: Dict[str, Any] = {}
+    if isinstance(cas, str):
+        cfg["root"] = cas
+    elif isinstance(cas, dict):
+        cfg.update(cas)
+    if not cfg.get("root"):
+        snap = path.rstrip("/")
+        parent = snap.rsplit("/", 1)[0] if "/" in snap else ""
+        if not parent:
+            raise ValueError(
+                f"cas=True needs a parent directory to place the pool next to "
+                f"{path!r}; pass an explicit root instead"
+            )
+        cfg["root"] = f"{parent}/cas"
+    chunk_size = int(
+        cfg.pop("chunk_size_bytes", None) or cfg.get("chunk_size")
+        or knobs.get_cas_chunk_size_bytes()
+    )
+    return {"root": cfg["root"].rstrip("/"), "chunk_size": chunk_size}
 
 
-class EncodedPayloadError(RuntimeError):
-    """A read of an object the snapshot stores as content-addressed
-    chunk references (a chunk table in the metadata's ``cas``), which
-    the port does not assemble yet (ROADMAP queue A item 3.3); raised
-    before any byte is read.  Compressed objects decode."""
+def _cas_commit_refs(metadata: SnapshotMetadata, path: str, store: Any) -> None:
+    """Register the take's chunk refs in the pool index, on rank 0,
+    strictly before ``.snapshot_metadata``: a failure fails the commit (a
+    marker whose chunks GC could sweep would be corrupt from birth)."""
+    tables = (metadata.cas or {}).get("chunks") or {}
+    if tables:
+        from .cas import commit_refs
 
-    def __init__(self, location: str, table: str) -> None:
-        self.location = location
-        self.table = table
-        super().__init__(
-            f"object {location!r} is stored encoded (the snapshot's metadata has "
-            f"a {table} for it), which this package cannot decode yet; restore "
-            "it with the JAX package"
-        )
+        commit_refs(store, path, tables)
 
 
 class DegradedSnapshotError(RuntimeError):
@@ -168,22 +189,6 @@ class DegradedSnapshotError(RuntimeError):
             f"path(s) were lost with a dead rank and not healed: "
             f"{self.degraded_paths[:5]}"
         )
-
-
-def _entry_locations(entry: Entry) -> List[str]:
-    if isinstance(entry, ShardedArrayEntry):
-        return [s.location for s in entry.shards]
-    if isinstance(entry, ChunkedArrayEntry):
-        return [c.location for c in entry.chunks]
-    location = getattr(entry, "location", None)
-    return [location] if location else []
-
-
-def _refuse_encoded(metadata: SnapshotMetadata, locations: Iterable[str]) -> None:
-    chunks = (metadata.cas or {}).get("chunks") or {}
-    for location in locations:
-        if location in chunks:
-            raise EncodedPayloadError(location, "CAS chunk table")
 
 
 def _validate_app_state(app_state: AppState) -> None:
@@ -372,18 +377,41 @@ class _TakePlan:
     # location → codec frame table of each object this rank stored
     # encoded (or linked from a base that did), filled by the writes
     object_codecs: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    # content-addressed takes: the rank-agreed {"root", "chunk_size"}, the
+    # pool, and location → chunk table of each object this rank stored
+    cas_cfg: Optional[Dict[str, Any]] = None
+    cas_store: Any = None
+    object_cas: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
     def local_payload(self) -> Dict[str, Any]:
         return {
             "manifest": {p: e.to_dict() for p, e in {**self.manifest, **self.entries}.items()},
             "objects": self.object_digests,
             "codecs": self.object_codecs,
+            "cas": self.object_cas,
         }
+
+    def cas_envelope(self, chunks: Dict[str, Any]) -> Dict[str, Any]:
+        """The metadata's ``cas`` section (empty for a plain take)."""
+        if self.cas_cfg is None:
+            return {}
+        from .cas import record_root
+
+        return {
+            "root": record_root(self.path, self.cas_cfg["root"]),
+            "chunk_size": self.cas_cfg["chunk_size"],
+            "chunks": dict(chunks),
+        }
+
+    def close_cas(self) -> None:
+        if self.cas_store is not None:
+            self.cas_store.sync_close()
+            self.cas_store = None
 
 
 def _metadata_from(
     manifests: List[Dict[str, Entry]], objects: Dict[str, List[int]], world: int,
-    codecs: Optional[Dict[str, Any]] = None,
+    codecs: Optional[Dict[str, Any]] = None, cas: Optional[Dict[str, Any]] = None,
 ) -> SnapshotMetadata:
     """The consolidated metadata of every rank's manifest.  A replicated
     chunked entry whose chunks were split across ranks carries on each
@@ -402,7 +430,7 @@ def _metadata_from(
                 c.crc32 = chunk_crcs.get((c.location, tuple(c.byte_range or ())))
     return SnapshotMetadata(
         version=MANIFEST_VERSION, world_size=world, manifest=consolidated,
-        objects=objects, codecs=dict(codecs or {}),
+        objects=objects, codecs=dict(codecs or {}), cas=dict(cas or {}),
     )
 
 
@@ -448,9 +476,11 @@ def _commit_protocol(
     obs.aggregate.publish(coord, uid, obs.aggregate.rank_payload(rank, "take", obs_before))
     if world == 1:
         metadata = _metadata_from(
-            [{**plan.manifest, **plan.entries}], plan.object_digests, 1, plan.object_codecs
+            [{**plan.manifest, **plan.entries}], plan.object_digests, 1, plan.object_codecs,
+            plan.cas_envelope(plan.object_cas),
         )
         _write_obsrecord(coord, uid, storage, plan.path)
+        _cas_commit_refs(metadata, plan.path, plan.cas_store)
         _commit(storage, metadata)
         return metadata
     coord.kv_set(
@@ -473,16 +503,20 @@ def _commit_protocol(
                 ]
                 objects: Dict[str, List[int]] = {}
                 codecs: Dict[str, Any] = {}
+                chunks: Dict[str, Any] = {}
                 for p in payloads:
                     objects.update(p["objects"])
                     codecs.update(p.get("codecs") or {})
+                    chunks.update(p.get("cas") or {})
                 metadata = _metadata_from(
                     [{k: entry_from_dict(v) for k, v in p["manifest"].items()} for p in payloads],
-                    objects, world, codecs,
+                    objects, world, codecs, plan.cas_envelope(chunks),
                 )
                 _write_obsrecord(coord, uid, storage, plan.path)
-                # never write the commit marker after the scope was poisoned
+                # never write the commit marker after the scope was poisoned,
+                # and register chunk refs strictly before it
                 coord.raise_if_poisoned(uid)
+                _cas_commit_refs(metadata, plan.path, plan.cas_store)
                 _commit(storage, metadata)
                 depart = "ok"
         except BaseException as e:
@@ -548,9 +582,13 @@ class Snapshot:
         device-copy budget.
 
         ``storage_options`` go to the storage plugin's constructor
-        (``storage.url_to_storage_plugin``); ``cas`` (the
-        content-addressed chunk store) raises ``NotImplementedError``."""
-        _refuse_cas(cas)
+        (``storage.url_to_storage_plugin``).
+
+        ``cas``: store the payload as content-addressed chunks in a pool
+        (``True``: ``<parent>/cas``; a root URL; or a dict that may give
+        ``root`` and ``chunk_size_bytes``), writing only the chunks no
+        committed step holds.  It needs WRITE_CHECKSUMS on every rank
+        (without, a plain take with a warning) and supersedes ``base``."""
         coordinator = coordinator or get_default_coordinator()
         _validate_app_state(app_state)
         rank = coordinator.rank
@@ -561,7 +599,7 @@ class Snapshot:
             uid = coordinator._next_uid("commit")
             plan = cls._plan_at_entry(
                 path, app_state, replicated, coordinator, uid, False, base,
-                leaf_transform, storage_options,
+                leaf_transform, storage_options, cas,
             )
             storage = _storage_for(plan.path, storage_options)
             try:
@@ -579,6 +617,7 @@ class Snapshot:
                 raise
             finally:
                 storage.sync_close()
+                plan.close_cas()
             # a sync take is durable and unblocks at its return
             obs.goodput.durable_commit(path)
             obs.goodput.take_unblocked(path, gp_begin)
@@ -616,7 +655,6 @@ class Snapshot:
         ``take``'s."""
         from .host_offload import eager_offload_write_reqs
 
-        _refuse_cas(cas)
         coordinator = coordinator or get_default_coordinator()
         _validate_app_state(app_state)
         rank = coordinator.rank
@@ -626,7 +664,7 @@ class Snapshot:
             uid = coordinator._next_uid("commit")
             plan = cls._plan_at_entry(
                 path, app_state, replicated, coordinator, uid, True, base,
-                leaf_transform, storage_options,
+                leaf_transform, storage_options, cas,
             )
             unblock_early = not knobs.is_eager_host_staging_disabled()
             storage = _storage_for(plan.path, storage_options)
@@ -641,6 +679,7 @@ class Snapshot:
                 # peers are past planning, waiting for this rank's commit
                 coordinator.poison(uid, cause=repr(e), site=f"async_take/rank{rank}")
                 storage.sync_close()
+                plan.close_cas()
                 raise
         pending = PendingSnapshot(
             plan.path, coordinator, plan, pending_io, storage, uid, obs_before,
@@ -663,6 +702,7 @@ class Snapshot:
         base: Optional[str],
         leaf_transform: Optional[Callable[[str, Any], Any]],
         storage_options: Optional[Dict[str, Any]],
+        cas: Any = None,
     ) -> _TakePlan:
         # a take must not perturb the RNG streams, and the state saved
         # is the state at entry: capture now, restore on the way out
@@ -678,7 +718,7 @@ class Snapshot:
             with coordinator.abort_scope(uid):
                 return cls._plan(
                     path, app_state, replicated, coordinator, rng_states_at_entry,
-                    is_async, base, leaf_transform, storage_options,
+                    is_async, base, leaf_transform, storage_options, cas,
                 )
         except SnapshotAbortedError:
             raise
@@ -703,6 +743,7 @@ class Snapshot:
         base: Optional[str],
         leaf_transform: Optional[Callable[[str, Any], Any]],
         storage_options: Optional[Dict[str, Any]],
+        cas: Any = None,
     ) -> _TakePlan:
         rank, world = coordinator.rank, coordinator.world_size
         replicated = _infer_replicated(replicated, app_state)
@@ -719,14 +760,17 @@ class Snapshot:
                     "rank 0's", rank, path, path0,
                 )
                 path = path0
-            # the base and the checksum setting gate the base table's
-            # broadcast below, so they are rank-agreed: rank 0's base wins,
-            # and dedup needs checksums on every rank
+            # the base, the pool and the checksum setting gate the
+            # broadcasts below (the base's table, the pool's live keys), so
+            # they are rank-agreed: rank 0's base and pool win, and dedup
+            # needs checksums on every rank
             gathered = coordinator.all_gather_object(
-                (sorted(set(replicated)), local_mode, base, checksums)
+                (sorted(set(replicated)), local_mode, base, checksums,
+                 _normalize_cas_config(cas, path))
             )
-            base = gathered[0][2]
-            if base is not None and not all(g[3] for g in gathered):
+            base, cas_cfg = gathered[0][2], gathered[0][4]
+            checksums_all = all(g[3] for g in gathered)
+            if base is not None and not checksums_all:
                 logger.warning(
                     "rank %d: WRITE_CHECKSUMS is off on some rank; incremental "
                     "dedup is off for this take", rank,
@@ -746,6 +790,14 @@ class Snapshot:
             replicated_globs = sorted(set(replicated))
             verify_mode = local_mode
             keys = sorted(app_state)
+            cas_cfg = _normalize_cas_config(cas, path)
+            checksums_all = checksums
+        if cas_cfg is not None and not checksums_all:
+            logger.warning(
+                "rank %d: take(cas=...) needs WRITE_CHECKSUMS=1 on every rank; "
+                "taking a plain (per-step object) snapshot", rank,
+            )
+            cas_cfg = None
         manifest: Manifest = {}
         flattened: Dict[str, Any] = {}
         for key in keys:
@@ -850,6 +902,15 @@ class Snapshot:
                 object_codecs[wr.path] = table
 
             wr.codec_sink = codec_sink
+        if cas_cfg is not None and base is not None:
+            # chunk addressing dedups against every committed step of the
+            # pool; a whole-object base link is weaker, and one take does
+            # not mix the two storage models
+            logger.warning(
+                "rank %d: take(cas=...) supersedes base=%r; using chunk-level "
+                "content addressing", rank, base,
+            )
+            base = None
         if base is not None and base.rstrip("/") == path.rstrip("/"):
             # a self-link would unlink the only copy before linking it
             logger.warning(
@@ -877,9 +938,12 @@ class Snapshot:
                 "rank %d: take(base=...) needs WRITE_CHECKSUMS=1; performing "
                 "a full save", rank,
             )
-        return _TakePlan(
-            path, manifest, entries, write_reqs, object_digests, world, object_codecs
+        plan = _TakePlan(
+            path, manifest, entries, write_reqs, object_digests, world, object_codecs, cas_cfg
         )
+        if cas_cfg is not None:
+            _attach_cas(plan, coordinator)
+        return plan
 
     # --------------------------------------------------------------- restore
 
@@ -926,6 +990,19 @@ class Snapshot:
                 )
         return tables or None
 
+    def _cas_reads(self) -> Optional[Tuple[Any, Dict[str, Any]]]:
+        """``(ChunkStore, {location → chunk table})`` of the objects stored
+        as chunk references, None when there are none (the caller closes
+        the store)."""
+        from . import cas as cas_mod
+
+        meta_cas = self.metadata.cas or {}
+        tables = cas_mod.chunk_tables_from_metadata(self.metadata) if meta_cas else {}
+        if not tables:
+            return None
+        root = cas_mod.resolve_root(self.path, str(meta_cas.get("root")))
+        return cas_mod.ChunkStore(root), tables
+
     def restore(
         self,
         app_state: AppState,
@@ -960,11 +1037,12 @@ class Snapshot:
             # metadata read included: a rank that fails anywhere poisons
             # it, and its peers' waits raise SnapshotAbortedError
             uid = coordinator._next_uid("restore")
-            storage = None
+            storage = cas_reads = None
             try:
                 with coordinator.abort_scope(uid):
                     manifest_for_rank = get_manifest_for_rank(self.metadata, rank)
                     storage = _storage_for(self.path, self._storage_options)
+                    cas_reads = self._cas_reads()
                     # (key, is RNG state) of this rank's app_state; over
                     # ranks, the union of the keys (a rank-local stateful
                     # is restored where it lives), a key RNG state when
@@ -980,20 +1058,11 @@ class Snapshot:
                         flags = dict(local)
                     # RNG state last, so no other restore can perturb it
                     keys = sorted(flags, key=lambda k: (flags[k], k))
-                    # every chunk-referenced object this rank's keys would
-                    # read, refused before any key restores
-                    _refuse_encoded(self.metadata, (
-                        location
-                        for p, e in manifest_for_rank.items()
-                        if any(p == k or p.startswith(k + "/") for k in app_state)
-                        and (paths is None or path_is_replicated(p, paths))
-                        for location in _entry_locations(e)
-                    ))
                     for key in keys:
                         if key in app_state:
                             self._load_stateful(
                                 key, app_state[key], manifest_for_rank, storage,
-                                strict, rank, device, paths, priority,
+                                strict, rank, device, paths, priority, cas_reads,
                             )
                         if world > 1:
                             # one load_state_dict at a time across ranks,
@@ -1017,6 +1086,8 @@ class Snapshot:
             finally:
                 if storage is not None:
                     storage.sync_close()
+                if cas_reads is not None:
+                    cas_reads[0].sync_close()
             obs.maybe_write_metrics_textfile()
 
     def _load_stateful(
@@ -1024,6 +1095,7 @@ class Snapshot:
         storage: Any, strict: bool, rank: int, device: Any,
         paths: Optional[Sequence[str]] = None,
         priority: Optional[Sequence[str]] = None,
+        cas_reads: Optional[Tuple[Any, Dict[str, Any]]] = None,
     ) -> None:
         with obs.span("restore/load_stateful", key=key, rank=rank):
             key_manifest = {
@@ -1092,7 +1164,7 @@ class Snapshot:
                 read_reqs = batch_read_requests(read_reqs)
             sync_execute_read_reqs(
                 read_reqs, storage, get_process_memory_budget_bytes(), rank,
-                codec_tables=self._codec_tables(),
+                codec_tables=self._codec_tables(), cas_reads=cas_reads,
             )
             state_dict = inflate(
                 container_entries,
@@ -1156,16 +1228,18 @@ class Snapshot:
             reqs, fut = prepare_read(
                 entry, obj_out=obj_out, buffer_size_limit_bytes=memory_budget_bytes
             )
-            _refuse_encoded(self.metadata, [r.path for r in reqs])
             storage = _storage_for(self.path, self._storage_options)
+            cas_reads = self._cas_reads()
             try:
                 sync_execute_read_reqs(
                     reqs, storage,
                     memory_budget_bytes or get_process_memory_budget_bytes(), rank=0,
-                    codec_tables=self._codec_tables(),
+                    codec_tables=self._codec_tables(), cas_reads=cas_reads,
                 )
             finally:
                 storage.sync_close()
+                if cas_reads is not None:
+                    cas_reads[0].sync_close()
             return _place(fut.obj, obj_out, device)
 
     # ----------------------------------------------------- inspection
@@ -1179,10 +1253,12 @@ class Snapshot:
         """Read one rank's whole view (default: this process's rank) into
         a nested state dict, with no templates and no app_state: one
         entry per app_state key.  Tensors come back on ``device``
-        (``"cpu"`` for host tensors).  The JAX package returns read-only
-        numpy views backed by mmap; the port has no mmap reads yet
-        (ROADMAP queue A item 3.4), so each leaf is a tensor of its own.
-        ``priority`` orders the reads as ``restore``'s does.  A
+        (``"cpu"`` for host tensors).  Under ``MMAP`` (the default) on a
+        local filesystem a CPU leaf stored raw is a tensor over a private
+        mapping of its file, as the JAX package returns mmap-backed
+        views: no host copy is made, and writing the tensor changes a
+        private copy of the page, never the file.  ``priority`` orders
+        the reads as ``restore``'s does.  A
         ``PyTreeState``'s list and tuple nodes come back as index-keyed
         dicts (its structure lives in the tree, not the manifest)."""
         if rank is None:
@@ -1194,9 +1270,6 @@ class Snapshot:
         with log_event(Event("materialize", {"path": self.path, "rank": rank})):
             manifest = get_manifest_for_rank(self.metadata, rank)
             containers = {p: e for p, e in manifest.items() if is_container_entry(e)}
-            _refuse_encoded(self.metadata, (
-                loc for e in manifest.values() for loc in _entry_locations(e)
-            ))
             futures: Dict[str, Future] = {}
             read_reqs: List[ReadReq] = []
             for p, e in manifest.items():
@@ -1212,13 +1285,16 @@ class Snapshot:
             if not knobs.is_batching_disabled():
                 read_reqs = batch_read_requests(read_reqs)
             storage = _storage_for(self.path, self._storage_options)
+            cas_reads = self._cas_reads()
             try:
                 sync_execute_read_reqs(
                     read_reqs, storage, get_process_memory_budget_bytes(), rank,
-                    codec_tables=self._codec_tables(),
+                    codec_tables=self._codec_tables(), cas_reads=cas_reads,
                 )
             finally:
                 storage.sync_close()
+                if cas_reads is not None:
+                    cas_reads[0].sync_close()
             leaves = {p: _place(fut.obj, None, device) for p, fut in futures.items()}
             return {
                 key: inflate(containers, leaves, prefix=key)
@@ -1271,6 +1347,45 @@ def _map_legacy_leaf_targets(
     for i, (_, leaf) in enumerate(_tree_path_keys(stateful.tree)):
         if i in legacy:
             targets[legacy[i]] = leaf
+
+
+def _attach_cas(plan: _TakePlan, coordinator: Coordinator) -> None:
+    """Route every write of a content-addressed take through the pool:
+    rank 0 loads the index's live keys once (rebuilding a corrupt index
+    with ``fsck`` first) and broadcasts them; one written-this-take set is
+    shared, so repeats within the take are written once."""
+    from . import cas as cas_mod
+
+    root = plan.cas_cfg["root"]
+    plan.cas_store = cas_mod.ChunkStore(root)
+    known: set = set()
+    if coordinator.rank == 0:
+        try:
+            known = cas_mod.ChunkIndex.load(plan.cas_store).live_keys()
+        except cas_mod.ChunkIndexCorruptError as e:
+            logger.warning(
+                "corrupt chunk index under %r (%r); rebuilding via fsck before "
+                "this take", root, e,
+            )
+            try:
+                cas_mod.fsck(root)
+                known = cas_mod.ChunkIndex.load(plan.cas_store).live_keys()
+            except Exception as e2:  # noqa: BLE001 — dedup only, never correctness
+                logger.warning(
+                    "chunk-index fsck under %r failed (%r); this take writes "
+                    "every chunk", root, e2,
+                )
+    if coordinator.world_size > 1:
+        known = coordinator.broadcast_object(known, src=0)
+    written: set = set()
+    for wr in plan.write_reqs:
+        def sink(table: Dict[str, Any], wr: WriteReq = wr) -> None:
+            plan.object_cas[wr.path] = table
+
+        wr.cas = cas_mod.CasWriteContext(
+            store=plan.cas_store, known_keys=known,
+            chunk_size=plan.cas_cfg["chunk_size"], sink=sink, written_this_take=written,
+        )
 
 
 def _base_tables(
@@ -1356,6 +1471,7 @@ class PendingSnapshot:
                 self._exc = e
         finally:
             obs.maybe_write_metrics_textfile()
+            self._plan.close_cas()
             # the drained work pinned the staged buffers; the handle may
             # outlive the commit
             self._pending_io = self._plan = None

@@ -9,8 +9,10 @@ moves payloads around the page cache.  ``FASTIO=0`` or
 ``ENABLE_NATIVE_EXT=0`` keep the pure-Python legs, which write and read
 the same bytes.  ``delete``, ``stat`` and ``link_from`` (a hardlink of
 a base snapshot's object for incremental takes, a copy across devices)
-serve retention, verification and dedup.  Not ported: mmap reads
-(ROADMAP queue A item 3.4).
+serve retention, verification and dedup.  A read that asks for a map
+(``ReadIO.want_mmap``, under the ``MMAP`` knob) is served by
+``mmap_read`` as a private file-backed mapping, before the fast-I/O
+engine is reached.
 
 Writes, reads and stats run under the shared retry policy
 (``resilience/retry.py``: EINTR and EAGAIN retry, anything else is
@@ -42,6 +44,7 @@ from __future__ import annotations
 import asyncio
 import contextlib
 import errno
+import mmap
 import os
 import shutil
 import threading
@@ -49,9 +52,17 @@ import uuid
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, Iterator, Optional, Tuple
 
+import numpy as np
 
 from .. import _csrc, knobs, obs
-from ..io_types import ReadIO, StoragePlugin, StripedWriteHandle, WriteIO, resolve_read_destination
+from ..io_types import (
+    ReadIO,
+    StoragePlugin,
+    StripedWriteHandle,
+    WriteIO,
+    register_mapping,
+    resolve_read_destination,
+)
 from ..resilience import classify_fs, get_breaker, lazy_shared_progress, retry_call
 from ..resilience.failpoints import failpoint
 from ..utils.checksums import crc32_fast
@@ -86,8 +97,61 @@ def _unlink_quiet(path: str) -> None:
         pass
 
 
+def mmap_read(full: str, byte_range, path: str = "") -> np.ndarray:
+    """Zero-copy read: a uint8 array over a private (copy-on-write) map
+    of the whole of ``full``, offset to ``byte_range``.  The pages stay
+    the page cache's until something writes them, and a write lands in
+    a private copy, never in the file, so a tensor made over the array
+    needs no copy (torch has no read-only tensors).  The pages fault in
+    on first touch and the kernel may reclaim them, which is why the
+    read scheduler admits mapped reads outside the budget.
+
+    SIGBUS discipline: touching a mapped page past the inode's end
+    raises SIGBUS, so a file truncated in place while mapped would kill
+    the reader.  Nothing here truncates a live name: every writer
+    publishes by temp file and rename, and every delete unlinks (an
+    unlinked inode's pages stay valid while mapped).  The extent check
+    below raises EIO for a file already shorter than the read, before
+    any map.  ``MADV_WILLNEED`` starts readahead of the span."""
+    with obs.span("storage/mmap_read", path=path or full):
+        fd = os.open(full, os.O_RDONLY)
+        try:
+            size = os.fstat(fd).st_size
+            if byte_range is None:
+                offset, length = 0, size
+            else:
+                offset, length = byte_range[0], byte_range[1] - byte_range[0]
+            if offset + length > size:
+                raise OSError(
+                    errno.EIO,
+                    f"mmap read of [{offset}, {offset + length}) exceeds file size {size}",
+                    full,
+                )
+            if length == 0:
+                return np.empty(0, dtype=np.uint8)
+            mm = mmap.mmap(fd, size, access=mmap.ACCESS_COPY)
+        finally:
+            os.close(fd)
+        try:
+            lo = offset - offset % mmap.PAGESIZE  # madvise wants page alignment
+            mm.madvise(mmap.MADV_WILLNEED, lo, length + offset - lo)
+        except (AttributeError, OSError, ValueError) as e:
+            obs.swallowed_exception("storage.fs.mmap_madvise", e)
+        obs.counter(obs.MMAP_READS).inc()
+        obs.counter(obs.MMAP_BYTES_MAPPED).inc(length)
+        # the array holds the only reference to the map: it lives as long
+        # as some view of the array does
+        arr = np.frombuffer(mm, dtype=np.uint8, count=length, offset=offset)
+        register_mapping(arr)
+        return arr
+
+
 @obs.instrument_storage("fs")
 class FSStoragePlugin(StoragePlugin):
+    supports_mmap_read = True
+    # every read is a local file: a map never declines
+    mmap_budget_exempt = True
+
     def __init__(self, root: str) -> None:
         self.root = root
         # probed once here: the library (built on first use; raises when
@@ -190,6 +254,13 @@ class FSStoragePlugin(StoragePlugin):
 
     async def read(self, read_io: ReadIO) -> None:
         full = self._full(read_io.path)
+        if read_io.want_mmap and knobs.mmap_enabled():
+            def mmap_attempt():
+                failpoint("storage.fs.read", path=read_io.path)
+                return mmap_read(full, read_io.byte_range, read_io.path)
+
+            read_io.buf = await self._retry(mmap_attempt, f"read {read_io.path}")
+            return
 
         def attempt():
             failpoint("storage.fs.read", path=read_io.path)

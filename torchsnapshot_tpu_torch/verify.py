@@ -19,9 +19,10 @@ snapshot committed degraded lists the paths lost with a dead rank under
 object stored compressed is checked against its codec table: its stored
 size is the sum of its frames, and deep mode decodes its frames and
 compares the raw bytes' crc32s (a frame that fails to decode is
-``unreadable``).  An object stored as content-addressed chunks raises
-``EncodedPayloadError``, as a restore of it does: the port does not
-assemble them yet (ROADMAP queue A item 3.3).
+``unreadable``).  An object stored as content-addressed chunks has no
+per-step object: shallow mode stats its chunks in the pool (a chunk's
+key fixes its exact size), and deep mode assembles it from the pool and
+compares the raw crc32s.
 """
 
 from __future__ import annotations
@@ -33,8 +34,8 @@ from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
+from . import cas as cas_mod
 from . import codec
-
 from .event import Event
 from .event_handlers import log_event
 from .io_types import ReadIO, run_in_fresh_loop
@@ -169,11 +170,12 @@ def _crc_targets(manifest: Dict[str, Entry]) -> List[Tuple[str, Optional[List[in
 
 def _check_crcs(
     storage: Any, manifest: Dict[str, Entry], result: VerifyResult, extents: Dict[str, int],
-    codec_tables: Dict[str, Any],
+    codec_tables: Dict[str, Any], cas_reads: Optional[Tuple[Any, Dict[str, Any]]] = None,
 ) -> set:
     """Deep mode: read every checksummed payload again and compare its
-    crc32 (an encoded object's payload decoded from its frames: the
-    recorded crc32s are the raw bytes').  Returns the ``(location,
+    crc32 (an encoded object's payload decoded from its frames, a
+    chunk-referenced one assembled from the pool: the recorded crc32s
+    are the raw bytes').  Returns the ``(location,
     byte_range)`` keys that verified.  Reads are admitted under the
     process staging budget (each holds its whole payload), one oversized
     payload alone."""
@@ -204,7 +206,10 @@ def _check_crcs(
                 async with sem:
                     rng = list(byte_range) if byte_range else None
                     table = codec_tables.get(loc)
-                    if table is not None:
+                    ctable = cas_reads[1].get(loc) if cas_reads else None
+                    if ctable is not None:
+                        buf = await cas_mod.chunked_read(cas_reads[0], loc, ctable, byte_range=rng)
+                    elif table is not None:
                         buf = await codec.framed_read(
                             storage, loc, table, byte_range=rng, executor=decode_pool
                         )
@@ -265,12 +270,11 @@ def verify_snapshot(snapshot: Any, deep: bool = False, rank: Optional[int] = Non
 
 
 def _verify_impl(snapshot: Any, deep: bool, rank: int) -> VerifyResult:
-    from .snapshot import _entry_locations, _refuse_encoded, _storage_for
+    from .snapshot import _storage_for
 
     result = VerifyResult()
     metadata = snapshot.metadata
     manifest = dict(get_manifest_for_rank(metadata, rank))
-    _refuse_encoded(metadata, (loc for e in manifest.values() for loc in _entry_locations(e)))
     codec_tables = snapshot._codec_tables() or {}
     # paths lost with a dead rank are absent by contract; the same view
     # rule as restore's decides which of them this rank's audit would read
@@ -288,6 +292,8 @@ def _verify_impl(snapshot: Any, deep: bool, rank: int) -> VerifyResult:
     for p in result.degraded:
         del manifest[p]
     storage = _storage_for(snapshot.path, snapshot._storage_options)
+    cas_reads = snapshot._cas_reads()
+    cas_tables = cas_reads[1] if cas_reads is not None else {}
     try:
         extents = _expected_extents(manifest)
         # the objects table records exact sizes
@@ -302,7 +308,7 @@ def _verify_impl(snapshot: Any, deep: bool, rank: int) -> VerifyResult:
             exact_sizes[loc] = stored
             if loc in extents:
                 extents[loc] = stored
-        for location, outcome in _stat_all(storage, sorted(extents)):
+        for location, outcome in _stat_all(storage, sorted(set(extents) - set(cas_tables))):
             if isinstance(outcome, FileNotFoundError):
                 result.missing.append(location)
             elif isinstance(outcome, BaseException):
@@ -314,9 +320,27 @@ def _verify_impl(snapshot: Any, deep: bool, rank: int) -> VerifyResult:
                     result.truncated.append((location, exact, outcome))
                 elif outcome < extents[location]:
                     result.truncated.append((location, extents[location], outcome))
+        if cas_tables:
+            # a chunk-referenced object of this rank's view is its chunks
+            chunk_sizes = {
+                cas_mod.chunk_location(k): cas_mod.key_size(k)
+                for loc in cas_tables if loc in extents
+                for k in cas_tables[loc]["keys"]
+            }
+            for location, outcome in _stat_all(cas_reads[0].storage, sorted(chunk_sizes)):
+                if isinstance(outcome, FileNotFoundError):
+                    result.missing.append(location)
+                elif isinstance(outcome, BaseException):
+                    result.unreadable.append((location, f"stat: {outcome!r}"))
+                else:
+                    result.objects_checked += 1
+                    # the key fixes the exact length: any other is corruption
+                    if outcome != chunk_sizes[location]:
+                        result.truncated.append((location, chunk_sizes[location], outcome))
 
         crc_verified = (
-            _check_crcs(storage, manifest, result, extents, codec_tables) if deep else set()
+            _check_crcs(storage, manifest, result, extents, codec_tables, cas_reads)
+            if deep else set()
         )
         for lpath, entry in sorted(manifest.items()):
             if is_container_entry(entry):
@@ -334,7 +358,7 @@ def _verify_impl(snapshot: Any, deep: bool, rank: int) -> VerifyResult:
                 read_reqs, fut = prepare_read(entry)
                 sync_execute_read_reqs(
                     list(read_reqs), storage, get_process_memory_budget_bytes(), rank,
-                    codec_tables=codec_tables or None,
+                    codec_tables=codec_tables or None, cas_reads=cas_reads,
                 )
                 if fut.obj is None:
                     raise RuntimeError("read produced no value")
@@ -342,6 +366,8 @@ def _verify_impl(snapshot: Any, deep: bool, rank: int) -> VerifyResult:
                 result.unreadable.append((lpath, repr(e)))
     finally:
         storage.sync_close()
+        if cas_reads is not None:
+            cas_reads[0].sync_close()
     if not result.ok:
         logger.warning("snapshot %r verification: %s", snapshot.path, result)
     return result
