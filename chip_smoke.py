@@ -32,11 +32,12 @@ is no card or anything below fails.  In order:
    alignment; K2 unpacks both slabs.  K6 casts 32 MiB bf16 tiles of the
    embedding into an f32 template at offset 0 and as the last, ragged
    tile, bitwise.  Every kernel, its plain version and the library
-   yardstick (``torch.cat`` for K1, SDPA forward for K3, SDPA backward
+   yardstick (``torch.cat`` for K1, ``torch._foreach_copy_`` from the
+   slab's views for K2, SDPA forward for K3, SDPA backward
    for K4 + K5, ``copy_`` into the template's range for K6) are timed 5
    times: median, range, share of the bound, TFLOP/s for K3-K5; K1 both
    as ``pack_slab`` is called and as its launch alone;
-4. eleven paths, each with the launch counters set to 0 just before it
+4. twelve paths, each with the launch counters set to 0 just before it
    and read just after (a path that starts processes adds the launches
    they report), all with the fast-I/O engine at its defaults unless
    the path says otherwise:
@@ -70,7 +71,7 @@ is no card or anything below fails.  In order:
       goodput (time to unblock, durability lag).  Each take's
       ``.snapshot_obsrecord`` must read back with ``bytes_written`` equal
       to the take's own counter delta.  Then the tracer's cost: sync
-      takes under TRACE=0 and TRACE=1, 3 each in alternating order,
+      takes under TRACE=0 and TRACE=1, 2 each in alternating order,
       medians and ranges;
    a4. stripe_codec (after a3, on a's state): the stripe engine and the
       codec layer.  Striping is on at its defaults on every path (objects
@@ -195,7 +196,33 @@ is no card or anything below fails.  In order:
       returning tensors over the mappings (a written one leaves its file
       unchanged) and ``materialize(device="cuda")`` bitwise; and the CLI's
       ``stats --json``, ``doctor`` and ``trace`` (on the card, Perfetto
-      under ``build/traces/``) on the CAS step.
+      under ``build/traces/``) on the CAS step;
+   i. tier_cache (after h): tiered storage and the shared-host object
+      cache on a's state (4,001,488,980 bytes) under
+      ``SnapshotManager(durable, tier=TierConfig(fast_root,
+      fast_keep_last_n=2))``.  The fast root, and later the cache
+      directory, go to ``/dev/shm`` when it has room (three copies of the
+      state for the fast root, one for the cache), else under the work
+      directory; the line says which filesystem each is on.  Step 0
+      under ``write_through`` (both tiers committed on return); step 1 a
+      sync ``write_back`` take (the seconds to return at the fast commit,
+      to the durable marker after ``drain_promotions``,
+      ``tier.promotion_lag_s``, and ``tier.bytes_promoted`` equal to the
+      step's payload bytes); step 2 an ``async_take`` under write-back
+      (unblock, fast and durable commit).  Fast retention must evict step
+      0's fast copy only, and only with its durable marker present.
+      Restores into a zeroed state, bitwise with K2: fast-first (every
+      read a fast hit), after one byte flipped in a fast payload
+      (``tier.fast_corrupt`` and ``tier.fast_repairs`` 1, the repaired
+      file matching its digest) and after step 2's fast copy was wiped
+      (served by the durable tier, every object repaired); the embedding
+      into an f32 template under 32 MiB through the tier (K6); ``python
+      -m torchsnapshot_tpu_torch tiers`` reporting each step's residency.
+      Then two processes restore the durable step 1 onto the card at
+      once through one cache directory (``--tier-cache-child``), each
+      bitwise; summed over them ``storage.cache.misses`` must equal the
+      step's object count, and a third restore in this process must be
+      all hits, every read mapped.
 
 Every kernel must have launched on these paths, and each path on the
 kernels it runs.  The line before the last is the card; the line before
@@ -205,6 +232,7 @@ it the ``kernels`` JSON; the last line ``{"ok": true, "device": ...}``.
 import fnmatch
 import gc
 import json
+import math
 import os
 import shutil
 import socket
@@ -420,16 +448,38 @@ def phase_k2(slab, members, mis_slab, mis_members):
             o.copy_(w)
 
     plain_t = time_ms_repeats(plain_into, iters=5)
+
+    def slab_views(sl, lay):
+        views = []
+        for off, d, shape in lay:
+            dt = string_to_dtype(d)
+            n = dt.itemsize * math.prod(shape)
+            views.append(sl[off:off + n].view(dt).view(shape))
+        return views
+
+    # the library's one call for the same function: torch._foreach_copy_
+    # from the slab's views (stored dtypes) into the templates, casting
+    lib_t = {}
+    for what, sl, lay, os_ in (("aligned", slab, layout, outs), ("misaligned", mis_slab, mis_layout, mis_outs)):
+        views = slab_views(sl, lay)
+        for o in os_:
+            o.zero_()
+        torch._foreach_copy_(os_, views)
+        want = device_pack.unpack_slab_plain(sl, lay, [o.dtype for o in os_])
+        check(all(torch.equal(o, w) for o, w in zip(os_, want)), f"_foreach_copy_ {what} differs from K2's plain version")
+        lib_t[what] = time_ms_repeats(lambda os_=os_, views=views: torch._foreach_copy_(os_, views))
     print(f"K2 aligned (member 0 cast bf16 -> f32): {fmt_t(times['aligned'])}, bound {bound_ms:.4f} ms "
           f"({100 * bound_ms / times['aligned'][0]:.1f}%); misaligned identity: {fmt_t(times['misaligned'])}, "
           f"bound {mis_bound_ms:.4f} ms ({100 * mis_bound_ms / times['misaligned'][0]:.1f}%); "
-          f"plain {fmt_t(plain_t)}")
+          f"plain {fmt_t(plain_t)}; torch._foreach_copy_ from the slab's views aligned {fmt_t(lib_t['aligned'])}, "
+          f"misaligned {fmt_t(lib_t['misaligned'])}")
     record = kernel_record(
         "slab_unpack", "torchsnapshot_tpu_torch/csrc/slab_unpack.cu",
         "torchsnapshot_tpu/ops/device_pack.py:85", 0.0, times["aligned"][0], plain_t[0],
-        bound_ms, "bytes", None,
+        bound_ms, "bytes", lib_t["aligned"][0],
     )
-    record.update(misaligned_ms=times["misaligned"][0], misaligned_bound_ms=mis_bound_ms)
+    record.update(misaligned_ms=times["misaligned"][0], misaligned_bound_ms=mis_bound_ms,
+                  misaligned_library_ms=lib_t["misaligned"][0])
     return record
 
 
@@ -1209,7 +1259,7 @@ def phase_stripe_codec(cfg, model, opt, work):
 
 
 TRACE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "traces")
-TRACE_COST_REPEATS = 3
+TRACE_COST_REPEATS = 2
 # span name -> its label on an operation's critical path (a storage write
 # or read whose parent is the operation itself, or no span on the async
 # commit thread, is its metadata commit or read; the pipeline's own sit
@@ -1332,7 +1382,7 @@ def phase_trace(cfg, model, opt, work):
     an f32 CUDA template (K6).  Each prints its critical path, phases,
     longest spans and Perfetto file; each take's flight record must read
     back with bytes_written equal to the take's own counter delta.  Then
-    the tracer's cost: sync takes under TRACE=0 and TRACE=1, 3 each in
+    the tracer's cost: sync takes under TRACE=0 and TRACE=1, 2 each in
     alternating order.  ``restore_legs`` times what the restore's phases
     are made of."""
     root = os.path.join(work, "trace")
@@ -2831,6 +2881,345 @@ def phase_cas_mmap(cfg, work):
     shutil.rmtree(snap_dir)
 
 
+TIER_SEED = 51
+
+
+def local_root(work, need_bytes, name):
+    """A directory for ``name`` on a local filesystem: under ``/dev/shm``
+    when it has ``need_bytes`` free, else under the work directory.
+    Returns (path, mount point, filesystem type)."""
+    shm = "/dev/shm"
+    try:
+        room = os.path.isdir(shm) and os.access(shm, os.W_OK) and shutil.disk_usage(shm).free >= need_bytes
+    except OSError:
+        room = False
+    path = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_", dir=shm) if room else work, name)
+    return (path, *mount_of(os.path.dirname(path)))
+
+
+def perturb(model, step):
+    """A step's own bits: the first row of the embedding set to ``step``."""
+    with torch.no_grad():
+        model.embed.weight[0].fill_(float(step))
+
+
+def tier_cache_child(rank, world, port, root):
+    """One reader of the tier_cache path's host-cache phase: restores the
+    durable step 1 onto the card with the cache directory of
+    ``root/child.json``, checks it bitwise against the state rebuilt from
+    its seed, prints a ``tier_cache result`` JSON line."""
+    from torchsnapshot_tpu_torch import knobs
+
+    if not torch.cuda.is_available():
+        print("tier_cache child: no CUDA device", file=sys.stderr)
+        return 2
+    with open(os.path.join(root, "child.json")) as f:
+        job = json.load(f)
+    cfg = TransformerConfig(n_layers=N_LAYERS)
+    model, opt = deterministic_state(cfg, TIER_SEED)
+    perturb(model, 1)
+    model2, opt2 = deterministic_state(cfg, TIER_SEED + 1)
+    zero_state(model2, opt2)
+    meta = tts.StateDict(step=-1)
+    for k in device_pack.LAUNCHES:
+        device_pack.LAUNCHES[k] = 0
+    names = (tts.obs.CACHE_MISSES, tts.obs.CACHE_HITS, tts.obs.CACHE_SINGLEFLIGHT_WAITS, tts.obs.MMAP_READS)
+    before = tts.obs.counters()
+    # both children start their restores together
+    go = os.path.join(root, "go")
+    with open(os.path.join(root, f"ready{rank}"), "w"):
+        pass
+    deadline = time.monotonic() + 120
+    while not os.path.exists(go):
+        check(time.monotonic() < deadline, "the parent never released the readers")
+        time.sleep(0.005)
+    with knobs.override_cache_dir(job["cache"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tts.Snapshot(job["snap"]).restore({"model": model2, "optim": opt2, "meta": meta})
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    differs = same_state((model, opt), (model2, opt2))
+    check(differs is None and meta["step"] == 1, f"tier_cache child {rank}: restored {differs}, step {meta['step']}")
+    out = {"rank": rank, "restore_s": restore_s, "counts": counter_delta(before, names),
+           "launches": dict(device_pack.LAUNCHES)}
+    print("tier_cache result " + json.dumps(out), flush=True)
+    return 0
+
+
+def phase_tier_cache(cfg, work):
+    """Tiered storage and the shared-host object cache on the serving state
+    (see the module docstring, path i)."""
+    import zlib
+
+    from torchsnapshot_tpu_torch import knobs
+    from torchsnapshot_tpu_torch import manager as manager_mod
+
+    model, opt = deterministic_state(cfg, TIER_SEED)
+    meta = tts.StateDict(step=0)
+    app = {"model": model, "optim": opt, "meta": meta}
+    nb = state_bytes(model, opt)
+    check(nb == 4_001_488_980 or cfg.d_model != 4096, f"the serving state holds {nb} bytes")
+    durable = os.path.join(work, "tier_durable")
+    fast, fast_mnt, fast_fs = local_root(work, 3 * nb + (1 << 30), "tier_fast")
+    card = card_line()
+    print(f"tier_cache on {card}; roots: durable {durable} on {'%s (%s)' % mount_of(work)}; fast {fast} on {fast_mnt} "
+          f"({fast_fs}); free bytes: work {shutil.disk_usage(work).free}, "
+          f"/dev/shm {shutil.disk_usage('/dev/shm').free if os.path.isdir('/dev/shm') else 0}")
+    mgr = tts.SnapshotManager(durable, tier=tts.TierConfig(fast_root=fast, fast_keep_last_n=2))
+    names = (tts.obs.TIER_FAST_HITS, tts.obs.TIER_FAST_MISSES, tts.obs.TIER_FAST_CORRUPT,
+             tts.obs.TIER_FAST_REPAIRS, tts.obs.BYTES_PROMOTED)
+
+    def lag():
+        h = tts.obs.metrics_snapshot()["histograms"].get(tts.obs.PROMOTION_LAG_S) or {"count": 0, "sum": 0.0}
+        return h["count"], h["sum"]
+
+    # every fast-copy eviction must find the step's durable marker
+    evictions = []
+    real_delete = manager_mod.delete_snapshot
+
+    def watched_delete(path, *a, **kw):
+        if path.startswith(fast):
+            step = int(path.rsplit("_", 1)[1])
+            evictions.append((step, os.path.exists(os.path.join(mgr.path_for_step(step), ".snapshot_metadata"))))
+        return real_delete(path, *a, **kw)
+
+    manager_mod.delete_snapshot = watched_delete
+    try:
+        # 1. step 0 write-through: both tiers committed on return
+        perturb(model, 0)
+        with knobs.override_tier_policy("write_through"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mgr.save(app, step=0)
+            wt_s = time.perf_counter() - t0
+        check(all(os.path.exists(os.path.join(p, ".snapshot_metadata"))
+                  for p in (mgr.path_for_step(0), mgr.fast_path_for_step(0))), "write-through left a tier uncommitted")
+        # 2. step 1 sync write-back: returns at the fast commit
+        perturb(model, 1)
+        meta["step"] = 1
+        before, lag0 = tts.obs.counters(), lag()
+        os.sync()
+        with knobs.override_trace(1):
+            tts.obs.get_tracer().reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mgr.save(app, step=1)
+            wb_return_s = time.perf_counter() - t0
+            fast_committed = os.path.exists(os.path.join(mgr.fast_path_for_step(1), ".snapshot_metadata"))
+            tts.drain_promotions(timeout_s=600)
+            wb_durable_s = time.perf_counter() - t0
+        report_trace("tier_write_back_take", wb_return_s, "take",
+                     phases_of(tts.obs.aggregate.read_obsrecord(mgr.fast_path_for_step(1))))
+        lag1 = lag()
+        promoted = counter_delta(before, names)[tts.obs.BYTES_PROMOTED]
+        md1 = tts.Snapshot(mgr.fast_path_for_step(1)).metadata
+        payload1 = sum(int(d[2]) for d in md1.objects.values())
+        check(fast_committed and mgr.durable_steps() == [0, 1], f"write-back step 1: durable {mgr.durable_steps()}")
+        check(promoted == payload1, f"tier.bytes_promoted {promoted} != the step's {payload1} payload bytes")
+        check(lag1[0] == lag0[0] + 1, "no tier.promotion_lag_s observation for step 1")
+        # 3. step 2 async write-back
+        perturb(model, 2)
+        meta["step"] = 2
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        handle = mgr.save(app, step=2, async_=True)
+        unblock_s = time.perf_counter() - t0
+        handle.wait()
+        fast_commit_s = time.perf_counter() - t0
+        tts.drain_promotions(timeout_s=600)
+        durable_commit_s = time.perf_counter() - t0
+        lag2 = lag()
+        check(mgr.durable_steps() == [0, 1, 2], f"durable steps {mgr.durable_steps()}")
+        print(f"tier_cache takes ({card}; state {nb} bytes): step 0 write_through {wt_s:.3f} s, both tiers committed; "
+              f"step 1 write_back returned {wb_return_s:.3f} s (fast commit), durable {wb_durable_s:.3f} s, "
+              f"tier.promotion_lag_s {lag1[1] - lag0[1]:.3f} s, tier.bytes_promoted {promoted} == payload "
+              f"{payload1}; step 2 async_take unblock {unblock_s:.4f} s, fast commit {fast_commit_s:.3f} s, "
+              f"durable {durable_commit_s:.3f} s (lag {lag2[1] - lag1[1]:.3f} s)")
+        # 8. fast retention: after step 2's commit step 0's fast copy went,
+        # and only once it was durable
+        mgr.gc()
+        check(mgr._scan_dir(fast, require_metadata=False) == [1, 2], f"fast steps {mgr._scan_dir(fast, False)}")
+        check(evictions and all(ok for _, ok in evictions) and {s_ for s_, _ in evictions} == {0},
+              f"fast evictions {evictions}")
+    finally:
+        manager_mod.delete_snapshot = real_delete
+
+    model2, opt2 = deterministic_state(cfg, TIER_SEED + 1)
+    meta2 = tts.StateDict(step=-1)
+    app2 = {"model": model2, "optim": opt2, "meta": meta2}
+    real_read = FSStoragePlugin.read
+    fast_reads = []
+
+    async def counting_read(plugin, read_io):
+        if plugin.root.startswith(fast):
+            fast_reads.append(read_io.path)
+        return await real_read(plugin, read_io)
+
+    def restore(label, fn):
+        zero_state(model2, opt2)
+        meta2["step"] = -1
+        fast_reads.clear()
+        before = tts.obs.counters()
+        k2 = device_pack.LAUNCHES["slab_unpack"]
+        FSStoragePlugin.read = counting_read
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        finally:
+            FSStoragePlugin.read = real_read
+        differs = same_state((model, opt), (model2, opt2))
+        check(differs is None and meta2["step"] == 2, f"tier_cache {label}: restored {differs}, step {meta2['step']}")
+        check(device_pack.LAUNCHES["slab_unpack"] > k2, f"tier_cache {label} launched no K2")
+        d = counter_delta(before, names + (tts.obs.MMAP_READS,))
+        print(f"tier_cache restore {label} ({card}): {dt:.3f} s, bitwise, {len(fast_reads)} fast-tier reads, "
+              f"K2 launches {device_pack.LAUNCHES['slab_unpack'] - k2}, {json.dumps(d)}")
+        return d
+
+    # 4. fast-first: every read a fast hit (traced)
+    step = mgr.latest_step()
+    check(step == 2, f"latest step {step}")
+    with knobs.override_trace(1):
+        tts.obs.get_tracer().reset()
+        d = restore("fast-first", lambda: mgr.snapshot(2).restore(app2))
+    report_trace("tier_fast_first_restore", float("nan"), "restore",
+                 phases_of(tts.obs.aggregate.last_record("restore")))
+    check(d[tts.obs.TIER_FAST_HITS] == len(fast_reads) and d[tts.obs.TIER_FAST_MISSES] == 0,
+          f"fast-first: {d[tts.obs.TIER_FAST_HITS]} hits of {len(fast_reads)} fast reads")
+    # what the fast-first restore adds: the first-read digest of every fast
+    # object through its map, and where the fast root's pages come from
+    from torchsnapshot_tpu_torch.storage.fs import mmap_read
+    from torchsnapshot_tpu_torch.utils.checksums import crc32_fast
+
+    md2 = tts.Snapshot(mgr.path_for_step(2)).metadata
+    t0 = time.perf_counter()
+    for loc, dig in md2.objects.items():
+        check(crc32_fast(mmap_read(os.path.join(mgr.fast_path_for_step(2), loc), None)) == dig[0],
+              f"fast copy of {loc} differs from its digest")
+    digest_s = time.perf_counter() - t0
+    big = max(md2.objects, key=lambda loc: md2.objects[loc][2])
+    legs = {root_: map_against_read(os.path.join(root_, big))
+            for root_ in (mgr.fast_path_for_step(2), mgr.path_for_step(2))}
+    print(f"tier_cache legs ({card}): digest of the {len(md2.objects)} fast objects ({nb} bytes) through their maps "
+          f"{digest_s:.3f} s ({nb / digest_s / 1e9:.3f} GB/s, one thread); {big} ({legs[mgr.path_for_step(2)][0]} "
+          f"bytes) to the card, best of 3: "
+          + "; ".join(f"{mount_of(r)[1]} mapped {v[1]['mapped']:.4f} s, read first {v[1]['read']:.4f} s"
+                      for r, v in legs.items()))
+    # 5. one flipped byte in a fast payload: found, served durably, repaired
+    victim = min(md2.objects, key=lambda loc: md2.objects[loc][2])
+    vpath = os.path.join(mgr.fast_path_for_step(2), victim)
+    with open(vpath, "r+b") as f:
+        f.seek(md2.objects[victim][2] // 2)
+        b = f.read(1)
+        f.seek(md2.objects[victim][2] // 2)
+        f.write(bytes([b[0] ^ 0x40]))
+    d = restore(f"after a flipped byte in {victim}", lambda: mgr.snapshot(2).restore(app2))
+    check(d[tts.obs.TIER_FAST_CORRUPT] == 1 and d[tts.obs.TIER_FAST_REPAIRS] == 1, f"corrupt/repairs {d}")
+    with open(vpath, "rb") as f:
+        check(zlib.crc32(f.read()) == md2.objects[victim][0], "the repaired fast copy differs from its digest")
+    # 6. the fast root of step 2 wiped: the durable tier serves it
+    shutil.rmtree(mgr.fast_path_for_step(2))
+    d = restore("after the fast copy was wiped", lambda: mgr.snapshot(2).restore(app2))
+    check(d[tts.obs.TIER_FAST_MISSES] >= len(md2.objects) and d[tts.obs.TIER_FAST_REPAIRS] == len(md2.objects),
+          f"durable fallback {d} for {len(md2.objects)} objects")
+    del model2, opt2, app2
+    gc.collect()
+    torch.cuda.empty_cache()
+    # 7. the embedding into an f32 template under 32 MiB, through the tier
+    template = torch.zeros(model.embed.weight.shape, dtype=torch.float32, device="cuda")
+    k6 = device_pack.LAUNCHES["tile_update"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr.snapshot(2).read_object("0/model/embed.weight", obj_out=template, memory_budget_bytes=READ_BUDGET)
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    check(torch.equal(template, model.embed.weight.float()), "budgeted tiered read of the embedding differs")
+    check(device_pack.LAUNCHES["tile_update"] > k6, "the budgeted tiered read launched no K6")
+    print(f"tier_cache read_object ({card}): the embedding into f32 under {READ_BUDGET} bytes through the tier "
+          f"{read_s:.4f} s, K6 launches {device_pack.LAUNCHES['tile_update'] - k6}, equal to the cast")
+    del template
+    # 9. the CLI
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "torchsnapshot_tpu_torch", "tiers", durable, "--fast", fast, "--json"],
+                          cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True, timeout=300)
+    check(proc.returncode == 0, f"tiers exited {proc.returncode}: {proc.stderr[-300:]}")
+    rows = {r["step"]: r["status"] for r in json.loads(proc.stdout)["steps"]}
+    check(rows == {0: "durable", 1: "durable+fast", 2: "durable+fast"}, f"tiers: {rows}")
+    print(f"tier_cache tiers CLI: {time.perf_counter() - t0:.2f} s, {json.dumps(rows)}")
+
+    # the host cache: two readers at once, then this process
+    cache, cache_mnt, cache_fs = local_root(work, nb + (1 << 30), "tier_cache_dir")
+    os.makedirs(cache, exist_ok=True)
+    child_root = os.path.join(work, "tier_cache_children")
+    os.makedirs(child_root, exist_ok=True)
+    snap1 = mgr.path_for_step(1)
+    with open(os.path.join(child_root, "child.json"), "w") as f:
+        json.dump({"snap": snap1, "cache": cache}, f)
+    n_objects = len(tts.Snapshot(snap1).metadata.objects)
+
+    def release_when_ready():
+        deadline = time.monotonic() + 300
+        while not all(os.path.exists(os.path.join(child_root, f"ready{r}")) for r in range(2)):
+            if time.monotonic() > deadline:
+                return
+            time.sleep(0.01)
+        open(os.path.join(child_root, "go"), "w").close()
+
+    import threading
+
+    releaser = threading.Thread(target=release_when_ready, daemon=True)
+    releaser.start()
+    t0 = time.perf_counter()
+    results = spawn_ranks("--tier-cache-child", child_root)
+    children_s = time.perf_counter() - t0
+    releaser.join(timeout=10)
+    counts = {k: sum(r["counts"][k] for r in results) for k in results[0]["counts"]}
+    # this process: every read a hit, and mapped
+    model3, opt3 = deterministic_state(cfg, TIER_SEED + 2)
+    zero_state(model3, opt3)
+    meta3 = tts.StateDict(step=-1)
+    perturb(model, 1)  # the live state as step 1 took it
+    before = tts.obs.counters()
+    with knobs.override_cache_dir(cache):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tts.Snapshot(snap1).restore({"model": model3, "optim": opt3, "meta": meta3})
+        torch.cuda.synchronize()
+        parent_s = time.perf_counter() - t0
+    d = counter_delta(before, (tts.obs.CACHE_MISSES, tts.obs.CACHE_HITS, tts.obs.CACHE_SINGLEFLIGHT_WAITS,
+                               tts.obs.MMAP_READS))
+    differs = same_state((model, opt), (model3, opt3))
+    check(differs is None and meta3["step"] == 1, f"cached restore: {differs}, step {meta3['step']}")
+    reads = d[tts.obs.CACHE_HITS]
+    check(d[tts.obs.CACHE_MISSES] == 0 and reads >= n_objects and d[tts.obs.MMAP_READS] == reads,
+          f"third restore: {d}")
+    check(counts[tts.obs.CACHE_MISSES] == n_objects,
+          f"{counts[tts.obs.CACHE_MISSES]} cache misses across the readers for {n_objects} objects")
+    check(counts[tts.obs.CACHE_HITS] + counts[tts.obs.CACHE_SINGLEFLIGHT_WAITS] == 2 * reads - n_objects,
+          f"readers' hits + waits {counts} against {reads} reads each and {n_objects} objects")
+    cached = sum(len(fs) for _, _, fs in os.walk(os.path.join(cache, "objects")))
+    print(f"tier_cache host cache ({card}): {cache} on {cache_mnt} ({cache_fs}); two readers at once {children_s:.1f} s "
+          f"(restores {[round(r['restore_s'], 3) for r in results]} s), summed {json.dumps(counts)} for "
+          f"{n_objects} objects, {reads} reads a restore; this process {parent_s:.3f} s, {json.dumps(d)}, "
+          f"{cached} cache files")
+    others = {}
+    for r in results:
+        for k, v in r["launches"].items():
+            others[k] = others.get(k, 0) + v
+    del model, opt, model3, opt3
+    for p in (durable, fast, cache, child_root):
+        shutil.rmtree(p, ignore_errors=True)
+    for p in (fast, cache):
+        if p.startswith("/dev/shm/"):
+            shutil.rmtree(os.path.dirname(p), ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return others
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA GPU",
@@ -2945,6 +3334,9 @@ def main():
         gc.collect()
         torch.cuda.empty_cache()
         run_path("cas_mmap", ("slab_pack", "slab_unpack", "tile_update"), lambda: phase_cas_mmap(cfg, work))
+        gc.collect()
+        torch.cuda.empty_cache()
+        run_path("tier_cache", ("slab_pack", "slab_unpack", "tile_update"), lambda: phase_tier_cache(cfg, work))
 
     print(json.dumps({"kernels": list(records.values())}))
     print(card)
@@ -2959,6 +3351,8 @@ def main():
 if __name__ == "__main__":
     if len(sys.argv) == 6 and sys.argv[1] == "--many-ranks-child":
         sys.exit(many_ranks_child(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), sys.argv[5]))
+    if len(sys.argv) == 6 and sys.argv[1] == "--tier-cache-child":
+        sys.exit(tier_cache_child(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), sys.argv[5]))
     if len(sys.argv) == 6 and sys.argv[1] == "--sharded-child":
         sys.exit(sharded_child(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), sys.argv[5]))
     sys.exit(main())

@@ -102,7 +102,7 @@ def test_steps_and_delete_print_what_jax_prints(tmp_path, writer, capsys):
 
 
 def test_unported_commands_name_their_roadmap_item(tmp_path, capsys):
-    for cmd, item in (("tiers", "3.5"), ("convert", "4"), ("lint", "8")):
+    for cmd, item in (("convert", "4"), ("lint", "8")):
         rc, out, err = _run(port_main, [cmd, str(tmp_path), "--json"], capsys)
         assert rc == 1 and out == "" and f"queue A item {item}" in err, (cmd, err)
 

@@ -1043,3 +1043,44 @@ def test_mapped_slab_reaches_k2_with_no_host_copy(cuda, tmp_path, monkeypatch):
     assert sources and all(sources) and not made
     for k, v in want.items():
         assert torch.equal(dest[k], v), k
+
+
+@pytest.mark.parametrize("policy", ["write_through", "write_back"])
+def test_tiered_take_and_restore_of_cuda_state(cuda, tmp_path, policy):
+    """A tiered take of CUDA state (K1 packs the slab into the fast tier;
+    under write-back the promoter copies it to the durable tier with host
+    buffers only), restored fast-first and, after the fast copy is
+    wiped, from the durable tier through the host cache (K2 both times),
+    and a budgeted read of the large leaf through the tier into an f32
+    template (K6), bitwise."""
+    import shutil
+
+    import torchsnapshot_tpu_torch as tts
+    from torchsnapshot_tpu_torch import knobs
+    from torchsnapshot_tpu_torch.ops import device_pack as dp
+
+    want = dict(_cuda_state(cuda, 7))
+    want["big"] = _rand((300, 257), torch.bfloat16, cuda, 15)
+    fast, dur = str(tmp_path / "fast"), str(tmp_path / "dur")
+    opts = {"tier": {"fast_url": fast, "policy": policy}}
+    with _stripe_knobs("raw") as stack:
+        before = dp.LAUNCHES["slab_pack"]
+        tts.Snapshot.take(dur, {"app": tts.StateDict(want)}, storage_options=opts)
+        assert dp.LAUNCHES["slab_pack"] > before
+        tts.drain_promotions(timeout_s=120)
+        stack.enter_context(knobs.override_cache_dir(str(tmp_path / "cache")))
+        for label in ("fast", "durable"):
+            if label == "durable":
+                shutil.rmtree(fast)
+            dest = tts.StateDict({k: torch.zeros_like(v) for k, v in want.items()})
+            before = dp.LAUNCHES["slab_unpack"]
+            tts.Snapshot(dur, storage_options=opts).restore({"app": dest})
+            assert dp.LAUNCHES["slab_unpack"] > before, label
+            for k, v in want.items():
+                assert dest[k].is_cuda and torch.equal(dest[k], v), (label, k)
+        tmpl = torch.zeros(300, 257, device=cuda)
+        before = dp.LAUNCHES["tile_update"]
+        tts.Snapshot(dur, storage_options=opts).read_object("0/app/big", obj_out=tmpl, memory_budget_bytes=50000)
+        assert dp.LAUNCHES["tile_update"] > before
+    assert torch.equal(tmpl, want["big"].float())
+    assert tts.obs.counters()[tts.obs.CACHE_MISSES] > 0

@@ -182,17 +182,24 @@ def test_two_rank_incremental_manager_save(tmp_path):
 
 
 def test_unported_features_are_refused_by_name(tmp_path):
-    """Tiers, publication and repair are refused by name; the chunk store
-    (``cas=``, the CAS knob, ``cas_gc``, ``fsck``) is configured and runs
-    as the JAX manager's does."""
+    """Publication and repair are refused by name; tiers (``tier=``,
+    ``repromote``) and the chunk store (``cas=``, the CAS knob, ``cas_gc``,
+    ``fsck``) are configured and run as the JAX manager's do."""
     with pytest.raises(ValueError, match="keep_last_n"):
         tts.SnapshotManager(str(tmp_path), keep_last_n=0)
     refusals = [
-        (lambda: tts.SnapshotManager(str(tmp_path), tier={"fast_root": "x"}), "item 3.5"),
         (lambda: tts.SnapshotManager(str(tmp_path), publisher=object()), "item 5"),
     ]
     mgr = tts.SnapshotManager(str(tmp_path))
-    refusals += [(mgr.repromote, "item 3.5"), (mgr.repair, "item 5")]
+    refusals += [(mgr.repair, "item 5")]
+    # an untiered manager has nothing to re-promote; a tier dict becomes the
+    # same TierConfig as in the JAX manager
+    assert mgr.repromote() == [] and mgr.tier is None
+    tiered = tts.SnapshotManager(str(tmp_path), tier={"fast_root": str(tmp_path / "fast")})
+    assert vars(tiered.tier) == vars(
+        jts.SnapshotManager(str(tmp_path), tier={"fast_root": str(tmp_path / "fast")}).tier
+    )
+    assert tiered.repromote() == [] and tiered.durable_steps() == []
     for fn, item in refusals:
         with pytest.raises(NotImplementedError, match=f"queue A {item}"):
             fn()

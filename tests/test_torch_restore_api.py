@@ -241,8 +241,12 @@ def test_storage_options_are_forwarded_and_unported_ones_refused(tmp_path, monke
     for pkg in ("port", "jax"):
         with pytest.raises(TypeError, match="bogus"):
             _take(pkg, str(tmp_path / f"bad_{pkg}"), seed=9, storage_options={"bogus": 1})
-    with pytest.raises(NotImplementedError, match="queue A item 3.5"):
-        _take("port", str(tmp_path / "tier"), seed=9, storage_options={"tier": {"fast_url": "x"}})
+    # the reserved "tier" option builds a fast tier over the durable url:
+    # both tiers hold the committed write-through take
+    tier_opts = {"tier": {"fast_url": str(tmp_path / "tier_fast"), "policy": "write_through"}}
+    _take("port", str(tmp_path / "tier"), seed=9, storage_options=tier_opts)
+    for root in ("tier", "tier_fast"):
+        assert (tmp_path / root / ".snapshot_metadata").exists(), root
     # the chunk store: the port's take and async_take restore in the JAX package
     for i, cas in enumerate((True, str(tmp_path / "pool"))):
         _take("port", str(tmp_path / f"cas_take{i}"), seed=9, cas=cas)

@@ -10,7 +10,9 @@ packed and unpacked on the device by hand-written CUDA kernels
 directory (``FileCoordinator``), and ``DTensor`` state is stored as
 sharded entries that restore into any layout at any world size.
 ``SnapshotManager`` keeps step-numbered snapshots under one root with
-resume, incremental saves and bounded retention; ``verify_snapshot``
+resume, incremental saves and bounded retention, also over a fast local
+tier in front of a durable one (``TierConfig``, write-back promotion);
+``verify_snapshot``
 audits a snapshot, and ``python -m torchsnapshot_tpu_torch`` does both
 from a shell.  It imports ``torch`` and ``numpy``, never ``jax`` and
 nothing of ``torchsnapshot_tpu``.
@@ -31,6 +33,7 @@ from .event import Event  # noqa: F401
 from .event_handlers import register_event_handler, unregister_event_handler  # noqa: F401
 from .snapshot import DegradedSnapshotError, PendingSnapshot, Snapshot  # noqa: F401
 from .manager import SnapshotManager, delete_snapshot  # noqa: F401
+from .tier import TierConfig, drain_promotions  # noqa: F401
 from .verify import VerifyResult, verify_snapshot  # noqa: F401
 from .resilience.abort import SnapshotAbortedError  # noqa: F401
 from .stateful import PyTreeState, Replicated, RNGState, StateDict, Stateful  # noqa: F401
@@ -40,6 +43,8 @@ __all__ = [
     "PendingSnapshot",
     "SnapshotManager",
     "delete_snapshot",
+    "TierConfig",
+    "drain_promotions",
     "verify_snapshot",
     "VerifyResult",
     "Coordinator",

@@ -6,6 +6,7 @@
     python -m torchsnapshot_tpu_torch manifest  <snapshot-path>
     python -m torchsnapshot_tpu_torch verify    <snapshot-path> [--deep] [--rank N]
     python -m torchsnapshot_tpu_torch steps     <manager-root>
+    python -m torchsnapshot_tpu_torch tiers     <durable-root> --fast <fast-root> [--json]
     python -m torchsnapshot_tpu_torch cas       <cas-root> [--json] [--fsck] [--gc] [--grace S]
     python -m torchsnapshot_tpu_torch delete    <snapshot-path> --yes
     python -m torchsnapshot_tpu_torch trace     <snapshot-path> [--out FILE] [--device cpu]
@@ -14,9 +15,9 @@ Counterpart of ``python -m torchsnapshot_tpu``: these commands print
 what the JAX package's print, field for field, and exit with the same
 codes (non-zero when a verify fails or a delete is refused).  ``trace``
 materializes on the card unless ``--device cpu``, as the port's entry
-points do.  ``stats`` of a publication or continuous root, ``tiers``,
-``convert`` and ``lint`` are not ported yet: each exits 1 naming its
-ROADMAP queue A item.
+points do.  ``stats`` of a publication or continuous root, ``convert``
+and ``lint`` are not ported yet: each exits 1 naming its ROADMAP queue A
+item.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ import sys
 from typing import Optional
 
 # the JAX CLI's commands this one lacks, with the queue A item that ports them
-_NOT_PORTED = {"tiers": "3.5", "convert": "4", "lint": "8"}
+_NOT_PORTED = {"convert": "4", "lint": "8"}
 
 
 def _human(n: float) -> str:
@@ -159,24 +160,44 @@ def _cas_stats_rollup(snapshot) -> dict:
 
 
 def _cache_stats_rollup() -> dict:
-    """This process's host-cache and mapped-read counters (the port has
-    no host cache, so its directory rollup is never present)."""
-    from . import obs
+    """Shared-host object cache rollup (``storage/hostcache.py``): the
+    cache directory's footprint on disk, and this process's hit, miss and
+    mapped-read counters (with the cache on, the command's own manifest
+    read routes through it)."""
+    from . import knobs, obs
 
+    out: dict = {}
+    cache_dir = knobs.get_cache_dir()
+    if cache_dir:
+        from .storage.hostcache import _OBJECTS_SUBDIR
+
+        files = total = 0
+        for dirpath, _dirs, names in os.walk(os.path.join(cache_dir, _OBJECTS_SUBDIR)):
+            for name in names:
+                try:
+                    total += os.path.getsize(os.path.join(dirpath, name))
+                    files += 1
+                except OSError:
+                    pass  # evicted by another process meanwhile
+        out.update({"dir": cache_dir, "objects": files, "bytes": total})
     c = obs.counters()
-    return {
-        short: c[key]
-        for key, short in (
-            (obs.CACHE_HITS, "hits"),
-            (obs.CACHE_MISSES, "misses"),
-            (obs.CACHE_SINGLEFLIGHT_WAITS, "singleflight_waits"),
-            (obs.MMAP_READS, "mmap_reads"),
-        )
-        if c.get(key)
-    }
+    for key, short in (
+        (obs.CACHE_HITS, "hits"),
+        (obs.CACHE_MISSES, "misses"),
+        (obs.CACHE_SINGLEFLIGHT_WAITS, "singleflight_waits"),
+        (obs.MMAP_READS, "mmap_reads"),
+    ):
+        if c.get(key):
+            out[short] = c[key]
+    return out
 
 
 def _render_cache_stats(rollup: dict) -> None:
+    if "dir" in rollup:
+        print(
+            f"  cache: {rollup['objects']} objects, "
+            f"{_human(rollup['bytes'])} at {rollup['dir']}"
+        )
     if rollup.get("hits") or rollup.get("misses"):
         print(
             f"    this run: {rollup.get('hits', 0)} hits / "
@@ -786,6 +807,87 @@ def _cmd_steps(args) -> int:
     return 0
 
 
+def _cmd_tiers(args) -> int:
+    """Residency and durability per step of a tiered manager root: which
+    steps are fast-resident, which durably committed, and how many of
+    each step's data objects each tier holds ("promoting": a write-back
+    step whose durable marker has not landed yet)."""
+    from .manager import SnapshotManager, entry_locations
+    from .snapshot import Snapshot
+    from .storage import url_to_storage_plugin
+
+    mgr = SnapshotManager(args.root, tier={"fast_root": args.fast})
+
+    def residency(storage_root, locations):
+        """(objects present, their bytes) under ``storage_root``."""
+        storage = url_to_storage_plugin(storage_root)
+        present = nbytes = 0
+        try:
+            for loc in locations:
+                try:
+                    nbytes += storage.sync_stat(loc)
+                    present += 1
+                except Exception:  # noqa: BLE001 — absent either way
+                    continue
+        finally:
+            storage.sync_close()
+        return present, nbytes
+
+    rows = []
+    for step in sorted(set(mgr._read_index()) | set(mgr._scan_fs())):
+        durable_path, fast_path = mgr.path_for_step(step), mgr.fast_path_for_step(step)
+        metadata = None
+        durable_committed = fast_committed = False
+        try:
+            metadata = Snapshot(durable_path).metadata
+            durable_committed = True
+        except Exception:  # noqa: BLE001 — not durably committed
+            pass
+        try:
+            fast_metadata = Snapshot(fast_path).metadata
+            fast_committed = True
+            metadata = metadata or fast_metadata
+        except Exception:  # noqa: BLE001 — no fast commit
+            pass
+        # chunk-referenced locations live in the pool, not per step
+        chunked = ((metadata.cas or {}).get("chunks") or {}) if metadata else {}
+        locations = (
+            [loc for loc in entry_locations(metadata.manifest) if loc not in chunked]
+            if metadata else []
+        )
+        fast_n, fast_b = residency(fast_path, locations)
+        dur_n, dur_b = residency(durable_path, locations)
+        status = (
+            "durable+fast" if durable_committed and fast_n
+            else "durable" if durable_committed
+            else "promoting" if fast_committed
+            else "aborted"
+        )
+        rows.append({
+            "step": step,
+            "status": status,
+            "durable_committed": durable_committed,
+            "fast_committed": fast_committed,
+            "objects": len(locations),
+            "fast_objects": fast_n,
+            "fast_bytes": fast_b,
+            "durable_objects": dur_n,
+            "durable_bytes": dur_b,
+        })
+    if args.json:
+        print(json.dumps({"root": args.root, "fast_root": args.fast, "steps": rows}, indent=2))
+        return 0
+    if not rows:
+        print("(no snapshots found)", file=sys.stderr)
+        return 0
+    print(f"{'step':>10}  {'status':<13} {'fast':>14}  {'durable':>14}")
+    for r in rows:
+        fast_s = f"{r['fast_objects']}/{r['objects']} {_human(r['fast_bytes'])}"
+        dur_s = f"{r['durable_objects']}/{r['objects']} {_human(r['durable_bytes'])}"
+        print(f"{r['step']:>10}  {r['status']:<13} {fast_s:>14}  {dur_s:>14}")
+    return 0
+
+
 def _cmd_delete(args) -> int:
     from .manager import delete_snapshot
 
@@ -854,6 +956,16 @@ def main(argv=None) -> int:
     p = sub.add_parser("steps", help="list a manager root's committed steps")
     p.add_argument("root")
     p.set_defaults(fn=_cmd_steps)
+
+    p = sub.add_parser(
+        "tiers",
+        help="per-step tier residency + durability for a tiered manager "
+        "root (fast copies, promotion progress)",
+    )
+    p.add_argument("root", help="durable-tier manager root")
+    p.add_argument("--fast", required=True, help="fast-tier root")
+    p.add_argument("--json", action="store_true", help="machine-readable output")
+    p.set_defaults(fn=_cmd_tiers)
 
     p = sub.add_parser("cas", help="chunk-pool rollup, --fsck index rebuild, --gc mark+sweep")
     p.add_argument("root", help="the CAS root (<manager-root>/cas)")

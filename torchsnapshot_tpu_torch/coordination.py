@@ -18,7 +18,10 @@ Every backend gets its barrier from the base class (two phases over the
 KV store).  The cross-rank abort protocol (``resilience/abort.py``) rides
 on the base class too: ``poison(scope, cause)`` sets one key, and inside an
 ``abort_scope(scope)`` every ``kv_get``/``barrier`` wait polls it.  Rank
-liveness (heartbeats, write takeover) is not ported.
+liveness stamps (``resilience/liveness.py``) ride on ``kv_set``,
+``kv_try_get`` and ``kv_try_delete``; only the tier promoter uses them
+so far.  ``liveness_scope`` (death-aware waits on the take path), write
+takeover and degraded commits are ROADMAP queue A item 5.
 """
 
 from __future__ import annotations
@@ -196,6 +199,11 @@ class Coordinator(abc.ABC):
         self.kv_set(f"{prefix}/{self.rank}", value)
         return [self.kv_get(f"{prefix}/{r}", timeout_s) for r in range(self.world_size)]
 
+    def kv_try_delete(self, key: str) -> None:
+        """Best-effort deletion of a key (a heartbeat stamp a session
+        leaves on a clean exit).  The base keeps the key: a backend
+        without deletion never fails its caller."""
+
     def all_gather_object(self, obj: Any) -> List[Any]:
         """Gather an object from every rank (foreground program order)."""
         if self.world_size == 1:
@@ -246,6 +254,8 @@ class LocalCoordinator(Coordinator):
     def kv_try_get(self, key: str) -> Optional[str]:
         return self._kv.get(key)
 
+    def kv_try_delete(self, key: str) -> None:
+        self._kv.pop(key, None)
 
 
 class _PollingCoordinator(Coordinator):
@@ -302,6 +312,12 @@ class TorchStoreCoordinator(_PollingCoordinator):
             return None
         return self._store.get(k).decode()
 
+    def kv_try_delete(self, key: str) -> None:
+        try:
+            self._store.delete_key(self._k(key))
+        except Exception as e:  # noqa: BLE001 — cleanup is best-effort
+            obs.swallowed_exception("coordination.kv_try_delete", e)
+
 
 class FileCoordinator(_PollingCoordinator):
     """Shared-directory KV and barriers for processes of one host."""
@@ -337,6 +353,12 @@ class FileCoordinator(_PollingCoordinator):
                 return f.read()
         except FileNotFoundError:
             return None
+
+    def kv_try_delete(self, key: str) -> None:
+        try:
+            os.unlink(self._path(key))
+        except OSError:
+            pass  # never set, or already gone
 
 
 _DEFAULT_STORE_COORDINATOR: List[Any] = []  # [(store, coordinator)]

@@ -51,6 +51,16 @@ _STRIPE_MIN_OBJECT_SIZE_BYTES = "STRIPE_MIN_OBJECT_SIZE_BYTES"
 _CODEC = "CODEC"
 _CODEC_LEVEL = "CODEC_LEVEL"
 _CODEC_MIN_RATIO = "CODEC_MIN_RATIO"
+_TIER_POLICY = "TIER_POLICY"
+_TIER_FAST_KEEP_LAST_N = "TIER_FAST_KEEP_LAST_N"
+_TIER_VERIFY_FAST_READS = "TIER_VERIFY_FAST_READS"
+_CACHE_DIR = "CACHE_DIR"
+_CACHE_MAX_BYTES = "CACHE_MAX_BYTES"
+_TOPOLOGY = "TOPOLOGY"
+_TOPOLOGY_SLICE_ID = "TOPOLOGY_SLICE_ID"
+_TOPOLOGY_HOST_ID = "TOPOLOGY_HOST_ID"
+_LIVENESS_TIMEOUT_S = "LIVENESS_TIMEOUT_S"
+_LIVENESS_INTERVAL_S = "LIVENESS_INTERVAL_S"
 
 _DEFAULTS = {
     # Arrays larger than this are chunked along dim 0 for pipelined I/O.
@@ -173,6 +183,44 @@ _DEFAULTS = {
     # A part keeps its encoded frame only when raw size >= ratio * frame
     # size; others are stored raw behind a 24-byte header.
     _CODEC_MIN_RATIO: 1.05,
+    # Tiered storage (tier/) when the tier options name no policy:
+    # "write_back" acknowledges a take when the FAST tier commits and
+    # promotes to the durable tier in the background (its
+    # .snapshot_metadata lands after every data object); "write_through"
+    # commits both tiers synchronously.
+    _TIER_POLICY: "write_back",
+    # Committed steps that keep a fast-tier copy under a tiered
+    # SnapshotManager; older fast copies are evicted once their step is
+    # durably committed (durable copies follow keep_last_n).
+    _TIER_FAST_KEEP_LAST_N: 2,
+    # Verify each fast-tier object against its recorded digest on first
+    # read; a mismatch falls back to a peer or the durable copy and
+    # repairs the fast one.  Needs WRITE_CHECKSUMS at take time.
+    _TIER_VERIFY_FAST_READS: 1,
+    # Shared-host object cache (storage/hostcache.py): a directory path
+    # routes durable reads through a per-host cache, so co-located
+    # readers fetch each object from the durable tier once (a cross-
+    # process flock with single-flight fills).  "" = off.
+    _CACHE_DIR: "",
+    # Soft cap of the cache; a fill past it unlinks the oldest entries
+    # by mtime (never truncates: live maps stay valid).  0 = unbounded.
+    _CACHE_MAX_BYTES: 0,
+    # Rank → host → slice placement (topology/): "auto" exchanges the
+    # per-process hints below (and the hostname) once per operation over
+    # the coordination KV; "flat" turns topology awareness off; an
+    # explicit per-rank slice list ("0,0,1,1", alike on every process)
+    # pins the map.
+    _TOPOLOGY: "auto",
+    # This process's slice id hint for "auto"; "" = a single slice.
+    _TOPOLOGY_SLICE_ID: "",
+    # This process's host identity hint for "auto"; "" = the hostname.
+    _TOPOLOGY_HOST_ID: "",
+    # Rank liveness (resilience/liveness.py): a peer whose heartbeat
+    # stamp stops advancing for longer than this is declared dead (the
+    # tier promoter skips it in its done handshake).
+    _LIVENESS_TIMEOUT_S: 30.0,
+    # Heartbeat cadence, and the monitor's sampling floor.
+    _LIVENESS_INTERVAL_S: 1.0,
 }
 
 _OVERRIDES: dict = {}
@@ -359,6 +407,57 @@ def get_codec_min_ratio() -> float:
     return max(1.0, float(_get_raw(_CODEC_MIN_RATIO)))
 
 
+def get_tier_policy() -> str:
+    v = str(_get_raw(_TIER_POLICY)).lower()
+    if v not in ("write_back", "write_through"):
+        raise ValueError(
+            f"{_ENV_PREFIX}{_TIER_POLICY} must be write_back|write_through, got {v!r}"
+        )
+    return v
+
+
+def get_tier_fast_keep_last_n() -> int:
+    return max(1, _get_int(_TIER_FAST_KEEP_LAST_N))
+
+
+def tier_verify_fast_reads() -> bool:
+    return bool(_get_int(_TIER_VERIFY_FAST_READS))
+
+
+def get_cache_dir() -> Optional[str]:
+    """The shared-host cache directory, or None when the cache is off."""
+    v = str(_get_raw(_CACHE_DIR) or "").strip()
+    return v or None
+
+
+def get_cache_max_bytes() -> Optional[int]:
+    v = _get_int(_CACHE_MAX_BYTES)
+    return v if v > 0 else None
+
+
+def get_topology() -> str:
+    """"auto", "flat", or an explicit per-rank slice list ("0,0,1,1")."""
+    return str(_get_raw(_TOPOLOGY)).strip().lower() or "auto"
+
+
+def get_topology_slice_id() -> Optional[int]:
+    v = str(_get_raw(_TOPOLOGY_SLICE_ID) or "").strip()
+    return int(v) if v else None
+
+
+def get_topology_host_id() -> Optional[str]:
+    v = str(_get_raw(_TOPOLOGY_HOST_ID) or "").strip()
+    return v or None
+
+
+def get_liveness_timeout_s() -> float:
+    return max(0.1, float(_get_raw(_LIVENESS_TIMEOUT_S)))
+
+
+def get_liveness_interval_s() -> float:
+    return max(0.01, float(_get_raw(_LIVENESS_INTERVAL_S)))
+
+
 @contextlib.contextmanager
 def _override(name: str, value) -> Iterator[None]:
     had = name in _OVERRIDES
@@ -495,6 +594,34 @@ def override_codec_level(value: int):
 
 def override_codec_min_ratio(value: float):
     return _override(_CODEC_MIN_RATIO, value)
+
+
+def override_tier_policy(value: str):
+    return _override(_TIER_POLICY, value)
+
+
+def override_cache_dir(value):
+    return _override(_CACHE_DIR, value or "")
+
+
+def override_cache_max_bytes(value: int):
+    return _override(_CACHE_MAX_BYTES, value)
+
+
+def override_topology(value):
+    return _override(_TOPOLOGY, value or "auto")
+
+
+def override_topology_slice_id(value):
+    return _override(_TOPOLOGY_SLICE_ID, "" if value is None else str(value))
+
+
+def override_liveness_timeout_s(value: float):
+    return _override(_LIVENESS_TIMEOUT_S, value)
+
+
+def override_liveness_interval_s(value: float):
+    return _override(_LIVENESS_INTERVAL_S, value)
 
 
 @contextlib.contextmanager

@@ -21,10 +21,22 @@ layout, so either package's manager reads the other's root:
 ``CAS`` knob) every save stores its payload as chunks in ``<root>/cas``
 and dedups against every committed step, retention deletes a step's
 metadata first and then releases its chunk refs, and ``cas_gc`` and
-``fsck`` (rank 0) mark, sweep and rebuild the pool's index.  Not ported
-yet: tiered storage (``tier=``, ``repromote``), ROADMAP queue A item
-3.5; live-weight publication (``publisher=``) and ``repair``, item 5.
-Each raises ``NotImplementedError``.
+``fsck`` (rank 0) mark, sweep and rebuild the pool's index.
+
+Tiered managers (``tier=``, a ``TierConfig`` or a dict): ``root`` names
+the DURABLE tier, each step also lands under ``tier.fast_root`` with the
+same layout, and reads go fast-first.  ``steps()`` spans both tiers (a
+write-back step is restorable from its fast copy as soon as it commits
+there), ``durable_steps()`` only the durable one.  Fast-tier retention
+(``fast_keep_last_n``) runs on every rank against its own fast root and
+never evicts a step whose durable marker is missing (its fast copy may
+be the only one); incremental links live in the durable tier, so no
+fast eviction breaks a dedup chain.  Deleting a fast copy never releases
+chunk refs (the durable step owns them).  ``repromote()`` re-enqueues
+the promotion of fast-committed steps a crash left without a durable
+marker; it runs once before a manager's first save.  Not ported: live-
+weight publication (``publisher=``) and ``repair`` (ROADMAP queue A item
+5), each raising ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -45,6 +57,7 @@ from .io_types import ReadIO, WriteIO
 from .manifest import Entry, SnapshotMetadata
 from .snapshot import SNAPSHOT_METADATA_FNAME, PendingSnapshot, Snapshot
 from .storage import url_to_storage_plugin
+from .tier import TierConfig
 
 logger = logging.getLogger(__name__)
 
@@ -173,7 +186,9 @@ class SnapshotManager:
 
     ``cas``: the content-addressed chunk store (None defers to the ``CAS``
     knob; ``True`` puts the pool at ``<root>/cas``, a string names its
-    root, a dict may add ``chunk_size_bytes``)."""
+    root, a dict may add ``chunk_size_bytes``).  ``tier``: a fast tier in
+    front of ``root`` (a ``TierConfig`` or its fields as a dict; see the
+    module docstring)."""
 
     def __init__(
         self,
@@ -187,8 +202,6 @@ class SnapshotManager:
     ) -> None:
         if keep_last_n is not None and keep_last_n < 1:
             raise ValueError(f"keep_last_n must be >= 1, got {keep_last_n}")
-        if tier is not None:
-            raise _not_ported("tier= (tiered storage)", "3.5")
         if publisher is not None:
             raise _not_ported("publisher= (live-weight publication)", "5")
         self.root = root.rstrip("/")
@@ -213,12 +226,42 @@ class SnapshotManager:
         # steps the last _verify could not read the metadata of (perhaps
         # a passing outage): kept in the index, not counted as committed
         self._last_unverifiable: set = set()
+        # tiered storage: ``root`` is the durable tier (module docstring)
+        self.tier: Optional[TierConfig] = TierConfig(**tier) if isinstance(tier, dict) else tier
+        # steps whose durable marker was seen (durability is monotonic:
+        # one metadata read per step and manager)
+        self._durable_confirmed: set = set()
+        # the crash-recovery sweep runs once, before the first save
+        self._repromoted = False
 
     # ------------------------------------------------------------ paths
 
     def path_for_step(self, step: int) -> str:
         # fixed width: lexicographic order is numeric order
         return f"{self.root}/{self.prefix}{step:010d}"
+
+    def fast_path_for_step(self, step: int) -> str:
+        assert self.tier is not None
+        return f"{self.tier.fast_root.rstrip('/')}/{self.prefix}{step:010d}"
+
+    def _tier_storage_options(self, step: int) -> Optional[Dict[str, Any]]:
+        """The ``storage_options`` that make this step's Snapshot tiered;
+        None for an untiered manager."""
+        if self.tier is None:
+            return None
+        t = self.tier
+        peer_urls = None
+        if t.peer_fast_roots:
+            peer_urls = [f"{r.rstrip('/')}/{self.prefix}{step:010d}" for r in t.peer_fast_roots]
+        return {
+            "tier": {
+                "fast_url": self.fast_path_for_step(step),
+                "policy": t.policy,
+                "replica_count": t.replica_count,
+                "peer_fast_urls": peer_urls,
+                "verify_fast_reads": t.verify_fast_reads,
+            }
+        }
 
     @property
     def _coord(self) -> Coordinator:
@@ -250,10 +293,22 @@ class SnapshotManager:
             storage.sync_close()
 
     def _scan_fs(self) -> List[int]:
-        """Committed step directories of a local fs root."""
-        if "://" in self.root and not self.root.startswith("file://"):
+        """Committed step directories of a local fs root, and of the fast
+        root too under a tier (a write-back step not promoted yet is only
+        found there)."""
+        steps = set(self._scan_dir(self.root))
+        if self.tier is not None:
+            steps |= set(self._scan_dir(self.tier.fast_root))
+        return sorted(steps)
+
+    def _scan_dir(self, root: str, require_metadata: bool = True) -> List[int]:
+        """Step directories under a local fs ``root``; with
+        ``require_metadata=False`` (fast-tier retention) also those
+        without a commit marker (a durable fallback repairs data objects,
+        never metadata, and such directories must stay evictable)."""
+        if "://" in root and not root.startswith("file://"):
             return []
-        base = self.root.split("://", 1)[-1]
+        base = root.split("://", 1)[-1]
         pat = re.compile(re.escape(self.prefix) + r"(\d+)")
         try:
             names = os.listdir(base)
@@ -263,7 +318,10 @@ class SnapshotManager:
             int(m.group(1))
             for name in names
             if (m := pat.fullmatch(name))
-            and os.path.exists(os.path.join(base, name, SNAPSHOT_METADATA_FNAME))
+            and (
+                not require_metadata
+                or os.path.exists(os.path.join(base, name, SNAPSHOT_METADATA_FNAME))
+            )
         )
 
     def _verify(self, candidates: set, use_cache: bool = False) -> Dict[int, Snapshot]:
@@ -278,7 +336,9 @@ class SnapshotManager:
             if use_cache and step in self._verified:
                 committed[step] = self._verified[step]
                 continue
-            snap = Snapshot(self.path_for_step(step))
+            snap = Snapshot(
+                self.path_for_step(step), storage_options=self._tier_storage_options(step)
+            )
             try:
                 snap.metadata
             except FileNotFoundError:
@@ -309,7 +369,24 @@ class SnapshotManager:
         return steps[-1] if steps else None
 
     def snapshot(self, step: int) -> Snapshot:
-        return Snapshot(self.path_for_step(step), coordinator=self._coordinator)
+        return Snapshot(
+            self.path_for_step(step), coordinator=self._coordinator,
+            storage_options=self._tier_storage_options(step),
+        )
+
+    def durable_steps(self) -> List[int]:
+        """Steps whose DURABLE commit marker reads back: those that would
+        survive losing every fast tier.  A write-back step is in
+        ``steps()`` once its fast commit lands, and here only once the
+        promoter finished.  Untiered: ``steps()``."""
+        with obs.span("manager/durable_steps", root=self.root):
+            if self.tier is None:
+                return self.steps()
+            return [
+                step
+                for step in sorted(set(self._read_index()) | set(self._scan_fs()))
+                if self._durable_ok(step)
+            ]
 
     # ------------------------------------------------------- save/load
 
@@ -332,7 +409,17 @@ class SnapshotManager:
         with log_event(
             Event("manager_save", {"root": self.root, "step": step, "async": async_})
         ):
+            # the crash-recovery sweep before this process's first take:
+            # nothing of this process is queued yet, so only steps a
+            # previous crash orphaned are enqueued
+            if self.tier is not None and not self._repromoted:
+                self.repromote()
             path = self.path_for_step(step)
+            tier_opts = self._tier_storage_options(step)
+            if tier_opts is not None:
+                take_kwargs["storage_options"] = {
+                    **(take_kwargs.get("storage_options") or {}), **tier_opts,
+                }
             if self.cas is not None:
                 take_kwargs["cas"] = self.cas
             base: Optional[str] = None
@@ -382,6 +469,9 @@ class SnapshotManager:
     # ------------------------------------------------------- retention
 
     def _after_commit(self, step: Optional[int]) -> None:
+        # fast-tier retention is rank-local (each host owns its fast
+        # root), so it runs before the rank-0 gate
+        self._apply_fast_retention()
         if self._coord.rank != 0:
             return
         # async saves whose commit thread has finished by now: committed
@@ -412,9 +502,11 @@ class SnapshotManager:
 
     def gc(self) -> None:
         """Delete all but the newest ``keep_last_n`` committed snapshots
-        and, with the chunk store, mark and sweep its pool (rank 0).  Safe
-        to call at any time."""
+        and, with the chunk store, mark and sweep its pool (rank 0); under
+        a tier, all but the newest ``fast_keep_last_n`` fast copies (every
+        rank, its own fast root).  Safe to call at any time."""
         with log_event(Event("manager_gc", {"root": self.root})):
+            self._apply_fast_retention()
             if self._coord.rank != 0:
                 return
             if self.keep_last_n is not None:
@@ -428,17 +520,138 @@ class SnapshotManager:
         evict = list(committed)[: -self.keep_last_n]
         for step in evict:
             logger.info("retention: deleting snapshot step %d", step)
-            delete_snapshot(self.path_for_step(step), metadata=committed[step].metadata)
+            metadata = committed[step].metadata
+            delete_snapshot(self.path_for_step(step), metadata=metadata)
+            if self.tier is not None:
+                # this rank's fast copy goes too (peers evict theirs in
+                # their own sweeps); never releasing chunk refs twice, and
+                # a degraded fast disk never fails a committed save
+                try:
+                    delete_snapshot(
+                        self.fast_path_for_step(step), metadata=metadata, release_cas=False
+                    )
+                except Exception as e:  # noqa: BLE001 — retried by later sweeps
+                    logger.warning(
+                        "fast-tier delete of evicted step %d failed (%r); "
+                        "leftover will be retried", step, e,
+                    )
             self._verified.pop(step, None)
+            self._durable_confirmed.discard(step)
         if evict:
             self._write_index(
                 sorted((set(committed) - set(evict)) | self._last_unverifiable)
             )
 
-    # ------------------------------------------------ not ported yet
+    def _apply_fast_retention(self) -> None:
+        """Keep fast copies of the newest ``fast_keep_last_n`` fast-resident
+        steps and delete older ones from this rank's fast root, but only
+        a step that is safe to lose locally: its durable marker reads
+        back, or durable retention evicted it (no longer indexed, with a
+        newer step indexed).  A write-back step not promoted yet holds
+        the only copy and stays."""
+        if self.tier is None:
+            return
+        keep = (
+            self.tier.fast_keep_last_n
+            if self.tier.fast_keep_last_n is not None
+            else knobs.get_tier_fast_keep_last_n()
+        )
+        fast_steps = self._scan_dir(self.tier.fast_root, require_metadata=False)
+        for step in fast_steps[:-keep] if keep else fast_steps:
+            # the metadata carries the chunk tables: the delete then skips
+            # locations that only ever lived in the pool
+            metadata = None
+            if self._durable_ok(step):
+                try:
+                    metadata = Snapshot(self.path_for_step(step)).metadata
+                except Exception as e:  # noqa: BLE001 — evict without the list
+                    logger.debug(
+                        "fast-tier retention: durable manifest read for step %d "
+                        "failed (%r)", step, e,
+                    )
+            else:
+                idx = set(self._read_index())
+                if not (idx and step not in idx and step < max(idx)):
+                    logger.info(
+                        "fast-tier retention: keeping step %d — not durably "
+                        "committed yet", step,
+                    )
+                    continue
+                try:
+                    metadata = Snapshot(self.fast_path_for_step(step)).metadata
+                except Exception as e:  # noqa: BLE001 — evict without the list
+                    logger.debug(
+                        "fast-tier retention: fast manifest read for step %d "
+                        "failed (%r)", step, e,
+                    )
+            logger.info("fast-tier retention: evicting local copy of step %d", step)
+            try:
+                # a COPY's delete: the durable step keeps its chunk refs
+                delete_snapshot(
+                    self.fast_path_for_step(step), metadata=metadata, release_cas=False
+                )
+            except Exception as e:  # noqa: BLE001 — a committed save never fails here
+                logger.warning(
+                    "fast-tier eviction of step %d failed (%r); leftover will "
+                    "be retried next sweep", step, e,
+                )
 
     def repromote(self) -> List[int]:
-        raise _not_ported("repromote (tiered storage)", "3.5")
+        """Crash recovery for write-back tiers: re-enqueue the promotion
+        of every fast-committed step whose durable marker is missing (the
+        queue lives in memory, so a crash between the fast and the
+        durable commit would leave an acknowledged step non-durable).
+        Rank-local: each host copies what its fast root holds, and the
+        durable marker lands only once every manifest location is
+        durable (``PromotionGroup.recovery``).  Runs once per manager
+        before its first save; returns the steps enqueued."""
+        with obs.span("manager/repromote", root=self.root):
+            self._repromoted = True
+            if self.tier is None:
+                return []
+            from .tier.promoter import PromotionGroup, get_promoter
+
+            enqueued = []
+            idx = set(self._read_index())
+            for step in self._scan_dir(self.tier.fast_root):
+                if self._durable_ok(step):
+                    continue
+                # a step durable retention evicted (unindexed, with a
+                # newer step indexed) must not come back to life
+                if idx and step not in idx and step < max(idx):
+                    continue
+                try:
+                    fast_md = Snapshot(self.fast_path_for_step(step)).metadata
+                except Exception:  # noqa: BLE001 — not fast-committed
+                    continue
+                group = PromotionGroup(self.fast_path_for_step(step), self.path_for_step(step))
+                # chunk-referenced locations live in the (durable) pool
+                group.paths = set(entry_locations(fast_md.manifest)) - set(
+                    (fast_md.cas or {}).get("chunks") or {}
+                )
+                group.recovery = True
+                promoter = get_promoter()
+                promoter.enqueue_data(group)
+                promoter.enqueue_commit(group)
+                logger.warning(
+                    "re-promoting step %d: fast-committed but no durable commit "
+                    "marker (promotion interrupted by a previous crash?)", step,
+                )
+                enqueued.append(step)
+            return enqueued
+
+    def _durable_ok(self, step: int) -> bool:
+        """Whether the durable marker reads back (positives cached)."""
+        if self.tier is None or step in self._durable_confirmed:
+            return True
+        try:
+            Snapshot(self.path_for_step(step)).metadata  # noqa: B018
+        except Exception:  # noqa: BLE001 — absent or unreachable
+            return False
+        self._durable_confirmed.add(step)
+        return True
+
+    # ------------------------------------------------ not ported yet
 
     def _candidate_paths(self) -> List[str]:
         return [

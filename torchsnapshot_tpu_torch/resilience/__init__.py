@@ -8,9 +8,12 @@ Counterpart of ``torchsnapshot_tpu/resilience/``:
   the storage plugins and the scheduler's pipelines;
 - ``retry``: the shared retry and backoff policy with per-backend
   classifiers;
-- ``breaker``: per-backend circuit breakers.
+- ``breaker``: per-backend circuit breakers;
+- ``liveness``: heartbeat stamps and dead-rank detection (the tier
+  promoter's done handshake).
 
-Not ported: ``liveness`` and ``preemption`` (ROADMAP queue A item 5).
+Not ported: ``preemption`` and the take path's liveness scope (ROADMAP
+queue A item 5).
 """
 
 from __future__ import annotations
@@ -35,6 +38,12 @@ from .failpoints import (  # noqa: F401
     refresh_from_knobs as refresh_failpoints,
     release_hangs,
 )
+from .liveness import (  # noqa: F401
+    DegradedSnapshotError,
+    LivenessMonitor,
+    LivenessSession,
+    RankDeadError,
+)
 from .retry import (  # noqa: F401
     FATAL,
     MISSING,
@@ -52,6 +61,10 @@ from .retry import (  # noqa: F401
 __all__ = [
     "AbortInfo",
     "SnapshotAbortedError",
+    "DegradedSnapshotError",
+    "LivenessMonitor",
+    "LivenessSession",
+    "RankDeadError",
     "poison_key",
     "encode_poison",
     "decode_poison",

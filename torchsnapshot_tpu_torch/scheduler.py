@@ -68,6 +68,9 @@ Counterpart of ``torchsnapshot_tpu/scheduler.py``, same discipline:
   (``ReadIO.want_mmap``), is admitted at cost 0 and is never striped; a
   read the plugin declines to map is debited its cost once it lands.
   Consumers build tensors over the mapped pages with no host copy.
+- Copies (``sync_execute_copy_reqs``): whole objects from one plugin to
+  another under the staging budget, each admitted by its size; the tier
+  promoter and peer replication ride on it, through host buffers only.
 - Failpoints ``scheduler.stage``, ``scheduler.write`` and
   ``scheduler.read`` fire per request, ``scheduler.stage.part`` and
   ``scheduler.codec.encode`` per part.
@@ -678,6 +681,70 @@ def execute_write_reqs(
         if pending._fut.done() and pending._fut.exception() is not None:
             pending.sync_complete()  # raises
     return pending
+
+
+async def _execute_copy_pipelines(
+    paths: List[str],
+    src_storage: StoragePlugin,
+    dst_storage: StoragePlugin,
+    budget: _Budget,
+    io_concurrency: int,
+    counter_name: str,
+) -> int:
+    """Copy whole objects src → dst, each admitted under the host-memory
+    budget by its size (an in-flight copy holds its whole payload; an
+    object larger than the budget is admitted alone, the write path's
+    progress rule)."""
+    m_copied = obs_metrics.counter(counter_name)
+    sem = asyncio.Semaphore(io_concurrency)
+    cond = asyncio.Condition()
+
+    async def one(path: str) -> int:
+        nbytes = await src_storage.stat(path)
+        async with cond:
+            await cond.wait_for(lambda: budget.used == 0 or budget.fits(nbytes))
+            budget.used += nbytes
+        try:
+            async with sem:
+                with obs_tracer.span("tier/promote_object", path=path, bytes=nbytes):
+                    read_io = ReadIO(path=path)
+                    await src_storage.read(read_io)
+                    await dst_storage.write(WriteIO(path=path, buf=read_io.buf))
+            m_copied.inc(nbytes)
+            return nbytes
+        finally:
+            async with cond:
+                budget.used -= nbytes
+                cond.notify_all()
+
+    return sum(await asyncio.gather(*(one(p) for p in paths)))
+
+
+def sync_execute_copy_reqs(
+    paths: List[str],
+    src_storage: StoragePlugin,
+    dst_storage: StoragePlugin,
+    memory_budget_bytes: int,
+    counter_name: Optional[str] = None,
+) -> int:
+    """Copy the named objects from ``src_storage`` to ``dst_storage``
+    under the staging memory budget; returns the bytes copied.  The
+    engine of the tier promoter (write-back payloads to the durable
+    tier) and of peer replication (``counter_name`` the replication
+    counter).  Host buffers only: it never touches the card."""
+    if not paths:
+        return 0
+    loop_thread = _LoopThread("tsnp-torch-copy-loop")
+    try:
+        return loop_thread.submit(
+            _execute_copy_pipelines(
+                paths, src_storage, dst_storage, _Budget(memory_budget_bytes),
+                knobs.get_max_per_rank_io_concurrency(),
+                counter_name or obs_metrics.BYTES_PROMOTED,
+            )
+        ).result()
+    finally:
+        loop_thread.shutdown()
 
 
 class _ReadPipeline:

@@ -61,9 +61,16 @@ only the chunks the pool lacks, the per-rank chunk tables merge at
 commit into the metadata's ``cas`` section (its root recorded relative
 under the manager layout), and rank 0 registers the step's refs in the
 index strictly before ``.snapshot_metadata``.  Every read path
-assembles chunk-referenced objects from the pool.  Not ported: tiered
-storage (ROADMAP queue A item 3.5), topology and transport, liveness,
-write takeover and repair (item 5).
+assembles chunk-referenced objects from the pool.
+
+Tiered storage (``storage_options={"tier": {...}}``, ``tier/``): a
+take calls the plugin's ``finalize_take`` after this rank's writes and
+before the commit (sync and async), so write-back promotion and peer
+replicas only ever trail the data, and under write-back the durable
+goodput commit is reported by the promoter; restore, ``read_object`` and
+``materialize`` prime the plugin with the committed digests first.  Not
+ported: the fan-out restore, transport, the take path's liveness scope,
+write takeover and repair (ROADMAP queue A item 5).
 """
 
 from __future__ import annotations
@@ -109,6 +116,7 @@ from .scheduler import (
     sync_execute_read_reqs,
 )
 from .resilience.abort import SnapshotAbortedError
+from .resilience.liveness import DegradedSnapshotError
 from .serialization import serialize_object, string_to_dtype
 from .stateful import PyTreeState, Replicated, RNGState, _tree_path_keys, load_with_strict
 from .storage import url_to_storage_plugin
@@ -175,20 +183,6 @@ def _cas_commit_refs(metadata: SnapshotMetadata, path: str, store: Any) -> None:
         from .cas import commit_refs
 
         commit_refs(store, path, tables)
-
-
-class DegradedSnapshotError(RuntimeError):
-    """A restore would read logical paths the snapshot's ``degraded``
-    section declares lost with a rank that died during the take."""
-
-    def __init__(self, path: str, degraded_paths: Sequence[str]) -> None:
-        self.path = path
-        self.degraded_paths = sorted(degraded_paths)
-        super().__init__(
-            f"snapshot {path!r} is degraded: {len(self.degraded_paths)} logical "
-            f"path(s) were lost with a dead rank and not healed: "
-            f"{self.degraded_paths[:5]}"
-        )
 
 
 def _validate_app_state(app_state: AppState) -> None:
@@ -445,6 +439,14 @@ def _commit(storage: Any, metadata: SnapshotMetadata) -> None:
     )
 
 
+def _finalize_take(storage: Any, coord: Coordinator, uid: str) -> None:
+    """A tiered plugin's ``finalize_take`` (peer replication, write-back
+    promotion hand-off); no-op for other plugins."""
+    finalize = getattr(storage, "finalize_take", None)
+    if finalize is not None:
+        finalize(coord, uid)
+
+
 def _write_obsrecord(coord: Coordinator, uid: str, storage: Any, path: str) -> None:
     """Rank 0 merges the payloads every rank published under ``uid``
     (waiting at most ``aggregate._COLLECT_TIMEOUT_S`` for the missing
@@ -607,6 +609,11 @@ class Snapshot:
                     execute_write_reqs(
                         plan.write_reqs, storage, get_process_memory_budget_bytes(), rank,
                     ).sync_complete()
+                    # tiered storage: peer replication and the write-back
+                    # hand-off, strictly after this rank's writes landed
+                    # and before the commit (the durable marker can only
+                    # trail the data)
+                    _finalize_take(storage, coordinator, uid)
                     metadata = _commit_protocol(
                         coordinator, uid, plan, storage, "ok", obs_before
                     )
@@ -618,8 +625,11 @@ class Snapshot:
             finally:
                 storage.sync_close()
                 plan.close_cas()
-            # a sync take is durable and unblocks at its return
-            obs.goodput.durable_commit(path)
+            # a sync take is durable and unblocks at its return, except
+            # under a write-back tier: the promoter reports the durable
+            # commit when the durable marker lands
+            if getattr(storage, "policy", None) != "write_back":
+                obs.goodput.durable_commit(path)
             obs.goodput.take_unblocked(path, gp_begin)
             obs.maybe_write_metrics_textfile()
         snapshot = cls(plan.path, coordinator, storage_options)
@@ -972,6 +982,25 @@ class Snapshot:
     def get_manifest(self) -> Dict[str, Entry]:
         return dict(self.metadata.manifest)
 
+    def _prime_tier_digests(self, storage: Any) -> None:
+        """Tiered storage: install the committed metadata's whole-object
+        digest table on the plugin, so fast and peer copies are checked
+        before they are trusted (and fall back and repair on a mismatch).
+        An encoded object is checked against its STORED digest from the
+        codec table (the bytes on disk are frames); one whose table has
+        none stays unprimed.  No-op for other plugins."""
+        prime = getattr(storage, "prime_digests", None)
+        if prime is None:
+            return
+        digests = dict(self.metadata.objects or {})
+        for loc, tbl in (self.metadata.codecs or {}).items():
+            stored = tbl.get("digest") if isinstance(tbl, dict) else None
+            if isinstance(stored, (list, tuple)) and len(stored) == 3:
+                digests[loc] = [int(x) for x in stored]
+            else:
+                digests.pop(loc, None)
+        prime(digests)
+
     def _codec_tables(self) -> Optional[Dict[str, Any]]:
         """location → frame table of each object stored compressed; None
         when nothing is.  A structurally invalid table (version skew) is
@@ -1042,6 +1071,7 @@ class Snapshot:
                 with coordinator.abort_scope(uid):
                     manifest_for_rank = get_manifest_for_rank(self.metadata, rank)
                     storage = _storage_for(self.path, self._storage_options)
+                    self._prime_tier_digests(storage)
                     cas_reads = self._cas_reads()
                     # (key, is RNG state) of this rank's app_state; over
                     # ranks, the union of the keys (a rank-local stateful
@@ -1229,6 +1259,7 @@ class Snapshot:
                 entry, obj_out=obj_out, buffer_size_limit_bytes=memory_budget_bytes
             )
             storage = _storage_for(self.path, self._storage_options)
+            self._prime_tier_digests(storage)
             cas_reads = self._cas_reads()
             try:
                 sync_execute_read_reqs(
@@ -1285,6 +1316,7 @@ class Snapshot:
             if not knobs.is_batching_disabled():
                 read_reqs = batch_read_requests(read_reqs)
             storage = _storage_for(self.path, self._storage_options)
+            self._prime_tier_digests(storage)
             cas_reads = self._cas_reads()
             try:
                 sync_execute_read_reqs(
@@ -1394,11 +1426,14 @@ def _base_tables(
     """The base snapshot's objects table and codec tables, read once by
     rank 0 and broadcast (every rank reading a large metadata object at
     the start of each take is a thundering herd).  A base that cannot be
-    read gives empty tables: the take is a full save."""
+    read gives empty tables: the take is a full save.  A tier option
+    names this take's fast root, not the base's: the base is read from
+    its own (durable) url, as in the JAX package."""
     tables: Tuple[Dict[str, Any], Dict[str, Any]] = ({}, {})
     if coordinator.rank == 0:
+        opts = {k: v for k, v in (storage_options or {}).items() if k != "tier"}
         try:
-            meta = Snapshot(base, storage_options=storage_options).metadata
+            meta = Snapshot(base, storage_options=opts or None).metadata
             tables = (meta.objects or {}, meta.codecs or {})
         except Exception as e:  # noqa: BLE001 — any unusable base: full save
             logger.warning(
@@ -1452,6 +1487,9 @@ class PendingSnapshot:
         status = "ok"
         try:
             self._pending_io.sync_complete()
+            # tiered storage: replication and the write-back hand-off
+            # (KV-only, explicit keys: legal on this thread)
+            _finalize_take(self._storage, coord, uid)
         except BaseException as e:  # noqa: BLE001 — surfaced by wait()
             self._exc = e
             status = f"err:{e!r}"
@@ -1462,9 +1500,10 @@ class PendingSnapshot:
                     self._metadata = _commit_protocol(
                         coord, uid, self._plan, self._storage, status, self._obs_before
                     )
-                if status == "ok":
+                if status == "ok" and getattr(self._storage, "policy", None) != "write_back":
                     # the commit marker landed (on rank 0; every rank
-                    # read rank 0's "ok" verdict)
+                    # read rank 0's "ok" verdict); a write-back tier's
+                    # promoter reports its durable marker instead
                     obs.goodput.durable_commit(self.path)
         except BaseException as e:  # noqa: BLE001 — surfaced by wait()
             if self._exc is None:

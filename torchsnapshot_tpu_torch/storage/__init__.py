@@ -6,8 +6,10 @@ third-party plugin registers under the entry-point group
 ``torchsnapshot_tpu_torch.storage_plugins`` (the port never loads a
 plugin registered for the JAX package's group).  Only the discovery
 swallows errors: a matched plugin's load and construction errors
-propagate.  Not ported: ``gs://`` and ``s3://`` (ROADMAP queue A item
-3.6), the shared-host cache and tiers (item 3.5).
+propagate.  The shared-host object cache (``hostcache.py``) wraps the
+built plugin when the ``CACHE_DIR`` knob is set, and a fast tier over
+it (``tier/``) is one reserved option away.  Not ported: ``gs://`` and
+``s3://`` (ROADMAP queue A item 3.6).
 """
 
 from __future__ import annotations
@@ -26,18 +28,34 @@ def url_to_storage_plugin(
     """``storage_options``: keyword arguments forwarded to the plugin's
     constructor, as in the JAX package, with two reserved keys:
 
-    - ``"host_cache"`` is accepted and has no effect: the shared-host
-      object cache (``storage/hostcache.py``) is not ported yet (ROADMAP
-      queue A item 3.5);
-    - ``"tier"`` raises ``NotImplementedError``: tiered storage is
-      ROADMAP queue A item 3.5."""
+    - ``"tier"`` (a dict, see ``tier.build_tiered``: ``fast_url`` and
+      optionally ``policy``, ``replica_count``, ``peer_fast_urls``,
+      ``verify_fast_reads``) layers a fast tier over the plugin built
+      from ``url_path``, which names the DURABLE tier; the result is a
+      ``TieredStoragePlugin``;
+    - ``"host_cache"`` (default True) gates the shared-host object
+      cache: with the ``CACHE_DIR`` knob set the built plugin is wrapped
+      so co-located readers fetch each object from it once.  Plugins
+      that are local copies themselves (a tier's fast root, peer fast
+      roots) are built with False, so no byte is cached twice."""
     opts = dict(storage_options or {})
-    opts.pop("host_cache", None)
-    if opts.pop("tier", None) is not None:
-        raise NotImplementedError(
-            "storage_options['tier'] (tiered storage) is not ported yet "
-            "(ROADMAP queue A item 3.5)"
-        )
+    tier_opts = opts.pop("tier", None)
+    host_cache = opts.pop("host_cache", True)
+    if tier_opts is not None:
+        from ..tier import build_tiered
+
+        durable = url_to_storage_plugin(url_path, dict(opts, host_cache=host_cache))
+        return build_tiered(durable, url_path, **tier_opts)
+
+    def _maybe_cached(plugin: StoragePlugin) -> StoragePlugin:
+        from .. import knobs
+
+        if not host_cache or knobs.get_cache_dir() is None:
+            return plugin
+        from .hostcache import HostCachedStoragePlugin
+
+        return HostCachedStoragePlugin(plugin, url_path)
+
     if "://" in url_path:
         scheme, path = url_path.split("://", 1)
         scheme = scheme or "fs"
@@ -46,11 +64,11 @@ def url_to_storage_plugin(
     if scheme == "fs":
         from .fs import FSStoragePlugin
 
-        return FSStoragePlugin(root=path, **opts)
+        return _maybe_cached(FSStoragePlugin(root=path, **opts))
     if scheme == "memory":
         from .memory import MemoryStoragePlugin
 
-        return MemoryStoragePlugin(namespace=path, **opts)
+        return _maybe_cached(MemoryStoragePlugin(namespace=path, **opts))
     group = ()
     try:
         from importlib.metadata import entry_points
@@ -65,5 +83,5 @@ def url_to_storage_plugin(
         obs.swallowed_exception("storage.entry_point_discovery", e)
     for ep in group:
         if ep.name == scheme:
-            return ep.load()(path, **opts)
+            return _maybe_cached(ep.load()(path, **opts))
     raise RuntimeError(f"no storage plugin registered for scheme {scheme!r}")

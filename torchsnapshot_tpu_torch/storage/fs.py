@@ -335,9 +335,14 @@ class FSStoragePlugin(StoragePlugin):
             _undo((fd, fd_direct))
             return None
 
+        fut = asyncio.get_running_loop().run_in_executor(self._executor, _open)
         try:
-            fd, fd_direct = await self._off_loop(_open)
+            fd, fd_direct = await asyncio.shield(fut)
         except BaseException:
+            # a cancelled caller: the open's thread runs on, so let it end
+            # (bounded) and undo what it made before the error propagates
+            if not fut.done():
+                await asyncio.wait({fut}, timeout=stripe.WAIT_DEADLINE_S)
             with lock:
                 state["abandoned"] = True
                 opened = state["opened"]
