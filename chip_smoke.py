@@ -6,8 +6,10 @@
 Needs one CUDA card, ``nvcc`` (the kernels are built from ``csrc/`` on
 first use), ``g++`` (the native fast-I/O library is built from
 ``_csrc/fastio.cpp`` on first use; the script fails when it does not
-build) and a writable temporary directory (the snapshot is written
-under ``$TMPDIR``).  It exits non-zero, printing no result, when there
+build), a writable temporary directory (the snapshot is written
+under ``$TMPDIR``) and the checkout's ``tests/cloud_fakes.py`` and
+``tests/s3_service_model.py`` (the object-store fakes of path j; no
+client library and no network).  It exits non-zero, printing no result, when there
 is no card or anything below fails.  In order:
 
 1. prints the card (``nvidia-smi`` name and power limit);
@@ -37,7 +39,7 @@ is no card or anything below fails.  In order:
    for K4 + K5, ``copy_`` into the template's range for K6) are timed 5
    times: median, range, share of the bound, TFLOP/s for K3-K5; K1 both
    as ``pack_slab`` is called and as its launch alone;
-4. twelve paths, each with the launch counters set to 0 just before it
+4. thirteen paths, each with the launch counters set to 0 just before it
    and read just after (a path that starts processes adds the launches
    they report), all with the fast-I/O engine at its defaults unless
    the path says otherwise:
@@ -52,11 +54,12 @@ is no card or anything below fails.  In order:
    a2. fastio (after a, on a's state): take and restore under FASTIO=0
       (the fs plugin's pure-Python legs), FASTIO=1 (the native engine,
       digests fused into its writes) and FASTIO=1 + FASTIO_DIRECT=1
-      (O_DIRECT where the work directory takes it), twice each in
-      alternating order, the restores under MMAP=0 (a mapped read never
+      (O_DIRECT where the work directory takes it), once each (twice
+      each, alternating, before the cloud_interop path came), the
+      restores under MMAP=0 (a mapped read never
       reaches the engine), each snapshot deleted after use: every restore
       bitwise, every manifest's digests equal; it prints the library,
-      whether O_DIRECT is active, each setting's median and range and
+      whether O_DIRECT is active, each setting's seconds and
       its seven ``storage.fastio`` counters.  After c it also prints
       the host digest rates: zlib against the native one-pass digest
       over the same 256 MiB, which must agree;
@@ -78,8 +81,9 @@ is no card or anything below fails.  In order:
       of 128 MiB or more move as concurrent 64 MiB parts); here a sync
       take and a restore must count one striped write and one striped
       read per object the manifest holds at that size, restored bitwise,
-      then 2 takes and restores each at the default and at
-      STRIPE_MIN_OBJECT_SIZE_BYTES=0, alternating (medians, ranges); these
+      then a take and a restore at the default and one at
+      STRIPE_MIN_OBJECT_SIZE_BYTES=0 (2 each, alternating, before the
+      cloud_interop path came); these
       restores run under MMAP=0, since a mapped read is never striped.
       CODEC=huff on the whole state plus f32 copies of one layer's
       moments: parts must be encoded (no quiet degrade to raw); stored/raw
@@ -222,7 +226,29 @@ is no card or anything below fails.  In order:
       once through one cache directory (``--tier-cache-child``), each
       bitwise; summed over them ``storage.cache.misses`` must equal the
       step's object count, and a third restore in this process must be
-      all hits, every read mapped.
+      all hits, every read mapped;
+   j. cloud_interop (after i): object stores and the original
+      torchsnapshot format on a state like a's (its own seed), over
+      in-process fakes of the ``boto3`` S3 client and of
+      ``google.cloud.storage`` (``tests/cloud_fakes.py``; the S3 one
+      checks every call and response against ``tests/s3_service_model.py``);
+      every line says that no network is measured.  ``s3://``: a take
+      (one multipart upload per object at the stripe threshold, none left
+      in progress), a restore into a zeroed state (K2, bitwise), the
+      embedding into an f32 template under the 32 MiB budget (K6, no GET
+      above the budget), an incremental ``base=`` take after the
+      embedding changed (every unchanged object copied server-side with
+      ``copy_object``) restored bitwise, and the state in the original
+      format written to and read back from the store.  ``gs://``: a take
+      with the 100 MB chunk (one ``compose`` per object over the chunk or
+      striped, no part blob left) and a restore over ranged GETs (K2,
+      bitwise).  Then ``write_torchsnapshot`` of the state from the card
+      into the work directory and ``read_torchsnapshot`` back onto it,
+      bitwise; ``python -m torchsnapshot_tpu_torch convert`` in a process
+      each way: the native result restored into a zeroed state (K2,
+      bitwise), the ``--to-reference`` result read back bitwise.  It
+      prints MemAvailable before and after, each step's seconds and GB/s,
+      the fakes' calls and the K1/K2/K6 launches.
 
 Every kernel must have launched on these paths, and each path on the
 kernels it runs.  The line before the last is the card; the line before
@@ -835,7 +861,7 @@ FASTIO_SETTINGS = {  # label → (FASTIO, FASTIO_DIRECT)
 }
 # two runs a setting (three until the stripe_codec path joined the script,
 # to keep the whole run near 300 s)
-FASTIO_REPEATS = 2
+FASTIO_REPEATS = 1  # 2 until the cloud_interop path came
 FASTIO_COUNTERS = (
     "FASTIO_BYTES_WRITTEN", "FASTIO_BYTES_READ", "FASTIO_FUSED_DIGESTS", "FASTIO_POOL_WAITS",
     "FASTIO_DIRECT_PARTS", "FASTIO_BUFFERED_PARTS", "FASTIO_DONTNEED_READS",
@@ -938,7 +964,7 @@ def phase_fastio(cfg, model, opt, work):
     del model2, opt2
 
 
-STRIPE_REPEATS = 2
+STRIPE_REPEATS = 1  # 2 until the cloud_interop path came
 # raw bytes a frame of the embedding read back in 32 MiB tiles: not a
 # divisor or multiple of the tile, so tiles straddle frames
 READ_FRAME_BYTES = 40 << 20
@@ -3220,6 +3246,226 @@ def phase_tier_cache(cfg, work):
     return others
 
 
+CLOUD_SEED = 61
+
+
+def mem_available():
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    return -1
+
+
+def state_tree(model, opt):
+    """The state the interop leg exports: the model's tensors and the
+    optimizer's per-parameter state (its param_groups hold ``None``s the
+    original format has no pickle-free entry for)."""
+    return {"model": model.state_dict(), "optim": {"state": opt.state_dict()["state"]}}
+
+
+def same_tree(want, got, where=""):
+    """Where two nested states differ (tensors bitwise, on any device), or
+    None.  Keys compare as strings: a native snapshot's paths hold an int
+    key as its string."""
+    if isinstance(want, dict):
+        got = {str(k): v for k, v in got.items()}
+        if sorted(map(str, want)) != sorted(got):
+            return f"{where}: keys {sorted(got)}"
+        for k in want:
+            bad = same_tree(want[k], got[str(k)], f"{where}/{k}")
+            if bad:
+                return bad
+        return None
+    if isinstance(want, torch.Tensor):
+        ok = isinstance(got, torch.Tensor) and want.dtype == got.dtype and torch.equal(want.cpu(), got.cpu())
+        return None if ok else f"{where}: tensor differs"
+    return None if want == got else f"{where}: {got!r}"
+
+
+def phase_cloud_interop(cfg, work):
+    """Object stores and the original torchsnapshot format on the serving
+    state (see the module docstring, path j)."""
+    from torchsnapshot_tpu_torch import knobs
+    from torchsnapshot_tpu_torch.storage.gcs import _DEFAULT_CHUNK_BYTES
+    from torchsnapshot_tpu_torch.tricks import read_torchsnapshot, write_torchsnapshot
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import cloud_fakes
+
+    card = card_line()
+    fake_note = "in-process fake store, no network measured"
+    print(f"cloud_interop on {card}: MemAvailable {mem_available()} bytes before the path ({fake_note})")
+    model, opt = deterministic_state(cfg, CLOUD_SEED)
+    meta = tts.StateDict(step=0)
+    app = {"model": model, "optim": opt, "meta": meta}
+    nb = state_bytes(model, opt)
+    check(nb == 4_001_488_980 or cfg.d_model != 4096, f"the serving state holds {nb} bytes")
+    model2, opt2 = deterministic_state(cfg, CLOUD_SEED + 1)
+    meta2 = tts.StateDict(step=-1)
+    app2 = {"model": model2, "optim": opt2, "meta": meta2}
+    threshold = knobs.get_stripe_min_object_size_bytes()
+    launches = device_pack.LAUNCHES
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def restore_into_zeroed(url, label, **kw):
+        zero_state(model2, opt2)
+        meta2["step"] = -1
+        k2 = launches["slab_unpack"]
+        _, dt = timed(lambda: tts.Snapshot(url, **kw).restore(app2))
+        differs = same_state((model, opt), (model2, opt2))
+        check(differs is None and meta2["step"] == meta["step"], f"cloud_interop {label}: restored {differs}")
+        check(launches["slab_unpack"] > k2, f"cloud_interop {label} launched no K2")
+        return dt, launches["slab_unpack"] - k2
+
+    # 1. s3://
+    s3 = cloud_fakes.S3Fake()
+    undo = cloud_fakes.install_s3(s3)
+    try:
+        k1 = launches["slab_pack"]
+        _, take_s = timed(lambda: tts.Snapshot.take("s3://bkt/run/step0", app))
+        md = tts.Snapshot("s3://bkt/run/step0").metadata
+        big = sum(1 for d in md.objects.values() if d[2] >= threshold)
+        check(s3.ops["create_multipart_upload"] == big == s3.ops["complete_multipart_upload"] and big > 0,
+              f"s3 take: {s3.ops['create_multipart_upload']} multipart uploads for {big} objects >= {threshold} bytes")
+        check(s3.multipart_uploads == {}, f"s3 take left {len(s3.multipart_uploads)} uploads in progress")
+        take_ops = dict(s3.ops)
+        restore_s, k2 = restore_into_zeroed("s3://bkt/run/step0", "s3 restore")
+        print(f"cloud_interop s3 ({fake_note}; {card}): take {take_s:.3f} s ({nb / take_s / 1e9:.3f} GB/s), "
+              f"K1 launches {launches['slab_pack'] - k1}, {len(md.objects)} objects, {big} multipart uploads "
+              f"(objects >= {threshold} bytes), none in progress, calls {json.dumps(take_ops)}; restore bitwise "
+              f"{restore_s:.3f} s ({nb / restore_s / 1e9:.3f} GB/s), K2 launches {k2}, ranged GETs "
+              f"{len(s3.ranges)} (largest {max((n for _, n in s3.ranges), default=0)} bytes)")
+        # a budgeted read of the embedding into an f32 template
+        template = torch.zeros(model.embed.weight.shape, dtype=torch.float32, device="cuda")
+        s3.ranges.clear()
+        k6 = launches["tile_update"]
+        _, read_s = timed(lambda: tts.Snapshot("s3://bkt/run/step0").read_object(
+            "0/model/embed.weight", obj_out=template, memory_budget_bytes=READ_BUDGET))
+        check(torch.equal(template, model.embed.weight.float()), "s3 budgeted read of the embedding differs")
+        check(launches["tile_update"] > k6, "the s3 budgeted read launched no K6")
+        largest = max((n for _, n in s3.ranges), default=0)
+        check(s3.ranges and largest <= READ_BUDGET, f"s3 budgeted read: a GET of {largest} bytes")
+        print(f"cloud_interop s3 read_object ({fake_note}; {card}): the embedding into f32 under {READ_BUDGET} "
+              f"bytes {read_s:.4f} s ({nbytes(model.embed.weight) / read_s / 1e9:.3f} GB/s), {len(s3.ranges)} ranged GETs, largest {largest} bytes, K6 launches "
+              f"{launches['tile_update'] - k6}, equal to the cast")
+        del template
+        # an incremental take: the embedding changes, the rest is copied
+        # server-side
+        perturb(model, 1)
+        meta["step"] = 1
+        before = dict(s3.ops)
+        d0 = tts.obs.counters().get(tts.obs.BYTES_DEDUPED, 0)
+        _, inc_s = timed(lambda: tts.Snapshot.take("s3://bkt/run/step1", app, base="s3://bkt/run/step0"))
+        copies = s3.ops["copy_object"] - before.get("copy_object", 0)
+        deduped = tts.obs.counters().get(tts.obs.BYTES_DEDUPED, 0) - d0
+        md1 = tts.Snapshot("s3://bkt/run/step1").metadata
+        same = sum(1 for loc, d in md1.objects.items() if md.objects.get(loc) == d)
+        check(0 < copies and copies == same < len(md1.objects), f"s3 incremental take: {copies} copies, {same} "
+              f"unchanged of {len(md1.objects)} objects")
+        restore_s1, _ = restore_into_zeroed("s3://bkt/run/step1", "s3 incremental restore")
+        print(f"cloud_interop s3 incremental take ({fake_note}; {card}): {inc_s:.3f} s ({nb / inc_s / 1e9:.3f} GB/s "
+              f"of state), {copies} objects copied "
+              f"server-side (copy_object) of {len(md1.objects)}, bytes_deduped {deduped}, uploads "
+              f"{s3.ops['put_object'] - before.get('put_object', 0)} puts and "
+              f"{s3.ops['upload_part'] - before.get('upload_part', 0)} parts; restore bitwise {restore_s1:.3f} s "
+              f"({nb / restore_s1 / 1e9:.3f} GB/s)")
+        # a reference-format copy held in the store
+        _, ref_w_s = timed(lambda: write_torchsnapshot("s3://bkt/ref", state_tree(model, opt)))
+        got, ref_r_s = timed(lambda: read_torchsnapshot("s3://bkt/ref", device="cuda"))
+        bad = same_tree(state_tree(model, opt), got)
+        check(bad is None and got["model"]["embed.weight"].is_cuda, f"s3 reference-format read: {bad}")
+        print(f"cloud_interop s3 original format ({fake_note}; {card}): write_torchsnapshot {ref_w_s:.3f} s "
+              f"({nb / ref_w_s / 1e9:.3f} GB/s), "
+              f"read_torchsnapshot onto the card {ref_r_s:.3f} s ({nb / ref_r_s / 1e9:.3f} GB/s), bitwise")
+        del got
+    finally:
+        undo()
+        s3.objects.clear()
+        del s3
+    gc.collect()
+
+    # 2. gs://
+    gcs = cloud_fakes.GCSFake()
+    undo = cloud_fakes.install_gcs(gcs)
+    try:
+        chunk = _DEFAULT_CHUNK_BYTES
+        k1 = launches["slab_pack"]
+        _, take_s = timed(lambda: tts.Snapshot.take("gs://bkt/run/step1", app))
+        md = tts.Snapshot("gs://bkt/run/step1").metadata
+        # a striped object (at the stripe threshold, over the chunk at full
+        # width) is composed from its parts too
+        over = sum(1 for d in md.objects.values() if d[2] > chunk or d[2] >= threshold)
+        names = list(gcs.bucket("bkt").data)
+        check(gcs.ops["compose"] == over > 0, f"gs take: {gcs.ops['compose']} composes for {over} objects over "
+              f"{chunk} bytes")
+        check(not any(".part-" in n or ".compose-" in n for n in names), "gs take left part blobs")
+        take_ops = dict(gcs.ops)
+        gcs.ranges.clear()
+        restore_s, k2 = restore_into_zeroed("gs://bkt/run/step1", "gs restore")
+        check(gcs.ranges, "the gs restore made no ranged GET")
+        print(f"cloud_interop gs ({fake_note}; {card}): take {take_s:.3f} s ({nb / take_s / 1e9:.3f} GB/s), "
+              f"K1 launches {launches['slab_pack'] - k1}, {len(md.objects)} objects, {over} composed (over "
+              f"{chunk} bytes or striped), no part blob left, calls {json.dumps(take_ops)}; restore bitwise {restore_s:.3f} s "
+              f"({nb / restore_s / 1e9:.3f} GB/s), K2 launches {k2}, ranged GETs {len(gcs.ranges)} (largest "
+              f"{max(n for _, n in gcs.ranges)} bytes)")
+    finally:
+        undo()
+        gcs.buckets.clear()
+        del gcs
+    gc.collect()
+
+    # 3. the original format on the work directory, and the CLI's convert
+    ref = os.path.join(work, "cloud_ref")
+    _, w_s = timed(lambda: write_torchsnapshot(ref, state_tree(model, opt)))
+    got, r_s = timed(lambda: read_torchsnapshot(ref, device="cuda"))
+    bad = same_tree(state_tree(model, opt), got)
+    check(bad is None and got["optim"]["state"][0]["exp_avg"].is_cuda, f"read_torchsnapshot: {bad}")
+    del got
+    gc.collect()
+    native, back = os.path.join(work, "cloud_native"), os.path.join(work, "cloud_back")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    cli_s = {}
+    for argv in (["convert", ref, native, "--device", "cuda"], ["convert", "--to-reference", native, back, "--device", "cuda"]):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "torchsnapshot_tpu_torch", *argv], cwd=repo,
+                              capture_output=True, text=True, timeout=600)
+        cli_s[argv[1]] = time.perf_counter() - t0
+        check(proc.returncode == 0, f"{' '.join(argv)} exited {proc.returncode}: {proc.stderr[-2000:]}")
+    # the converted native snapshot into a differently seeded state
+    zero_state(model2, opt2)
+    templates = {"model": tts.PyTreeState(model2.state_dict()),
+                 "optim": tts.PyTreeState({"state": opt2.state_dict()["state"]})}
+    k2 = launches["slab_unpack"]
+    _, native_s = timed(lambda: tts.Snapshot(native).restore(templates))
+    differs = same_state((model, opt), (model2, opt2))
+    check(differs is None, f"the converted native snapshot restored {differs}")
+    check(launches["slab_unpack"] > k2, "the converted native restore launched no K2")
+    got = read_torchsnapshot(back, device="cuda")
+    bad = same_tree(state_tree(model, opt), got)
+    check(bad is None, f"convert --to-reference: {bad}")
+    del got
+    print(f"cloud_interop original format (the work directory, no object store, no network measured; {card}): "
+          f"write_torchsnapshot from the card {w_s:.3f} s "
+          f"({nb / w_s / 1e9:.3f} GB/s), read_torchsnapshot onto the card {r_s:.3f} s ({nb / r_s / 1e9:.3f} GB/s), "
+          f"bitwise; python -m torchsnapshot_tpu_torch convert {cli_s[ref]:.1f} s ({nb / cli_s[ref] / 1e9:.3f} GB/s) "
+          f"and convert --to-reference {cli_s['--to-reference']:.1f} s ({nb / cli_s['--to-reference'] / 1e9:.3f} GB/s; "
+          f"processes on the card, start-up included); the native result restored bitwise "
+          f"{native_s:.3f} s ({nb / native_s / 1e9:.3f} GB/s, K2 launches {launches['slab_unpack'] - k2}), the exported one read back bitwise")
+    del model, opt, model2, opt2, app, app2, templates
+    for p in (ref, native, back):
+        shutil.rmtree(p, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"cloud_interop: MemAvailable {mem_available()} bytes after the path ({fake_note})")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA GPU",
@@ -3337,6 +3583,10 @@ def main():
         gc.collect()
         torch.cuda.empty_cache()
         run_path("tier_cache", ("slab_pack", "slab_unpack", "tile_update"), lambda: phase_tier_cache(cfg, work))
+        gc.collect()
+        torch.cuda.empty_cache()
+        run_path("cloud_interop", ("slab_pack", "slab_unpack", "tile_update"),
+                 lambda: phase_cloud_interop(cfg, work))
 
     print(json.dumps({"kernels": list(records.values())}))
     print(card)

@@ -3,9 +3,10 @@ torchsnapshot_tpu``: ``ls``, ``manifest``, ``verify``, ``steps``,
 ``delete``, ``stats``, ``doctor`` and ``cas`` print the same lines and
 exit with the same codes on the same snapshot, root and chunk pool,
 written by either package; ``trace --device cpu`` writes a Perfetto file
-with the JAX CLI's read-path span names.  The commands the port lacks
-exit 1 naming their ROADMAP item.  One run through a subprocess checks
-the module entry point itself.
+with the JAX CLI's read-path span names; ``convert`` in both directions
+writes what the JAX CLI writes and refuses what it refuses.  The
+commands the port lacks exit 1 naming their ROADMAP item.  One run
+through a subprocess checks the module entry point itself.
 """
 
 import json
@@ -102,7 +103,7 @@ def test_steps_and_delete_print_what_jax_prints(tmp_path, writer, capsys):
 
 
 def test_unported_commands_name_their_roadmap_item(tmp_path, capsys):
-    for cmd, item in (("convert", "4"), ("lint", "8")):
+    for cmd, item in (("lint", "8"),):
         rc, out, err = _run(port_main, [cmd, str(tmp_path), "--json"], capsys)
         assert rc == 1 and out == "" and f"queue A item {item}" in err, (cmd, err)
 
@@ -202,3 +203,68 @@ def test_trace_writes_perfetto_with_the_jax_read_path_spans(tmp_path, capsys):
             e["name"] for e in events if e.get("ph") == "X" and e["name"] in _READ_PATH
         )
     assert names[0] == names[1] and "storage/mmap_read" in names[0]
+
+
+def _reference_snapshot(tmp_path, world_size):
+    ref = tmp_path / f"ref{world_size}"
+    ref.mkdir()
+    (ref / "0").mkdir()
+    (ref / "0" / "w").write_bytes(np.arange(6, dtype=np.float32).tobytes())
+    manifest = {
+        "0/app": {"type": "dict", "keys": ["n", "w"]},
+        "0/app/n": {"type": "int", "serialized_value": "1", "replicated": False, "readable": None},
+        "0/app/w": {"type": "Tensor", "location": "0/w", "serializer": "buffer_protocol",
+                    "dtype": "torch.float32", "shape": [2, 3], "replicated": False},
+    }
+    (ref / ".snapshot_metadata").write_text(
+        json.dumps({"version": "0.1.0", "world_size": world_size, "manifest": manifest}))
+    return str(ref)
+
+
+def test_convert_writes_what_the_jax_cli_writes_in_both_directions(tmp_path, capsys):
+    native = str(tmp_path / "native")
+    jts.Snapshot.take(native, _state("jax", 6))
+    refs = {}
+    for pkg_main, name, extra in ((port_main, "p", ["--device", "cpu"]), (jax_main, "j", [])):
+        refs[name] = str(tmp_path / f"ref_{name}")
+        rc, out, err = _run(pkg_main, ["convert", "--to-reference", native, refs[name], *extra], capsys)
+        assert rc == 0 and out == f"exported {native} -> {refs[name]} (reference format)\n", err
+    files = {}
+    for name, root in refs.items():
+        files[name] = {os.path.relpath(os.path.join(d, f), root): open(os.path.join(d, f), "rb").read()
+                       for d, _, fs in os.walk(root) for f in fs}
+    assert files["p"] == files["j"] and len(files["p"]) == 4
+    # back to native, by both CLIs: each package reads each result alike
+    backs = {}
+    for pkg_main, name, extra in ((port_main, "p", ["--device", "cpu"]), (jax_main, "j", [])):
+        backs[name] = str(tmp_path / f"back_{name}")
+        rc, out, _ = _run(pkg_main, ["convert", refs[name], backs[name], *extra], capsys)
+        assert rc == 0 and out == f"imported {refs[name]} -> {backs[name]} (native format)\n"
+    want = _state("jax", 6)["app"]
+    for back in backs.values():
+        assert jts.Snapshot(back).read_object("0/app/step") == 6
+        for k in ("w", "ids", "e"):
+            got = tts.Snapshot(back).read_object(f"0/app/{k}", device="cpu")
+            assert np.array_equal(got.numpy(), want[k]) and np.array_equal(jts.Snapshot(back).read_object(f"0/app/{k}"), want[k])
+    assert _both(["ls", backs["p"]], capsys)[1] == _both(["ls", backs["j"]], capsys)[1].replace(backs["j"], backs["p"])
+
+
+def test_convert_rank_gate_and_errors_print_what_jax_prints(tmp_path, capsys):
+    ref = _reference_snapshot(tmp_path, 4)
+    out = str(tmp_path / "out")
+    rc, _, err = _both(["convert", ref, out], capsys)
+    assert rc == 1 and "world_size=4" in err and "--rank N" in err
+    rc, _, err = _both(["convert", "--rank", "4", ref, out], capsys)
+    assert rc == 1 and "out of range" in err
+    rc, _, err = _both(["convert", "--rank", "-1", ref, out], capsys)
+    assert rc == 1 and "out of range" in err
+    for pkg_main, extra, dest in ((port_main, ["--device", "cpu"], out), (jax_main, [], out + "j")):
+        rc, _, _ = _run(pkg_main, ["convert", "--rank", "0", ref, dest, *extra], capsys)
+        assert rc == 0 and tts.Snapshot(dest).read_object("0/app/n") == 1
+    assert tts.Snapshot(out).read_object("0/app/w", device="cpu").shape == (2, 3)
+    # a dtype the reference format cannot carry: one clean line each
+    native = str(tmp_path / "f8")
+    tts.Snapshot.take(native, {"m": tts.StateDict(q=torch.zeros(2, dtype=torch.float8_e4m3fn))})
+    port = _run(port_main, ["convert", "--to-reference", native, str(tmp_path / "r1"), "--device", "cpu"], capsys)
+    jax = _run(jax_main, ["convert", "--to-reference", native, str(tmp_path / "r2")], capsys)
+    assert port == jax and port[0] == 1 and port[2].startswith("error: dtype 'float8_e4m3fn'")

@@ -1084,3 +1084,86 @@ def test_tiered_take_and_restore_of_cuda_state(cuda, tmp_path, policy):
         assert dp.LAUNCHES["tile_update"] > before
     assert torch.equal(tmpl, want["big"].float())
     assert tts.obs.counters()[tts.obs.CACHE_MISSES] > 0
+
+
+@pytest.mark.parametrize("scheme", ["s3", "gs"])
+def test_cloud_take_and_restore_of_cuda_state(cuda, scheme):
+    """A take of CUDA state to ``s3://`` / ``gs://`` over the in-process
+    fakes of ``tests/cloud_fakes.py`` (K1), a restore into zeroed CUDA
+    templates (K2) and a budgeted read into an f32 template (K6) whose
+    ranged GETs stay within the budget, bitwise; S3 leaves no multipart
+    upload in progress, GCS no part blob."""
+    import cloud_fakes
+
+    import torchsnapshot_tpu_torch as tts
+    from torchsnapshot_tpu_torch import knobs
+    from torchsnapshot_tpu_torch.ops import device_pack as dp
+
+    fake = cloud_fakes.S3Fake() if scheme == "s3" else cloud_fakes.GCSFake()
+    undo = (cloud_fakes.install_s3 if scheme == "s3" else cloud_fakes.install_gcs)(fake)
+    url = f"{scheme}://bkt/run/s0"
+    opts = {} if scheme == "s3" else {"chunk_bytes": 1 << 20}
+    want = dict(_cuda_state(cuda, 3))
+    want["big"] = _rand((3000, 1000), torch.bfloat16, cuda, 16)  # 6 MB: striped (and composed)
+    try:
+        with knobs.override_stripe_part_size_bytes(5 << 20), knobs.override_stripe_min_object_size_bytes(5 << 20):
+            before = dp.LAUNCHES["slab_pack"]
+            tts.Snapshot.take(url, {"app": tts.StateDict(want)}, storage_options=opts)
+            assert dp.LAUNCHES["slab_pack"] > before
+            dest = tts.StateDict({k: torch.zeros_like(v) for k, v in want.items()})
+            before = dp.LAUNCHES["slab_unpack"]
+            tts.Snapshot(url, storage_options=opts).restore({"app": dest})
+            assert dp.LAUNCHES["slab_unpack"] > before
+        for k, v in want.items():
+            assert dest[k].is_cuda and torch.equal(dest[k], v), k
+        tmpl = torch.zeros(3000, 1000, device=cuda)
+        fake.ranges.clear()
+        before = dp.LAUNCHES["tile_update"]
+        tts.Snapshot(url, storage_options=opts).read_object("0/app/big", obj_out=tmpl, memory_budget_bytes=1 << 20)
+        assert dp.LAUNCHES["tile_update"] > before and torch.equal(tmpl, want["big"].float())
+        assert fake.ranges and max(n for _, n in fake.ranges) <= 1 << 20
+        if scheme == "s3":
+            assert fake.ops["complete_multipart_upload"] == 1 and fake.multipart_uploads == {}
+        else:
+            assert fake.ops["compose"] >= 1 and not any(".part-" in n for n in fake.bucket("bkt").data)
+    finally:
+        undo()
+
+
+def test_original_format_from_and_onto_the_card(cuda, tmp_path):
+    """``write_torchsnapshot`` of CUDA tensors lays down the bytes it lays
+    down for their host copies; ``read_torchsnapshot``, the CLI's
+    ``convert`` and the optimizer adapter hold tensors on the card by
+    default."""
+    import os
+
+    import torchsnapshot_tpu_torch as tts
+    from torchsnapshot_tpu_torch.__main__ import main as cli
+    from torchsnapshot_tpu_torch.tricks import TorchOptimizerAdapter, read_torchsnapshot, write_torchsnapshot
+
+    torch.manual_seed(4)
+    model = torch.nn.Linear(64, 32).to(cuda).to(torch.bfloat16)
+    opt = torch.optim.AdamW(model.parameters(), lr=0.1)
+    model(torch.randn(8, 64, device=cuda, dtype=torch.bfloat16)).float().sum().backward()
+    opt.step()
+    state = {"model": model.state_dict(), "optim": {"state": opt.state_dict()["state"]}, "n": 3}
+    host = {"model": {k: v.cpu() for k, v in model.state_dict().items()},
+            "optim": {"state": {i: {k: v.cpu() for k, v in st.items()} for i, st in opt.state_dict()["state"].items()}},
+            "n": 3}
+    write_torchsnapshot(str(tmp_path / "card"), state)
+    write_torchsnapshot(str(tmp_path / "host"), host)
+    for f in os.listdir(tmp_path / "host"):
+        if os.path.isfile(tmp_path / "host" / f):
+            assert open(tmp_path / "card" / f, "rb").read() == open(tmp_path / "host" / f, "rb").read()
+    got = read_torchsnapshot(str(tmp_path / "card"))
+    for k, v in model.state_dict().items():
+        assert got["model"][k].is_cuda and torch.equal(got["model"][k], v), k
+    assert cli(["convert", str(tmp_path / "card"), str(tmp_path / "native")]) == 0
+    assert torch.equal(tts.Snapshot(str(tmp_path / "native")).read_object("0/model/weight"), model.weight)
+    opt2 = torch.optim.AdamW(model.parameters(), lr=0.1)
+    TorchOptimizerAdapter(opt2).load_state_dict(
+        {"state": {i: {k: v.cpu() for k, v in st.items()} for i, st in opt.state_dict()["state"].items()},
+         "param_groups": opt.state_dict()["param_groups"]})
+    st = opt2.state_dict()["state"][0]
+    assert st["exp_avg"].is_cuda and st["step"].device.type == "cpu"
+    opt2.step()

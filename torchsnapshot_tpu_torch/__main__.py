@@ -10,14 +10,15 @@
     python -m torchsnapshot_tpu_torch cas       <cas-root> [--json] [--fsck] [--gc] [--grace S]
     python -m torchsnapshot_tpu_torch delete    <snapshot-path> --yes
     python -m torchsnapshot_tpu_torch trace     <snapshot-path> [--out FILE] [--device cpu]
+    python -m torchsnapshot_tpu_torch convert   <src> <dest> [--to-reference] [--rank N] [--device cpu]
 
 Counterpart of ``python -m torchsnapshot_tpu``: these commands print
 what the JAX package's print, field for field, and exit with the same
 codes (non-zero when a verify fails or a delete is refused).  ``trace``
-materializes on the card unless ``--device cpu``, as the port's entry
-points do.  ``stats`` of a publication or continuous root, ``convert``
-and ``lint`` are not ported yet: each exits 1 naming its ROADMAP queue A
-item.
+and ``convert`` hold the leaves on the card unless ``--device cpu``, as
+the port's entry points do.  ``stats`` of a publication or continuous
+root and ``lint`` are not ported yet: each exits 1 naming its ROADMAP
+queue A item.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ import sys
 from typing import Optional
 
 # the JAX CLI's commands this one lacks, with the queue A item that ports them
-_NOT_PORTED = {"convert": "4", "lint": "8"}
+_NOT_PORTED = {"lint": "8"}
 
 
 def _human(n: float) -> str:
@@ -899,6 +900,46 @@ def _cmd_delete(args) -> int:
     return 0
 
 
+def _cmd_convert(args) -> int:
+    """The original torchsnapshot format to the native one (a
+    ``Snapshot.take`` of what ``read_torchsnapshot`` returns), or the
+    reverse with ``--to-reference`` (``materialize`` into
+    ``write_torchsnapshot``).  One rank's whole view passes through
+    ``--device``; a snapshot of more than one rank needs ``--rank``,
+    since other ranks' private state is not in a one-rank view."""
+    from .snapshot import Snapshot
+    from .stateful import PyTreeState
+    from .tricks import peek_torchsnapshot, read_torchsnapshot, write_torchsnapshot
+
+    def _require_rank(world_size: int) -> int:
+        if world_size > 1 and args.rank is None:
+            raise RuntimeError(
+                f"snapshot was taken with world_size={world_size}; convert materializes ONE rank's view, "
+                f"so other ranks' private per-rank state would be dropped. Pass --rank N to convert rank N's "
+                f"view deliberately (replicated and sharded state is complete in any rank's view)."
+            )
+        rank = args.rank or 0
+        if not 0 <= rank < world_size:
+            # a grown-world view holds only replicated and sharded state
+            raise RuntimeError(
+                f"--rank {rank} is out of range for world_size={world_size} (valid: 0..{world_size - 1})"
+            )
+        return rank
+
+    if args.to_reference:
+        snap = Snapshot(args.src)
+        rank = _require_rank(snap.metadata.world_size)
+        write_torchsnapshot(args.dest, snap.materialize(rank=rank, device=args.device))
+        print(f"exported {args.src} -> {args.dest} (reference format)")
+        return 0
+    metadata = peek_torchsnapshot(args.src)
+    rank = _require_rank(int(metadata.get("world_size", 1)))
+    state = read_torchsnapshot(args.src, rank=rank, metadata=metadata, device=args.device)
+    Snapshot.take(args.dest, {k: PyTreeState(v) for k, v in state.items()})
+    print(f"imported {args.src} -> {args.dest} (native format)")
+    return 0
+
+
 def _not_ported(cmd: str) -> int:
     print(
         f"error: `{cmd}` is not ported yet (ROADMAP queue A item {_NOT_PORTED[cmd]}); "
@@ -982,6 +1023,23 @@ def main(argv=None) -> int:
     p.add_argument("--yes", action="store_true")
     p.set_defaults(fn=_cmd_delete)
 
+    p = sub.add_parser(
+        "convert",
+        help="migrate a snapshot between the original torchsnapshot format and the native one "
+        "(default: original -> native)",
+    )
+    p.add_argument("src")
+    p.add_argument("dest")
+    p.add_argument("--to-reference", action="store_true",
+                   help="native -> original format (for handing back to reference-era torch jobs)")
+    p.add_argument("--rank", type=int, default=None,
+                   help="which rank's view to convert (required when world_size > 1; replicated/sharded "
+                   "state is complete in any rank's view, but other ranks' private per-rank state is not "
+                   "carried)")
+    p.add_argument("--device", default="cuda",
+                   help="where the leaves are held in between (default cuda; cpu for host tensors)")
+    p.set_defaults(fn=_cmd_convert)
+
     for name, item in _NOT_PORTED.items():
         # listed for --help; main() answers them before parsing
         sub.add_parser(name, help=f"not ported yet (ROADMAP queue A item {item})")
@@ -990,7 +1048,8 @@ def main(argv=None) -> int:
     try:
         return args.fn(args)
     except (FileNotFoundError, RuntimeError, ValueError) as e:
-        # a missing, corrupt or aborted snapshot prints one clean line
+        # a missing, corrupt or aborted snapshot, or a dtype convert cannot
+        # carry, prints one clean line
         print(f"error: {e}", file=sys.stderr)
         return 1
 

@@ -61,6 +61,7 @@ _TOPOLOGY_SLICE_ID = "TOPOLOGY_SLICE_ID"
 _TOPOLOGY_HOST_ID = "TOPOLOGY_HOST_ID"
 _LIVENESS_TIMEOUT_S = "LIVENESS_TIMEOUT_S"
 _LIVENESS_INTERVAL_S = "LIVENESS_INTERVAL_S"
+_S3_ENDPOINT_URL = "S3_ENDPOINT_URL"
 
 _DEFAULTS = {
     # Arrays larger than this are chunked along dim 0 for pipelined I/O.
@@ -221,6 +222,10 @@ _DEFAULTS = {
     _LIVENESS_TIMEOUT_S: 30.0,
     # Heartbeat cadence, and the monitor's sampling floor.
     _LIVENESS_INTERVAL_S: 1.0,
+    # An S3-compatible endpoint (minio, localstack) for every s3:// URL;
+    # None = the AWS default.  The JAX package's legacy spelling
+    # TSNP_S3_ENDPOINT_URL is not read: the port has only this one.
+    _S3_ENDPOINT_URL: None,
 }
 
 _OVERRIDES: dict = {}
@@ -435,6 +440,15 @@ def get_cache_max_bytes() -> Optional[int]:
     return v if v > 0 else None
 
 
+def get_s3_endpoint_url() -> Optional[str]:
+    """The S3 endpoint, or None for the AWS default.  An active override
+    masks the environment, ``override_s3_endpoint_url(None)`` included
+    (it forces the default)."""
+    if _S3_ENDPOINT_URL in _OVERRIDES:
+        return _OVERRIDES[_S3_ENDPOINT_URL] or None
+    return os.environ.get(_ENV_PREFIX + _S3_ENDPOINT_URL) or None
+
+
 def get_topology() -> str:
     """"auto", "flat", or an explicit per-rank slice list ("0,0,1,1")."""
     return str(_get_raw(_TOPOLOGY)).strip().lower() or "auto"
@@ -606,6 +620,10 @@ def override_cache_dir(value):
 
 def override_cache_max_bytes(value: int):
     return _override(_CACHE_MAX_BYTES, value)
+
+
+def override_s3_endpoint_url(value):
+    return _override(_S3_ENDPOINT_URL, value)
 
 
 def override_topology(value):

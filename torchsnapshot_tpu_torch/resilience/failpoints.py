@@ -31,7 +31,9 @@ arms one still calls ``release_hangs()`` in a ``finally``.
 
 Sites of the port: ``storage.fs.{write,read}``, ``storage.fs.write.sync``,
 ``storage.fs.part.write``, ``storage.memory.{write,read}``,
-``storage.memory.part.write``, ``scheduler.{stage,write,read}``,
+``storage.memory.part.write``, ``storage.s3.{write,read,part.create,
+part.write,part.complete}``, ``storage.gcs.{write,read,delete}``,
+``storage.gcs.part.write``, ``scheduler.{stage,write,read}``,
 ``scheduler.stage.part``, ``scheduler.codec.encode``.
 """
 

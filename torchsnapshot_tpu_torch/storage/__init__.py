@@ -1,15 +1,15 @@
 """Storage plugin registry: URL scheme → plugin.
 
 Counterpart of ``torchsnapshot_tpu/storage/__init__.py``: ``fs://`` (the
-default for a bare path) and ``memory://`` (tests) are built in; a
-third-party plugin registers under the entry-point group
+default for a bare path), ``memory://`` (tests), ``gs://`` and ``s3://``
+are built in, the last two imported lazily so that their client
+libraries stay optional; a third-party plugin registers under the entry-point group
 ``torchsnapshot_tpu_torch.storage_plugins`` (the port never loads a
 plugin registered for the JAX package's group).  Only the discovery
 swallows errors: a matched plugin's load and construction errors
 propagate.  The shared-host object cache (``hostcache.py``) wraps the
 built plugin when the ``CACHE_DIR`` knob is set, and a fast tier over
-it (``tier/``) is one reserved option away.  Not ported: ``gs://`` and
-``s3://`` (ROADMAP queue A item 3.6).
+it (``tier/``) is one reserved option away.
 """
 
 from __future__ import annotations
@@ -69,6 +69,14 @@ def url_to_storage_plugin(
         from .memory import MemoryStoragePlugin
 
         return _maybe_cached(MemoryStoragePlugin(namespace=path, **opts))
+    if scheme == "gs":
+        from .gcs import GCSStoragePlugin
+
+        return _maybe_cached(GCSStoragePlugin(path=path, **opts))
+    if scheme == "s3":
+        from .s3 import S3StoragePlugin
+
+        return _maybe_cached(S3StoragePlugin(path=path, **opts))
     group = ()
     try:
         from importlib.metadata import entry_points
