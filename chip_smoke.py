@@ -39,7 +39,7 @@ is no card or anything below fails.  In order:
    for K4 + K5, ``copy_`` into the template's range for K6) are timed 5
    times: median, range, share of the bound, TFLOP/s for K3-K5; K1 both
    as ``pack_slab`` is called and as its launch alone;
-4. thirteen paths, each with the launch counters set to 0 just before it
+4. fourteen paths, each with the launch counters set to 0 just before it
    and read just after (a path that starts processes adds the launches
    they report), all with the fast-I/O engine at its defaults unless
    the path says otherwise:
@@ -132,7 +132,8 @@ is no card or anything below fails.  In order:
       and one tile) and the rise in allocated device memory;
    e. many ranks (after c, the parent holding no state): two processes
       on the card over a TCPStore on localhost (gloo initialized for the
-      store only), each with the full-width model and AdamW state marked
+      store only), each with the full-width model cut to 1 layer (its
+      world-2 take and restore repeat k's at 2) and AdamW state marked
       ``Replicated`` plus state of its own: a sync take at world 2 (each
       rank writes 40-60% of the replicated bytes), restore at world 2,
       ``async_take`` with its commit barrier, and a take in which rank
@@ -248,7 +249,29 @@ is no card or anything below fails.  In order:
       each way: the native result restored into a zeroed state (K2,
       bitwise), the ``--to-reference`` result read back bitwise.  It
       prints MemAvailable before and after, each step's seconds and GB/s,
-      the fakes' calls and the K1/K2/K6 launches.
+      the fakes' calls and the K1/K2/K6 launches;
+   k. fleet (after j): two processes on the card (``--fleet-child``; gloo
+      over a TCPStore on localhost), ``TOPOLOGY`` "0,0" (one slice, each
+      rank its own host, also named by ``TOPOLOGY_HOST_ID``), no host
+      cache, each with a's full-width state marked ``Replicated`` plus 4
+      MiB of bf16 of its own.  A take at world 2 (each rank elected for
+      40-60% of the replicated bytes, slice → host → rank; K1), a
+      fan-out restore at world 2 into differently seeded state, bitwise:
+      summed over the ranks, ``topology.fanout_durable_reads`` and
+      ``durable_gets_saved`` equal the shared objects and
+      ``fanout_bytes_redistributed`` their bytes, the engine is
+      ``collective`` (gloo broadcasts of CUDA tensors), bytes moved on it,
+      no fallback; then a take in which rank 1 dies (``os._exit``) where
+      it would publish its commit payload, under ``LIVENESS_TIMEOUT_S`` 2
+      and ``LIVENESS_INTERVAL_S`` 0.2: rank 0 commits degraded within
+      30 s, ``takeover.objects``/``bytes`` equal to rank 1's elected
+      share, ``metadata.degraded`` naming rank 1's private leaf alone.
+      Then in this process: the degraded snapshot restored at world 1
+      (bitwise for the replicated state, K2), rank 1's view refused with
+      ``DegradedSnapshotError``, ``verify`` degraded and not missing, a
+      continuous mirror of rank 1 written through ``continuous/store.py``,
+      ``repair_degraded``, ``verify`` complete, the healed leaf read back
+      and read again into an f32 template under a 1 MiB budget (K6).
 
 Every kernel must have launched on these paths, and each path on the
 kernels it runs.  The line before the last is the card; the line before
@@ -291,6 +314,9 @@ from torchsnapshot_tpu_torch.storage.fs import FSStoragePlugin
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
 N_LAYERS = 2
+# the many_ranks path's depth: its world-2 take and restore repeat the
+# fleet path's at full depth, so it runs one layer
+MANY_RANKS_LAYERS = 1
 SEQ = 2048
 READ_BUDGET = 32 << 20  # the budgeted reads' memory_budget_bytes
 
@@ -1862,7 +1888,7 @@ def many_ranks_child(rank, world, port, root):
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank, world_size=world)
     coord = tts.get_default_coordinator()
     check(isinstance(coord, tts.TorchStoreCoordinator), f"default coordinator is {type(coord).__name__}")
-    cfg = TransformerConfig(n_layers=N_LAYERS)
+    cfg = TransformerConfig(n_layers=MANY_RANKS_LAYERS)
     model, opt = deterministic_state(cfg, seed=0)
     mine = tts.StateDict(t=torch.full((1 << 20,), float(rank), device="cuda"), rank=rank)
     rng = tts.RNGState()
@@ -1950,11 +1976,11 @@ def free_port():
 SHARD_BOX_BYTES = 64 << 20  # MAX_SHARD_SIZE_BYTES on the sharded path
 
 
-def spawn_ranks(flag, root, world=2, timeout_s=300):
+def spawn_ranks(flag, root, world=2, timeout_s=300, expect_rc=None):
     """Start this script ``world`` times as ``flag <rank> <world> <port>
     <root>``; returns each child's JSON result (the line starting with
-    ``flag``'s word and ``result``), in rank order.  A child that exits
-    non-zero fails the path."""
+    ``flag``'s word and ``result``), in rank order.  A child whose exit
+    code is not 0 (or ``expect_rc[rank]``) fails the path."""
     port = free_port()
     tag = f"{flag.strip('-').replace('-child', '').replace('-', '_')} result "
     # each child writes to a file: a pipe the parent is not reading could
@@ -1984,11 +2010,58 @@ def spawn_ranks(flag, root, world=2, timeout_s=300):
         for line in text.splitlines():
             if line.startswith(tag):
                 results.append(json.loads(line[len(tag):]))
-        if p.returncode != 0:
+        if p.returncode != (expect_rc or {}).get(r, 0):
             print(text[-4000:])
             raise RuntimeError(f"check failed: {flag} rank {r} exited {p.returncode}")
     check(len(results) == world, f"a {flag} child printed no result")
     return sorted(results, key=lambda x: x["rank"])
+
+
+def start_clis(jobs, root):
+    """Start ``python -m torchsnapshot_tpu_torch <argv>`` for every
+    ``(name, argv)`` of ``jobs`` at once (each process reaches the card
+    on its own, so starting them together keeps their start-ups off the
+    script's clock); returns a handle for ``finish_clis``.  Output goes
+    to files under ``root``: a pipe nobody reads could stall a process."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(root, exist_ok=True)
+    t0 = time.perf_counter()
+    procs = {}
+    for name, argv in jobs:
+        out = open(os.path.join(root, f"cli_{name}.out"), "w+")
+        err = open(os.path.join(root, f"cli_{name}.err"), "w+")
+        procs[name] = (subprocess.Popen([sys.executable, "-m", "torchsnapshot_tpu_torch", *argv], cwd=repo,
+                                        stdout=out, stderr=err, text=True), out, err)
+    return t0, procs
+
+
+def finish_clis(handle, timeout_s=600):
+    """Wait for the processes of ``start_clis``; name → (exit code,
+    stdout, stderr, seconds from the common start to its exit)."""
+    t0, procs = handle
+    done = {}
+    deadline = time.monotonic() + timeout_s
+    try:
+        while len(done) < len(procs):
+            for name, (p, _, _) in procs.items():
+                if name not in done and p.poll() is not None:
+                    done[name] = time.perf_counter() - t0
+            if time.monotonic() > deadline:
+                raise RuntimeError(f"check failed: CLI processes {sorted(set(procs) - set(done))} still running")
+            time.sleep(0.02)
+    finally:
+        for p, _, _ in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results = {}
+    for name, (p, out, err) in procs.items():
+        out.seek(0)
+        err.seek(0)
+        results[name] = (p.returncode, out.read(), err.read(), round(done[name], 2))
+        out.close()
+        err.close()
+    return results
 
 
 def phase_many_ranks(cfg, work):
@@ -2035,6 +2108,225 @@ def phase_many_ranks(cfg, work):
     launches = {}
     for res in results:
         for k, v in res["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return launches
+
+
+FLEET_PRIVATE_ELEMS = 2 << 20  # 4 MiB of bf16 each rank holds alone
+
+
+class _RankView(tts.LocalCoordinator):
+    """Reads a snapshot alone, as rank ``r`` of its ranks sees it."""
+
+    def __init__(self, r):
+        super().__init__()
+        self._view_rank = r
+
+    @property
+    def rank(self):
+        return self._view_rank
+
+
+def _counter_snapshot():
+    return dict(tts.obs.counters())
+
+
+def fleet_child(rank, world, port, root):
+    """One rank of the fleet path (see ``phase_fleet``); prints one
+    ``fleet result`` JSON line.  Rank 1 prints it and then dies in the
+    third take's commit (exit code 9); rank 0 exits 0."""
+    import torch.distributed as dist
+
+    from torchsnapshot_tpu_torch import transport as transport_mod
+    from torchsnapshot_tpu_torch.topology import shared_read_locations
+    from torchsnapshot_tpu_torch.transport.collective import BACKEND
+
+    if not torch.cuda.is_available():
+        print("fleet child: no CUDA device", file=sys.stderr)
+        return 2
+    # one slice of two hosts (the spec gives each rank a host of its own;
+    # the host id knob says the same), no shared-host cache: fan-out runs
+    os.environ["TORCHSNAPSHOT_TPU_TORCH_TOPOLOGY"] = "0,0"
+    os.environ["TORCHSNAPSHOT_TPU_TORCH_TOPOLOGY_HOST_ID"] = f"host{rank}"
+    os.environ.pop("TORCHSNAPSHOT_TPU_TORCH_CACHE_DIR", None)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank, world_size=world)
+    coord = tts.get_default_coordinator()
+    cfg = TransformerConfig(n_layers=N_LAYERS)
+    model, opt = deterministic_state(cfg, seed=0)
+    mine = tts.StateDict(t=torch.full((FLEET_PRIVATE_ELEMS,), float(rank), dtype=torch.bfloat16, device="cuda"))
+    app = {"model": tts.Replicated(model), "optim": tts.Replicated(opt), "mine": mine}
+    repl_bytes = state_bytes(model, opt)
+    for k in device_pack.LAUNCHES:
+        device_pack.LAUNCHES[k] = 0
+    out = {"rank": rank, "replicated_bytes": repl_bytes}
+    take_dir, degraded_dir = os.path.join(root, "take"), os.path.join(root, "degraded")
+
+    # 1. a take at world 2: the replicated writes spread over the hosts
+    before = _counter_snapshot()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tts.Snapshot.take(take_dir, app)
+    out["take_s"] = time.perf_counter() - t0
+    d = counter_delta(before, (tts.obs.TOPOLOGY_REPLICATED_OBJECTS_WRITTEN, tts.obs.TOPOLOGY_REPLICATED_BYTES_WRITTEN,
+                               tts.obs.BYTES_WRITTEN))
+    out["share_objects"], out["share_bytes"], out["take_bytes"] = (
+        d[tts.obs.TOPOLOGY_REPLICATED_OBJECTS_WRITTEN], d[tts.obs.TOPOLOGY_REPLICATED_BYTES_WRITTEN],
+        d[tts.obs.BYTES_WRITTEN],
+    )
+    share = out["share_bytes"] / repl_bytes
+    check(0.4 <= share <= 0.6, f"rank {rank} was elected for {share:.3f} of the replicated bytes")
+    check(device_pack.LAUNCHES["slab_pack"] > 0, f"rank {rank}'s world-2 take launched no K1")
+
+    # 2. the fan-out restore into differently seeded state, bitwise
+    model2, opt2 = deterministic_state(cfg, seed=1)
+    mine2 = tts.StateDict(t=torch.zeros(FLEET_PRIVATE_ELEMS, dtype=torch.bfloat16, device="cuda"))
+    before = _counter_snapshot()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tts.Snapshot(take_dir).restore({"model": tts.Replicated(model2), "optim": tts.Replicated(opt2), "mine": mine2})
+    torch.cuda.synchronize()
+    out["restore_s"] = time.perf_counter() - t0
+    diff = same_state((model, opt), (model2, opt2))
+    check(diff is None, f"rank {rank}: the fan-out restore's {diff} differs")
+    check(torch.equal(mine2["t"], mine["t"]), f"rank {rank}: the fan-out restore's private state differs")
+    check(device_pack.LAUNCHES["slab_unpack"] > 0, f"rank {rank}'s fan-out restore launched no K2")
+    del model2, opt2, mine2
+    out["fanout"] = counter_delta(before, (
+        tts.obs.FANOUT_DURABLE_READS, tts.obs.FANOUT_DURABLE_GETS_SAVED, tts.obs.FANOUT_BYTES_REDISTRIBUTED,
+        tts.obs.FANOUT_FALLBACKS, tts.obs.TRANSPORT_COLLECTIVE_OPS, tts.obs.TRANSPORT_COLLECTIVE_BYTES,
+        tts.obs.TRANSPORT_KV_BYTES, tts.obs.TRANSPORT_FALLBACKS,
+    ))
+    out["engine"] = transport_mod.current_engine()
+    out["backend"] = BACKEND
+    manifest = tts.Snapshot(take_dir).metadata.manifest
+    shared = shared_read_locations(manifest)
+    out["shared_objects"] = len(shared)
+    out["shared_bytes"] = sum(os.path.getsize(os.path.join(take_dir, p)) for p in shared)
+    out["launches_before_death"] = dict(device_pack.LAUNCHES)
+    coord.barrier()
+
+    # 3. a take in which rank 1 dies where it would publish its commit
+    # payload; rank 0 commits degraded by write takeover
+    with tts.knobs.override_liveness_timeout_s(2.0), tts.knobs.override_liveness_interval_s(0.2):
+        if rank == 1:
+            def die(*a, **k):
+                print("fleet result " + json.dumps(out), flush=True)
+                os._exit(9)
+
+            tts.snapshot._TakePlan.local_payload = die
+        before = _counter_snapshot()
+        t0 = time.perf_counter()
+        snap = tts.Snapshot.take(degraded_dir, app)
+        out["degraded_commit_s"] = time.perf_counter() - t0
+    out["takeover"] = counter_delta(before, (
+        tts.obs.TAKEOVER_OBJECTS, tts.obs.TAKEOVER_BYTES, tts.obs.TAKEOVER_DEGRADED_COMMITS,
+        tts.obs.LIVENESS_DEAD_RANKS,
+    ))
+    out["degraded"] = snap.metadata.degraded
+    out["launches"] = dict(device_pack.LAUNCHES)
+    print("fleet result " + json.dumps(out), flush=True)
+    # the peer is dead: no teardown of the process group can complete
+    os._exit(0)
+
+
+def phase_fleet(cfg, work):
+    """Fleets: two processes on the card (gloo, a TCPStore on localhost),
+    one slice of two hosts, the full-width state replicated plus 4 MiB of
+    bf16 each rank holds alone.  A take at world 2 (each rank elected for
+    40-60% of the replicated bytes), a fan-out restore at world 2 (each
+    shared object read once for the slice, the other rank served by
+    broadcasts on the collective engine, no fallback, bitwise), and a take
+    in which rank 1 dies mid-commit: rank 0 commits degraded within 30 s,
+    having re-written rank 1's elected share.  Then here: a restore at
+    world 1 of the degraded snapshot (bitwise for the replicated state),
+    rank 1's view refused with DegradedSnapshotError, verify degraded,
+    a continuous mirror of rank 1 (``continuous/store.py``), repair,
+    verify complete, the healed leaf read back whole and under a 1 MiB
+    budget into an f32 template (K6).  Returns the children's launches."""
+    from torchsnapshot_tpu_torch.continuous import ContinuousStore
+    from torchsnapshot_tpu_torch.resilience.liveness import DegradedSnapshotError
+    from torchsnapshot_tpu_torch.verify import verify_snapshot
+
+    root = os.path.join(work, "fleet")
+    os.makedirs(root)
+    results = spawn_ranks("--fleet-child", root, expect_rc={1: 9})
+    r0, r1 = results
+    for res in results:
+        print(f"fleet rank {res['rank']}: take at world 2 {res['take_s']:.3f} s, elected for "
+              f"{res['share_objects']} replicated objects, {res['share_bytes']} bytes "
+              f"({res['share_bytes'] / res['replicated_bytes']:.3f} of {res['replicated_bytes']}); fan-out restore "
+              f"{res['restore_s']:.3f} s ({res['replicated_bytes'] / res['restore_s'] / 1e9:.2f} GB/s of the "
+              f"replicated state), engine {res['engine']} over {res['backend']}, counters {json.dumps(res['fanout'])}")
+    total = {k: r0["fanout"][k] + r1["fanout"][k] for k in r0["fanout"]}
+    n_shared, shared_bytes = r0["shared_objects"], r0["shared_bytes"]
+    check(r0["engine"] == r1["engine"] == "collective", f"the fan-out ran on {r0['engine']}/{r1['engine']}")
+    check(total[tts.obs.TRANSPORT_FALLBACKS] == 0 and total[tts.obs.FANOUT_FALLBACKS] == 0,
+          f"the fan-out degraded: {json.dumps(total)}")
+    check(total[tts.obs.FANOUT_DURABLE_READS] == n_shared, f"{total[tts.obs.FANOUT_DURABLE_READS]} durable "
+          f"reads of {n_shared} shared objects")
+    check(total[tts.obs.FANOUT_DURABLE_GETS_SAVED] == n_shared, "durable reads saved differ from the shared objects")
+    check(total[tts.obs.FANOUT_BYTES_REDISTRIBUTED] == shared_bytes,
+          f"{total[tts.obs.FANOUT_BYTES_REDISTRIBUTED]} bytes redistributed of {shared_bytes}")
+    check(total[tts.obs.TRANSPORT_COLLECTIVE_BYTES] > 0, "no byte moved on the collective engine")
+    print(f"fleet: {n_shared} shared objects ({shared_bytes} bytes) read once for the slice, "
+          f"{total[tts.obs.TRANSPORT_COLLECTIVE_BYTES]} bytes on the collective engine, 0 fallbacks")
+    tk = r0["takeover"]
+    print(f"fleet: rank 1 died mid-commit; rank 0 committed degraded in {r0['degraded_commit_s']:.3f} s, "
+          f"took over {tk[tts.obs.TAKEOVER_OBJECTS]} objects / {tk[tts.obs.TAKEOVER_BYTES]} bytes "
+          f"(rank 1's elected share {r1['share_objects']} / {r1['share_bytes']}), degraded {json.dumps(r0['degraded'])}")
+    check(r0["degraded_commit_s"] < 30, f"the degraded commit took {r0['degraded_commit_s']:.1f} s")
+    check(tk[tts.obs.TAKEOVER_OBJECTS] == r1["share_objects"] and tk[tts.obs.TAKEOVER_BYTES] == r1["share_bytes"],
+          "the takeover differs from rank 1's elected share")
+    check(tk[tts.obs.TAKEOVER_DEGRADED_COMMITS] == 1, "no degraded commit was counted")
+    check(sorted(r0["degraded"]) == ["mine/t"] and r0["degraded"]["mine/t"]["origin_rank"] == 1,
+          f"degraded section {r0['degraded']}")
+
+    snap_dir = os.path.join(root, "degraded")
+    model, opt = deterministic_state(cfg, seed=0)
+    model2, opt2 = deterministic_state(cfg, seed=1)
+    mine = tts.StateDict(t=torch.zeros(FLEET_PRIVATE_ELEMS, dtype=torch.bfloat16, device="cuda"))
+    t0 = time.perf_counter()
+    tts.Snapshot(snap_dir).restore({"model": tts.Replicated(model2), "optim": tts.Replicated(opt2), "mine": mine})
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    diff = same_state((model, opt), (model2, opt2))
+    check(diff is None, f"world-1 restore of the degraded snapshot: {diff} differs")
+    check(bool((mine["t"] == 0).all()), "world-1 restore: rank 0's private state differs")
+    del model, opt, model2, opt2
+    try:
+        tts.Snapshot(snap_dir, coordinator=_RankView(1)).restore({"mine": tts.StateDict(t=torch.zeros(1))})
+    except DegradedSnapshotError as e:
+        refused = str(e)[:100]
+    else:
+        raise RuntimeError("check failed: rank 1's lost leaf restored from a degraded snapshot")
+    res = verify_snapshot(tts.Snapshot(snap_dir), rank=1)
+    check(res.ok and not res.complete and res.degraded == ["mine/t"] and not res.missing,
+          f"verify of rank 1's view: {res}")
+    lost = torch.full((FLEET_PRIVATE_ELEMS,), 1.0, dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    ContinuousStore(os.path.join(root, "r1")).write_state(1, {"mine/t": lost})
+    mirror_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    repaired = tts.Snapshot(snap_dir).repair_degraded([root])
+    repair_s = time.perf_counter() - t0
+    check(repaired == ["mine/t"], f"repair returned {repaired}")
+    res = verify_snapshot(tts.Snapshot(snap_dir), deep=True, rank=1)
+    check(res.ok and res.complete, f"verify after repair: {res}")
+    healed = tts.Snapshot(snap_dir).read_object("1/mine/t")
+    check(torch.equal(healed.cpu(), lost), "the healed leaf differs from rank 1's state")
+    template = torch.zeros(FLEET_PRIVATE_ELEMS, dtype=torch.float32, device="cuda")
+    t0 = time.perf_counter()
+    tts.Snapshot(snap_dir).read_object("1/mine/t", obj_out=template, memory_budget_bytes=1 << 20)
+    torch.cuda.synchronize()
+    budget_s = time.perf_counter() - t0
+    check(torch.equal(template.cpu(), lost.float()), "the healed leaf read into f32 differs")
+    print(f"fleet: world-1 restore of the degraded snapshot {restore_s:.3f} s, bitwise; rank 1's view refused "
+          f"({refused}...); mirror written in {mirror_s:.3f} s, repair {repair_s:.3f} s, verify complete; the "
+          f"healed leaf into f32 under 1 MiB {budget_s:.4f} s")
+    shutil.rmtree(root)
+    launches = {}
+    for res in results:
+        for k, v in res.get("launches", res["launches_before_death"]).items():
             launches[k] = launches.get(k, 0) + v
     return launches
 
@@ -2578,16 +2870,13 @@ def phase_lifecycle(cfg, work):
         f.write(bytes([b[0] ^ 0x20]))
     bad_res = tts.Snapshot(bad_dir).verify(deep=True)
     check(not bad_res.ok and [c[0] for c in bad_res.corrupt] == [victim], f"corrupted copy: {bad_res}")
-    cli = []
-    for path in (step2, bad_dir):
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", "torchsnapshot_tpu_torch", "verify", path, "--deep"],
-                              cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
-                              timeout=300)
-        cli.append((proc.returncode, proc.stdout.strip()[:120], round(time.perf_counter() - t0, 2)))
+    done = finish_clis(start_clis([(str(i), ["verify", path, "--deep"]) for i, path in enumerate((step2, bad_dir))],
+                                  os.path.join(root, "cli")))
+    cli = [(rc, out.strip()[:120], s_) for rc, out, _, s_ in (done["0"], done["1"])]
     check(cli[0][0] == 0 and cli[1][0] == 1, f"CLI verify exit codes {cli}")
     print(f"lifecycle inspection: get_manifest {n_entries} entries; verify(deep=True) {verify_s:.3f} s: {res}; "
-          f"one flipped byte in {victim}: {str(bad_res)[:160]}; CLI verify --deep (exit, output, s): {cli}")
+          f"one flipped byte in {victim}: {str(bad_res)[:160]}; CLI verify --deep, both started together "
+          f"(exit, output, s): {cli}")
     shutil.rmtree(bad_dir)
     shutil.rmtree(root)
 
@@ -2787,34 +3076,28 @@ def phase_cas_mmap(cfg, work):
     rebuilt = mgr.fsck()
     fsck_s = time.perf_counter() - t0
     check(cas_mod.ChunkIndex.load(cas_mod.ChunkStore(pool)).live_keys() == live, "fsck rebuilt other live keys")
-    proc = subprocess.run([sys.executable, "-m", "torchsnapshot_tpu_torch", "cas", pool, "--json"],
-                          cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
-                          timeout=300)
-    check(proc.returncode == 0, f"cas --json exited {proc.returncode}: {proc.stderr[-300:]}")
-    rollup = json.loads(proc.stdout)["index"]
-    print(f"cas_mmap gc: {len(pool_before)} chunks in the pool, cas_gc(grace_s=0) {gc_s:.3f} s swept "
-          f"{swept['swept_chunks']} ({swept['swept_bytes']} bytes), {len(referenced)} referenced kept; deep verify "
-          f"steps 1, 2 {verify_s} s; fsck {fsck_s:.3f} s rebuilt {rebuilt['chunks']} chunks, the same "
-          f"{len(live)} live keys; cas --json: {rollup['live_chunks']} live, {rollup['live_bytes']} bytes, "
-          f"refcounts {rollup['refcount_histogram']}")
-
-    # 5. the CLI on the CAS step (the pool state is 3's)
-    cli = {}
+    # 5. the CLI on the pool and the CAS step (the pool state is 3's):
+    # its four processes started together
     traces = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "traces")
     os.makedirs(traces, exist_ok=True)
     out_file = os.path.join(traces, "materialize.json")
-    for name, argv in (("stats", ["stats", mgr.path_for_step(2), "--json"]),
-                       ("doctor", ["doctor", mgr.path_for_step(2)]),
-                       ("trace", ["trace", mgr.path_for_step(2), "--out", out_file])):
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", "torchsnapshot_tpu_torch", *argv],
-                              cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
-                              timeout=300)
-        check(proc.returncode == 0, f"{name} exited {proc.returncode}: {proc.stderr[-300:]}")
-        cli[name] = (round(time.perf_counter() - t0, 2), proc.stdout)
+    done = finish_clis(start_clis((("cas", ["cas", pool, "--json"]),
+                                   ("stats", ["stats", mgr.path_for_step(2), "--json"]),
+                                   ("doctor", ["doctor", mgr.path_for_step(2)]),
+                                   ("trace", ["trace", mgr.path_for_step(2), "--out", out_file])),
+                                  os.path.join(root, "cli")))
+    for name, (rc, _, err, _) in done.items():
+        check(rc == 0, f"{name} exited {rc}: {err[-300:]}")
+    cli = {name: (s_, out) for name, (_, out, _, s_) in done.items()}
+    rollup = json.loads(cli["cas"][1])["index"]
+    print(f"cas_mmap gc: {len(pool_before)} chunks in the pool, cas_gc(grace_s=0) {gc_s:.3f} s swept "
+          f"{swept['swept_chunks']} ({swept['swept_bytes']} bytes), {len(referenced)} referenced kept; deep verify "
+          f"steps 1, 2 {verify_s} s; fsck {fsck_s:.3f} s rebuilt {rebuilt['chunks']} chunks, the same "
+          f"{len(live)} live keys; cas --json {cli['cas'][0]} s: {rollup['live_chunks']} live, "
+          f"{rollup['live_bytes']} bytes, refcounts {rollup['refcount_histogram']}")
     cas_stats = json.loads(cli["stats"][1])["cas"]
     check(cas_stats["chunked_objects"] > 0 and "cas:" in cli["doctor"][1], "stats/doctor show no chunks")
-    print(f"cas_mmap CLI: stats --json {cli['stats'][0]} s ({cas_stats['chunked_objects']} chunked objects, "
+    print(f"cas_mmap CLI (started together with cas --json): stats --json {cli['stats'][0]} s ({cas_stats['chunked_objects']} chunked objects, "
           f"{cas_stats['distinct_chunks']} chunks); doctor {cli['doctor'][0]} s "
           f"({[ln.strip() for ln in cli['doctor'][1].splitlines() if ln.strip().startswith('cas:')]}); trace on the "
           f"card {cli['trace'][0]} s: {cli['trace'][1].strip()}, {os.path.getsize(out_file)} bytes")
@@ -3167,14 +3450,9 @@ def phase_tier_cache(cfg, work):
     print(f"tier_cache read_object ({card}): the embedding into f32 under {READ_BUDGET} bytes through the tier "
           f"{read_s:.4f} s, K6 launches {device_pack.LAUNCHES['tile_update'] - k6}, equal to the cast")
     del template
-    # 9. the CLI
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "torchsnapshot_tpu_torch", "tiers", durable, "--fast", fast, "--json"],
-                          cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True, timeout=300)
-    check(proc.returncode == 0, f"tiers exited {proc.returncode}: {proc.stderr[-300:]}")
-    rows = {r["step"]: r["status"] for r in json.loads(proc.stdout)["steps"]}
-    check(rows == {0: "durable", 1: "durable+fast", 2: "durable+fast"}, f"tiers: {rows}")
-    print(f"tier_cache tiers CLI: {time.perf_counter() - t0:.2f} s, {json.dumps(rows)}")
+    # 9. the CLI, started here and read after the host cache's readers
+    # (it lists the tiers, which they only read)
+    tiers_cli = start_clis((("tiers", ["tiers", durable, "--fast", fast, "--json"]),), os.path.join(work, "tier_cli"))
 
     # the host cache: two readers at once, then this process
     cache, cache_mnt, cache_fs = local_root(work, nb + (1 << 30), "tier_cache_dir")
@@ -3202,6 +3480,11 @@ def phase_tier_cache(cfg, work):
     results = spawn_ranks("--tier-cache-child", child_root)
     children_s = time.perf_counter() - t0
     releaser.join(timeout=10)
+    rc, out, err, tiers_s = finish_clis(tiers_cli)["tiers"]
+    check(rc == 0, f"tiers exited {rc}: {err[-300:]}")
+    rows = {r["step"]: r["status"] for r in json.loads(out)["steps"]}
+    check(rows == {0: "durable", 1: "durable+fast", 2: "durable+fast"}, f"tiers: {rows}")
+    print(f"tier_cache tiers CLI (beside the two readers): {tiers_s:.2f} s, {json.dumps(rows)}")
     counts = {k: sum(r["counts"][k] for r in results) for k in results[0]["counts"]}
     # this process: every read a hit, and mapped
     model3, opt3 = deterministic_state(cfg, TIER_SEED + 2)
@@ -3570,7 +3853,8 @@ def main():
               f"{torch.cuda.max_memory_allocated()} bytes in its last step")
         gc.collect()
         torch.cuda.empty_cache()
-        run_path("many_ranks", ("slab_pack", "slab_unpack"), lambda: phase_many_ranks(cfg, work))
+        run_path("many_ranks", ("slab_pack", "slab_unpack"),
+                 lambda: phase_many_ranks(TransformerConfig(n_layers=MANY_RANKS_LAYERS), work))
         gc.collect()
         torch.cuda.empty_cache()
         run_path("sharded", ("slab_pack", "tile_update"), lambda: phase_sharded(cfg, work))
@@ -3587,6 +3871,9 @@ def main():
         torch.cuda.empty_cache()
         run_path("cloud_interop", ("slab_pack", "slab_unpack", "tile_update"),
                  lambda: phase_cloud_interop(cfg, work))
+        gc.collect()
+        torch.cuda.empty_cache()
+        run_path("fleet", ("slab_pack", "slab_unpack", "tile_update"), lambda: phase_fleet(cfg, work))
 
     print(json.dumps({"kernels": list(records.values())}))
     print(card)
@@ -3603,6 +3890,8 @@ if __name__ == "__main__":
         sys.exit(many_ranks_child(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), sys.argv[5]))
     if len(sys.argv) == 6 and sys.argv[1] == "--tier-cache-child":
         sys.exit(tier_cache_child(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), sys.argv[5]))
+    if len(sys.argv) == 6 and sys.argv[1] == "--fleet-child":
+        sys.exit(fleet_child(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), sys.argv[5]))
     if len(sys.argv) == 6 and sys.argv[1] == "--sharded-child":
         sys.exit(sharded_child(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), sys.argv[5]))
     sys.exit(main())

@@ -1167,3 +1167,34 @@ def test_original_format_from_and_onto_the_card(cuda, tmp_path):
     st = opt2.state_dict()["state"][0]
     assert st["exp_avg"].is_cuda and st["step"].device.type == "cpu"
     opt2.step()
+
+
+def test_collective_transport_local_round_trip_on_cuda(cuda):
+    """The collective engine's local mode keeps its parts on the card
+    (host → device → host) and hands back the exact bytes."""
+    from torchsnapshot_tpu_torch import knobs
+    from torchsnapshot_tpu_torch.coordination import LocalCoordinator
+    from torchsnapshot_tpu_torch.transport import resolve_transport
+    from torchsnapshot_tpu_torch.transport import collective as collective_mod
+
+    data = np.random.default_rng(0).integers(0, 256, 3 * 4096 + 17, dtype=np.uint8).tobytes()
+    with knobs.override_transport("collective"), knobs.override_transport_part_bytes(4096):
+        t = resolve_transport(LocalCoordinator(), device=cuda)
+        assert t.engine == "collective" and t.mode == "local"
+        try:
+            assert t.publish("x/a", data) == 4
+            parts = collective_mod._REGISTRY["x/a"][0]
+            assert all(p.is_cuda for p in parts)
+            assert t.try_fetch("x/a") == data
+        finally:
+            t.close()
+
+
+def test_continuous_decode_leaf_onto_cuda(cuda):
+    """A mirror's bf16 and f32 leaves come back on the card, bitwise."""
+    from torchsnapshot_tpu_torch.continuous.store import decode_leaf, encode_leaf
+
+    for leaf in (_rand((33, 7), torch.bfloat16, "cpu", 20), _rand((5,), torch.float32, "cpu", 21)):
+        rec, view = encode_leaf(leaf)
+        back = decode_leaf(rec, bytes(view), device=cuda)
+        assert back.is_cuda and back.dtype == leaf.dtype and torch.equal(back.cpu(), leaf)

@@ -182,7 +182,8 @@ def test_two_rank_incremental_manager_save(tmp_path):
 
 
 def test_unported_features_are_refused_by_name(tmp_path):
-    """Publication and repair are refused by name; tiers (``tier=``,
+    """Publication is refused by name (repair is ported: a root without
+    degraded steps has nothing to heal); tiers (``tier=``,
     ``repromote``) and the chunk store (``cas=``, the CAS knob, ``cas_gc``,
     ``fsck``) are configured and run as the JAX manager's do."""
     with pytest.raises(ValueError, match="keep_last_n"):
@@ -191,7 +192,7 @@ def test_unported_features_are_refused_by_name(tmp_path):
         (lambda: tts.SnapshotManager(str(tmp_path), publisher=object()), "item 5"),
     ]
     mgr = tts.SnapshotManager(str(tmp_path))
-    refusals += [(mgr.repair, "item 5")]
+    assert mgr.repair([str(tmp_path / "mirrors")]) == {}
     # an untiered manager has nothing to re-promote; a tier dict becomes the
     # same TierConfig as in the JAX manager
     assert mgr.repromote() == [] and mgr.tier is None

@@ -260,5 +260,5 @@ def test_storage_options_are_forwarded_and_unported_ones_refused(tmp_path, monke
                 assert _bytes(got["model"][k]) == _bytes(v), (name, k)
     with pytest.raises(NotImplementedError, match="queue A item 5"):
         snap.publish_to(object(), 1)
-    with pytest.raises(NotImplementedError, match="queue A item 5"):
-        snap.repair_degraded([str(tmp_path)])
+    # repair is ported: a complete snapshot has nothing to heal
+    assert snap.repair_degraded([str(tmp_path)]) == []

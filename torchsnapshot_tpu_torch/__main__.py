@@ -248,8 +248,9 @@ def _topology_stats_rollup(path: str) -> dict:
 
 
 def _render_topology_rollup(topo, counters=None) -> None:
-    """Multislice rows of a record's topology rollup; silent for a flat
-    single-slice record (every record the port writes)."""
+    """Multislice rows of a record's topology rollup (written when the
+    operation ran on an explicit topology); silent for a single-slice
+    record with no replicated write or fan-out to show."""
     c = counters or {}
     if not topo:
         return

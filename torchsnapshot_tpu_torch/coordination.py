@@ -17,11 +17,17 @@ so the backends share one set of semantics:
 Every backend gets its barrier from the base class (two phases over the
 KV store).  The cross-rank abort protocol (``resilience/abort.py``) rides
 on the base class too: ``poison(scope, cause)`` sets one key, and inside an
-``abort_scope(scope)`` every ``kv_get``/``barrier`` wait polls it.  Rank
-liveness stamps (``resilience/liveness.py``) ride on ``kv_set``,
-``kv_try_get`` and ``kv_try_delete``; only the tier promoter uses them
-so far.  ``liveness_scope`` (death-aware waits on the take path), write
-takeover and degraded commits are ROADMAP queue A item 5.
+``abort_scope(scope)`` every ``kv_get``/``barrier`` wait polls it.  Inside
+a ``liveness_scope(monitor)`` (``resilience/liveness.py``) the same waits
+check the monitor between probes and raise ``RankDeadError`` when a
+peer's heartbeat stamp goes stale: the take's commit waits run in one, so
+a rank killed mid-commit surfaces within ``LIVENESS_TIMEOUT_S`` and the
+survivors finish the commit by write takeover (``snapshot.py``), and the
+restore's waits run in one, so its peers raise naming the dead rank.
+The payload blobs of the fan-out restore and the KV transport
+(``kv_publish_blob``, ``kv_try_fetch_blob``, ``kv_sweep_blob``: chunked
+base64, crc32 verified, the meta key last) and ``kv_watch`` are built on
+the same primitives, under the JAX package's key names.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ import os
 import threading
 import time
 import uuid
+import zlib
 from base64 import b64decode, b64encode
 from typing import Any, Iterator, List, Optional
 
@@ -78,13 +85,19 @@ class Coordinator(abc.ABC):
 
     def kv_get(self, key: str, timeout_s: float = _DEFAULT_TIMEOUT_S) -> str:
         """Blocking get: waits until the key exists.  Abort-aware inside
-        an ``abort_scope``."""
+        an ``abort_scope``; death-aware inside a ``liveness_scope`` (raises
+        ``RankDeadError`` when a peer's stamp goes stale instead of
+        waiting out the deadline)."""
         scope = self._current_abort_scope()
-        if scope is None:
+        monitor = self._current_liveness()
+        if scope is None and monitor is None:
             return self._kv_get_impl(key, timeout_s)
         deadline = time.monotonic() + timeout_s
         while True:
-            self.raise_if_poisoned(scope)
+            if scope is not None:
+                self.raise_if_poisoned(scope)
+            if monitor is not None:
+                monitor.check()
             remaining = deadline - time.monotonic()
             if remaining <= 0:
                 raise TimeoutError(
@@ -116,6 +129,9 @@ class Coordinator(abc.ABC):
         scope = self._current_abort_scope()
         if scope is not None:
             self.raise_if_poisoned(scope)
+        monitor = self._current_liveness()
+        if monitor is not None:
+            monitor.check()
         if self.world_size == 1:
             return
         # one deadline for the whole barrier
@@ -172,6 +188,33 @@ class Coordinator(abc.ABC):
         finally:
             tls.scope = prev
 
+    # ---- rank liveness (resilience/liveness.py) ------------------------
+
+    def _current_liveness(self) -> Any:
+        tls = self.__dict__.get("_liveness_tls")
+        return getattr(tls, "monitor", None) if tls is not None else None
+
+    @contextlib.contextmanager
+    def liveness_scope(self, monitor: Any) -> Iterator[None]:
+        """While active, this THREAD's ``kv_get``/``barrier`` waits check
+        ``monitor`` (a ``LivenessMonitor``) between probes and raise
+        ``RankDeadError`` when a peer's stamp goes stale; per thread, as
+        ``abort_scope`` is."""
+        tls = self.__dict__.setdefault("_liveness_tls", threading.local())
+        prev = getattr(tls, "monitor", None)
+        tls.monitor = monitor
+        try:
+            yield
+        finally:
+            tls.monitor = prev
+
+    def dead_ranks(self) -> List[int]:
+        """The peers the current thread's monitor declares dead (none
+        outside a ``liveness_scope``: without heartbeats there is no
+        evidence of death)."""
+        monitor = self._current_liveness()
+        return monitor.dead_ranks() if monitor is not None else []
+
     # ---- derived object-level ops --------------------------------------
 
     def _encode(self, obj: Any) -> str:
@@ -203,6 +246,77 @@ class Coordinator(abc.ABC):
         """Best-effort deletion of a key (a heartbeat stamp a session
         leaves on a clean exit).  The base keeps the key: a backend
         without deletion never fails its caller."""
+
+    def kv_publish_blob(
+        self, prefix: str, data: Any, part_bytes: int = 4 * 1024 * 1024
+    ) -> int:
+        """Publish one binary blob under explicit keys: ``{prefix}/p{i}``
+        parts of ``part_bytes`` (base64), then ``{prefix}/meta`` =
+        ``nparts:total:crc32`` LAST, so the meta key's presence implies
+        every part is there.  No barrier and no uid: safe from any thread
+        and from one rank alone.  Leftover parts of an earlier blob under
+        the same prefix (a publisher killed between the meta delete and
+        the part deletes) are reclaimed: indices below ``nparts`` are
+        overwritten, and the tail past it is swept after the meta write.
+        Returns the blob's byte length."""
+        view = memoryview(data).cast("B")
+        part = max(1, int(part_bytes))
+        n = view.nbytes
+        nparts = (n + part - 1) // part
+        for i in range(nparts):
+            chunk = view[i * part : min((i + 1) * part, n)]
+            self.kv_set(f"{prefix}/p{i}", b64encode(chunk).decode("ascii"))
+        self.kv_set(f"{prefix}/meta", f"{nparts}:{n}:{zlib.crc32(view)}")
+        # the tail only, the meta key kept (an empty blob has no parts)
+        self._sweep_parts(prefix, nparts)
+        return n
+
+    def kv_sweep_blob(self, prefix: str, beyond: int = 0) -> int:
+        """Best-effort delete of ``{prefix}/p{i}`` for ``i = beyond, ...``
+        up to the first missing index (parts are written contiguously from
+        0).  ``beyond=0`` is a full sweep and deletes ``{prefix}/meta``
+        FIRST, keeping the meta-last invariant for a concurrent fetcher.
+        Returns the number of part keys deleted."""
+        start = max(0, int(beyond))
+        if start == 0:
+            self.kv_try_delete(f"{prefix}/meta")
+        return self._sweep_parts(prefix, start)
+
+    def _sweep_parts(self, prefix: str, start: int) -> int:
+        swept = 0
+        i = start
+        while self.kv_try_get(f"{prefix}/p{i}") is not None:
+            self.kv_try_delete(f"{prefix}/p{i}")
+            swept += 1
+            i += 1
+        if swept:
+            obs.counter(obs.TRANSPORT_SWEPT_PARTS).inc(swept)
+        return swept
+
+    def kv_try_fetch_blob(
+        self, prefix: str, timeout_s: float = _DEFAULT_TIMEOUT_S
+    ) -> Optional[bytes]:
+        """None while ``{prefix}/meta`` is absent; else the reassembled
+        bytes, checked against the meta's length and crc32 (``ValueError``
+        on a mismatch: the caller decides between a retry and a direct
+        read)."""
+        raw = self.kv_try_get(f"{prefix}/meta")
+        if raw is None:
+            return None
+        try:
+            nparts_s, total_s, crc_s = raw.split(":")
+            nparts, total, crc = int(nparts_s), int(total_s), int(crc_s)
+        except ValueError as e:
+            raise ValueError(f"malformed blob meta under {prefix!r}: {raw!r}") from e
+        buf = bytearray()
+        for i in range(nparts):
+            buf += b64decode(self.kv_get(f"{prefix}/p{i}", timeout_s).encode("ascii"))
+        if len(buf) != total or zlib.crc32(buf) != crc:
+            raise ValueError(
+                f"blob under {prefix!r} failed digest verification "
+                f"({len(buf)} of {total} bytes)"
+            )
+        return bytes(buf)
 
     def all_gather_object(self, obj: Any) -> List[Any]:
         """Gather an object from every rank (foreground program order)."""
@@ -359,6 +473,31 @@ class FileCoordinator(_PollingCoordinator):
             os.unlink(self._path(key))
         except OSError:
             pass  # never set, or already gone
+
+
+def kv_watch(
+    coordinator: Coordinator,
+    key: str,
+    last: Optional[str] = None,
+    timeout_s: float = 0.0,
+    poll_s: float = 0.025,
+) -> Optional[str]:
+    """Poll ``kv_try_get(key)`` until its value exists and differs from
+    ``last`` (returned), or ``timeout_s`` passes (None).  One
+    non-blocking probe per tick; a probe error also returns None, so a
+    broken announce channel degrades the watcher instead of wedging it."""
+    deadline = time.monotonic() + max(0.0, timeout_s)
+    while True:
+        try:
+            value = coordinator.kv_try_get(key)
+        except Exception as e:  # noqa: BLE001 — the caller falls back
+            obs.swallowed_exception("coordination.kv_watch", e)
+            return None
+        if value is not None and value != last:
+            return value
+        if time.monotonic() >= deadline:
+            return None
+        time.sleep(min(poll_s, max(0.0, deadline - time.monotonic())))
 
 
 _DEFAULT_STORE_COORDINATOR: List[Any] = []  # [(store, coordinator)]

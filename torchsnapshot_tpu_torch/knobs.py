@@ -9,8 +9,11 @@ are carried; the rest arrive with the modules that read them.
 from __future__ import annotations
 
 import contextlib
+import logging
 import os
 from typing import Iterator, Optional
+
+_logger = logging.getLogger(__name__)
 
 _ENV_PREFIX = "TORCHSNAPSHOT_TPU_TORCH_"
 
@@ -61,6 +64,13 @@ _TOPOLOGY_SLICE_ID = "TOPOLOGY_SLICE_ID"
 _TOPOLOGY_HOST_ID = "TOPOLOGY_HOST_ID"
 _LIVENESS_TIMEOUT_S = "LIVENESS_TIMEOUT_S"
 _LIVENESS_INTERVAL_S = "LIVENESS_INTERVAL_S"
+_TAKEOVER = "TAKEOVER"
+_FANOUT = "FANOUT"
+_FANOUT_PART_BYTES = "FANOUT_PART_BYTES"
+_FANOUT_TIMEOUT_S = "FANOUT_TIMEOUT_S"
+_TRANSPORT = "TRANSPORT"
+_TRANSPORT_PART_BYTES = "TRANSPORT_PART_BYTES"
+_TRANSPORT_TIMEOUT_S = "TRANSPORT_TIMEOUT_S"
 _S3_ENDPOINT_URL = "S3_ENDPOINT_URL"
 
 _DEFAULTS = {
@@ -218,10 +228,41 @@ _DEFAULTS = {
     _TOPOLOGY_HOST_ID: "",
     # Rank liveness (resilience/liveness.py): a peer whose heartbeat
     # stamp stops advancing for longer than this is declared dead (the
-    # tier promoter skips it in its done handshake).
+    # take's commit waits raise RankDeadError, the tier promoter skips it
+    # in its done handshake).
     _LIVENESS_TIMEOUT_S: 30.0,
     # Heartbeat cadence, and the monitor's sampling floor.
     _LIVENESS_INTERVAL_S: 1.0,
+    # Write takeover: 1 = when a rank dies mid-take, the survivors re-write
+    # its replicated share from their own copies and commit (complete, or
+    # degraded for state only the dead rank held); 0 = the take fails
+    # with RankDeadError.
+    _TAKEOVER: 1,
+    # Fan-out restore (topology/fanout.py): a designated reader per slice
+    # reads each replicated object once and hands the bytes to its
+    # siblings.  "auto" = on for an explicit topology whose slice has
+    # more than one rank (and is not one host under the shared cache);
+    # "1"/"0" force.
+    _FANOUT: "auto",
+    # Bytes per KV value of a fan-out blob (before base64).
+    _FANOUT_PART_BYTES: 4 * 1024 * 1024,
+    # How long a sibling waits for its designated reader's publication
+    # before the slice re-elects (and, after a second window, reads
+    # direct in host-staggered waves).
+    _FANOUT_TIMEOUT_S: 60.0,
+    # Payload transport (transport/): "kv" = chunked base64 over the
+    # coordination KV; "collective" = device tensors (a torch.distributed
+    # broadcast on the transport's own group across processes, a device
+    # round-trip in one process); "auto" = collective when
+    # torch.distributed runs the coordinator's world, else kv.  A
+    # collective that cannot run degrades to kv, counted in
+    # transport.fallbacks.
+    _TRANSPORT: "auto",
+    # Payload bytes per collective part.
+    _TRANSPORT_PART_BYTES: 8 * 1024 * 1024,
+    # The bound of every wait of the collective engine (a gate key, an
+    # offer, a broadcast); past it the transfer degrades to kv.
+    _TRANSPORT_TIMEOUT_S: 30.0,
     # An S3-compatible endpoint (minio, localstack) for every s3:// URL;
     # None = the AWS default.  The JAX package's legacy spelling
     # TSNP_S3_ENDPOINT_URL is not read: the port has only this one.
@@ -472,6 +513,57 @@ def get_liveness_interval_s() -> float:
     return max(0.01, float(_get_raw(_LIVENESS_INTERVAL_S)))
 
 
+def takeover_enabled() -> bool:
+    """Whether survivors take over a dead rank's writes and commit
+    instead of failing the take."""
+    return bool(_get_int(_TAKEOVER))
+
+
+def get_fanout() -> str:
+    """"on" | "off" | "auto"; any other value is "auto" with a warning
+    (fan-out is an optimization, never worth failing a restore over)."""
+    v = str(_get_raw(_FANOUT)).strip().lower()
+    if v in ("1", "true", "on"):
+        return "on"
+    if v in ("0", "false", "off"):
+        return "off"
+    if v != "auto":
+        _logger.warning(
+            "TORCHSNAPSHOT_TPU_TORCH_FANOUT=%r is not auto/on/off; treating as auto", v,
+        )
+    return "auto"
+
+
+def get_fanout_part_bytes() -> int:
+    return max(4096, _get_int(_FANOUT_PART_BYTES))
+
+
+def get_fanout_timeout_s() -> float:
+    return max(0.0, float(_get_raw(_FANOUT_TIMEOUT_S)))
+
+
+def get_transport() -> str:
+    """"auto" | "collective" | "kv"; any other value is "auto" with a
+    warning."""
+    v = str(_get_raw(_TRANSPORT)).strip().lower()
+    if v in ("collective", "kv"):
+        return v
+    if v != "auto":
+        _logger.warning(
+            "TORCHSNAPSHOT_TPU_TORCH_TRANSPORT=%r is not auto/collective/kv; "
+            "treating as auto", v,
+        )
+    return "auto"
+
+
+def get_transport_part_bytes() -> int:
+    return max(4096, _get_int(_TRANSPORT_PART_BYTES))
+
+
+def get_transport_timeout_s() -> float:
+    return max(0.0, float(_get_raw(_TRANSPORT_TIMEOUT_S)))
+
+
 @contextlib.contextmanager
 def _override(name: str, value) -> Iterator[None]:
     had = name in _OVERRIDES
@@ -640,6 +732,34 @@ def override_liveness_timeout_s(value: float):
 
 def override_liveness_interval_s(value: float):
     return _override(_LIVENESS_INTERVAL_S, value)
+
+
+def override_takeover(value: bool):
+    return _override(_TAKEOVER, int(value))
+
+
+def override_fanout(value):
+    return _override(_FANOUT, value)
+
+
+def override_fanout_part_bytes(value: int):
+    return _override(_FANOUT_PART_BYTES, value)
+
+
+def override_fanout_timeout_s(value: float):
+    return _override(_FANOUT_TIMEOUT_S, value)
+
+
+def override_transport(value):
+    return _override(_TRANSPORT, value or "auto")
+
+
+def override_transport_part_bytes(value: int):
+    return _override(_TRANSPORT_PART_BYTES, value)
+
+
+def override_transport_timeout_s(value: float):
+    return _override(_TRANSPORT_TIMEOUT_S, value)
 
 
 @contextlib.contextmanager

@@ -34,9 +34,11 @@ be the only one); incremental links live in the durable tier, so no
 fast eviction breaks a dedup chain.  Deleting a fast copy never releases
 chunk refs (the durable step owns them).  ``repromote()`` re-enqueues
 the promotion of fast-committed steps a crash left without a durable
-marker; it runs once before a manager's first save.  Not ported: live-
-weight publication (``publisher=``) and ``repair`` (ROADMAP queue A item
-5), each raising ``NotImplementedError``.
+marker; it runs once before a manager's first save.  ``repair(sources)``
+heals steps a take committed degraded after a rank's death, from
+continuous mirrors (``Snapshot.repair_degraded``).  Not ported: live-
+weight publication (``publisher=``, ROADMAP queue A item 5), raising
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -683,8 +685,30 @@ class SnapshotManager:
 
             return cas_mod.fsck(self.cas["root"], self._candidate_paths())
 
-    def repair(self, *args: Any, **kwargs: Any) -> Any:
-        raise _not_ported("repair (write takeover and degraded repair)", "5")
+    def repair(self, sources: Sequence[str], step: Optional[int] = None) -> Dict[int, List[str]]:
+        """Heal committed steps that a take surviving a rank's death
+        committed degraded, from continuous mirrors
+        (``Snapshot.repair_degraded``; ``sources``: continuous host roots
+        holding ``r<rank>`` mirrors).  ``step`` limits it to one step;
+        default every committed step with a ``degraded`` section.  Rank 0
+        only.  Returns ``{step: repaired paths}``.  The next complete save
+        heals too: under retention a degraded step ages out."""
+        with log_event(Event("manager_repair", {"root": self.root})):
+            if self._coord.rank != 0:
+                return {}
+            committed = self._committed()
+            out: Dict[int, List[str]] = {}
+            for s in [step] if step is not None else sorted(committed):
+                snap = committed.get(s) or self.snapshot(s)
+                try:
+                    degraded = snap.metadata.degraded
+                except Exception:  # noqa: BLE001 — an unreadable step is skipped
+                    continue
+                if degraded:
+                    repaired = snap.repair_degraded(sources)
+                    if repaired:
+                        out[s] = repaired
+            return out
 
 
 class _ManagedPendingSnapshot:

@@ -1,10 +1,15 @@
 """Cross-rank metric aggregation and persisted snapshot flight records.
 
 Counterpart of ``torchsnapshot_tpu/obs/aggregate.py``, writing the same
-``.snapshot_obsrecord`` format (each package reads the other's).  This
-package has no topology, payload-transport or continuous-checkpoint
-subsystem, so its payloads carry none of those stamps, as the JAX
-package's carry none when those subsystems are off.
+``.snapshot_obsrecord`` format (each package reads the other's).  A
+rank's payload carries its topology placement (``topology``: slice,
+host, counts) when an explicit topology was detected, and the payload
+transport's stamp (``transport``: the engine the last resolve chose and
+this operation's collective, KV and fallback deltas) once one was
+resolved; the merged record rolls the placements up per slice
+(``topology.slices``: ranks, replicated write egress, fan-out durable
+reads and savings), the rows the CLI's ``doctor`` renders.  The
+continuous loop's stamp is not carried (the loop is not ported).
 
 The single-process half of observability (metrics.py, tracer.py) dies
 with the process and never crosses a rank boundary; this module is the
@@ -186,6 +191,86 @@ def _slow_objects_from_tracer() -> List[Dict[str, Any]]:
     ]
 
 
+def _topology_stamp() -> Optional[Dict[str, Any]]:
+    """This process's last-detected explicit placement, or None (never
+    raises)."""
+    try:
+        from ..topology import current_topology_info
+
+        return current_topology_info()
+    except Exception as e:  # noqa: BLE001 — telemetry never fails the op
+        from .. import obs
+
+        obs.swallowed_exception("obs.aggregate.topology_stamp", e)
+        return None
+
+
+# counter → per-slice field of the record's topology rows
+_TOPOLOGY_SLICE_COUNTERS = (
+    ("topology.replicated_objects_written", "replicated_objects_written"),
+    ("topology.replicated_bytes_written", "replicated_bytes_written"),
+    ("topology.fanout_durable_reads", "durable_reads"),
+    ("topology.durable_gets_saved", "durable_gets_saved"),
+    ("topology.fanout_bytes_redistributed", "bytes_redistributed"),
+    ("topology.fanout_fallbacks", "fanout_fallbacks"),
+)
+
+
+def _topology_rollup(payloads: Sequence[Dict[str, Any]]) -> Optional[Dict[str, Any]]:
+    """Per-slice rows (ranks, write egress, fan-out savings) from the
+    payloads' placements and counter deltas; None when no rank stamped
+    one."""
+    stamped = [p for p in payloads if isinstance(p.get("topology"), dict)]
+    if not stamped:
+        return None
+    slices: Dict[str, Dict[str, Any]] = {}
+    for p in stamped:
+        s = str(p["topology"].get("slice", 0))
+        row = slices.setdefault(
+            s, {"ranks": [], **{field: 0 for _, field in _TOPOLOGY_SLICE_COUNTERS}}
+        )
+        row["ranks"].append(int(p["rank"]))
+        counters = (p.get("metrics") or {}).get("counters") or {}
+        for name, field in _TOPOLOGY_SLICE_COUNTERS:
+            row[field] += int(counters.get(name, 0))
+    for row in slices.values():
+        row["ranks"].sort()
+    return {
+        "num_slices": max(int(p["topology"].get("num_slices", 1)) for p in stamped),
+        "slices": dict(sorted(slices.items(), key=lambda kv: int(kv[0]))),
+    }
+
+
+def _transport_stamp(metric_delta: Dict[str, Any]) -> Optional[Dict[str, Any]]:
+    """The engine the last ``resolve_transport`` of this process chose and
+    this operation's transport deltas, or None before any resolve (never
+    raises).  A fleet that degraded to KV shows ``engine: kv`` or
+    non-zero ``fallbacks`` on the affected ranks."""
+    try:
+        from ..transport import current_engine
+
+        engine = current_engine()
+        if engine is None:
+            return None
+        c = metric_delta.get("counters", {})
+        return {
+            "engine": engine,
+            "collective_ops": int(c.get("transport.collective_ops", 0)),
+            "collective_bytes": int(c.get("transport.collective_bytes", 0)),
+            "kv_ops": int(c.get("transport.kv_ops", 0)),
+            "kv_bytes": int(c.get("transport.kv_bytes", 0)),
+            "fallbacks": int(c.get("transport.fallbacks", 0)),
+            # the JAX record's key; nothing in the port moves payloads
+            # through the device outside a transfer yet, so it stays 0
+            "device_moves": int(c.get("transport.device_moves", 0)),
+        }
+    except Exception as e:  # noqa: BLE001 — telemetry never fails the op
+        from .. import obs
+
+        obs.swallowed_exception("obs.aggregate.transport_stamp", e)
+        return None
+
+
 def rank_payload(
     rank: int, op: str, before: Dict[str, Any]
 ) -> Dict[str, Any]:
@@ -205,6 +290,12 @@ def rank_payload(
             "goodput": goodput_mod.block(),
             "slow_objects": _slow_objects_from_tracer(),
         }
+        tinfo = _topology_stamp()
+        if tinfo is not None:
+            out["topology"] = tinfo
+        xinfo = _transport_stamp(m)
+        if xinfo is not None:
+            out["transport"] = xinfo
         return out
     except Exception as e:  # noqa: BLE001 — telemetry never fails the op
         from .. import obs
@@ -355,6 +446,9 @@ def merge_payloads(
         "goodput": merged_goodput,
         "slow_objects": slow,
     }
+    topology = _topology_rollup(payloads)
+    if topology is not None:
+        record["topology"] = topology
     return record
 
 

@@ -76,12 +76,13 @@ def prepare_write(
     is_async_snapshot: bool = False,
     world: int = 1,
     writer_loads: Optional[List[int]] = None,
+    topology: Optional[Any] = None,
 ) -> Tuple[Entry, List[WriteReq]]:
     """Plan the write of one leaf.  Storage paths: ``replicated/`` for
     replicated entries, ``<rank>/`` for per-rank ones, ``sharded/`` for
     a DTensor's boxes (never replicated: its replicas are its mesh's,
-    each box written once by the writer ``writer_loads`` elects, see
-    ``preparers/sharded.py``).  An async snapshot plans defensive copies
+    each box written once by the writer ``writer_loads`` and ``topology``
+    elect, see ``preparers/sharded.py``).  An async snapshot plans defensive copies
     of host arrays (the caller may mutate them once ``async_take``
     returns)."""
     if is_primitive_type(obj):
@@ -89,7 +90,8 @@ def prepare_write(
     check_tensor_type(obj, logical_path)
     if is_dtensor(obj):
         return ShardedArrayIOPreparer.prepare_write(
-            obj, logical_path, rank, world, writer_loads, is_async_snapshot
+            obj, logical_path, rank, world, writer_loads, is_async_snapshot,
+            topology=topology,
         )
     namespace = "replicated" if replicated else str(rank)
     location = f"{namespace}/{logical_path}"

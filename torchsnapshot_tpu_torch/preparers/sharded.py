@@ -15,8 +15,9 @@ computed from DTensor's own local-shape/global-offset rule (the
 ``torch.chunk`` split: uneven, trailing shards may be empty; empty boxes
 are skipped).  Boxes held by several ranks (replicas) are written once,
 each by the least-loaded rank holding it, largest box first
-(``assign_box_writers``): a pure function of the layout and of the
-per-rank loads every rank passes alike, so no collective runs.  A box
+(``assign_box_writers``; slice → host → rank under an explicit
+topology): a pure function of the layout and of the per-rank loads every
+rank passes alike, so no collective runs.  A box
 above the MAX_SHARD_SIZE_BYTES knob is subdivided along its largest dim.
 Each stored shard stages from a view of the local tensor (pinned D2H
 for CUDA, as a plain tensor does) and its crc32 lands in its record.
@@ -179,18 +180,24 @@ def assign_box_writers(
     itemsize: int,
     process_count: int,
     preloads: Optional[List[int]] = None,
+    topology: Optional[Any] = None,
 ) -> Dict[Box, int]:
     """Largest box first, to the least-loaded rank holding it (lowest rank
     on a tie).  ``preloads``: each rank's bytes already committed (its
     per-rank state and earlier sharded leaves), MUTATED IN PLACE so one
     vector composes across a take's sharded leaves; every rank must pass
-    the same vector and visit the leaves in the same order."""
+    the same vector and visit the leaves in the same order.  An explicit
+    ``topology`` (alike on every rank) elects by least-loaded slice, then
+    host, then rank, as ``partitioner.partition_replicated_writes`` does."""
+    from ..partitioner import _chooser
+
     loads = preloads if preloads is not None else [0] * max(1, process_count)
+    choose_key, charge = _chooser(topology, loads)
     assignment: Dict[Box, int] = {}
     for box in sorted(boxes, key=lambda b: (-box_nelems(b), b[0])):
-        writer = min(sorted(set(boxes[box])), key=lambda p: (loads[p], p))
+        writer = min(sorted(set(boxes[box])), key=choose_key)
         assignment[box] = writer
-        loads[writer] += box_nelems(box) * itemsize
+        charge(writer, box_nelems(box) * itemsize)
     return assignment
 
 
@@ -232,6 +239,7 @@ class ShardedArrayIOPreparer:
         world: int,
         writer_loads: Optional[List[int]] = None,
         is_async: bool = False,
+        topology: Optional[Any] = None,
     ) -> Tuple[ShardedArrayEntry, List[WriteReq]]:
         check_layout(obj, logical_path)
         check_coordinator_rank(rank, world, obj, logical_path)
@@ -239,7 +247,9 @@ class ShardedArrayIOPreparer:
         itemsize = obj.element_size()
         mesh_ranks = obj.device_mesh.mesh.cpu().numpy()
         boxes = layout_boxes(shape, mesh_ranks, obj.placements)
-        assignment = assign_box_writers(boxes, itemsize, world, preloads=writer_loads)
+        assignment = assign_box_writers(
+            boxes, itemsize, world, preloads=writer_loads, topology=topology
+        )
         axis_names, mesh_shape, spec = _sharding_metadata(obj)
         shards: List[Shard] = []
         write_reqs: List[WriteReq] = []

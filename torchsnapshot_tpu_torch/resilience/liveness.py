@@ -12,11 +12,12 @@ present but frozen for more than ``LIVENESS_TIMEOUT_S`` — or, with
 ``absent_after_s``, never appeared in that long.  ``stop()`` deletes the
 rank's own stamp, so a clean exit reads as absence, never as death.
 
-In the port only the tier promoter's done handshake uses them
-(``tier/promoter.py``).  ``Coordinator.liveness_scope`` (death-aware
-waits on the take path), write takeover and degraded commits are ROADMAP
-queue A item 5; ``DegradedSnapshotError`` is raised by the restore of a
-degraded snapshot the JAX package wrote.
+A take's commit waits and a restore's waits run in
+``Coordinator.liveness_scope`` (a dead peer raises ``RankDeadError``;
+the take's survivors then commit by write takeover, ``snapshot.py``), and
+the tier promoter's done handshake skips dead peers
+(``tier/promoter.py``).  ``DegradedSnapshotError`` is raised by a
+restore that would read state a degraded commit lost.
 """
 
 from __future__ import annotations

@@ -954,6 +954,7 @@ def sync_execute_read_reqs(
     rank: int,
     codec_tables: Optional[Dict[str, Any]] = None,
     cas_reads: Optional[Tuple[Any, Dict[str, Any]]] = None,
+    publish_first: Optional[set] = None,
 ) -> int:
     """Execute read requests under the memory budget, lower ``priority``
     first (a stable sort: the order within a class is kept); returns the
@@ -961,11 +962,18 @@ def sync_execute_read_reqs(
     location → frame table of the objects stored encoded (the
     metadata's ``codecs``); ``cas_reads``: ``(ChunkStore, {location →
     chunk table})`` of the objects stored as chunk references.  Byte
-    ranges of either stay raw above this call."""
+    ranges of either stay raw above this call.  ``publish_first``: the
+    locations this rank reads for its fan-out siblings
+    (``topology/fanout.py``), first within each priority class, so a
+    sibling's wait is bounded by those reads alone."""
     executor = ThreadPoolExecutor(
         max_workers=knobs.get_staging_threads(), thread_name_prefix="tsnp-torch-consume"
     )
-    if any(rr.priority for rr in read_reqs):
+    if publish_first:
+        read_reqs = sorted(
+            read_reqs, key=lambda rr: (rr.priority, 0 if rr.path in publish_first else 1)
+        )
+    elif any(rr.priority for rr in read_reqs):
         read_reqs = sorted(read_reqs, key=lambda rr: rr.priority)
     pipelines = [_ReadPipeline(rr) for rr in read_reqs]
     loop_thread = _LoopThread("tsnp-torch-read-loop")

@@ -68,18 +68,34 @@ take calls the plugin's ``finalize_take`` after this rank's writes and
 before the commit (sync and async), so write-back promotion and peer
 replicas only ever trail the data, and under write-back the durable
 goodput commit is reported by the promoter; restore, ``read_object`` and
-``materialize`` prime the plugin with the committed digests first.  Not
-ported: the fan-out restore, transport, the take path's liveness scope,
-write takeover and repair (ROADMAP queue A item 5).
+``materialize`` prime the plugin with the committed digests first.
+
+Fleets.  Replicated writers are elected slice → host → rank under an
+explicit topology (``partitioner.py``).  A take stamps a heartbeat from
+its start (``resilience/liveness.py``) and runs its commit waits in a
+``liveness_scope``: a rank that dies mid-commit surfaces within
+``LIVENESS_TIMEOUT_S`` as ``RankDeadError``, and the survivors finish the
+commit without it by write takeover (``_recover_commit_after_death``):
+they agree on the dead set, re-elect writers for its replicated objects
+and re-write them from their own copies, and the leader commits, with a
+``degraded`` section naming the state only the dead rank held.
+``repair_degraded`` heals such a snapshot from a continuous mirror
+(``continuous/store.py``).  A restore runs in a liveness scope too (a
+dead peer raises ``RankDeadError``; there is no takeover on the read
+path) and, over a topology whose slices span ranks, fans out
+(``topology/fanout.py``): each replicated object is read once per slice
+and handed to the siblings over the payload transport (``transport/``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import fnmatch
+import json
 import logging
 import struct
 import threading
+import time
 import zlib
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -87,6 +103,8 @@ import numpy as np
 import torch
 
 from . import knobs, obs
+from . import topology as topology_mod
+from . import transport as transport_mod
 from .batcher import batch_read_requests, batch_write_requests
 from .coordination import Coordinator, get_default_coordinator
 from .event import Event
@@ -106,7 +124,7 @@ from .manifest import (
     is_container_entry,
 )
 from .manifest_ops import consolidate_manifests, get_manifest_for_rank
-from .partitioner import partition_replicated_writes
+from .partitioner import elect_takeover_writers, partition_replicated_writes
 from .preparers import estimate_write_bytes, path_is_replicated, prepare_read, prepare_write
 from .preparers.sharded import check_coordinator_rank, is_dtensor
 from .scheduler import (
@@ -116,7 +134,7 @@ from .scheduler import (
     sync_execute_read_reqs,
 )
 from .resilience.abort import SnapshotAbortedError
-from .resilience.liveness import DegradedSnapshotError
+from .resilience.liveness import DegradedSnapshotError, LivenessSession, RankDeadError
 from .serialization import serialize_object, string_to_dtype
 from .stateful import PyTreeState, Replicated, RNGState, _tree_path_keys, load_with_strict
 from .storage import url_to_storage_plugin
@@ -376,10 +394,16 @@ class _TakePlan:
     cas_cfg: Optional[Dict[str, Any]] = None
     cas_store: Any = None
     object_cas: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    # what the survivors need to finish the commit after a peer's death
+    takeover: Optional["_TakeoverContext"] = None
 
-    def local_payload(self) -> Dict[str, Any]:
+    def local_payload(self, extra: Optional[Dict[str, Entry]] = None) -> Dict[str, Any]:
+        """This rank's commit payload: its manifest (plus ``extra``
+        entries it took over), digests, codec and chunk tables."""
         return {
-            "manifest": {p: e.to_dict() for p, e in {**self.manifest, **self.entries}.items()},
+            "manifest": {
+                p: e.to_dict() for p, e in {**self.manifest, **self.entries, **(extra or {})}.items()
+            },
             "objects": self.object_digests,
             "codecs": self.object_codecs,
             "cas": self.object_cas,
@@ -473,7 +497,9 @@ def _commit_protocol(
     when all succeeded and the scope is not poisoned, then publishes its
     verdict, which every rank waits for.  Returns the metadata on rank
     0, None elsewhere.  Run inside ``coord.abort_scope(uid)``: a peer's
-    poison ends every wait."""
+    poison ends every wait; inside ``coord.liveness_scope``, a peer's
+    death raises ``RankDeadError`` (and rank 0 publishes no verdict: the
+    survivors finish by write takeover)."""
     rank, world = coord.rank, coord.world_size
     obs.aggregate.publish(coord, uid, obs.aggregate.rank_payload(rank, "take", obs_before))
     if world == 1:
@@ -521,6 +547,8 @@ def _commit_protocol(
                 _cas_commit_refs(metadata, plan.path, plan.cas_store)
                 _commit(storage, metadata)
                 depart = "ok"
+        except RankDeadError:
+            raise
         except BaseException as e:
             coord.kv_set(f"{uid}/depart", f"rank 0 commit failed: {e!r}")
             raise
@@ -529,6 +557,271 @@ def _commit_protocol(
     if depart != "ok":
         raise RuntimeError(f"snapshot commit failed: {depart}")
     return metadata
+
+
+# ------------------------------------------------------------- takeover
+# A rank that dies mid-commit (killed, out of memory, hung) never reaches
+# its poison call.  The liveness scope turns its frozen heartbeat into
+# RankDeadError at the commit's waits, and the survivors finish the
+# commit without it: every rank planned write requests for every
+# replicated object and discarded those it was not elected for, so the
+# dead writer's objects are re-written from a survivor's copy, and state
+# only the dead rank held is named in the metadata's ``degraded``
+# section instead of failing the take.
+
+_RECOVERY_POLL_S = 0.1
+# recovery's own bound: survivors may be re-writing the dead rank's
+# objects while their peers wait on the takeover keys
+_RECOVERY_TIMEOUT_S = 600.0
+
+
+@dataclasses.dataclass
+class _TakeoverContext:
+    """The planning-time facts a takeover needs.  ``topo``, ``preloads``,
+    ``assignment``, ``repl_items`` and ``gathered_manifests`` (every
+    rank's manifest after batching) are alike on every rank;
+    ``repl_reqs``/``repl_chunk_reqs`` are this rank's un-elected write
+    requests, which a takeover writer replays.  ``repl_entries`` are the
+    replicated entry objects captured BEFORE non-writers drop theirs and
+    before batching re-points the writer's at a rank-local slab: their
+    ``replicated/`` locations are rank-independent, so a survivor's
+    re-write lands where the manifest says.  Under ``async_take`` the
+    replayed requests stage from the live state, which may have moved on
+    since the take returned."""
+
+    topo: Any
+    preloads: List[int]
+    assignment: Dict[str, int]
+    repl_reqs: Dict[str, List[WriteReq]]
+    repl_chunk_reqs: Dict[str, WriteReq]
+    chunk_parent: Dict[str, str]
+    repl_items: List[Tuple[str, int]]
+    repl_entries: Dict[str, Entry]
+    gathered_manifests: List[Dict[str, Any]]
+
+
+class _CommittedClean(Exception):
+    """Rank 0 committed the take complete before this rank's recovery
+    began: nothing is left to take over."""
+
+
+def _recovery_kv_get(
+    coord: Coordinator, monitor: Any, key: str, expected_dead: set,
+    depart_key: Optional[str] = None, timeout_s: float = _RECOVERY_TIMEOUT_S,
+) -> str:
+    """A wait of the recovery protocol: the ranks of ``expected_dead``
+    stay dead, so only a NEW death raises.  With ``depart_key``, rank 0's
+    clean verdict ends the wait (``_CommittedClean``), and a failed one
+    raises."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        value = coord.kv_try_get(key)
+        if value is not None:
+            return value
+        if depart_key is not None:
+            depart = coord.kv_try_get(depart_key)
+            if depart == "ok":
+                raise _CommittedClean()
+            if depart is not None:
+                raise RuntimeError(f"snapshot commit failed: {depart}")
+        newly = [r for r in monitor.dead_ranks() if r not in expected_dead]
+        if newly:
+            raise RankDeadError(newly[0], set(newly) | set(expected_dead), ns=monitor.ns)
+        if time.monotonic() >= deadline:
+            raise TimeoutError(f"takeover recovery timed out after {timeout_s}s waiting for {key!r}")
+        time.sleep(_RECOVERY_POLL_S)
+
+
+def _degraded_paths(ctx: _TakeoverContext, dead: Sequence[int], taken_over_lps: set) -> Dict[str, Any]:
+    """State only a dead rank held: everything in its manifest but
+    containers, primitives and the replicated paths taken over.
+    Conservative (payloads it did land before dying are named too;
+    ``verify`` and ``repair_degraded`` settle those)."""
+    degraded: Dict[str, Dict[str, Any]] = {}
+    for d in sorted(dead):
+        for lp, ed in ctx.gathered_manifests[d].items():
+            entry = entry_from_dict(ed)
+            if lp in taken_over_lps or is_container_entry(entry) or isinstance(entry, PrimitiveEntry):
+                continue
+            degraded.setdefault(lp, {"origin_rank": d, "kind": entry.type})
+    return degraded
+
+
+def _recover_commit_after_death(
+    coord: Coordinator, uid: str, plan: _TakePlan, storage: Any, monitor: Any,
+    dead_err: RankDeadError,
+) -> Optional[SnapshotMetadata]:
+    """Finish a take's commit after ``dead_err``.  Runs outside the abort
+    and liveness scopes (they would raise on the known dead forever),
+    over explicit KV keys only (no uid is minted, so the survivors' op
+    counters stay aligned).  (1) The lowest live rank of each survivor's
+    view publishes the dead set; a leader that dies meanwhile is folded
+    in and the next one elected.  (2) Every survivor elects the writers
+    of the orphaned replicated objects alike (``elect_takeover_writers``)
+    and (3) replays its share.  (4) Each publishes its commit payload;
+    the leader merges them with the dead ranks' planning-time manifests
+    (their taken-over paths removed), names the ``degraded`` paths,
+    writes ``.snapshot_metadata`` and signals.  Returns the metadata on
+    the leader, None elsewhere (also when rank 0 had already committed
+    complete)."""
+    ctx = plan.takeover
+    rank, world = coord.rank, coord.world_size
+    my_dead = set(dead_err.dead_ranks or [dead_err.rank])
+    logger.warning(
+        "rank %d: peer rank(s) %s declared dead during commit %s; entering write takeover",
+        rank, sorted(my_dead), uid,
+    )
+    depart_key = f"{uid}/depart"
+    plan_dead: Optional[List[int]] = None
+    try:
+        for _ in range(world):
+            live = [r for r in range(world) if r not in my_dead]
+            if not live:
+                raise RuntimeError(f"takeover for {uid}: every rank is in the dead set {sorted(my_dead)}")
+            candidate = live[0]
+            plan_key = f"{uid}/takeover/plan/{candidate}"
+            if candidate == rank:
+                coord.kv_set(plan_key, json.dumps(sorted(my_dead)))
+                plan_dead = sorted(my_dead)
+                break
+            try:
+                plan_dead = json.loads(
+                    _recovery_kv_get(coord, monitor, plan_key, my_dead, depart_key)
+                )
+                break
+            except RankDeadError as e:
+                my_dead |= set(e.dead_ranks or [e.rank])
+    except _CommittedClean:
+        logger.warning("rank %d: commit %s completed before the death mattered", rank, uid)
+        return None
+    if plan_dead is None:
+        raise RuntimeError(f"takeover for {uid}: no live leader converged")
+    dead = set(plan_dead)
+    if rank in dead:
+        # declared dead (our stamps stalled): the others moved on
+        raise RuntimeError(
+            f"rank {rank} was declared dead by the takeover plan for {uid}; aborting locally"
+        )
+    live = [r for r in range(world) if r not in dead]
+    leader = live[0]
+
+    # re-elect the orphaned replicated objects' writers, alike everywhere
+    origin_of = {k: ctx.assignment[k] for k, _ in ctx.repl_items if ctx.assignment.get(k) in dead}
+    orphans = [(k, n) for k, n in ctx.repl_items if k in origin_of]
+    takeover = elect_takeover_writers(
+        orphans, sorted(dead), world, preloads=ctx.preloads, topology=ctx.topo, origin_of=origin_of,
+    )
+    mine = sorted(k for k, w in takeover.items() if w == rank)
+    taken_paths = {ctx.chunk_parent.get(k, k) for k in mine}
+    if mine:
+        reqs: List[WriteReq] = []
+        for k in mine:
+            reqs.extend(ctx.repl_reqs[k] if k in ctx.repl_reqs else [ctx.repl_chunk_reqs[k]])
+        cost_of = dict(ctx.repl_items)
+        my_bytes = sum(cost_of.get(k, 0) for k in mine)
+        # the sinks went to the elected writer's requests only; taken-over
+        # payloads are written plain at their locations, never as chunks
+        checksums = knobs.write_checksums_enabled()
+        for wr in reqs:
+            def codec_sink(table: Dict[str, Any], wr: WriteReq = wr) -> None:
+                plan.object_codecs[wr.path] = table
+
+            wr.codec_sink = codec_sink
+            if checksums:
+                def digest_sink(d: List[int], wr: WriteReq = wr) -> None:
+                    wr.object_digest = tuple(d)
+                    plan.object_digests[wr.path] = list(d)
+
+                wr.digest_sink = digest_sink
+        logger.warning(
+            "rank %d: taking over %d replicated write unit(s) (%d bytes) from dead rank(s) %s",
+            rank, len(mine), my_bytes, sorted(dead),
+        )
+        execute_write_reqs(reqs, storage, get_process_memory_budget_bytes(), rank).sync_complete()
+        obs.counter(obs.TAKEOVER_OBJECTS).inc(len(mine))
+        obs.counter(obs.TAKEOVER_BYTES).inc(my_bytes)
+
+    payload = plan.local_payload({lp: ctx.repl_entries[lp] for lp in taken_paths})
+    coord.kv_set(f"{uid}/takeover/manifest/{rank}", coord._encode(payload))
+    commit_key = f"{uid}/takeover/commit/{leader}"
+    if rank != leader:
+        status = _recovery_kv_get(coord, monitor, commit_key, dead)
+        if status != "ok":
+            raise RuntimeError(f"takeover leader rank {leader} failed to commit {plan.path!r}: {status}")
+        logger.warning("rank %d: takeover commit of %r done by rank %d", rank, plan.path, leader)
+        return None
+    try:
+        payloads = {rank: payload}
+        for r in live:
+            if r != rank:
+                key = f"{uid}/takeover/manifest/{r}"
+                raw = coord.kv_try_get(key) or _recovery_kv_get(coord, monitor, key, dead)
+                payloads[r] = coord._decode(raw)
+        taken_over_lps = {ctx.chunk_parent.get(k, k) for k in takeover}
+        manifests: List[Dict[str, Entry]] = []
+        for r in range(world):
+            if r in payloads:
+                manifests.append(
+                    {k: entry_from_dict(v) for k, v in payloads[r]["manifest"].items()}
+                )
+            else:
+                # the dead rank's keys stay (repair and partial restores
+                # need shapes and locations), but not what was taken over
+                manifests.append({
+                    k: entry_from_dict(v) for k, v in ctx.gathered_manifests[r].items()
+                    if k not in taken_over_lps
+                })
+        objects: Dict[str, List[int]] = {}
+        codecs: Dict[str, Any] = {}
+        chunks: Dict[str, Any] = {}
+        for p in payloads.values():
+            objects.update(p["objects"])
+            codecs.update(p.get("codecs") or {})
+            chunks.update(p.get("cas") or {})
+        metadata = _metadata_from(manifests, objects, world, codecs, plan.cas_envelope(chunks))
+        degraded = _degraded_paths(ctx, dead, taken_over_lps)
+        if degraded:
+            metadata.degraded = degraded
+        # the clean path's invariants: never after a poison, chunk refs
+        # strictly before the marker
+        coord.raise_if_poisoned(uid)
+        _cas_commit_refs(metadata, plan.path, plan.cas_store)
+        if degraded:
+            obs.counter(obs.TAKEOVER_DEGRADED_COMMITS).inc()
+        _commit(storage, metadata)
+        coord.kv_set(commit_key, "ok")
+    except BaseException as e:
+        try:
+            coord.kv_set(commit_key, f"failed: {e!r}")
+        except Exception as signal_exc:  # noqa: BLE001 — the peers time out instead
+            obs.swallowed_exception("takeover.commit_failure_signal", signal_exc)
+        raise
+    logger.warning(
+        "rank %d: takeover commit of %r done: %s (%d write unit(s) re-written, %d degraded path(s))",
+        rank, plan.path, "DEGRADED" if degraded else "complete", len(takeover), len(degraded),
+    )
+    return metadata
+
+
+def _commit_or_take_over(
+    coord: Coordinator, uid: str, plan: _TakePlan, storage: Any, status: str,
+    obs_before: Dict[str, Any], session: LivenessSession,
+) -> Optional[SnapshotMetadata]:
+    """``_commit_protocol`` in the take's liveness scope; a peer's death
+    is finished by write takeover (``TAKEOVER``, world > 1), else it
+    poisons the scope and raises."""
+    try:
+        with coord.liveness_scope(session.monitor):
+            return _commit_protocol(coord, uid, plan, storage, status, obs_before)
+    except RankDeadError as dead_err:
+        if status != "ok" or not knobs.takeover_enabled() or coord.world_size <= 1:
+            coord.poison(uid, cause=repr(dead_err), site=f"take/rank{coord.rank}")
+            raise
+        try:
+            return _recover_commit_after_death(coord, uid, plan, storage, session.monitor, dead_err)
+        except BaseException as e:
+            coord.poison(uid, cause=repr(e), site=f"takeover/rank{coord.rank}")
+            raise
 
 
 class Snapshot:
@@ -599,10 +892,18 @@ class Snapshot:
             obs_before = obs.aggregate.capture()
             gp_begin = obs.goodput.take_begin(path)
             uid = coordinator._next_uid("commit")
-            plan = cls._plan_at_entry(
-                path, app_state, replicated, coordinator, uid, False, base,
-                leaf_transform, storage_options, cas,
-            )
+            # the heartbeat stamps from here, so a rank slow in planning or
+            # staging is never declared dead; only the commit's waits
+            # consult the peers' stamps
+            session = LivenessSession(coordinator, uid).start()
+            try:
+                plan = cls._plan_at_entry(
+                    path, app_state, replicated, coordinator, uid, False, base,
+                    leaf_transform, storage_options, cas,
+                )
+            except BaseException:
+                session.stop()
+                raise
             storage = _storage_for(plan.path, storage_options)
             try:
                 with coordinator.abort_scope(uid):
@@ -614,8 +915,8 @@ class Snapshot:
                     # and before the commit (the durable marker can only
                     # trail the data)
                     _finalize_take(storage, coordinator, uid)
-                    metadata = _commit_protocol(
-                        coordinator, uid, plan, storage, "ok", obs_before
+                    metadata = _commit_or_take_over(
+                        coordinator, uid, plan, storage, "ok", obs_before, session
                     )
             except SnapshotAbortedError:
                 raise
@@ -623,6 +924,7 @@ class Snapshot:
                 coordinator.poison(uid, cause=repr(e), site=f"take/rank{rank}")
                 raise
             finally:
+                session.stop()
                 storage.sync_close()
                 plan.close_cas()
             # a sync take is durable and unblocks at its return, except
@@ -672,10 +974,16 @@ class Snapshot:
             obs_before = obs.aggregate.capture()
             gp_begin = obs.goodput.take_begin(path)
             uid = coordinator._next_uid("commit")
-            plan = cls._plan_at_entry(
-                path, app_state, replicated, coordinator, uid, True, base,
-                leaf_transform, storage_options, cas,
-            )
+            # stamps from planning to the background commit's end
+            session = LivenessSession(coordinator, uid).start()
+            try:
+                plan = cls._plan_at_entry(
+                    path, app_state, replicated, coordinator, uid, True, base,
+                    leaf_transform, storage_options, cas,
+                )
+            except BaseException:
+                session.stop()
+                raise
             unblock_early = not knobs.is_eager_host_staging_disabled()
             storage = _storage_for(plan.path, storage_options)
             try:
@@ -688,12 +996,13 @@ class Snapshot:
             except BaseException as e:
                 # peers are past planning, waiting for this rank's commit
                 coordinator.poison(uid, cause=repr(e), site=f"async_take/rank{rank}")
+                session.stop()
                 storage.sync_close()
                 plan.close_cas()
                 raise
         pending = PendingSnapshot(
             plan.path, coordinator, plan, pending_io, storage, uid, obs_before,
-            storage_options,
+            storage_options, session,
         )
         # the unblock point is this return: staging, I/O and the commit
         # (with the flight-record exchange) drain in the background
@@ -728,7 +1037,7 @@ class Snapshot:
             with coordinator.abort_scope(uid):
                 return cls._plan(
                     path, app_state, replicated, coordinator, rng_states_at_entry,
-                    is_async, base, leaf_transform, storage_options, cas,
+                    is_async, base, leaf_transform, storage_options, cas, uid,
                 )
         except SnapshotAbortedError:
             raise
@@ -754,6 +1063,7 @@ class Snapshot:
         leaf_transform: Optional[Callable[[str, Any], Any]],
         storage_options: Optional[Dict[str, Any]],
         cas: Any = None,
+        uid: str = "",
     ) -> _TakePlan:
         rank, world = coordinator.rank, coordinator.world_size
         replicated = _infer_replicated(replicated, app_state)
@@ -836,12 +1146,17 @@ class Snapshot:
             if lp not in verified and not is_dtensor(obj)
         )
         writer_loads = list(coordinator.all_gather_object(host_est)) if world > 1 else [host_est]
+        # rank → host → slice placement, alike on every rank (an explicit
+        # spec, or one exchange of hints under the commit uid): the writer
+        # elections below spread replicated writes slice → host → rank
+        topo = topology_mod.detect_topology(coordinator, exchange_prefix=f"{uid}/topo")
 
         entries: Dict[str, Entry] = {}
         write_reqs: List[WriteReq] = []
         repl_items = []
         repl_reqs: Dict[str, List[WriteReq]] = {}
-        repl_chunks: Dict[str, Tuple[str, WriteReq]] = {}
+        repl_chunk_reqs: Dict[str, WriteReq] = {}
+        chunk_parent: Dict[str, str] = {}
         local_bytes = 0
         chunk_size_bytes = knobs.get_max_chunk_size_bytes()
         with obs.span("take/plan", leaves=len(flattened), rank=rank):
@@ -850,7 +1165,7 @@ class Snapshot:
                 entry, reqs = prepare_write(
                     flattened[lpath], lpath, rank, replicated=repl,
                     chunk_size_bytes=chunk_size_bytes, is_async_snapshot=is_async,
-                    world=world, writer_loads=writer_loads,
+                    world=world, writer_loads=writer_loads, topology=topo,
                 )
                 entries[lpath] = entry
                 if not repl:
@@ -861,7 +1176,8 @@ class Snapshot:
                     # writes spread over the ranks too
                     for ci, r in enumerate(reqs):
                         k = f"{lpath}\x00{ci}"  # \x00 cannot occur in a path
-                        repl_chunks[k] = (lpath, r)
+                        repl_chunk_reqs[k] = r
+                        chunk_parent[k] = lpath
                         repl_items.append((k, r.buffer_stager.get_staging_cost_bytes()))
                 else:
                     repl_reqs[lpath] = reqs
@@ -869,25 +1185,46 @@ class Snapshot:
                         lpath,
                         sum(r.buffer_stager.get_staging_cost_bytes() for r in reqs),
                     ))
+        # takeover: the replicated entry objects as planned, before
+        # non-writers drop theirs and batching re-points the writer's
+        repl_entries = {lp: entries[lp] for lp in set(repl_reqs) | set(chunk_parent.values())}
         split_repl_paths = set()
+        preloads: List[int] = [0] * world
+        assignment: Dict[str, int] = {}
         if repl_items:
             # each rank's per-rank bytes preload the balance
-            preloads = coordinator.all_gather_object(local_bytes) if world > 1 else [local_bytes]
-            assignment = partition_replicated_writes(repl_items, world, preloads)
+            preloads = list(
+                coordinator.all_gather_object(local_bytes) if world > 1 else [local_bytes]
+            )
+            assignment = partition_replicated_writes(repl_items, world, preloads, topology=topo)
+            # per-slice egress: each writer counts the replicated units
+            # and bytes it carries (explicit topologies only)
+            cost_of = dict(repl_items)
+            m_objs = obs.counter(obs.TOPOLOGY_REPLICATED_OBJECTS_WRITTEN)
+            m_bytes = obs.counter(obs.TOPOLOGY_REPLICATED_BYTES_WRITTEN)
             for lpath, reqs in repl_reqs.items():
                 if assignment[lpath] == rank:
                     write_reqs.extend(reqs)
+                    if topo.explicit:
+                        m_objs.inc()
+                        m_bytes.inc(cost_of[lpath])
                 else:
                     # only the writer keeps the entry: batching may point
                     # its copy at a slab, and the manifest must carry the
                     # written one
                     del entries[lpath]
             writes_chunk_of: Dict[str, bool] = {}
-            for k, (lpath, r) in repl_chunks.items():
+            for k, r in repl_chunk_reqs.items():
+                lpath = chunk_parent[k]
                 mine = assignment[k] == rank
-                writes_chunk_of[lpath] = writes_chunk_of.get(lpath, False) or mine
                 if mine:
                     write_reqs.append(r)
+                    if topo.explicit:
+                        # bytes per chunk, the object once per rank
+                        m_bytes.inc(cost_of[k])
+                        if not writes_chunk_of.get(lpath):
+                            m_objs.inc()
+                writes_chunk_of[lpath] = writes_chunk_of.get(lpath, False) or mine
             for lpath, any_mine in writes_chunk_of.items():
                 if any_mine:
                     # chunk locations are rank-independent: every writer's
@@ -950,6 +1287,18 @@ class Snapshot:
             )
         plan = _TakePlan(
             path, manifest, entries, write_reqs, object_digests, world, object_codecs, cas_cfg
+        )
+        # every rank's manifest after batching: a survivor names what a
+        # dead rank held (and keeps its shapes and locations) from these
+        gathered: List[Dict[str, Any]] = []
+        if world > 1:
+            gathered = coordinator.all_gather_object(
+                {p: e.to_dict() for p, e in {**manifest, **entries}.items()}
+            )
+        plan.takeover = _TakeoverContext(
+            topo=topo, preloads=preloads, assignment=assignment, repl_reqs=repl_reqs,
+            repl_chunk_reqs=repl_chunk_reqs, chunk_parent=chunk_parent, repl_items=repl_items,
+            repl_entries=repl_entries, gathered_manifests=gathered,
         )
         if cas_cfg is not None:
             _attach_cas(plan, coordinator)
@@ -1056,7 +1405,15 @@ class Snapshot:
         ``priority``: ordered fnmatch globs; reads of paths matching an
         earlier glob are admitted first (unmatched paths last), so a
         server can restore its first layers first.  Ordering only: every
-        leaf is restored."""
+        leaf is restored.
+
+        Over a topology whose slices span several ranks (``TOPOLOGY``,
+        ``FANOUT``), each replicated object is read once per slice and
+        handed to the slice's other ranks over the payload transport,
+        whose payload parts live on ``device``; every rank must then call
+        ``restore`` with the same ``paths`` and ``priority``.  A peer that
+        dies mid-restore makes the others raise ``RankDeadError`` within
+        ``LIVENESS_TIMEOUT_S``."""
         _validate_app_state(app_state)
         coordinator = self._coordinator
         rank, world = coordinator.rank, coordinator.world_size
@@ -1064,15 +1421,34 @@ class Snapshot:
             obs_before = obs.aggregate.capture()
             # one collective operation under the restore's own scope, the
             # metadata read included: a rank that fails anywhere poisons
-            # it, and its peers' waits raise SnapshotAbortedError
+            # it, and its peers' waits raise SnapshotAbortedError; a peer
+            # that dies is named by RankDeadError (no takeover on reads)
             uid = coordinator._next_uid("restore")
             storage = cas_reads = None
+            session = LivenessSession(coordinator, uid)
             try:
-                with coordinator.abort_scope(uid):
-                    manifest_for_rank = get_manifest_for_rank(self.metadata, rank)
+                session.start()
+                with coordinator.abort_scope(uid), coordinator.liveness_scope(session.monitor):
+                    metadata = self.metadata
+                    manifest_for_rank = get_manifest_for_rank(metadata, rank)
                     storage = _storage_for(self.path, self._storage_options)
                     self._prime_tier_digests(storage)
                     cas_reads = self._cas_reads()
+                    # fan-out: the wrapper goes outside any host cache, so
+                    # the slice's one read is itself host-deduplicated
+                    topo = (
+                        topology_mod.detect_topology(coordinator, exchange_prefix=f"{uid}/topo")
+                        if world > 1 else None
+                    )
+                    if topo is not None and topology_mod.fanout_enabled(topo):
+                        shared = topology_mod.shared_read_locations(metadata.manifest)
+                        if shared:
+                            storage = topology_mod.FanoutReadPlugin(
+                                storage, coordinator, topo, f"{uid}/fan", shared,
+                                transport=transport_mod.resolve_transport(
+                                    coordinator, topology=topo, device=device
+                                ),
+                            )
                     # (key, is RNG state) of this rank's app_state; over
                     # ranks, the union of the keys (a rank-local stateful
                     # is restored where it lives), a key RNG state when
@@ -1088,6 +1464,7 @@ class Snapshot:
                         flags = dict(local)
                     # RNG state last, so no other restore can perturb it
                     keys = sorted(flags, key=lambda k: (flags[k], k))
+                    self._open_fanout_session(storage, topo, uid, keys, paths)
                     for key in keys:
                         if key in app_state:
                             self._load_stateful(
@@ -1098,6 +1475,13 @@ class Snapshot:
                             # one load_state_dict at a time across ranks,
                             # in case one runs collectives
                             coordinator.barrier()
+                    # every rank is past its reads: the fan-out's
+                    # publications (blobs, gate keys, registry entries)
+                    # are reclaimed
+                    if isinstance(storage, topology_mod.FanoutReadPlugin):
+                        if storage.transport_session is not None:
+                            storage.transport_session.close()
+                        storage.cleanup_published()
                     # the restore's flight record is merged in-process
                     # (the snapshot may be read-only): rank 0 keeps it as
                     # obs.aggregate.last_record("restore").  Every rank
@@ -1114,11 +1498,49 @@ class Snapshot:
                 coordinator.poison(uid, cause=repr(e), site=f"restore/rank{rank}")
                 raise
             finally:
+                session.stop()
                 if storage is not None:
+                    if isinstance(storage, topology_mod.FanoutReadPlugin):
+                        # idempotent after the clean path's close: the
+                        # session thread must not outlive the restore
+                        for closer in (storage.transport_session, storage.transport):
+                            if closer is not None:
+                                try:
+                                    closer.close()
+                                except Exception as e:  # noqa: BLE001
+                                    obs.swallowed_exception("restore.transport_close", e)
                     storage.sync_close()
                 if cas_reads is not None:
                     cas_reads[0].sync_close()
             obs.maybe_write_metrics_textfile()
+
+    def _open_fanout_session(
+        self, storage: Any, topo: Any, uid: str, keys: List[str],
+        paths: Optional[Sequence[str]],
+    ) -> None:
+        """Attach a collective fan-out session to the restore's fan-out
+        wrapper, when the transport has a process group over the world,
+        every rank fans out (``fanout_world_uniform``) and the restore is
+        whole (a ``paths`` filter makes which objects are read a per-rank
+        question).  Its schedule follows the restore's key order.  A
+        session that cannot open leaves the restore on the KV path,
+        counted in ``transport.fallbacks``."""
+        if not (
+            isinstance(storage, topology_mod.FanoutReadPlugin)
+            and getattr(storage.transport, "mode", None) == "session"
+            and paths is None
+            and topology_mod.fanout_world_uniform(topo)
+        ):
+            return
+        try:
+            plan_paths = topology_mod.ordered_shared_locations(
+                self.metadata.manifest, storage.shared_paths, keys
+            )
+            storage.transport_session = storage.transport.open_fanout_session(
+                topo, f"{uid}/fan", plan_paths
+            )
+        except Exception as e:  # noqa: BLE001 — the restore goes on over KV
+            transport_mod.count_fallback("session-open", e)
 
     def _load_stateful(
         self, key: str, stateful: Any, manifest_for_rank: Manifest,
@@ -1195,6 +1617,8 @@ class Snapshot:
             sync_execute_read_reqs(
                 read_reqs, storage, get_process_memory_budget_bytes(), rank,
                 codec_tables=self._codec_tables(), cas_reads=cas_reads,
+                # fan-out: this rank's reads for its siblings go first
+                publish_first=getattr(storage, "local_publish_paths", None),
             )
             state_dict = inflate(
                 container_entries,
@@ -1339,11 +1763,140 @@ class Snapshot:
             "(ROADMAP queue A item 5)"
         )
 
-    def repair_degraded(self, *args: Any, **kwargs: Any) -> Any:
-        raise NotImplementedError(
-            "Snapshot.repair_degraded (write takeover and repair) is not ported "
-            "yet (ROADMAP queue A item 5)"
-        )
+    def repair_degraded(
+        self, sources: Sequence[str], paths: Optional[Sequence[str]] = None
+    ) -> List[str]:
+        """Heal a degraded snapshot IN PLACE from continuous mirrors.  A
+        take committed degraded lost the state only its dead rank held;
+        the dead rank's continuous mirror (``<host root>/r<rank>``,
+        ``continuous/store.py``) still has it.  The lost leaves are read
+        from the first usable mirror (content-verified), written at fresh
+        manifest locations of the dead rank's namespace, dropped from
+        ``degraded``, and ``.snapshot_metadata`` is rewritten strictly
+        last.  One process, no coordination.
+
+        ``sources``: continuous host roots (their ``r<d>`` is probed) or
+        store roots ending in ``/r<d>``; ``paths`` restricts the logical
+        paths.  Returns the paths repaired.  Sharded state cannot be
+        rebuilt from a host mirror (its mesh is gone): such paths are
+        skipped with a warning, and only a fresh take heals them."""
+        with log_event(Event("repair_degraded", {"path": self.path})), obs.span(
+            "snapshot/repair_degraded", path=self.path
+        ):
+            return self._repair_degraded_impl(sources, paths)
+
+    def _read_peer_leaves(
+        self, sources: Sequence[str], origin: int, lpaths: Sequence[str]
+    ) -> Dict[str, Any]:
+        """The wanted leaves (host tensors, or objects) from the first
+        usable mirror of rank ``origin``.  Only roots of that rank are
+        probed: a same-shaped leaf of another rank would be the wrong
+        rank's data."""
+        from .continuous.store import ContinuousStore
+
+        wanted = set(lpaths)
+        for src in sources:
+            src = str(src).rstrip("/")
+            root = src if src.endswith(f"/r{origin}") else f"{src}/r{origin}"
+            store = ContinuousStore(root)
+            try:
+                head = store.read_head()
+                if head is None:
+                    continue
+                manifest = store.read_step_manifest(str(head["manifest"]))
+                out = store.read_leaves(manifest, sorted(wanted), device="cpu")
+                if not out:
+                    continue
+                logger.info(
+                    "repair: recovered %d/%d leaves of dead rank %d from %r (step %d)",
+                    len(out), len(wanted), origin, root, int(head["step"]),
+                )
+                return out
+            except Exception as e:  # noqa: BLE001 — the next source
+                logger.warning(
+                    "repair source %r unusable for rank %d (%r); trying the next one",
+                    root, origin, e,
+                )
+            finally:
+                store.sync_close()
+        return {}
+
+    def _repair_degraded_impl(
+        self, sources: Sequence[str], paths: Optional[Sequence[str]]
+    ) -> List[str]:
+        metadata = self.metadata
+        degraded = dict(metadata.degraded or {})
+        if not degraded:
+            return []
+        if isinstance(sources, str):
+            sources = [sources]
+        by_origin: Dict[int, List[str]] = {}
+        for p, info in degraded.items():
+            if paths is None or p in set(paths):
+                by_origin.setdefault(int(info.get("origin_rank", -1)), []).append(p)
+        checksums = knobs.write_checksums_enabled()
+        storage = _storage_for(self.path, self._storage_options)
+        repaired: List[str] = []
+        try:
+            for d, lpaths in sorted(by_origin.items()):
+                leaves = self._read_peer_leaves(sources, d, lpaths)
+                reqs: List[WriteReq] = []
+                staged: List[Tuple[str, Entry]] = []
+                for lp in sorted(set(lpaths) & set(leaves)):
+                    if isinstance(metadata.manifest.get(f"{d}/{lp}"), ShardedArrayEntry):
+                        logger.warning(
+                            "repair: %r is sharded state; a host mirror cannot rebuild its "
+                            "mesh layout, only a fresh take heals it", lp,
+                        )
+                        continue
+                    entry, ereqs = prepare_write(leaves[lp], lp, d)
+                    if checksums:
+                        # plain writes (no codec sink): a repaired object reads
+                        # raw, so its stale codec table goes below
+                        for wr in ereqs:
+                            def sink(digest: List[int], wr: WriteReq = wr) -> None:
+                                wr.object_digest = tuple(digest)
+                                metadata.objects[wr.path] = list(digest)
+
+                            wr.digest_sink = sink
+                    reqs.extend(ereqs)
+                    staged.append((lp, entry))
+                if not staged:
+                    continue
+                execute_write_reqs(
+                    reqs, storage, get_process_memory_budget_bytes(), self._coordinator.rank
+                ).sync_complete()
+                new_locs = {r.path for r in reqs}
+                for lp, entry in staged:
+                    old = metadata.manifest.get(f"{d}/{lp}")
+                    if old is not None:
+                        # the dead rank's never-landed locations leave the
+                        # objects and codecs tables with its entry
+                        old_locs = [getattr(old, "location", None)] + [
+                            s.location
+                            for attr in ("shards", "chunks")
+                            for s in getattr(old, attr, None) or ()
+                        ]
+                        for loc in old_locs:
+                            if isinstance(loc, str):
+                                metadata.codecs.pop(loc, None)
+                                if checksums and loc not in new_locs:
+                                    metadata.objects.pop(loc, None)
+                    metadata.manifest[f"{d}/{lp}"] = entry
+                    metadata.degraded.pop(lp, None)
+                    repaired.append(lp)
+            if repaired:
+                # the marker strictly last: a crash mid-repair leaves the
+                # snapshot committed and still degraded
+                _commit(storage, metadata)
+                obs.counter(obs.TAKEOVER_PATHS_REPAIRED).inc(len(repaired))
+                logger.warning(
+                    "repair: healed %d degraded path(s) of %r; %d still degraded",
+                    len(repaired), self.path, len(metadata.degraded),
+                )
+        finally:
+            storage.sync_close()
+        return sorted(repaired)
 
     def verify(self, deep: bool = False) -> Any:
         """Audit this rank's view (``verify.py``): every object the
@@ -1451,8 +2004,11 @@ class PendingSnapshot:
     commit uid: every rank reports done or its error, and rank 0 writes
     ``.snapshot_metadata`` only if every rank succeeded.  A rank whose
     writes fail poisons the scope first, so its peers' waits end within
-    a poll interval.  Two takes in flight at once each own their threads
-    and storage."""
+    a poll interval.  The commit runs in the take's liveness scope, and a
+    peer's death is finished by write takeover as in ``take`` (the
+    replayed writes stage from the live state, which may have moved on
+    since ``async_take`` returned).  Two takes in flight at once each own
+    their threads and storage."""
 
     def __init__(
         self,
@@ -1464,8 +2020,12 @@ class PendingSnapshot:
         uid: str,
         obs_before: Dict[str, Any],
         storage_options: Optional[Dict[str, Any]] = None,
+        session: Optional[LivenessSession] = None,
     ) -> None:
         self.path = path
+        # the heartbeat started at async_take's entry; stopped at the end
+        # of the background commit
+        self._session = session or LivenessSession(coordinator, uid)
         self._storage_options = storage_options
         # metrics at async_take's entry: the commit thread deltas against
         # them after the drain, so the record covers the background work
@@ -1497,8 +2057,9 @@ class PendingSnapshot:
         try:
             if status == "ok" or coord.world_size > 1:
                 with coord.abort_scope(uid):
-                    self._metadata = _commit_protocol(
-                        coord, uid, self._plan, self._storage, status, self._obs_before
+                    self._metadata = _commit_or_take_over(
+                        coord, uid, self._plan, self._storage, status, self._obs_before,
+                        self._session,
                     )
                 if status == "ok" and getattr(self._storage, "policy", None) != "write_back":
                     # the commit marker landed (on rank 0; every rank
@@ -1509,6 +2070,7 @@ class PendingSnapshot:
             if self._exc is None:
                 self._exc = e
         finally:
+            self._session.stop()
             obs.maybe_write_metrics_textfile()
             self._plan.close_cas()
             # the drained work pinned the staged buffers; the handle may

@@ -59,6 +59,14 @@ class CacheLockTimeout(TimeoutError):
     ``LOCK_DEADLINE_S`` without publishing the entry."""
 
 
+def host_cache_active() -> bool:
+    """Whether durable reads of this host go through the shared cache
+    (the CACHE_DIR knob is set).  The fan-out restore composes with it: a
+    one-host slice under the cache already costs one durable GET per
+    object, so it skips the redistribution."""
+    return knobs.get_cache_dir() is not None
+
+
 def _cacheable(path: str) -> bool:
     # commit markers (.snapshot_metadata, .snapshot_obsrecord) are the
     # mutable absent→present reads; everything else in a snapshot is

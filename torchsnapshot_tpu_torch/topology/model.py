@@ -15,14 +15,17 @@ The JAX package also probes the local jax device's multislice
 ``slice_index`` (``_jax_slice_hint``); a torch process has no such
 device attribute, so the port's slice hint comes from the knob (or the
 caller) alone.  ``replica_candidate_order`` is the tier's replica
-placement rule (``tier/plugin.py``).  The fan-out restore and the
-topology-aware writer election are ROADMAP queue A item 5.
+placement rule (``tier/plugin.py``); ``designated_reader`` and
+``reader_candidates`` are the fan-out restore's (``fanout.py``), and the
+writer elections of ``partitioner.py`` and ``preparers/sharded.py``
+balance over ``slice_of``/``host_of``.
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import zlib
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from .. import knobs, obs
@@ -142,6 +145,38 @@ class Topology:
     @property
     def host_id(self) -> int:
         return self.host_of[self.rank]
+
+    def ranks_in_slice(self, slice_id: int) -> Tuple[int, ...]:
+        return tuple(r for r in range(self.world_size) if self.slice_of[r] == slice_id)
+
+    def hosts_in_slice(self, slice_id: int) -> Tuple[int, ...]:
+        return tuple(sorted({self.host_of[r] for r in self.ranks_in_slice(slice_id)}))
+
+    @property
+    def multislice(self) -> bool:
+        return self.num_slices > 1
+
+    def co_located(self, a: int, b: int) -> bool:
+        return self.host_of[a] == self.host_of[b]
+
+    def designated_reader(self, key: str, slice_id: Optional[int] = None) -> int:
+        """The rank of ``slice_id`` (default: this rank's) that reads
+        ``key`` from the durable tier for its slice; alike on every
+        process, consecutive keys spread over the slice's hosts."""
+        return self.reader_candidates(key, slice_id)[0]
+
+    def reader_candidates(
+        self, key: str, slice_id: Optional[int] = None
+    ) -> Tuple[int, ...]:
+        """The slice's failover order for ``key``: every member in the
+        stable (host, rank) order, rotated by the key's crc32 so the
+        designated reader comes first.  When it dies mid-restore the
+        siblings agree with no communication that ``candidates[1]`` takes
+        over."""
+        members = self.ranks_in_slice(self.slice_id if slice_id is None else slice_id)
+        ordered = sorted(members, key=lambda r: (self.host_of[r], r))
+        idx = zlib.crc32(key.encode()) % len(ordered)
+        return tuple(ordered[idx:] + ordered[:idx])
 
     def replica_preference(self, rank: Optional[int] = None) -> Tuple[int, ...]:
         """Every OTHER rank, ordered best-replica-target-first for
