@@ -74,8 +74,8 @@ is no card or anything below fails.  In order:
       goodput (time to unblock, durability lag).  Each take's
       ``.snapshot_obsrecord`` must read back with ``bytes_written`` equal
       to the take's own counter delta.  Then the tracer's cost: sync
-      takes under TRACE=0 and TRACE=1, 2 each in alternating order,
-      medians and ranges;
+      takes under TRACE=0 and TRACE=1, ``TRACE_COST_REPEATS`` each in
+      alternating order, medians and ranges;
    a4. stripe_codec (after a3, on a's state): the stripe engine and the
       codec layer.  Striping is on at its defaults on every path (objects
       of 128 MiB or more move as concurrent 64 MiB parts); here a sync
@@ -115,9 +115,9 @@ is no card or anything below fails.  In order:
       tensor bitwise equal to the clone, and the step after the restore
       gives the same loss bitwise.  Before that restore, with extra
       ballast pushing the device-copy budget below half the smallest
-      object at the stripe threshold, 4 more ``async_take``s of the
-      state (default stripes and STRIPE_MIN_OBJECT_SIZE_BYTES=0,
-      alternating): the large leaves take blocking pinned copies and
+      object at the stripe threshold, 2 more ``async_take``s of the
+      state (default stripes and STRIPE_MIN_OBJECT_SIZE_BYTES=0; 4,
+      alternating, before the continuous path came): the large leaves take blocking pinned copies and
       part-stream from them at the default (``storage.stripe.
       streamed_writes`` > 0), each snapshot's digests equal a sync
       take's; unblock and durability lag per setting;
@@ -167,7 +167,8 @@ is no card or anything below fails.  In order:
       bitwise.  Then ``restore_latest`` into a zeroed model and
       optimizer (bitwise, K2, the next loss bitwise); a warm start with
       ``restore(paths=["model/**"])`` (the optimizer keeps its fresh
-      state); the model restored with ``priority`` and without, 2 runs
+      state); the model restored with ``priority`` and without,
+      ``LIFECYCLE_REPEATS`` runs
       each alternating, traced: when the first class's consumes ended
       against the whole restore; f32 moments (a mixed-precision
       master's) taken through a ``leaf_transform`` to bf16 and restored
@@ -194,8 +195,9 @@ is no card or anything below fails.  In order:
       2, ``fsck()`` rebuilding a deleted ``index.json`` with the same live
       keys, ``python -m torchsnapshot_tpu_torch cas <pool> --json``.  Then
       mapped against copying reads on a's state: where the work
-      directory lives and how fast a mapped file reads there, 2 restores
-      under MMAP=1 and 2 under MMAP=0, alternating, each bitwise into a
+      directory lives and how fast a mapped file reads there,
+      ``MMAP_REPEATS`` restores under MMAP=1 and as many under MMAP=0,
+      alternating, each bitwise into a
       zeroed state (``storage.mmap.reads`` equal to the restore's reads
       under MMAP=1, 0 under MMAP=0); ``materialize(device="cpu")``
       returning tensors over the mappings (a written one leaves its file
@@ -246,8 +248,10 @@ is no card or anything below fails.  In order:
       bitwise).  Then ``write_torchsnapshot`` of the state from the card
       into the work directory and ``read_torchsnapshot`` back onto it,
       bitwise; ``python -m torchsnapshot_tpu_torch convert`` in a process
-      each way: the native result restored into a zeroed state (K2,
-      bitwise), the ``--to-reference`` result read back bitwise.  It
+      each way, the two started together (``--to-reference`` reads a
+      native snapshot of the same tree taken here): the native result
+      restored into a zeroed state (K2, bitwise), the ``--to-reference``
+      result read back bitwise.  It
       prints MemAvailable before and after, each step's seconds and GB/s,
       the fakes' calls and the K1/K2/K6 launches;
    k. fleet (after j): two processes on the card (``--fleet-child``; gloo
@@ -258,10 +262,10 @@ is no card or anything below fails.  In order:
       40-60% of the replicated bytes, slice → host → rank; K1), a
       fan-out restore at world 2 into differently seeded state, bitwise:
       summed over the ranks, ``topology.fanout_durable_reads`` and
-      ``durable_gets_saved`` equal the shared objects and
-      ``fanout_bytes_redistributed`` their bytes, the engine is
-      ``collective`` (gloo broadcasts of CUDA tensors), bytes moved on it,
-      no fallback; then a take in which rank 1 dies (``os._exit``) where
+      ``durable_gets_saved`` equal the shared objects, the engine is
+      ``collective`` (gloo broadcasts of CUDA tensors) and
+      ``transport.collective_bytes`` twice the shared bytes (the source's
+      broadcast and the sibling's receipt), no fallback; then a take in which rank 1 dies (``os._exit``) where
       it would publish its commit payload, under ``LIVENESS_TIMEOUT_S`` 2
       and ``LIVENESS_INTERVAL_S`` 0.2: rank 0 commits degraded within
       30 s, ``takeover.objects``/``bytes`` equal to rank 1's elected
@@ -272,6 +276,28 @@ is no card or anything below fails.  In order:
       continuous mirror of rank 1 written through ``continuous/store.py``,
       ``repair_degraded``, ``verify`` complete, the healed leaf read back
       and read again into an f32 template under a 1 MiB budget (K6).
+   l. continuous (after k; no kernel: the leaves reach the host through
+      ``encode_leaf``'s copies): the lifecycle fine-tune under one
+      ``ContinuousCheckpointer``, the local store under ``/dev/shm`` when
+      it has room (else the work directory and ``retain_steps=1``), a
+      standby host root and a durable root on the work directory,
+      promotion every 2 steps, ``TRANSPORT=collective`` (local mode: each
+      chunk bound for the standby takes ``device_move``'s round trip
+      through the card).  Four steps, each printing its blocked seconds
+      (and the share in ``encode_leaf``'s copies to the host), its
+      replication lag, the training step's seconds beside the previous
+      replication, chunks and bytes replicated and skipped, and the
+      device moves with their GB/s; ``notify_preemption()`` with step 3's
+      replication in flight must leave the standby's HEAD at step 3.
+      Checks: from step 2 on at least the frozen 524,288,000 bytes
+      skipped a step, no replication error, device moves equal to the
+      chunks replicated and no transport fallback, the last promoted step
+      3.  Then ``restore_latest`` into a fresh model and optimizer on the
+      card (source ``local``, step 4, every tensor equal to step 4's
+      clone, the next loss bitwise) with ``python -m
+      torchsnapshot_tpu_torch stats <host root> --json`` in a process
+      beside it (exit 0, head step 4), and, with the local and standby
+      roots deleted, again (source ``durable``, step 3, bitwise).
 
 Every kernel must have launched on these paths, and each path on the
 kernels it runs.  The line before the last is the card; the line before
@@ -1311,7 +1337,7 @@ def phase_stripe_codec(cfg, model, opt, work):
 
 
 TRACE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "traces")
-TRACE_COST_REPEATS = 2
+TRACE_COST_REPEATS = 1  # 2 until the continuous path came
 # span name -> its label on an operation's critical path (a storage write
 # or read whose parent is the operation itself, or no span on the async
 # commit thread, is its metadata commit or read; the pipeline's own sit
@@ -1595,7 +1621,8 @@ def step_peak(model, opt, tokens):
     return loss, torch.cuda.max_memory_reserved()
 
 
-STREAM_SETTINGS = ("striped", "STRIPE_MIN_OBJECT_SIZE_BYTES=0", "STRIPE_MIN_OBJECT_SIZE_BYTES=0", "striped")
+# one take each; (striped, 0, 0, striped) until the continuous path came
+STREAM_SETTINGS = ("striped", "STRIPE_MIN_OBJECT_SIZE_BYTES=0")
 
 
 def pressure_async_takes(model, opt, root):
@@ -1604,8 +1631,8 @@ def pressure_async_takes(model, opt, root):
     ballast grown until the budget async_take reads is that low), so
     every tensor takes a blocking pinned copy and the large leaves
     part-stream from those copies: at the default stripe knobs and at
-    STRIPE_MIN_OBJECT_SIZE_BYTES=0, alternating, each waited for and
-    deleted.  Each snapshot's digests (every entry's crc32, every
+    STRIPE_MIN_OBJECT_SIZE_BYTES=0 (``STREAM_SETTINGS``), each waited for
+    and deleted.  Each snapshot's digests (every entry's crc32, every
     object's crc32, adler32 and size) must equal those of a sync take of
     the same state; the default runs must stream, the others must not."""
     from torchsnapshot_tpu_torch import knobs
@@ -2265,9 +2292,11 @@ def phase_fleet(cfg, work):
     check(total[tts.obs.FANOUT_DURABLE_READS] == n_shared, f"{total[tts.obs.FANOUT_DURABLE_READS]} durable "
           f"reads of {n_shared} shared objects")
     check(total[tts.obs.FANOUT_DURABLE_GETS_SAVED] == n_shared, "durable reads saved differ from the shared objects")
-    check(total[tts.obs.FANOUT_BYTES_REDISTRIBUTED] == shared_bytes,
-          f"{total[tts.obs.FANOUT_BYTES_REDISTRIBUTED]} bytes redistributed of {shared_bytes}")
-    check(total[tts.obs.TRANSPORT_COLLECTIVE_BYTES] > 0, "no byte moved on the collective engine")
+    # each shared payload is counted once by its source's broadcast and
+    # once by the sibling that keeps it (both packages count so)
+    check(total[tts.obs.TRANSPORT_COLLECTIVE_BYTES] == 2 * shared_bytes,
+          f"{total[tts.obs.TRANSPORT_COLLECTIVE_BYTES]} bytes on the collective engine, "
+          f"not twice the {shared_bytes} shared bytes")
     print(f"fleet: {n_shared} shared objects ({shared_bytes} bytes) read once for the slice, "
           f"{total[tts.obs.TRANSPORT_COLLECTIVE_BYTES]} bytes on the collective engine, 0 fallbacks")
     tk = r0["takeover"]
@@ -2582,10 +2611,10 @@ def phase_sharded(cfg, work):
 
 
 LIFECYCLE_PRIORITY = ["model/embed*", "model/layer0.*"]
-LIFECYCLE_REPEATS = 2
+LIFECYCLE_REPEATS = 1  # 2 until the continuous path came
 # phase_lifecycle's save seconds, printed beside cas_mmap's
 LIFECYCLE_SAVE_S = {}
-MMAP_REPEATS = 2  # restores per MMAP setting, alternating
+MMAP_REPEATS = 1  # restores per MMAP setting, alternating; 2 until the continuous path came
 
 
 def fine_tune_state(cfg, seed):
@@ -3713,14 +3742,18 @@ def phase_cloud_interop(cfg, work):
     del got
     gc.collect()
     native, back = os.path.join(work, "cloud_native"), os.path.join(work, "cloud_back")
-    repo = os.path.dirname(os.path.abspath(__file__))
+    # --to-reference reads a native snapshot of the same tree, taken here
+    # as convert would take it, so the two processes start together
+    native_src = os.path.join(work, "cloud_native_src")
+    tts.Snapshot.take(native_src, {k: tts.PyTreeState(v) for k, v in state_tree(model, opt).items()})
+    done = finish_clis(start_clis((
+        ("to_native", ["convert", ref, native, "--device", "cuda"]),
+        ("to_reference", ["convert", "--to-reference", native_src, back, "--device", "cuda"]),
+    ), os.path.join(work, "cloud_cli")))
     cli_s = {}
-    for argv in (["convert", ref, native, "--device", "cuda"], ["convert", "--to-reference", native, back, "--device", "cuda"]):
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", "torchsnapshot_tpu_torch", *argv], cwd=repo,
-                              capture_output=True, text=True, timeout=600)
-        cli_s[argv[1]] = time.perf_counter() - t0
-        check(proc.returncode == 0, f"{' '.join(argv)} exited {proc.returncode}: {proc.stderr[-2000:]}")
+    for name, (rc, _out, err, secs) in done.items():
+        cli_s[name] = secs
+        check(rc == 0, f"convert {name} exited {rc}: {err[-2000:]}")
     # the converted native snapshot into a differently seeded state
     zero_state(model2, opt2)
     templates = {"model": tts.PyTreeState(model2.state_dict()),
@@ -3737,16 +3770,235 @@ def phase_cloud_interop(cfg, work):
     print(f"cloud_interop original format (the work directory, no object store, no network measured; {card}): "
           f"write_torchsnapshot from the card {w_s:.3f} s "
           f"({nb / w_s / 1e9:.3f} GB/s), read_torchsnapshot onto the card {r_s:.3f} s ({nb / r_s / 1e9:.3f} GB/s), "
-          f"bitwise; python -m torchsnapshot_tpu_torch convert {cli_s[ref]:.1f} s ({nb / cli_s[ref] / 1e9:.3f} GB/s) "
-          f"and convert --to-reference {cli_s['--to-reference']:.1f} s ({nb / cli_s['--to-reference'] / 1e9:.3f} GB/s; "
-          f"processes on the card, start-up included); the native result restored bitwise "
+          f"bitwise; python -m torchsnapshot_tpu_torch convert {cli_s['to_native']:.1f} s ({nb / cli_s['to_native'] / 1e9:.3f} GB/s) "
+          f"and convert --to-reference {cli_s['to_reference']:.1f} s ({nb / cli_s['to_reference'] / 1e9:.3f} GB/s; "
+          f"processes on the card started together, start-up included); the native result restored bitwise "
           f"{native_s:.3f} s ({nb / native_s / 1e9:.3f} GB/s, K2 launches {launches['slab_unpack'] - k2}), the exported one read back bitwise")
     del model, opt, model2, opt2, app, app2, templates
-    for p in (ref, native, back):
+    for p in (ref, native, native_src, back):
         shutil.rmtree(p, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
     print(f"cloud_interop: MemAvailable {mem_available()} bytes after the path ({fake_note})")
+
+
+CONTINUOUS_SEED = 71
+CONTINUOUS_STEPS = 4
+CONTINUOUS_NOTICE_STEP = 3  # notify_preemption() right after this step
+
+
+def hist_window(name, before):
+    """(count, sum) a histogram gained since ``before`` = (count, sum)."""
+    h = tts.obs.histogram(name).to_dict()
+    return h["count"] - before[0], h["sum"] - before[1]
+
+
+def phase_continuous(cfg, work):
+    """The continuous per-step loop at full width (path l): the lifecycle
+    fine-tune (the embedding and the LM head frozen) under one
+    ``ContinuousCheckpointer``: the local store under ``/dev/shm`` when it
+    has room, a standby host root and a durable root on the work
+    directory, the collective transport (its device round trip carries
+    every chunk bound for the standby), promotion every 2 steps.  Four
+    steps, a preemption notice with step 3's replication in flight, then
+    recoveries from the local store and, with the local and standby roots
+    gone, from the durable one, each into a freshly built model and
+    optimizer on the card, bitwise; the CLI's ``stats`` of the host root
+    in a process beside the local recovery.  No kernel runs here: the
+    leaves reach the host through ``encode_leaf``'s copies."""
+    import threading
+
+    from torchsnapshot_tpu_torch.continuous import ContinuousStore
+    from torchsnapshot_tpu_torch.continuous import loop as loop_mod
+    from torchsnapshot_tpu_torch.resilience import preemption
+    from torchsnapshot_tpu_torch.tier.promoter import drain_promotions, get_promoter
+    from torchsnapshot_tpu_torch.transport.collective import CollectiveTransport
+
+    # timers around the blocked window's copies to the host and the
+    # replica leg's round trips (the loop's own counters time neither)
+    timing = {"encode_s": 0.0, "moves": []}
+    timing_lock = threading.Lock()
+    real_encode, real_move = loop_mod.encode_leaf, CollectiveTransport.device_move
+
+    def timed_encode(leaf):
+        t0 = time.perf_counter()
+        out = real_encode(leaf)
+        timing["encode_s"] += time.perf_counter() - t0
+        return out
+
+    def timed_move(self, buf):
+        t0 = time.perf_counter()
+        out = real_move(self, buf)
+        with timing_lock:
+            timing["moves"].append((t0, time.perf_counter(), len(out)))
+        return out
+
+    model, opt = fine_tune_state(cfg, seed=CONTINUOUS_SEED)
+    meta = tts.StateDict(step=0)
+    app = {"model": model, "optim": opt, "meta": meta}
+    g = torch.Generator(device="cuda").manual_seed(CONTINUOUS_SEED + 1)
+
+    def batch():
+        return torch.randint(0, cfg.vocab, (1, 129), device="cuda", generator=g)
+
+    fine_tune_step(model, opt, batch())  # the optimizer's state exists
+    frozen_bytes = nbytes(model.embed.weight) + nbytes(model.lm_head.weight)
+    total = state_bytes(model, opt)
+    # the local store holds retain_steps complete steps plus the one landing
+    local_host, mount, fstype = local_root(work, 4 * total, "continuous_local")
+    retain = 2 if local_host.startswith("/dev/shm") else 1
+    standby = os.path.join(work, "continuous_standby")
+    durable = os.path.join(work, "continuous_durable")
+    work_mount, work_fs = mount_of(work)
+    print(f"continuous: state {total} bytes ({frozen_bytes} frozen); local store on {mount} ({fstype}), "
+          f"retain_steps={retain} ({'/dev/shm has room' if retain == 2 else '/dev/shm lacks room'}); "
+          f"standby and durable roots on the work directory ({work_mount}, {work_fs})")
+    names = (tts.obs.CONTINUOUS_BYTES_REPLICATED, tts.obs.CONTINUOUS_BYTES_SKIPPED,
+             tts.obs.CONTINUOUS_CHUNKS_REPLICATED, tts.obs.CONTINUOUS_CHUNKS_SKIPPED,
+             tts.obs.CONTINUOUS_REPLICATION_ERRORS, tts.obs.TRANSPORT_DEVICE_MOVES,
+             tts.obs.TRANSPORT_COLLECTIVE_BYTES, tts.obs.TRANSPORT_FALLBACKS, tts.obs.CONTINUOUS_PREEMPTION_DRAINS)
+    hists = (tts.obs.CONTINUOUS_STEP_OVERHEAD_S, tts.obs.CONTINUOUS_REPLICATION_LAG_S)
+    path_before = _counter_snapshot()
+    clones, rows = {}, []
+    loop_mod.encode_leaf, CollectiveTransport.device_move = timed_encode, timed_move
+    with tts.knobs.override_transport("collective"):
+        cc = tts.ContinuousCheckpointer(local_host, durable_root=durable, replica_roots=[standby],
+                                        promote_every_n=2, retain_steps=retain)
+        try:
+            pending = None  # (step, counters, histograms, blocked s, D2H s, moves so far, train s)
+            train_s = None
+            for step in range(1, CONTINUOUS_STEPS + 1):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fine_tune_step(model, opt, batch())
+                meta["step"] = step
+                torch.cuda.synchronize()
+                train_s = time.perf_counter() - t0  # beside the previous step's replication
+                # the previous step's replication, left running beside this
+                # training step, is waited for here: step()'s own window
+                # then holds no join
+                t0 = time.perf_counter()
+                cc.drain()
+                wait_s = time.perf_counter() - t0
+                if pending is not None:
+                    rows.append(pending + (train_s, counter_delta(pending[1], names),
+                                           {h: hist_window(h, pending[2][h]) for h in hists}, wait_s))
+                before = _counter_snapshot()
+                hbefore = {h: hist_window(h, (0, 0.0)) for h in hists}
+                encode0, moves0 = timing["encode_s"], len(timing["moves"])
+                promoting = get_promoter()._queue.unfinished_tasks  # promotion jobs beside the window
+                t0 = time.perf_counter()
+                check(cc.step(app, step), f"step {step} was not recorded")
+                blocked = time.perf_counter() - t0
+                clones[step] = clone_state(model, opt, meta)
+                for old in [s for s in clones if s not in (3, step)]:
+                    del clones[old]
+                pending = (step, before, hbefore, blocked, timing["encode_s"] - encode0, moves0, promoting)
+                if step == CONTINUOUS_NOTICE_STEP:
+                    # the notice with this step's replication in flight
+                    t0 = time.perf_counter()
+                    drained = preemption.notify_preemption()
+                    notice_s = time.perf_counter() - t0
+                    head = ContinuousStore(os.path.join(standby, "r0")).read_head()
+                    check(drained == 1 and head is not None and head["step"] == step,
+                          f"the preemption drain left the standby at {head and head['step']} ({drained} drains)")
+                    print(f"continuous: preemption notice after step {step}: {drained} drain completed in "
+                          f"{notice_s:.3f} s (grace {tts.knobs.get_continuous_grace_s()} s); standby HEAD names "
+                          f"step {head['step']}")
+            t0 = time.perf_counter()
+            cc.drain()
+            rows.append(pending + (None, counter_delta(pending[1], names),
+                                   {h: hist_window(h, pending[2][h]) for h in hists}, time.perf_counter() - t0))
+            # the local store is final: the CLI's stats of the host root, in
+            # a process beside the promotion's end and the recovery
+            stats_cli = start_clis((("stats", ["stats", local_host, "--json"]),),
+                                   os.path.join(work, "continuous_cli"))
+            drain_promotions(timeout_s=600)
+            durable_step = cc.last_durable_step()
+            summary = cc.summary()
+        finally:
+            cc.close()
+            preemption.uninstall()
+            loop_mod.encode_leaf, CollectiveTransport.device_move = real_encode, real_move
+    moves = timing["moves"]
+    for i, (step, _, _, blocked, encode_s, moves0, promoting, next_train_s, d, h, wait_s) in enumerate(rows):
+        over_n, over_s = h[tts.obs.CONTINUOUS_STEP_OVERHEAD_S]
+        lag_n, lag_s = h[tts.obs.CONTINUOUS_REPLICATION_LAG_S]
+        mine = moves[moves0:rows[i + 1][5] if i + 1 < len(rows) else len(moves)]
+        moved = sum(n for _, _, n in mine)
+        busy = sum(b - a for a, b, _ in mine)
+        span = (max(b for _, b, _ in mine) - min(a for a, _, _ in mine)) if mine else 0.0
+        beside = f"the next training step {next_train_s:.3f} s beside it, " if next_train_s is not None else ""
+        print(f"continuous step {step}: blocked {blocked:.3f} s (step_overhead_s {over_s:.3f} s over {over_n}; "
+              f"encode_leaf's copies to the host {encode_s:.3f} s of it; {promoting} promotion jobs queued or "
+              f"running as it began); replication lag {lag_s:.3f} s "
+              f"({lag_n} job), {beside}{wait_s:.3f} s of it still running after that; replicated "
+              f"{d[tts.obs.CONTINUOUS_CHUNKS_REPLICATED]} chunks, {d[tts.obs.CONTINUOUS_BYTES_REPLICATED]} bytes "
+              f"over both targets; skipped {d[tts.obs.CONTINUOUS_CHUNKS_SKIPPED]} chunks, "
+              f"{d[tts.obs.CONTINUOUS_BYTES_SKIPPED]} bytes; {d[tts.obs.TRANSPORT_DEVICE_MOVES]} device moves, "
+              f"{moved} bytes in {span:.3f} s ({moved / max(span, 1e-9) / 1e9:.2f} GB/s), "
+              f"{moved / max(busy, 1e-9) / 1e9:.2f} GB/s a call ({busy:.3f} s in calls)")
+        if step >= 2:
+            check(d[tts.obs.CONTINUOUS_BYTES_SKIPPED] >= frozen_bytes,
+                  f"step {step} skipped {d[tts.obs.CONTINUOUS_BYTES_SKIPPED]} < the frozen {frozen_bytes} bytes")
+    whole = counter_delta(path_before, names)
+    check(whole[tts.obs.CONTINUOUS_REPLICATION_ERRORS] == 0,
+          f"{whole[tts.obs.CONTINUOUS_REPLICATION_ERRORS]} replication errors")
+    check(whole[tts.obs.TRANSPORT_DEVICE_MOVES] == whole[tts.obs.CONTINUOUS_CHUNKS_REPLICATED] > 0
+          and whole[tts.obs.TRANSPORT_FALLBACKS] == 0,
+          f"device moves {whole[tts.obs.TRANSPORT_DEVICE_MOVES]} against "
+          f"{whole[tts.obs.CONTINUOUS_CHUNKS_REPLICATED]} chunks replicated, "
+          f"{whole[tts.obs.TRANSPORT_FALLBACKS]} fallbacks")
+    check(durable_step == 3, f"the last promoted step is {durable_step}, not 3")
+    print(f"continuous: summary {json.dumps(summary)}; path counters {json.dumps(whole)}")
+
+    # recover from the local store into a fresh model and optimizer
+    model2, opt2 = fine_tune_state(cfg, seed=CONTINUOUS_SEED + 2)
+    fine_tune_step(model2, opt2, batch())
+    meta2 = tts.StateDict(step=-1)
+    app2 = {"model": model2, "optim": opt2, "meta": meta2}
+    cc2 = tts.ContinuousCheckpointer(local_host, durable_root=durable, replica_roots=[standby],
+                                     preemption_hook=False)
+    try:
+        res = cc2.restore_latest(app2)
+        differs = state_differs(clones[CONTINUOUS_STEPS], model2, opt2, meta2)
+        check(res is not None and res["source"] == "local" and res["step"] == CONTINUOUS_STEPS and differs is None,
+              f"local recovery {res}: {differs}")
+        check(all(v.is_cuda for v in model2.state_dict().values()), "the recovered model is not on the card")
+        tokens = batch()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = fine_tune_step(model, opt, tokens)
+        torch.cuda.synchronize()
+        alone_s = time.perf_counter() - t0
+        loss2 = fine_tune_step(model2, opt2, tokens)
+        check(torch.equal(loss, loss2), f"the recovered next loss {loss2.item()} != {loss.item()}")
+        print(f"continuous: recovered step {res['step']} from {res['source']} in {res['seconds']:.3f} s, bitwise; "
+              f"next loss {loss.item():.6f} bitwise; that training step alone {alone_s:.3f} s")
+        rc, out, err, secs = finish_clis(stats_cli)["stats"]
+        check(rc == 0, f"stats exited {rc}: {err[-500:]}")
+        roll = json.loads(out)["stores"]["r0"]
+        check(roll["head_step"] == CONTINUOUS_STEPS and CONTINUOUS_STEPS in roll["steps_resident"],
+              f"stats reported {roll}")
+        print(f"continuous: `stats {local_host} --json` exit 0 in {secs} s beside the recovery: head step "
+              f"{roll['head_step']}, steps resident {roll['steps_resident']}, {roll['pool_chunks']} chunks, "
+              f"{roll['pool_bytes']} bytes")
+        # the host and its standby both gone: the durable mirror
+        shutil.rmtree(local_host)
+        shutil.rmtree(standby)
+        res = cc2.restore_latest(app2)
+        differs = state_differs(clones[durable_step], model2, opt2, meta2)
+        check(res is not None and res["source"] == "durable" and res["step"] == durable_step and differs is None,
+              f"durable recovery {res}: {differs}")
+        print(f"continuous: with the local and standby roots deleted, recovered step {res['step']} from "
+              f"{res['source']} in {res['seconds']:.3f} s, bitwise")
+    finally:
+        cc2.close()
+        shutil.rmtree(durable, ignore_errors=True)
+        shutil.rmtree(standby, ignore_errors=True)
+        # local_root's own directory (under /dev/shm) or the local root
+        shutil.rmtree(os.path.dirname(local_host) if retain == 2 else local_host, ignore_errors=True)
+    del model2, opt2, clones
 
 
 def main():
@@ -3874,6 +4126,9 @@ def main():
         gc.collect()
         torch.cuda.empty_cache()
         run_path("fleet", ("slab_pack", "slab_unpack", "tile_update"), lambda: phase_fleet(cfg, work))
+        gc.collect()
+        torch.cuda.empty_cache()
+        run_path("continuous", (), lambda: phase_continuous(cfg, work))
 
     print(json.dumps({"kernels": list(records.values())}))
     print(card)

@@ -180,10 +180,22 @@ def test_stats_doctor_and_cas_print_what_jax_prints(tmp_path, capsys):
         f.write(b"x")
     for argv in (["cas", f"{root}/cas"], ["cas", f"{root}/cas", "--json"]):
         assert _both(argv, capsys)[0] == 1
-    # fleet roots are not ported
-    os.makedirs(tmp_path / "cont" / "steps")
-    rc, out, err = _run(port_main, ["stats", str(tmp_path / "cont")], capsys)
-    assert rc == 1 and out == "" and "queue A item 5" in err
+    # a continuous host root and one of its stores: the JAX CLI's rollup
+    from torchsnapshot_tpu_torch.continuous import ContinuousStore
+
+    cont = tmp_path / "cont"
+    store = ContinuousStore(str(cont / "r0"))
+    store.write_state(3, {"app/w": torch.arange(5000, dtype=torch.float32)}, chunk_size=4096)
+    store.sync_close()
+    for path in (str(cont), str(cont / "r0")):
+        for argv in (["stats", path], ["stats", path, "--json"]):
+            rc, out, _ = _both(argv, capsys)
+            assert rc == 0 and "head" in out
+    # a publication root is not ported
+    os.makedirs(tmp_path / "pub")
+    (tmp_path / "pub" / ".snapshot_metadata").write_text('{"format": "tsnp-publication-head"}')
+    rc, out, err = _run(port_main, ["stats", str(tmp_path / "pub")], capsys)
+    assert rc == 1 and out == "" and "queue A item 5.4" in err
 
 
 _READ_PATH = ("materialize", "pipeline/budget_admission", "pipeline/io", "pipeline/consume",

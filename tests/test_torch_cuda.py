@@ -1198,3 +1198,81 @@ def test_continuous_decode_leaf_onto_cuda(cuda):
         rec, view = encode_leaf(leaf)
         back = decode_leaf(rec, bytes(view), device=cuda)
         assert back.is_cuda and back.dtype == leaf.dtype and torch.equal(back.cpu(), leaf)
+
+
+def test_device_move_on_the_card_round_trips_on_a_side_stream(cuda):
+    """The collective engine's ``device_move`` in local mode: parts onto
+    the card and back on the engine's own stream (not the default one),
+    bitwise, one move counted."""
+    from torchsnapshot_tpu_torch import knobs, obs
+    from torchsnapshot_tpu_torch.coordination import LocalCoordinator
+    from torchsnapshot_tpu_torch.transport import resolve_transport
+
+    data = np.random.default_rng(1).integers(0, 256, 5 * 4096 + 3, dtype=np.uint8).tobytes()
+    with knobs.override_transport("collective"), knobs.override_transport_part_bytes(4096):
+        t = resolve_transport(LocalCoordinator(), device=cuda)
+        assert t.engine == "collective" and t.mode == "local"
+        moves0 = obs.counter(obs.TRANSPORT_DEVICE_MOVES).value
+        try:
+            assert bytes(t.device_move(data)) == data
+        finally:
+            t.close()
+    assert obs.counter(obs.TRANSPORT_DEVICE_MOVES).value == moves0 + 1
+    assert t._stream is not None and t._stream != torch.cuda.default_stream(cuda)
+
+
+def test_continuous_loop_over_cuda_state_recovered_bitwise_on_cuda(cuda, tmp_path):
+    """A small model and AdamW on the card under ``ContinuousCheckpointer``
+    with the collective transport: the peer's chunks take the device round
+    trip (one move per chunk replicated), the state is mutated right after
+    ``step()``, and ``restore_latest`` brings the step back onto the card
+    bitwise, the optimizer's ``step`` staying on the CPU."""
+    import torchsnapshot_tpu_torch as tts
+    from torchsnapshot_tpu_torch import knobs, obs
+    from torchsnapshot_tpu_torch.resilience import preemption
+
+    def build(seed):
+        torch.manual_seed(seed)
+        model = torch.nn.Sequential(torch.nn.Linear(64, 256), torch.nn.Linear(256, 64)).to(cuda)
+        opt = torch.optim.AdamW(model.parameters(), lr=1e-3)
+        model(torch.randn(4, 64, device=cuda)).square().mean().backward()
+        opt.step()
+        return model, opt
+
+    model, opt = build(0)
+    counters = ("transport.device_moves", "continuous.chunks_replicated", "transport.fallbacks")
+    before = {n: obs.counter(n).value for n in counters}
+    with knobs.override_transport("collective"):
+        cc = tts.ContinuousCheckpointer(str(tmp_path / "local"), replica_roots=[str(tmp_path / "peer")],
+                                        chunk_size_bytes=16384, preemption_hook=False)
+        try:
+            for step in (1, 2):
+                model(torch.randn(4, 64, device=cuda)).square().mean().backward()
+                opt.step()
+                assert cc.step({"model": model, "optim": opt}, step)
+                want = ({k: v.clone() for k, v in model.state_dict().items()},
+                        {i: {k: v.clone() for k, v in st.items()} for i, st in opt.state_dict()["state"].items()})
+                with torch.no_grad():
+                    for p in model.parameters():
+                        p.add_(1.0)  # right after step(), mid-replication
+            cc.drain()
+        finally:
+            cc.close()
+            preemption.uninstall()
+    delta = {n: obs.counter(n).value - before[n] for n in counters}
+    assert delta["transport.device_moves"] == delta["continuous.chunks_replicated"] > 0
+    assert delta["transport.fallbacks"] == 0
+    model2, opt2 = build(1)
+    cc2 = tts.ContinuousCheckpointer(str(tmp_path / "local"), replica_roots=[str(tmp_path / "peer")],
+                                     preemption_hook=False)
+    try:
+        res = cc2.restore_latest({"model": model2, "optim": opt2})
+    finally:
+        cc2.close()
+    assert res["step"] == 2 and res["source"] == "local"
+    for k, v in model2.state_dict().items():
+        assert v.is_cuda and torch.equal(v, want[0][k]), k
+    for i, st in opt2.state_dict()["state"].items():
+        assert st["step"].device.type == "cpu" and st["exp_avg"].is_cuda
+        for k, v in st.items():
+            assert torch.equal(v, want[1][i][k]), (i, k)

@@ -337,3 +337,76 @@ def test_flight_record_stamps_and_slice_rollup_equal_jax(tmp_path, monkeypatch):
     ]
     assert tagg._topology_rollup(payloads) == jagg._topology_rollup(payloads)
     assert tagg._topology_rollup(payloads)["slices"]["0"]["ranks"] == [0, 1]
+
+
+class _AcceptingSession:
+    """A collective session stub that covers every key and accepts every
+    offer (the source's branch where the session owns delivery)."""
+
+    def __init__(self):
+        self.offers = []
+
+    def covers(self, key):
+        return True
+
+    def offer(self, key, data, kv_prefix):
+        self.offers.append((key, len(data)))
+        return True
+
+    def decline(self, key):
+        raise AssertionError("a whole read is never declined")
+
+
+class _BytesPlugin:
+    """An inner plugin serving one payload per path."""
+
+    def __init__(self, payloads):
+        self.payloads = payloads
+
+    async def read(self, read_io):
+        read_io.buf = bytes(self.payloads[read_io.path])
+
+
+def test_collective_session_offer_counts_as_the_jax_package(tmp_path):
+    """A designated reader whose payloads a collective session accepts
+    advances the fan-out counters exactly as the JAX package does: one
+    durable read each, and no publication or redistributed byte of its
+    own (the session delivers)."""
+    import asyncio
+
+    import torchsnapshot_tpu.io_types as jio
+    import torchsnapshot_tpu.obs as jobs
+    import torchsnapshot_tpu.topology.fanout as jfan
+    import torchsnapshot_tpu_torch.io_types as tio
+    import torchsnapshot_tpu_torch.topology.fanout as tfan
+
+    rng = np.random.default_rng(16)
+    payloads = {f"0/obj_{i}": rng.integers(0, 256, 1000 + 37 * i, dtype=np.uint8).tobytes()
+                for i in range(6)}
+    names = ("topology.fanout_durable_reads", "topology.fanout_publishes",
+             "topology.fanout_bytes_redistributed", "topology.fanout_fallbacks")
+    coord = namedtuple("_Coord", "rank world_size")(0, 2)
+    deltas = {}
+    for label, fan, obs_mod, topo_mod, io_mod in (
+        ("port", tfan, tts.obs, ttopo, tio),
+        ("jax", jfan, jobs, jtopo, jio),
+    ):
+        topo = topo_mod.Topology.from_spec("0,0", 0, 2)
+        mine = [p for p in payloads if topo.designated_reader(p) == 0]
+        assert mine, "rank 0 reads none of the paths"
+        plugin = fan.FanoutReadPlugin(_BytesPlugin(payloads), coord, topo, "u16", mine)
+        session = _AcceptingSession()
+        plugin.transport_session = session
+        before = {n: obs_mod.counter(n).value for n in names}
+
+        async def _reads():
+            for p in mine:
+                rio = io_mod.ReadIO(path=p)
+                await plugin.read(rio)
+                assert bytes(memoryview(rio.buf).cast("B")) == payloads[p]
+
+        asyncio.run(_reads())
+        deltas[label] = {n: obs_mod.counter(n).value - before[n] for n in names}
+        assert len(session.offers) == len(mine)
+    assert deltas["port"] == deltas["jax"]
+    assert deltas["port"]["topology.fanout_publishes"] == 0

@@ -189,7 +189,7 @@ def test_unported_features_are_refused_by_name(tmp_path):
     with pytest.raises(ValueError, match="keep_last_n"):
         tts.SnapshotManager(str(tmp_path), keep_last_n=0)
     refusals = [
-        (lambda: tts.SnapshotManager(str(tmp_path), publisher=object()), "item 5"),
+        (lambda: tts.SnapshotManager(str(tmp_path), publisher=object()), "item 5.4"),
     ]
     mgr = tts.SnapshotManager(str(tmp_path))
     assert mgr.repair([str(tmp_path / "mirrors")]) == {}

@@ -12,7 +12,9 @@ sharded entries that restore into any layout at any world size.
 ``SnapshotManager`` keeps step-numbered snapshots under one root with
 resume, incremental saves and bounded retention, also over a fast local
 tier in front of a durable one (``TierConfig``, write-back promotion);
-``verify_snapshot``
+``ContinuousCheckpointer`` mirrors the changed chunks of the state to a
+peer host after every step, and ``recover_state`` brings a restarted
+job back from the freshest mirror; ``verify_snapshot``
 audits a snapshot, and ``python -m torchsnapshot_tpu_torch`` does both
 from a shell.  It imports ``torch`` and ``numpy``, never ``jax`` and
 nothing of ``torchsnapshot_tpu``.
@@ -36,6 +38,7 @@ from .manager import SnapshotManager, delete_snapshot  # noqa: F401
 from .tier import TierConfig, drain_promotions  # noqa: F401
 from .verify import VerifyResult, verify_snapshot  # noqa: F401
 from .resilience.abort import SnapshotAbortedError  # noqa: F401
+from .continuous import ContinuousCheckpointer, recover_state  # noqa: F401
 from .stateful import PyTreeState, Replicated, RNGState, StateDict, Stateful  # noqa: F401
 
 __all__ = [
@@ -45,6 +48,8 @@ __all__ = [
     "delete_snapshot",
     "TierConfig",
     "drain_promotions",
+    "ContinuousCheckpointer",
+    "recover_state",
     "verify_snapshot",
     "VerifyResult",
     "Coordinator",

@@ -16,9 +16,10 @@ Counterpart of ``python -m torchsnapshot_tpu``: these commands print
 what the JAX package's print, field for field, and exit with the same
 codes (non-zero when a verify fails or a delete is refused).  ``trace``
 and ``convert`` hold the leaves on the card unless ``--device cpu``, as
-the port's entry points do.  ``stats`` of a publication or continuous
-root and ``lint`` are not ported yet: each exits 1 naming its ROADMAP
-queue A item.
+the port's entry points do.  ``stats`` of a continuous root (one store,
+or a host root of per-rank stores) prints its residency rollup.
+``stats`` of a publication root and ``lint`` are not ported yet: each
+exits 1 naming its ROADMAP queue A item.
 """
 
 from __future__ import annotations
@@ -286,31 +287,112 @@ def _render_topology_rollup(topo, counters=None) -> None:
         )
 
 
-def _fleet_root_kind(path: str) -> Optional[str]:
-    """"publication" or "continuous" when ``path`` is a local root of
-    those subsystems (their HEAD is a format-tagged JSON
-    ``.snapshot_metadata``; a continuous store has ``steps/``, a host
-    root holds ``r<k>`` stores), else None."""
+def _is_publication_root(path: str) -> bool:
+    """Whether ``path`` is a local live-weight publication root (its HEAD
+    is a JSON ``.snapshot_metadata`` tagged ``tsnp-publication-head``)."""
+    if "://" in path and not path.startswith("file://"):
+        return False
+    try:
+        with open(os.path.join(path.split("://", 1)[-1], ".snapshot_metadata"), "rb") as f:
+            return b'"tsnp-publication-head"' in f.read(4096)
+    except OSError:
+        return False
+
+
+def _continuous_store_rollup(root: str) -> Optional[dict]:
+    """One continuous store's residency rollup, or None when ``root`` is
+    not one (no decodable continuous HEAD).  Local roots only: probing a
+    remote stats target would add a metadata GET to every cloud
+    snapshot's stats."""
+    from .cas.store import key_size
+    from .continuous import ContinuousStore
+
+    if "://" in root and not root.startswith("file://"):
+        return None
+    # every continuous store has steps/, a snapshot never: no read of a
+    # snapshot's metadata just to rule the store out
+    base = root.split("://", 1)[-1]
+    if not os.path.isdir(os.path.join(base, "steps")):
+        return None
+    store = ContinuousStore(root)
+    try:
+        try:
+            head = store.read_head()
+        except Exception:  # noqa: BLE001 — not a continuous store: snapshot stats instead
+            return None
+        if head is None:
+            return None
+        out: dict = {"root": root, "head_step": int(head["step"])}
+        try:
+            manifest = store.read_step_manifest(str(head["manifest"]))
+            keys = {k for rec in manifest["leaves"].values() for k in rec["keys"]}
+            out["leaves"] = len(manifest["leaves"])
+            out["head_chunks"] = len(keys)
+            out["head_bytes"] = sum(key_size(k) for k in keys)
+            out["chunk_size"] = int(manifest["chunk_size"])
+        except Exception as e:  # noqa: BLE001 — a store torn mid-prune: report the HEAD
+            out["manifest_error"] = f"{e!r}"[:200]
+        out["steps_resident"] = sorted(
+            int(n.split(".")[0])
+            for n in os.listdir(os.path.join(base, "steps"))
+            if n.endswith(".json") and n.split(".")[0].isdigit()
+        )
+        pool_bytes = pool_chunks = 0
+        for dirpath, _dirs, files in os.walk(os.path.join(base, "objects")):
+            for f in files:
+                try:
+                    pool_bytes += os.path.getsize(os.path.join(dirpath, f))
+                    pool_chunks += 1
+                except OSError:
+                    pass  # racing the live loop's pruning
+        out["pool_chunks"] = pool_chunks
+        out["pool_bytes"] = pool_bytes
+        return out
+    finally:
+        store.sync_close()
+
+
+def _continuous_stats(path: str) -> Optional[dict]:
+    """The rollup of a continuous root: one store, or a host root of
+    ``r<k>`` stores; None when ``path`` is neither."""
+    one = _continuous_store_rollup(path)
+    if one is not None:
+        return {"path": path, "stores": {"": one}}
     if "://" in path and not path.startswith("file://"):
         return None
     base = path.split("://", 1)[-1]
     if not os.path.isdir(base):
         return None
-    try:
-        with open(os.path.join(base, ".snapshot_metadata"), "rb") as f:
-            head = f.read(4096)
-    except OSError:
-        head = b""
-    if b'"tsnp-publication-head"' in head:
-        return "publication"
-    if b'"tsnp-continuous-head"' in head or os.path.isdir(os.path.join(base, "steps")):
-        return "continuous"
-    if any(
-        re.fullmatch(r"r\d+", n) and os.path.isdir(os.path.join(base, n, "steps"))
-        for n in os.listdir(base)
-    ):
-        return "continuous"
-    return None
+    stores = {}
+    for name in sorted(os.listdir(base)):
+        if re.fullmatch(r"r\d+", name):
+            roll = _continuous_store_rollup(os.path.join(base, name))
+            if roll is not None:
+                stores[name] = roll
+    if not stores:
+        return None
+    return {"path": path, "stores": stores}
+
+
+def _render_continuous_stats(stats: dict) -> None:
+    print(f"{stats['path']}  [continuous store]")
+    for name, st in stats["stores"].items():
+        line = f"  {name or '.'}: head step {st.get('head_step')}"
+        if "head_chunks" in st:
+            line += (
+                f", {st['leaves']} leaves, {st['head_chunks']} chunks "
+                f"({_human(st['head_bytes'])}) at "
+                f"{_human(st.get('chunk_size', 0))} granularity"
+            )
+        print(line)
+        if "steps_resident" in st:
+            print(
+                f"    steps resident: {st['steps_resident']}, pool "
+                f"{st.get('pool_chunks', 0)} chunks "
+                f"({_human(st.get('pool_bytes', 0))})"
+            )
+        if st.get("manifest_error"):
+            print(f"    WARNING: manifest unreadable: {st['manifest_error']}")
 
 
 def _cmd_stats(args) -> int:
@@ -319,14 +401,20 @@ def _cmd_stats(args) -> int:
     from .manifest import is_container_entry
     from .snapshot import Snapshot
 
-    kind = _fleet_root_kind(args.path)
-    if kind is not None:
+    if _is_publication_root(args.path):
         print(
-            f"error: `stats` of a {kind} root is not ported yet (ROADMAP queue A "
-            "item 5); run it with `python -m torchsnapshot_tpu`",
+            "error: `stats` of a publication root is not ported yet (ROADMAP queue A "
+            "item 5.4); run it with `python -m torchsnapshot_tpu`",
             file=sys.stderr,
         )
         return 1
+    cont = _continuous_stats(args.path)
+    if cont is not None:
+        if args.json:
+            print(json.dumps(cont, indent=2))
+        else:
+            _render_continuous_stats(cont)
+        return 0
     snap = Snapshot(args.path)
     metadata = snap.metadata
     entries = {

@@ -71,6 +71,9 @@ _FANOUT_TIMEOUT_S = "FANOUT_TIMEOUT_S"
 _TRANSPORT = "TRANSPORT"
 _TRANSPORT_PART_BYTES = "TRANSPORT_PART_BYTES"
 _TRANSPORT_TIMEOUT_S = "TRANSPORT_TIMEOUT_S"
+_CONTINUOUS = "CONTINUOUS"
+_CONTINUOUS_PROMOTE_EVERY_N = "CONTINUOUS_PROMOTE_EVERY_N"
+_CONTINUOUS_GRACE_S = "CONTINUOUS_GRACE_S"
 _S3_ENDPOINT_URL = "S3_ENDPOINT_URL"
 
 _DEFAULTS = {
@@ -263,6 +266,15 @@ _DEFAULTS = {
     # The bound of every wait of the collective engine (a gate key, an
     # offer, a broadcast); past it the transfer degrades to kv.
     _TRANSPORT_TIMEOUT_S: 30.0,
+    # The continuous loop's kill-switch (continuous/loop.py): 0 makes
+    # every ContinuousCheckpointer.step() a no-op.
+    _CONTINUOUS: 1,
+    # Promote the continuous store to the durable mirror every N steps
+    # (the first step always); 0 = never (promote() still works).
+    _CONTINUOUS_PROMOTE_EVERY_N: 16,
+    # The SIGTERM grace window (resilience/preemption.py): every
+    # registered drain shares one deadline this many seconds away.
+    _CONTINUOUS_GRACE_S: 10.0,
     # An S3-compatible endpoint (minio, localstack) for every s3:// URL;
     # None = the AWS default.  The JAX package's legacy spelling
     # TSNP_S3_ENDPOINT_URL is not read: the port has only this one.
@@ -564,6 +576,18 @@ def get_transport_timeout_s() -> float:
     return max(0.0, float(_get_raw(_TRANSPORT_TIMEOUT_S)))
 
 
+def continuous_enabled() -> bool:
+    return bool(_get_int(_CONTINUOUS))
+
+
+def get_continuous_promote_every_n() -> int:
+    return max(0, _get_int(_CONTINUOUS_PROMOTE_EVERY_N))
+
+
+def get_continuous_grace_s() -> float:
+    return max(0.0, float(_get_raw(_CONTINUOUS_GRACE_S)))
+
+
 @contextlib.contextmanager
 def _override(name: str, value) -> Iterator[None]:
     had = name in _OVERRIDES
@@ -760,6 +784,18 @@ def override_transport_part_bytes(value: int):
 
 def override_transport_timeout_s(value: float):
     return _override(_TRANSPORT_TIMEOUT_S, value)
+
+
+def override_continuous(value: bool):
+    return _override(_CONTINUOUS, int(value))
+
+
+def override_continuous_promote_every_n(value: int):
+    return _override(_CONTINUOUS_PROMOTE_EVERY_N, value)
+
+
+def override_continuous_grace_s(value: float):
+    return _override(_CONTINUOUS_GRACE_S, value)
 
 
 @contextlib.contextmanager

@@ -37,7 +37,7 @@ the promotion of fast-committed steps a crash left without a durable
 marker; it runs once before a manager's first save.  ``repair(sources)``
 heals steps a take committed degraded after a rank's death, from
 continuous mirrors (``Snapshot.repair_degraded``).  Not ported: live-
-weight publication (``publisher=``, ROADMAP queue A item 5), raising
+weight publication (``publisher=``, ROADMAP queue A item 5.4), raising
 ``NotImplementedError``.
 """
 
@@ -205,7 +205,7 @@ class SnapshotManager:
         if keep_last_n is not None and keep_last_n < 1:
             raise ValueError(f"keep_last_n must be >= 1, got {keep_last_n}")
         if publisher is not None:
-            raise _not_ported("publisher= (live-weight publication)", "5")
+            raise _not_ported("publisher= (live-weight publication)", "5.4")
         self.root = root.rstrip("/")
         if cas is None:
             cas = knobs.cas_enabled()

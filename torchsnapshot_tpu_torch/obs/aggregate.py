@@ -6,10 +6,12 @@ rank's payload carries its topology placement (``topology``: slice,
 host, counts) when an explicit topology was detected, and the payload
 transport's stamp (``transport``: the engine the last resolve chose and
 this operation's collective, KV and fallback deltas) once one was
-resolved; the merged record rolls the placements up per slice
-(``topology.slices``: ranks, replicated write egress, fan-out durable
-reads and savings), the rows the CLI's ``doctor`` renders.  The
-continuous loop's stamp is not carried (the loop is not ported).
+resolved, and the live continuous loop's summary (``continuous``:
+replica residency and replication lag, ``continuous/loop.py``); the
+merged record rolls the placements up per slice (``topology.slices``:
+ranks, replicated write egress, fan-out durable reads and savings) and
+the loops' summaries up to the fleet's floors (``continuous``), the rows
+the CLI's ``doctor`` renders.
 
 The single-process half of observability (metrics.py, tracer.py) dies
 with the process and never crosses a rank boundary; this module is the
@@ -271,6 +273,20 @@ def _transport_stamp(metric_delta: Dict[str, Any]) -> Optional[Dict[str, Any]]:
         return None
 
 
+def _continuous_stamp() -> Optional[Dict[str, Any]]:
+    """The live continuous loop's ``summary_block()``, or None; never
+    raises."""
+    try:
+        from ..continuous import summary_block
+
+        return summary_block()
+    except Exception as e:  # noqa: BLE001 — telemetry never fails the op
+        from .. import obs
+
+        obs.swallowed_exception("obs.aggregate.continuous_stamp", e)
+        return None
+
+
 def rank_payload(
     rank: int, op: str, before: Dict[str, Any]
 ) -> Dict[str, Any]:
@@ -293,6 +309,9 @@ def rank_payload(
         tinfo = _topology_stamp()
         if tinfo is not None:
             out["topology"] = tinfo
+        cinfo = _continuous_stamp()
+        if cinfo is not None:
+            out["continuous"] = cinfo
         xinfo = _transport_stamp(m)
         if xinfo is not None:
             out["transport"] = xinfo
@@ -449,7 +468,36 @@ def merge_payloads(
     topology = _topology_rollup(payloads)
     if topology is not None:
         record["topology"] = topology
+    continuous = _continuous_rollup(payloads)
+    if continuous is not None:
+        record["continuous"] = continuous
     return record
+
+
+def _continuous_rollup(payloads: Sequence[Dict[str, Any]]) -> Optional[Dict[str, Any]]:
+    """The fleet's continuous rows: each rank's residency and the weakest
+    guarantees (the least last-peer and last-durable step over the ranks:
+    a preemption may hit any host); None when no rank runs a loop."""
+    stamped = [p for p in payloads if isinstance(p.get("continuous"), dict)]
+    if not stamped:
+        return None
+    by_rank = {str(p["rank"]): p["continuous"] for p in stamped}
+
+    def _floor(key: str) -> Optional[int]:
+        vals = [c.get(key) for c in by_rank.values() if isinstance(c.get(key), int)]
+        return min(vals) if vals else None
+
+    lags = [
+        c.get("replication_lag_steps")
+        for c in by_rank.values()
+        if isinstance(c.get("replication_lag_steps"), int)
+    ]
+    return {
+        "by_rank": by_rank,
+        "last_peer_step_floor": _floor("last_peer_step"),
+        "last_durable_step_floor": _floor("last_durable_step"),
+        "max_replication_lag_steps": max(lags) if lags else None,
+    }
 
 
 # ------------------------------------------------------ KV publication

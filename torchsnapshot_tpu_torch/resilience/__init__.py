@@ -10,10 +10,9 @@ Counterpart of ``torchsnapshot_tpu/resilience/``:
   classifiers;
 - ``breaker``: per-backend circuit breakers;
 - ``liveness``: heartbeat stamps and dead-rank detection (the tier
-  promoter's done handshake).
-
-Not ported: ``preemption`` and the take path's liveness scope (ROADMAP
-queue A item 5).
+  promoter's done handshake);
+- ``preemption``: the SIGTERM preemption-notice hook, whose drains (the
+  continuous loop's in-flight replication) share one grace deadline.
 """
 
 from __future__ import annotations
@@ -44,6 +43,12 @@ from .liveness import (  # noqa: F401
     LivenessSession,
     RankDeadError,
 )
+from .preemption import (  # noqa: F401
+    notify_preemption,
+    on_preemption,
+    preemption_requested,
+    remove_handler as remove_preemption_handler,
+)
 from .retry import (  # noqa: F401
     FATAL,
     MISSING,
@@ -73,6 +78,10 @@ __all__ = [
     "get_breaker",
     "reset_breakers",
     "InjectedClientError",
+    "on_preemption",
+    "notify_preemption",
+    "preemption_requested",
+    "remove_preemption_handler",
     "failpoint",
     "parse_failpoints",
     "refresh_failpoints",

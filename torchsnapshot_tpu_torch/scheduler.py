@@ -10,6 +10,10 @@ Counterpart of ``torchsnapshot_tpu/scheduler.py``, same discipline:
   for oversized items).  The budget is debited by the declared staging
   cost, corrected to the staged size, and credited when the write lands.
 - Concurrent storage operations are capped per process.
+- Copies (``sync_execute_copy_reqs``: the tier promoter) and writes of
+  already-staged buffers (``sync_execute_buffer_writes``: the continuous
+  loop's replication, optionally through a transport's ``device_move``)
+  are admitted under the same budget with the same progress rule.
 - Incremental takes: a request whose staged digest equals its ``dedup``
   digest (the base snapshot's object at the same location) is linked
   from the base (``StoragePlugin.link_from``) instead of written; its
@@ -745,6 +749,96 @@ def sync_execute_copy_reqs(
         ).result()
     finally:
         loop_thread.shutdown()
+
+
+async def _execute_buffer_writes(
+    items: List[Tuple[str, Any]],
+    dst_storage: StoragePlugin,
+    budget: _Budget,
+    io_concurrency: int,
+    counter_name: str,
+    failpoint_site: Optional[str] = None,
+    span_label: str = "scheduler/buffer_write",
+    transport: Any = None,
+) -> int:
+    """Write staged ``(path, buf)`` pairs to ``dst_storage``, each
+    admitted under the host-memory budget by its size (the buffers exist
+    either way; admission bounds how many a slow or retrying target holds
+    in flight, each of which the plugin may buffer again), an object
+    larger than the budget alone: the copy pipeline's progress rule.
+
+    ``transport`` routes each payload through the engine's fabric leg
+    (``Transport.device_move``, on a worker thread) before its write; a
+    failed move writes the original staged bytes and advances
+    ``transport.fallbacks``, so a replica never depends on the fabric."""
+    m_written = obs_metrics.counter(counter_name)
+    sem = asyncio.Semaphore(io_concurrency)
+    cond = asyncio.Condition()
+
+    async def one(path: str, buf: Any) -> int:
+        nbytes = _buf_nbytes(buf)
+        async with cond:
+            await cond.wait_for(lambda: budget.used == 0 or budget.fits(nbytes))
+            budget.used += nbytes
+        try:
+            if failpoint_site is not None:
+                failpoint(failpoint_site, path=path)
+            out = buf
+            if transport is not None:
+                from .transport import count_fallback
+
+                try:
+                    out = await asyncio.get_running_loop().run_in_executor(
+                        None, transport.device_move, buf
+                    )
+                except Exception as e:  # noqa: BLE001 — the fabric leg costs speed, never the replica
+                    count_fallback("buffer-write", e)
+                    out = buf
+            async with sem:
+                with obs_tracer.span(span_label, path=path, bytes=nbytes):
+                    await dst_storage.write(WriteIO(path=path, buf=out))
+            m_written.inc(nbytes)
+            return nbytes
+        finally:
+            async with cond:
+                budget.used -= nbytes
+                cond.notify_all()
+
+    return sum(await asyncio.gather(*(one(p, b) for p, b in items)))
+
+
+def sync_execute_buffer_writes(
+    items: List[Tuple[str, Any]],
+    dst_storage: StoragePlugin,
+    memory_budget_bytes: int,
+    counter_name: str,
+    failpoint_site: Optional[str] = None,
+    span_label: str = "scheduler/buffer_write",
+    loop_thread: Optional[_LoopThread] = None,
+    transport: Any = None,
+) -> int:
+    """Write staged ``(path, buf)`` pairs concurrently under the staging
+    memory budget; returns the bytes written.  The continuous loop's
+    replication engine (``continuous/loop.py``): each step's delta
+    chunks reach the local and peer stores as budgeted background
+    writes.  ``loop_thread`` lets a per-step caller keep one event-loop
+    thread alive across calls; without it one is made and shut down
+    here, as the copy engine does."""
+    if not items:
+        return 0
+    own_loop = loop_thread is None
+    lt = loop_thread or _LoopThread("tsnp-torch-buffer-loop")
+    try:
+        return lt.submit(
+            _execute_buffer_writes(
+                items, dst_storage, _Budget(memory_budget_bytes),
+                knobs.get_max_per_rank_io_concurrency(), counter_name, failpoint_site,
+                span_label, transport,
+            )
+        ).result()
+    finally:
+        if own_loop:
+            lt.shutdown()
 
 
 class _ReadPipeline:

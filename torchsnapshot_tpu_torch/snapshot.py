@@ -1760,7 +1760,7 @@ class Snapshot:
     def publish_to(self, publisher: Any, step: int) -> str:
         raise NotImplementedError(
             "Snapshot.publish_to (live-weight publication) is not ported yet "
-            "(ROADMAP queue A item 5)"
+            "(ROADMAP queue A item 5.4)"
         )
 
     def repair_degraded(

@@ -25,7 +25,9 @@ what this host's fast root holds and write the marker only once every
 location is durable.  Failpoints: ``tier.promote.data``,
 ``tier.promote.commit``.
 
-Every wait is bounded: the done keys by ``_DONE_TIMEOUT_S`` and
+A group may pin its commit marker (``marker_payload``: the continuous
+loop's HEAD as of enqueue time) and reports ``completed`` once its
+marker landed.  Every wait is bounded: the done keys by ``_DONE_TIMEOUT_S`` and
 ``drain`` by ``DRAIN_DEADLINE_S`` (600 s each), past which a
 ``TimeoutError`` names the job still running.  ``pause``/``resume``
 exist for tests (an interrupted promotion).
@@ -75,6 +77,14 @@ class PromotionGroup:
         # multi-host recovery can never fabricate a committed-but-
         # incomplete durable snapshot)
         self.recovery = False
+        # a pinned commit marker (continuous/loop.py): the commit job
+        # writes these bytes as the durable marker instead of copying
+        # the fast root's live one, whose HEAD keeps advancing while the
+        # promotion waits in this queue
+        self.marker_payload: Optional[bytes] = None
+        # set by the worker once the commit job wrote the marker: the
+        # continuous loop polls it instead of blocking on drain()
+        self.completed = False
 
 
 class Promoter:
@@ -278,25 +288,31 @@ class Promoter:
                         )
                 from ..io_types import ReadIO, WriteIO
 
-                # flight-record sidecar first, best-effort: the durable
-                # tier keeps the record-lands-before-marker ordering,
-                # and a missing/unreadable record never blocks the
-                # durable commit (it is telemetry, not payload — the
-                # tier plugin keeps it out of group.paths)
-                try:
-                    rec_io = ReadIO(path=_OBSRECORD_FNAME)
-                    src.sync_read(rec_io)
-                    dst.sync_write(
-                        WriteIO(
-                            path=_OBSRECORD_FNAME,
-                            buf=bytes(memoryview(rec_io.buf).cast("B")),
+                if group.marker_payload is not None:
+                    # a pinned marker (continuous promotion): the HEAD as
+                    # of enqueue time; such groups have no flight record
+                    marker = group.marker_payload
+                else:
+                    # flight-record sidecar first, best-effort: the
+                    # durable tier keeps the record-lands-before-marker
+                    # ordering, and a missing/unreadable record never
+                    # blocks the durable commit (it is telemetry, not
+                    # payload — the tier plugin keeps it out of
+                    # group.paths)
+                    try:
+                        rec_io = ReadIO(path=_OBSRECORD_FNAME)
+                        src.sync_read(rec_io)
+                        dst.sync_write(
+                            WriteIO(
+                                path=_OBSRECORD_FNAME,
+                                buf=bytes(memoryview(rec_io.buf).cast("B")),
+                            )
                         )
-                    )
-                except Exception as e:  # noqa: BLE001 — best-effort
-                    obs.swallowed_exception("tier.promote.obsrecord", e)
-                read_io = ReadIO(path=_METADATA_FNAME)
-                src.sync_read(read_io)
-                marker = bytes(memoryview(read_io.buf).cast("B"))
+                    except Exception as e:  # noqa: BLE001 — best-effort
+                        obs.swallowed_exception("tier.promote.obsrecord", e)
+                    read_io = ReadIO(path=_METADATA_FNAME)
+                    src.sync_read(read_io)
+                    marker = bytes(memoryview(read_io.buf).cast("B"))
                 if dead_skipped:
                     self._require_durable_complete(
                         dst, marker, dead_skipped, group
@@ -306,6 +322,7 @@ class Promoter:
                         path=_METADATA_FNAME, buf=marker, durable=True
                     )
                 )
+            group.completed = True
             if group.commit_enqueued_ts is not None:
                 obs.histogram(obs.PROMOTION_LAG_S).observe(
                     time.monotonic() - group.commit_enqueued_ts

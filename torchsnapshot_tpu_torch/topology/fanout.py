@@ -362,8 +362,8 @@ class FanoutReadPlugin(StoragePlugin):
                     self._m_durable.inc()
                     data = await loop.run_in_executor(None, _as_bytes, read_io.buf)
                     if session.offer(skey, data, prefix):
-                        obs.counter(obs.FANOUT_PUBLISHES).inc()
-                        obs.counter(obs.FANOUT_BYTES_REDISTRIBUTED).inc(len(data))
+                        # the session owns delivery (a broadcast, or a KV
+                        # blob from its drain path): no publication here
                         return
                     self._note_published(await self._publish_payload(prefix, data, path))
                     return

@@ -54,6 +54,10 @@ class Transport:
       ``TransportUnavailable`` = this engine cannot serve it,
       ``ValueError`` = digest mismatch;
     - ``cleanup(prefix, nparts)``: best-effort reclaim;
+    - ``device_move(buf)`` → bytes: route one staged payload through the
+      engine's fabric leg, digest-verified (a host → device → host round
+      trip on the collective engine, the identity here and on KV): the
+      continuous loop's peer-replica hook;
     - ``close()``: release engine state."""
 
     engine: str = "none"
@@ -66,6 +70,9 @@ class Transport:
 
     def cleanup(self, prefix: str, nparts: int) -> None:
         raise NotImplementedError
+
+    def device_move(self, buf: Any) -> Any:
+        return buf
 
     def close(self) -> None:
         pass

@@ -32,6 +32,15 @@ exists for the TPU's lanes) and moves as ``uint8`` tensors on
 
 Every payload is held against the crc32 + adler32 computed at
 publication before a consumer may trust it, in both modes.
+
+``device_move`` (either mode) is the continuous loop's peer-replica leg:
+one staged payload goes onto the device in parts and back to the host,
+verified against its digests, counted in ``transport.device_moves`` and
+``transport.collective_bytes``.  It runs on the loop's replication
+thread, so on the card its copies go on a side stream of the engine's
+own (the parts are allocated in that stream's context and only that
+stream is synchronised), never queued between the training loop's
+kernels on the default stream.
 """
 
 from __future__ import annotations
@@ -134,9 +143,12 @@ class CollectiveTransport(Transport):
         self._m_ops = m.counter(obs.TRANSPORT_COLLECTIVE_OPS)
         self._m_bytes = m.counter(obs.TRANSPORT_COLLECTIVE_BYTES)
         self._m_lat = m.histogram(obs.TRANSPORT_COLLECTIVE_S)
+        self._m_moves = m.counter(obs.TRANSPORT_DEVICE_MOVES)
         # local-mode publications of this instance (the close ledger)
         self._local_prefixes: Set[str] = set()
         self._lock = threading.Lock()
+        # device_move's side stream, made on first use
+        self._stream: Optional[torch.cuda.Stream] = None
 
     def _probe_session(self) -> bool:
         """Session mode needs ``torch.distributed`` over exactly the
@@ -237,6 +249,46 @@ class CollectiveTransport(Transport):
             _REGISTRY.pop(prefix, None)
         with self._lock:
             self._local_prefixes.discard(prefix)
+
+    def _side_stream(self) -> torch.cuda.Stream:
+        with self._lock:
+            if self._stream is None:
+                self._stream = torch.cuda.Stream(device=self.device)
+            return self._stream
+
+    def _round_trip(self, host: torch.Tensor, out: torch.Tensor, spans) -> None:
+        parts = [host[a:b].to(self.device, copy=True) for a, b in spans]
+        for (a, b), part in zip(spans, parts):
+            out[a:b].copy_(part)
+
+    def device_move(self, buf: Any) -> Any:
+        """Route one staged payload through the device (parts onto it,
+        back to a fresh host buffer) and return the verified bytes.
+        Raises on any failure or digest mismatch: the scheduler's buffer
+        writes count the fallback and write the original bytes."""
+        view = memoryview(buf).cast("B")
+        n = view.nbytes
+        if n == 0:
+            return buf
+        with obs.span("transport/device_move", bytes=n):
+            crc, adler = _digests(view)
+            nparts, base = _plan_parts(n, knobs.get_transport_part_bytes())
+            failpoint("transport.collective.device_move", bytes=n)
+            data = bytearray(n)
+            out = torch.frombuffer(data, dtype=torch.uint8)
+            spans = _spans(n, nparts, base)
+            if self.device.type == "cuda":
+                stream = self._side_stream()
+                with torch.cuda.stream(stream):
+                    self._round_trip(_host_u8(view), out, spans)
+                stream.synchronize()
+            else:
+                self._round_trip(_host_u8(view), out, spans)
+            if _digests(data) != (crc, adler):
+                raise ValueError("device round trip failed digest verification")
+            self._m_moves.inc()
+            self._m_bytes.inc(n)
+            return data
 
     def close(self) -> None:
         with self._lock:
