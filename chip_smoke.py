@@ -39,7 +39,7 @@ is no card or anything below fails.  In order:
    for K4 + K5, ``copy_`` into the template's range for K6) are timed 5
    times: median, range, share of the bound, TFLOP/s for K3-K5; K1 both
    as ``pack_slab`` is called and as its launch alone;
-4. fourteen paths, each with the launch counters set to 0 just before it
+4. sixteen paths, each with the launch counters set to 0 just before it
    and read just after (a path that starts processes adds the launches
    they report), all with the fast-I/O engine at its defaults unless
    the path says otherwise:
@@ -281,9 +281,10 @@ is no card or anything below fails.  In order:
       ``ContinuousCheckpointer``, the local store under ``/dev/shm`` when
       it has room (else the work directory and ``retain_steps=1``), a
       standby host root and a durable root on the work directory,
-      promotion every 2 steps, ``TRANSPORT=collective`` (local mode: each
+      promotion every 3 steps, ``TRANSPORT=collective`` (local mode: each
       chunk bound for the standby takes ``device_move``'s round trip
-      through the card).  Four steps, each printing its blocked seconds
+      through the card).  Three steps (four, promoted every 2, before the
+      publish path came), each printing its blocked seconds
       (and the share in ``encode_leaf``'s copies to the host), its
       replication lag, the training step's seconds beside the previous
       replication, chunks and bytes replicated and skipped, and the
@@ -292,12 +293,43 @@ is no card or anything below fails.  In order:
       Checks: from step 2 on at least the frozen 524,288,000 bytes
       skipped a step, no replication error, device moves equal to the
       chunks replicated and no transport fallback, the last promoted step
-      3.  Then ``restore_latest`` into a fresh model and optimizer on the
-      card (source ``local``, step 4, every tensor equal to step 4's
+      1.  Then ``restore_latest`` into a fresh model and optimizer on the
+      card (source ``local``, step 3, every tensor equal to step 3's
       clone, the next loss bitwise) with ``python -m
       torchsnapshot_tpu_torch stats <host root> --json`` in a process
-      beside it (exit 0, head step 4), and, with the local and standby
-      roots deleted, again (source ``durable``, step 3, bitwise).
+      beside it (exit 0, head step 3), and, with the local and standby
+      roots deleted, again (source ``durable``, step 1, bitwise).
+   m. publish (after l): live-weight publication at full width.  The
+      trainer (this process) starts a serving child first
+      (``--publish-child``: a differently seeded ``TransformerLM`` on the
+      card under ``Subscriber(..., strict=False).follow()``, a request
+      thread answering requests under ``live.pinned()``: the logits on a
+      fixed batch and ring attention, ring size 1 so K3, on layer-0
+      q/k/v), then publishes the lifecycle fine-tune's model to a root on
+      the work directory over a ``FileCoordinator`` both share:
+      ``publish_state`` cold (step 1) and after two AdamW steps (2, 3), a
+      ``SnapshotManager(publisher=)`` save of model and optimizer (step 4,
+      K1; the child skips the optimizer's leaves), and two
+      ``ContinuousCheckpointer(publisher=, promote_every_n=1)`` steps (5,
+      6; host and standby stores under ``/dev/shm`` when it has room, the
+      durable mirror on the work directory).  After each publication the
+      trainer posts the crc32 of every tensor over the KV and waits for
+      the child's verdict, made on its follow thread right after the
+      swap, where it also records that generation's request digest.
+      Checks: every tensor bitwise the trainer's at every step; every
+      request's digest its generation's (no torn request); from each
+      state or continuous delta on, the frozen leaves' 32 chunks reused
+      and not fetched, a state delta fetching at most the changed bytes
+      plus one chunk a leaf; ``publish.fallback_polls``,
+      ``publish.watch_errors``, ``publish.announce_failures`` and the
+      exceptions swallowed at publication sites all 0; ``python -m
+      torchsnapshot_tpu_torch stats <root>`` (in a process, beside the
+      child's end) naming the subscriber at step 6.  It prints each
+      publication's seconds (``publish_state``'s by phase), its
+      ``bytes_delta``, the subscriber's fetch and apply seconds, the
+      staging basis's device-to-host copies, the lag from the record's
+      ``t`` to the swap, the requests served while swaps were in flight
+      and the longest wait for ``pinned()``.
 
 Every kernel must have launched on these paths, and each path on the
 kernels it runs.  The line before the last is the card; the line before
@@ -3783,7 +3815,9 @@ def phase_cloud_interop(cfg, work):
 
 
 CONTINUOUS_SEED = 71
-CONTINUOUS_STEPS = 4
+CONTINUOUS_STEPS = 3  # 4 until the publish path came
+CONTINUOUS_PROMOTE_EVERY_N = 3  # promotes step 1 only; 2 (steps 1, 3) until the publish path came
+CONTINUOUS_DURABLE_STEP = 1
 CONTINUOUS_NOTICE_STEP = 3  # notify_preemption() right after this step
 
 
@@ -3799,7 +3833,7 @@ def phase_continuous(cfg, work):
     ``ContinuousCheckpointer``: the local store under ``/dev/shm`` when it
     has room, a standby host root and a durable root on the work
     directory, the collective transport (its device round trip carries
-    every chunk bound for the standby), promotion every 2 steps.  Four
+    every chunk bound for the standby), promotion every 3 steps.  Three
     steps, a preemption notice with step 3's replication in flight, then
     recoveries from the local store and, with the local and standby roots
     gone, from the durable one, each into a freshly built model and
@@ -3863,7 +3897,7 @@ def phase_continuous(cfg, work):
     loop_mod.encode_leaf, CollectiveTransport.device_move = timed_encode, timed_move
     with tts.knobs.override_transport("collective"):
         cc = tts.ContinuousCheckpointer(local_host, durable_root=durable, replica_roots=[standby],
-                                        promote_every_n=2, retain_steps=retain)
+                                        promote_every_n=CONTINUOUS_PROMOTE_EVERY_N, retain_steps=retain)
         try:
             pending = None  # (step, counters, histograms, blocked s, D2H s, moves so far, train s)
             train_s = None
@@ -3891,7 +3925,7 @@ def phase_continuous(cfg, work):
                 check(cc.step(app, step), f"step {step} was not recorded")
                 blocked = time.perf_counter() - t0
                 clones[step] = clone_state(model, opt, meta)
-                for old in [s for s in clones if s not in (3, step)]:
+                for old in [s for s in clones if s not in (CONTINUOUS_DURABLE_STEP, step)]:
                     del clones[old]
                 pending = (step, before, hbefore, blocked, timing["encode_s"] - encode0, moves0, promoting)
                 if step == CONTINUOUS_NOTICE_STEP:
@@ -3949,7 +3983,8 @@ def phase_continuous(cfg, work):
           f"device moves {whole[tts.obs.TRANSPORT_DEVICE_MOVES]} against "
           f"{whole[tts.obs.CONTINUOUS_CHUNKS_REPLICATED]} chunks replicated, "
           f"{whole[tts.obs.TRANSPORT_FALLBACKS]} fallbacks")
-    check(durable_step == 3, f"the last promoted step is {durable_step}, not 3")
+    check(durable_step == CONTINUOUS_DURABLE_STEP,
+          f"the last promoted step is {durable_step}, not {CONTINUOUS_DURABLE_STEP}")
     print(f"continuous: summary {json.dumps(summary)}; path counters {json.dumps(whole)}")
 
     # recover from the local store into a fresh model and optimizer
@@ -3999,6 +4034,364 @@ def phase_continuous(cfg, work):
         # local_root's own directory (under /dev/shm) or the local root
         shutil.rmtree(os.path.dirname(local_host) if retain == 2 else local_host, ignore_errors=True)
     del model2, opt2, clones
+
+
+PUBLISH_SEED = 81
+PUBLISH_SUB_ID = "chip-smoke-serving"
+PUBLISH_CHUNK = 16 << 20  # the chunk store's default chunk
+PUBLISH_KEY_TIMEOUT_S = 300.0
+PUBLISH_CHILD_POLL_S = 10.0
+# the swallowed-exception sites whose count the path holds at 0 (the
+# follow loop and the hooks swallow by contract; on the card a failure
+# there must still fail the path)
+PUBLISH_SITES = ("publish.", "manager.publish", "continuous.publish")
+
+
+class SwallowedSites:
+    """Counts ``obs.swallowed_exception`` calls by site, from its debug
+    log line (the counter ``exceptions.swallowed`` is one for every
+    site)."""
+
+    def __init__(self):
+        import logging
+
+        self.sites = []
+        handler = logging.Handler(logging.DEBUG)
+        handler.emit = lambda record: (record.msg == "swallowed exception at %s: %r"
+                                       and self.sites.append(str(record.args[0])))
+        logger = logging.getLogger("torchsnapshot_tpu_torch.obs")
+        logger.addHandler(handler)
+        logger.setLevel(logging.DEBUG)
+
+    def publish(self):
+        return [s for s in self.sites if s.startswith(PUBLISH_SITES)]
+
+
+def state_crcs(model):
+    """crc32 of every state-dict tensor's bytes, by name (host copies)."""
+    from torchsnapshot_tpu_torch.utils.checksums import crc32_fast
+
+    return {n: crc32_fast(t.detach().contiguous().view(torch.uint8).cpu().numpy())
+            for n, t in model.state_dict().items()}
+
+
+def wait_key(coord, key, child, timeout_s=PUBLISH_KEY_TIMEOUT_S):
+    """The KV value of ``key``; fails the path when ``child`` exits or
+    the deadline passes first."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        value = coord.kv_try_get(key)
+        if value is not None:
+            return value
+        check(child is None or child.poll() is None, f"the publish child exited {child and child.poll()} "
+                                                     f"before {key} was set")
+        check(time.monotonic() < deadline, f"{key} not set within {timeout_s} s")
+        time.sleep(0.01)
+
+
+def publish_request(cfg, model, tokens):
+    """One serving request: the logits on a fixed batch and ring attention
+    (ring size 1: K3) on layer-0 q/k/v; returns the crc32 of both outputs'
+    bytes."""
+    from torchsnapshot_tpu_torch.utils.checksums import crc32_fast
+
+    with torch.no_grad():
+        logits = model(tokens)
+        q, k, v = restored_layer0_qkv(cfg, model)
+        out = ring_attention(q, k, v, causal=True)
+    check(bool(torch.isfinite(out).all()) and out.shape == q.shape, "ring attention output malformed")
+    crc = crc32_fast(logits.contiguous().view(torch.uint8).cpu().numpy())
+    return crc32_fast(out.contiguous().view(torch.uint8).cpu().numpy(), crc)
+
+
+def publish_child(root, kv_dir):
+    """The serving side of the publish path: a differently seeded
+    ``TransformerLM`` on the card under ``Subscriber(...).follow()``, a
+    request thread answering requests under ``live.pinned()``; after each
+    swap the follow thread checks every tensor against the trainer's
+    posted crcs and records that generation's request digest.  Prints a
+    ``publish result`` JSON line when the trainer says it is done."""
+    import threading
+
+    from torchsnapshot_tpu_torch.coordination import FileCoordinator
+    from torchsnapshot_tpu_torch.publish import Subscriber
+
+    if not torch.cuda.is_available():
+        print("publish child: no CUDA device", file=sys.stderr)
+        return 2
+    swallowed = SwallowedSites()
+    cfg = TransformerConfig(n_layers=N_LAYERS)
+    torch.manual_seed(PUBLISH_SEED + 1)
+    model = TransformerLM(cfg, device="cuda").requires_grad_(False)
+    g = torch.Generator(device="cuda").manual_seed(PUBLISH_SEED + 2)
+    tokens = torch.randint(0, cfg.vocab, (1, 128), device="cuda", generator=g)
+    coord = FileCoordinator(kv_dir, 1, 2)
+    for table in (device_pack.LAUNCHES, flash_attention.LAUNCHES):
+        for k in table:
+            table[k] = 0
+    before = _counter_snapshot()
+    # a watch longer than the trainer's gap between publications: every
+    # swap arrives through the announce (with the 2 s default a watch can
+    # time out between the HEAD's write and its announce, and the durable
+    # poll then delivers the step: a fallback poll)
+    sub = Subscriber(root, {"model": model}, coordinator=coord, sub_id=PUBLISH_SUB_ID, strict=False,
+                     poll_s=PUBLISH_CHILD_POLL_S)
+    swaps, verdicts, ref_digest, served = {}, {}, {}, []
+    applying = threading.Event()
+    stop = threading.Event()
+    real_fetch, real_apply, real_account = sub._fetch, sub.live.apply, sub._account
+
+    def timed_fetch(record, plan):
+        t0 = time.perf_counter()
+        out = real_fetch(record, plan)
+        swaps[int(record["step"])] = {"fetch_s": time.perf_counter() - t0}
+        return out
+
+    def timed_apply(record, plan, fetched, strict=True):
+        live = sub.live
+        basis0 = (live.basis_copies, live.basis_bytes, live.basis_s)
+        applying.set()
+        try:
+            return real_apply(record, plan, fetched, strict=strict)
+        finally:
+            applying.clear()
+            swaps[int(record["step"])]["basis"] = [live.basis_copies - basis0[0], live.basis_bytes - basis0[1],
+                                                   live.basis_s - basis0[2]]
+
+    def account(record, plan, apply_s):
+        row = swaps[int(record["step"])]
+        row.update(source=record["source"], apply_s=apply_s, lag_s=time.time() - float(record["t"]),
+                   stats=dict(plan.stats), fetched_leaves=sorted({f.leaf for f in plan.fetches}))
+        real_account(record, plan, apply_s)
+
+    sub._fetch, sub.live.apply, sub._account = timed_fetch, timed_apply, account
+
+    def on_swap(step, gen):
+        want = json.loads(wait_key(coord, f"publish/crc/{step}", None))
+        got = state_crcs(model)
+        with sub.live.pinned():
+            ref_digest[gen] = publish_request(cfg, model, tokens)
+        bad = sorted(n for n in want if got.get(n) != want[n])
+        verdicts[step] = {"gen": gen, "bad": bad[:3], "n": len(want)}
+        coord.kv_set(f"publish/ack/{step}", json.dumps(verdicts[step]))
+
+    def serve():
+        while not stop.is_set():
+            t0 = time.perf_counter()
+            during = applying.is_set()
+            with sub.live.pinned() as (step, gen):
+                waited = time.perf_counter() - t0
+                digest = publish_request(cfg, model, tokens) if step is not None else None
+            if digest is None:
+                stop.wait(0.05)  # nothing published yet: no model to serve
+                continue
+            served.append((gen, digest, waited, during or applying.is_set()))
+            time.sleep(0.002)  # the swap's turn at the lock
+
+    handle = sub.follow(on_swap=on_swap)
+    server = threading.Thread(target=serve, name="publish-requests", daemon=True)
+    server.start()
+    try:
+        wait_key(coord, "publish/done", None, timeout_s=1200)
+    finally:
+        stop.set()
+        server.join(timeout=60)
+        handle.stop(timeout_s=30)
+        sub.close()
+    check(not server.is_alive() and not handle.alive, "the request or follow thread outlived its deadline")
+    torn = [(gen, d) for gen, d, _, _ in served if ref_digest.get(gen) != d]
+    d = counter_delta(before, (tts.obs.PUBLISH_WATCH_ERRORS, tts.obs.PUBLISH_FALLBACK_POLLS,
+                               tts.obs.PUBLISH_LEAVES_SKIPPED, tts.obs.PUBLISH_SUB_CHUNKS_REUSED,
+                               tts.obs.PUBLISH_SUB_SWAPS))
+    out = {
+        "rank": 1, "swaps": swaps, "verdicts": verdicts, "requests": len(served),
+        "torn": len(torn), "torn_examples": torn[:3],
+        "served_during_swaps": sum(1 for *_, during in served if during),
+        "max_pinned_wait_s": max((w for _, _, w, _ in served), default=0.0),
+        "counters": d, "swallowed_publish": swallowed.publish(),
+        "launches": {**dict(device_pack.LAUNCHES), **dict(flash_attention.LAUNCHES)},
+    }
+    print("publish result " + json.dumps(out), flush=True)
+    return 0
+
+
+def start_publish_child(work):
+    """Start the publish path's serving child (``--publish-child``); it
+    waits for the first publication.  Started before the continuous path,
+    so its 8-10 s to reach the card and build its model run beside it."""
+    job = {"root": os.path.join(work, "publish"), "kv": os.path.join(work, "publish_kv"),
+           "log": open(os.path.join(work, "publish_child.log"), "w+")}
+    os.makedirs(job["kv"], exist_ok=True)
+    job["child"] = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--publish-child", job["root"], job["kv"]],
+        stdout=job["log"], stderr=subprocess.STDOUT, text=True,
+    )
+    return job
+
+
+def stop_publish_child(job):
+    child = job["child"]
+    if child.poll() is None:
+        child.kill()
+        child.wait()
+
+
+def phase_publish(cfg, work, job):
+    """Live-weight publication at full width (path m): the lifecycle
+    fine-tune publishes to the serving child of ``start_publish_child``,
+    which hot-swaps under requests (see the module docstring)."""
+    from torchsnapshot_tpu_torch.coordination import FileCoordinator
+    from torchsnapshot_tpu_torch.publish import Publisher, root_rollup
+    from torchsnapshot_tpu_torch.tier.promoter import drain_promotions
+
+    root, kv_dir, log, child = job["root"], job["kv"], job["log"], job["child"]
+    swallowed = SwallowedSites()
+    try:
+        model, opt = fine_tune_state(cfg, seed=PUBLISH_SEED)
+        g = torch.Generator(device="cuda").manual_seed(PUBLISH_SEED + 3)
+        frozen = {"model/embed.weight", "model/lm_head.weight"}
+        frozen_bytes = nbytes(model.embed.weight) + nbytes(model.lm_head.weight)
+        frozen_chunks = sum(-(-nbytes(t) // PUBLISH_CHUNK) for t in (model.embed.weight, model.lm_head.weight))
+        total = sum(nbytes(t) for t in model.state_dict().values())
+        changed = total - frozen_bytes
+        coord = FileCoordinator(kv_dir, 0, 2)
+        pub = Publisher(root, coordinator=coord, chunk_size_bytes=PUBLISH_CHUNK)
+        timing = {}
+        real_snapshot, real_continuous = pub.publish_snapshot, pub.publish_continuous
+
+        def timed(fn, step):
+            def run(*a, **k):
+                t0 = time.perf_counter()
+                out = fn(*a, **k)
+                timing[step] = time.perf_counter() - t0
+                return out
+            return run
+
+        before = _counter_snapshot()
+        rows = []
+
+        t_prev = [time.perf_counter()]
+
+        def published(step, source, seconds):
+            t0 = time.perf_counter()
+            coord.kv_set(f"publish/crc/{step}", json.dumps(state_crcs(model)))
+            crc_s = time.perf_counter() - t0
+            ack = json.loads(wait_key(coord, f"publish/ack/{step}", child))
+            check(not ack["bad"], f"publish step {step}: subscriber tensors {ack['bad']} differ from the trainer's")
+            stats = root_rollup(root)["stats"]
+            now = time.perf_counter()
+            rows.append((step, source, seconds, stats, crc_s, dict(pub.last_state_s) if source == "state" else {},
+                         now - t_prev[0]))
+            t_prev[0] = now
+
+        def batch():
+            return torch.randint(0, cfg.vocab, (1, 129), device="cuda", generator=g)
+
+        for step in (1, 2, 3):
+            if step > 1:
+                fine_tune_step(model, opt, batch())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pub.publish_state({"model": model}, step)
+            published(step, "state", time.perf_counter() - t0)
+        fine_tune_step(model, opt, batch())
+        pub.publish_snapshot = timed(real_snapshot, 4)
+        mgr = tts.SnapshotManager(os.path.join(work, "publish_ckpt"), publisher=pub)
+        t0 = time.perf_counter()
+        mgr.save({"model": model, "optim": opt}, step=4)
+        save_s = time.perf_counter() - t0
+        check(4 in timing, "the manager's save published nothing")
+        published(4, "snapshot", timing[4])
+        pub.publish_continuous = timed(real_continuous, "c")
+        # the host and standby stores under /dev/shm when it has room, as
+        # the continuous path's local store
+        local_host, _, _ = local_root(work, 6 * total, "publish_local")
+        cc = tts.ContinuousCheckpointer(
+            local_host, durable_root=os.path.join(work, "publish_durable"),
+            replica_roots=[os.path.join(os.path.dirname(local_host), "publish_standby")], promote_every_n=1,
+            chunk_size_bytes=PUBLISH_CHUNK, preemption_hook=False, publisher=pub,
+        )
+        try:
+            for step in (5, 6):
+                fine_tune_step(model, opt, batch())
+                timing.pop("c", None)
+                check(cc.step({"model": model}, step), f"continuous step {step} was not recorded")
+                cc.drain()
+                drain_promotions(timeout_s=600)
+                check(cc.last_durable_step() == step and "c" in timing,
+                      f"continuous step {step}: durable step {cc.last_durable_step()}, published {'c' in timing}")
+                published(step, "continuous", timing["c"])
+        finally:
+            cc.close()
+            if local_host.startswith("/dev/shm"):
+                shutil.rmtree(os.path.dirname(local_host), ignore_errors=True)
+        stats_cli = start_clis((("stats", ["stats", root]),), os.path.join(work, "publish_cli"))
+        coord.kv_set("publish/done", "1")
+        try:
+            child.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            child.kill()
+            child.wait()
+        pub.close()
+        d = counter_delta(before, (tts.obs.PUBLISH_RECORDS, tts.obs.PUBLISH_ANNOUNCE_FAILURES,
+                                   tts.obs.PUBLISH_BYTES_DELTA))
+    finally:
+        stop_publish_child(job)
+        log.seek(0)
+        text = log.read()
+        log.close()
+    results = [json.loads(line[len("publish result "):]) for line in text.splitlines()
+               if line.startswith("publish result ")]
+    if child.returncode != 0 or not results:
+        print(text[-4000:])
+    check(child.returncode == 0 and results, f"the publish child exited {child.returncode} with no result")
+    res = results[0]
+    rc, out, err, secs = finish_clis(stats_cli)["stats"]
+    check(rc == 0 and f"{PUBLISH_SUB_ID}: step 6 (lag 0 steps" in out, f"stats exited {rc}: {out[-500:]} {err[-500:]}")
+    print(f"publish: state {total} bytes ({frozen_bytes} frozen, {changed} changed a step); `stats {root}` exit 0 "
+          f"in {secs} s beside the child's end: {out.strip().splitlines()[-1].strip()}")
+    for step, source, seconds, stats, crc_s, phases, wall_s in rows:
+        sw = res["swaps"][str(step)]
+        st = sw["stats"]
+        basis = sw["basis"]
+        print(f"publish step {step} ({source}): publish {seconds:.3f} s"
+              + (f" (encode_leaf's copies {phases['encode']:.3f} s, digests {phases['digest']:.3f} s, pool writes "
+                 f"{phases['write']:.3f} s)" if phases else "")
+              + (f" in a {save_s:.3f} s manager save" if source == "snapshot" else "")
+              + f"; bytes_delta {stats['bytes_delta']} of {stats['bytes_total']} ({stats['chunks_delta']}/"
+              f"{stats['chunks_total']} chunks); subscriber fetched {st['bytes_fetch']} bytes "
+              f"({st['chunks_fetch']} chunks, {st['chunks_reused']} reused) in {sw['fetch_s']:.3f} s, apply "
+              f"{sw['apply_s']:.3f} s (staging basis: {basis[0]} device-to-host copies, {basis[1]} bytes, "
+              f"{basis[2]:.3f} s), lag {sw['lag_s']:.3f} s from the record's t to the swap; the trainer's crcs "
+              f"{crc_s:.3f} s; {wall_s:.3f} s on the path since the last acknowledgement (the training step, "
+              f"the publication, both sides' crcs)")
+        if source == "state" and step > 1 or source == "continuous" and step > 5:
+            check(st["chunks_reused"] >= frozen_chunks and not frozen & set(sw["fetched_leaves"]),
+                  f"publish step {step}: the frozen leaves' {frozen_chunks} chunks were fetched "
+                  f"({st['chunks_reused']} reused)")
+            if source == "state":
+                n_changed = len(sw["fetched_leaves"])
+                check(st["bytes_fetch"] <= changed + n_changed * PUBLISH_CHUNK,
+                      f"publish step {step}: fetched {st['bytes_fetch']} > {changed} changed bytes + one chunk "
+                      f"for each of {n_changed} leaves")
+    c = res["counters"]
+    print(f"publish: {res['requests']} requests served, each checked against its generation's digest "
+          f"({res['torn']} torn), {res['served_during_swaps']} while a swap was in flight, longest wait for "
+          f"pinned() {res['max_pinned_wait_s']:.3f} s; subscriber counters {json.dumps(c)}; trainer counters "
+          f"{json.dumps(d)}")
+    check(res["torn"] == 0 and res["requests"] > 0, f"{res['torn']} torn requests: {res['torn_examples']}")
+    check(sorted(res["verdicts"]) == [str(s) for s in range(1, 7)], f"verdicts for steps {sorted(res['verdicts'])}")
+    check(c[tts.obs.PUBLISH_FALLBACK_POLLS] == 0, f"{c[tts.obs.PUBLISH_FALLBACK_POLLS]} fallback polls")
+    check(c[tts.obs.PUBLISH_WATCH_ERRORS] == 0 and d[tts.obs.PUBLISH_ANNOUNCE_FAILURES] == 0,
+          f"watch errors {c[tts.obs.PUBLISH_WATCH_ERRORS]}, announce failures "
+          f"{d[tts.obs.PUBLISH_ANNOUNCE_FAILURES]}")
+    check(not res["swallowed_publish"] and not swallowed.publish(),
+          f"swallowed at publish sites: {res['swallowed_publish']} {swallowed.publish()}")
+    check(c[tts.obs.PUBLISH_LEAVES_SKIPPED] > 0 and d[tts.obs.PUBLISH_RECORDS] == 6,
+          f"{c[tts.obs.PUBLISH_LEAVES_SKIPPED]} leaves skipped, {d[tts.obs.PUBLISH_RECORDS]} records")
+    for name in ("publish", "publish_kv", "publish_ckpt", "publish_local", "publish_durable", "publish_standby"):
+        shutil.rmtree(os.path.join(work, name), ignore_errors=True)
+    return {k: v for k, v in res["launches"].items()}
 
 
 def main():
@@ -4128,7 +4521,14 @@ def main():
         run_path("fleet", ("slab_pack", "slab_unpack", "tile_update"), lambda: phase_fleet(cfg, work))
         gc.collect()
         torch.cuda.empty_cache()
-        run_path("continuous", (), lambda: phase_continuous(cfg, work))
+        publish_job = start_publish_child(work)  # it launches nothing before the publish path
+        try:
+            run_path("continuous", (), lambda: phase_continuous(cfg, work))
+            gc.collect()
+            torch.cuda.empty_cache()
+            run_path("publish", ("slab_pack", "flash_attention_fwd"), lambda: phase_publish(cfg, work, publish_job))
+        finally:
+            stop_publish_child(publish_job)
 
     print(json.dumps({"kernels": list(records.values())}))
     print(card)
@@ -4147,6 +4547,8 @@ if __name__ == "__main__":
         sys.exit(tier_cache_child(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), sys.argv[5]))
     if len(sys.argv) == 6 and sys.argv[1] == "--fleet-child":
         sys.exit(fleet_child(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), sys.argv[5]))
+    if len(sys.argv) == 4 and sys.argv[1] == "--publish-child":
+        sys.exit(publish_child(sys.argv[2], sys.argv[3]))
     if len(sys.argv) == 6 and sys.argv[1] == "--sharded-child":
         sys.exit(sharded_child(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), sys.argv[5]))
     sys.exit(main())

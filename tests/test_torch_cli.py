@@ -191,11 +191,22 @@ def test_stats_doctor_and_cas_print_what_jax_prints(tmp_path, capsys):
         for argv in (["stats", path], ["stats", path, "--json"]):
             rc, out, _ = _both(argv, capsys)
             assert rc == 0 and "head" in out
-    # a publication root is not ported
-    os.makedirs(tmp_path / "pub")
-    (tmp_path / "pub" / ".snapshot_metadata").write_text('{"format": "tsnp-publication-head"}')
-    rc, out, err = _run(port_main, ["stats", str(tmp_path / "pub")], capsys)
-    assert rc == 1 and out == "" and "queue A item 5.4" in err
+    # a publication root: its HEAD, last delta and subscribers' lag (a
+    # stamp dated ahead, so its age prints 0 in both calls)
+    from torchsnapshot_tpu_torch.publish import Publisher, PublishStore
+
+    pub_root = str(tmp_path / "pub")
+    pub = Publisher(pub_root, chunk_size_bytes=4096)
+    w = torch.arange(5000, dtype=torch.float32)
+    pub.publish_state({"app": tts.StateDict(w=w)}, 1)
+    pub.publish_state({"app": tts.StateDict(w=w + 1)}, 2)
+    pub.close()
+    store = PublishStore(pub_root)
+    store.write_stamp("sub-a", {"step": 1, "generation": 1, "t": 4e9, "bytes_fetched": 20000})
+    store.sync_close()
+    for argv in (["stats", pub_root], ["stats", pub_root, "--json"]):
+        rc, out, _ = _both(argv, capsys)
+        assert rc == 0 and "sub-a" in out and ("published step 2" in out or '"step": 2' in out)
 
 
 _READ_PATH = ("materialize", "pipeline/budget_admission", "pipeline/io", "pipeline/consume",

@@ -384,5 +384,29 @@ def test_every_wait_has_a_deadline_that_names_the_step(tmp_path, monkeypatch):
 
 
 def test_publisher_is_refused_by_name(tmp_path):
-    with pytest.raises(NotImplementedError, match="queue A item 5.4"):
-        tts.ContinuousCheckpointer(str(tmp_path / "l"), publisher=object(), device="cpu")
+    """``publisher=`` is taken: every confirmed durable promotion is
+    published (a pure reference to the durable mirror), and a subscriber
+    follows it bitwise."""
+    from torchsnapshot_tpu_torch.publish import Publisher, Subscriber
+
+    pub = Publisher(str(tmp_path / "pub"))
+    cc = _cc(tmp_path, durable_root=str(tmp_path / "durable"), promote_every_n=1, publisher=pub)
+    state = _state()
+    try:
+        for s in (1, 2):
+            state["app"]["w"][s] += 1.0
+            cc.step(state, s)
+        cc.drain()
+        drain_promotions(timeout_s=120)
+        assert cc.last_durable_step() == 2
+    finally:
+        cc.close()
+        pub.close()
+    dest = _dest()
+    sub = Subscriber(str(tmp_path / "pub"), dest, device="cpu")
+    try:
+        assert sub.poll_once() == 1 and sub.step == 2
+    finally:
+        sub.close()
+    assert torch.equal(dest["app"]["w"], state["app"]["w"])
+    assert dest["app"]["meta"] == {"lr": 0.1, "name": "run7"}

@@ -1276,3 +1276,60 @@ def test_continuous_loop_over_cuda_state_recovered_bitwise_on_cuda(cuda, tmp_pat
         assert st["step"].device.type == "cpu" and st["exp_avg"].is_cuda
         for k, v in st.items():
             assert torch.equal(v, want[1][i][k]), (i, k)
+
+
+def test_subscriber_on_the_card_swaps_bitwise_under_pinned_readers(cuda, tmp_path):
+    """A subscriber holding a bf16 ``nn.Module`` on the card follows four
+    published steps (each fills every parameter with the step) while two
+    reader threads, each on its own stream, run matmuls on the parameters
+    under ``pinned()``: every read sees one generation, the parameters
+    stay the same objects on the card, and each delta's basis is a counted
+    device-to-host copy."""
+    import threading
+
+    from torchsnapshot_tpu_torch.publish import Publisher, Subscriber
+
+    model = torch.nn.Sequential(torch.nn.Linear(512, 512), torch.nn.Linear(512, 512))
+    model = model.to(device=cuda, dtype=torch.bfloat16)
+    params = list(model.parameters())
+    src = torch.nn.Sequential(torch.nn.Linear(512, 512), torch.nn.Linear(512, 512)).to(torch.bfloat16)
+    root = str(tmp_path / "pub")
+    pub = Publisher(root, chunk_size_bytes=64 * 1024)
+    sub = Subscriber(root, {"m": model})
+    stop = threading.Event()
+    torn, reads = [], [0]
+
+    def reader():
+        stream = torch.cuda.Stream(device=cuda)
+        x = torch.ones(64, 512, device=cuda, dtype=torch.bfloat16)
+        while not stop.is_set():
+            with torch.cuda.stream(stream), sub.live.pinned() as (step, _gen):
+                y = model(x)
+                first = float(params[0].detach().reshape(-1)[0])
+                last = float(params[-1].detach().reshape(-1)[-1])
+                stream.synchronize()
+                if step is not None and not (first == last == float(step)):
+                    torn.append((step, first, last))
+                reads[0] += int(torch.isfinite(y).all())
+
+    threads = [threading.Thread(target=reader) for _ in range(2)]
+    for t in threads:
+        t.start()
+    try:
+        for step in (1, 2, 3, 4):
+            with torch.no_grad():
+                for p in src.parameters():
+                    p.fill_(float(step))
+            pub.publish_state({"m": src}, step)
+            assert sub.poll_once() == step
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=60)
+        sub.close()
+        pub.close()
+    assert torn == [] and reads[0] > 0
+    assert [p is q for p, q in zip(model.parameters(), params)] == [True] * len(params)
+    for p, q in zip(model.parameters(), src.parameters()):
+        assert p.is_cuda and p.dtype == torch.bfloat16 and torch.equal(p.cpu(), q)
+    assert sub.live.basis_copies == 3 * len(params) and sub.live.basis_bytes > 0

@@ -188,9 +188,16 @@ def test_unported_features_are_refused_by_name(tmp_path):
     ``fsck``) are configured and run as the JAX manager's do."""
     with pytest.raises(ValueError, match="keep_last_n"):
         tts.SnapshotManager(str(tmp_path), keep_last_n=0)
-    refusals = [
-        (lambda: tts.SnapshotManager(str(tmp_path), publisher=object()), "item 5.4"),
-    ]
+    # publisher= is taken: a committed save is published from rank 0
+    from torchsnapshot_tpu_torch.publish import Publisher, root_rollup
+
+    pub = Publisher(str(tmp_path / "pub"))
+    published = tts.SnapshotManager(str(tmp_path / "published"), publisher=pub)
+    published.save({"app": tts.StateDict(w=torch.arange(64, dtype=torch.float32))}, step=3)
+    pub.close()
+    roll = root_rollup(str(tmp_path / "pub"))
+    assert roll["step"] == 3 and roll["source"] == "snapshot" and roll["leaves"] == 1
+    refusals = []
     mgr = tts.SnapshotManager(str(tmp_path))
     assert mgr.repair([str(tmp_path / "mirrors")]) == {}
     # an untiered manager has nothing to re-promote; a tier dict becomes the

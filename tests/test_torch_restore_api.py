@@ -258,7 +258,18 @@ def test_storage_options_are_forwarded_and_unported_ones_refused(tmp_path, monke
             want = _arrays(9)
             for k, v in want.items():
                 assert _bytes(got["model"][k]) == _bytes(v), (name, k)
-    with pytest.raises(NotImplementedError, match="queue A item 5"):
-        snap.publish_to(object(), 1)
+    # publish_to publishes the committed snapshot; the JAX package reads
+    # the record
+    from torchsnapshot_tpu.publish import PublishStore as JaxPublishStore
+    from torchsnapshot_tpu_torch.publish import Publisher
+
+    pub = Publisher(str(tmp_path / "pub"))
+    rec_path = snap.publish_to(pub, 1)
+    pub.close()
+    jstore = JaxPublishStore(str(tmp_path / "pub"))
+    rec = jstore.read_record(rec_path)
+    jstore.sync_close()
+    assert rec["source"] == "snapshot" and rec["bases"] == [snap.path.rstrip("/")]
+    assert {p.split("/")[0] for p in rec["leaves"]} == {"model", "optim", "meta"}
     # repair is ported: a complete snapshot has nothing to heal
     assert snap.repair_degraded([str(tmp_path)]) == []

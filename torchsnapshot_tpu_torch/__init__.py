@@ -14,7 +14,9 @@ resume, incremental saves and bounded retention, also over a fast local
 tier in front of a durable one (``TierConfig``, write-back promotion);
 ``ContinuousCheckpointer`` mirrors the changed chunks of the state to a
 peer host after every step, and ``recover_state`` brings a restarted
-job back from the freshest mirror; ``verify_snapshot``
+job back from the freshest mirror; ``Publisher`` and ``Subscriber``
+push a training job's weights to serving processes, which hot-swap the
+changed chunks; ``verify_snapshot``
 audits a snapshot, and ``python -m torchsnapshot_tpu_torch`` does both
 from a shell.  It imports ``torch`` and ``numpy``, never ``jax`` and
 nothing of ``torchsnapshot_tpu``.
@@ -39,6 +41,7 @@ from .tier import TierConfig, drain_promotions  # noqa: F401
 from .verify import VerifyResult, verify_snapshot  # noqa: F401
 from .resilience.abort import SnapshotAbortedError  # noqa: F401
 from .continuous import ContinuousCheckpointer, recover_state  # noqa: F401
+from .publish import LiveWeights, Publisher, Subscriber  # noqa: F401
 from .stateful import PyTreeState, Replicated, RNGState, StateDict, Stateful  # noqa: F401
 
 __all__ = [
@@ -50,6 +53,9 @@ __all__ = [
     "drain_promotions",
     "ContinuousCheckpointer",
     "recover_state",
+    "Publisher",
+    "Subscriber",
+    "LiveWeights",
     "verify_snapshot",
     "VerifyResult",
     "Coordinator",

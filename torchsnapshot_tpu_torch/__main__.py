@@ -17,9 +17,9 @@ what the JAX package's print, field for field, and exit with the same
 codes (non-zero when a verify fails or a delete is refused).  ``trace``
 and ``convert`` hold the leaves on the card unless ``--device cpu``, as
 the port's entry points do.  ``stats`` of a continuous root (one store,
-or a host root of per-rank stores) prints its residency rollup.
-``stats`` of a publication root and ``lint`` are not ported yet: each
-exits 1 naming its ROADMAP queue A item.
+or a host root of per-rank stores) prints its residency rollup, and of a
+live-weight publication root its HEAD, last delta and subscribers' lag.
+``lint`` is not ported yet: it exits 1 naming its ROADMAP queue A item.
 """
 
 from __future__ import annotations
@@ -287,16 +287,56 @@ def _render_topology_rollup(topo, counters=None) -> None:
         )
 
 
-def _is_publication_root(path: str) -> bool:
-    """Whether ``path`` is a local live-weight publication root (its HEAD
-    is a JSON ``.snapshot_metadata`` tagged ``tsnp-publication-head``)."""
-    if "://" in path and not path.startswith("file://"):
-        return False
-    try:
-        with open(os.path.join(path.split("://", 1)[-1], ".snapshot_metadata"), "rb") as f:
-            return b'"tsnp-publication-head"' in f.read(4096)
-    except OSError:
-        return False
+def _publish_stats(path: str) -> Optional[dict]:
+    """The rollup of a live-weight publication root (``publish/``): the
+    published HEAD, the last update's delta cost and each subscriber's
+    lag from its stamp; None when ``path`` is not one.  A local path is
+    ruled out by the tag of its ``.snapshot_metadata`` (a snapshot's can
+    be large), a remote one by reading it, as the JAX CLI does."""
+    if "://" not in path or path.startswith("file://"):
+        try:
+            with open(os.path.join(path.split("://", 1)[-1], ".snapshot_metadata"), "rb") as f:
+                if b'"tsnp-publication-head"' not in f.read(4096):
+                    return None
+        except OSError:
+            return None
+    from .publish import root_rollup
+
+    return root_rollup(path)
+
+
+def _render_publish_stats(roll: dict) -> None:
+    print(f"{roll['root']}  [publication root]")
+    line = f"  published step {roll['step']}"
+    if roll.get("source"):
+        line += f" (source: {roll['source']}, {roll.get('leaves', 0)} leaves)"
+    print(line)
+    if roll.get("record_error"):
+        print(f"  WARNING: record unreadable: {roll['record_error']}")
+    stats = roll.get("stats") or {}
+    if stats.get("bytes_total"):
+        ratio = stats.get("bytes_delta", 0) / stats["bytes_total"]
+        print(
+            f"  last update: {_human(stats.get('bytes_delta', 0))} delta "
+            f"of {_human(stats['bytes_total'])} total "
+            f"({ratio:.1%}; {stats.get('chunks_delta', 0)}/"
+            f"{stats.get('chunks_total', 0)} chunks)"
+        )
+    subs = roll.get("subscribers") or []
+    if not subs:
+        print("  subscribers: (no stamps)")
+        return
+    print(f"  subscribers: {len(subs)}")
+    for s in subs:
+        if s.get("malformed"):
+            print(f"    {s['id']}: MALFORMED stamp")
+            continue
+        print(
+            f"    {s['id']}: step {s['step']} "
+            f"(lag {s['lag_steps']} steps, stamped {s['age_s']:.1f}s "
+            f"ago, gen {s['generation']}, "
+            f"{_human(s['bytes_fetched'])} fetched)"
+        )
 
 
 def _continuous_store_rollup(root: str) -> Optional[dict]:
@@ -401,13 +441,13 @@ def _cmd_stats(args) -> int:
     from .manifest import is_container_entry
     from .snapshot import Snapshot
 
-    if _is_publication_root(args.path):
-        print(
-            "error: `stats` of a publication root is not ported yet (ROADMAP queue A "
-            "item 5.4); run it with `python -m torchsnapshot_tpu`",
-            file=sys.stderr,
-        )
-        return 1
+    pubroll = _publish_stats(args.path)
+    if pubroll is not None:
+        if args.json:
+            print(json.dumps(pubroll, indent=2))
+        else:
+            _render_publish_stats(pubroll)
+        return 0
     cont = _continuous_stats(args.path)
     if cont is not None:
         if args.json:

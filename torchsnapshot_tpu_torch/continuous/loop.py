@@ -29,9 +29,10 @@ Differences from the reference, on purpose:
   ``TimeoutError`` naming the step after ``DRAIN_DEADLINE_S``;
 - only peer stores take the transport's device round trip, as the
   reference's comment says (its test compares the host root with a store
-  root, so its local store takes it too);
-- ``publisher=`` (live-weight publication) is refused: ROADMAP queue A
-  item 5.4 ports it.
+  root, so its local store takes it too).
+
+``publisher=`` (a ``publish.Publisher``) publishes every confirmed durable
+promotion to a live-weight publication root, best-effort.
 """
 
 from __future__ import annotations
@@ -147,11 +148,6 @@ class ContinuousCheckpointer:
         publisher: Any = None,
         device: Any = "cuda",
     ) -> None:
-        if publisher is not None:
-            raise NotImplementedError(
-                "ContinuousCheckpointer(publisher=) (live-weight publication) is not "
-                "ported yet (ROADMAP queue A item 5.4)"
-            )
         self.local_root = local_root.rstrip("/")
         self.durable_root = durable_root.rstrip("/") if durable_root else None
         self._coordinator = coordinator
@@ -199,6 +195,10 @@ class ContinuousCheckpointer:
         # and physical deletes run outside it
         self._promo_lock = threading.Lock()
         self._promotions: List[Tuple[PromotionGroup, Set[str], Set[str], int]] = []
+        # live-weight publication (publish/): every confirmed durable
+        # promotion is published, best-effort
+        self._publisher = publisher
+        self._published_step: Optional[int] = None
         # guards the lazy singletons (_ns, _targets, _target_pool,
         # _io_loop, _transport); the work that resolves them runs outside
         self._init_lock = threading.Lock()
@@ -736,6 +736,28 @@ class ContinuousCheckpointer:
                 self._durable_manifest_steps -= old_manifests
         for root, path in deletions:
             self._store(root).delete_quiet(path)
+        self._publish_durable_head()
+
+    def _publish_durable_head(self) -> None:
+        """Publish the durable HEAD step if it advanced past the last
+        publication.  Outside ``_promo_lock`` (storage I/O) and
+        best-effort: a failure leaves subscribers one step behind until
+        the next promotion; the durable mirror is committed either way."""
+        if self._publisher is None:
+            return
+        with self._promo_lock:
+            step = self._durable_head_step
+            if step is None or (self._published_step is not None and step <= self._published_step):
+                return
+            self._published_step = step
+        try:
+            self._publisher.publish_continuous(self.durable_store_root, step)
+        except Exception as e:  # noqa: BLE001 — retried implicitly at the next promotion
+            obs.swallowed_exception("continuous.publish", e)
+            logger.warning(
+                "publication of durable step %d failed; subscribers stay at the previous "
+                "published step", step,
+            )
 
     def promote(self) -> bool:
         """Promote the newest fully replicated step to the durable mirror

@@ -74,6 +74,9 @@ _TRANSPORT_TIMEOUT_S = "TRANSPORT_TIMEOUT_S"
 _CONTINUOUS = "CONTINUOUS"
 _CONTINUOUS_PROMOTE_EVERY_N = "CONTINUOUS_PROMOTE_EVERY_N"
 _CONTINUOUS_GRACE_S = "CONTINUOUS_GRACE_S"
+_PUBLISH_POLL_S = "PUBLISH_POLL_S"
+_PUBLISH_ANNOUNCE = "PUBLISH_ANNOUNCE"
+_PUBLISH_RETAIN = "PUBLISH_RETAIN"
 _S3_ENDPOINT_URL = "S3_ENDPOINT_URL"
 
 _DEFAULTS = {
@@ -275,6 +278,18 @@ _DEFAULTS = {
     # The SIGTERM grace window (resilience/preemption.py): every
     # registered drain shares one deadline this many seconds away.
     _CONTINUOUS_GRACE_S: 10.0,
+    # Live-weight publication (publish/): a Subscriber's durable-poll
+    # cadence when no KV announce arrives, also the announce watch's
+    # timeout, so one interval bounds how far a dead announce channel
+    # holds a subscriber back.
+    _PUBLISH_POLL_S: 2.0,
+    # Whether publishers announce new records over the coordination KV
+    # (the subscribers' fast wake-up); 0 leaves every subscriber on the
+    # durable poll.  The record and its marker are written either way.
+    _PUBLISH_ANNOUNCE: 1,
+    # Publication records a publisher keeps; older ones, and pool chunks
+    # only they referenced, are pruned after a successful publication.
+    _PUBLISH_RETAIN: 4,
     # An S3-compatible endpoint (minio, localstack) for every s3:// URL;
     # None = the AWS default.  The JAX package's legacy spelling
     # TSNP_S3_ENDPOINT_URL is not read: the port has only this one.
@@ -588,6 +603,19 @@ def get_continuous_grace_s() -> float:
     return max(0.0, float(_get_raw(_CONTINUOUS_GRACE_S)))
 
 
+def get_publish_poll_s() -> float:
+    return max(0.01, float(_get_raw(_PUBLISH_POLL_S)))
+
+
+def publish_announce_enabled() -> bool:
+    return bool(_get_int(_PUBLISH_ANNOUNCE))
+
+
+def get_publish_retain() -> int:
+    """At least 1: the HEAD record always survives."""
+    return max(1, _get_int(_PUBLISH_RETAIN))
+
+
 @contextlib.contextmanager
 def _override(name: str, value) -> Iterator[None]:
     had = name in _OVERRIDES
@@ -796,6 +824,18 @@ def override_continuous_promote_every_n(value: int):
 
 def override_continuous_grace_s(value: float):
     return _override(_CONTINUOUS_GRACE_S, value)
+
+
+def override_publish_poll_s(value: float):
+    return _override(_PUBLISH_POLL_S, value)
+
+
+def override_publish_announce(value: bool):
+    return _override(_PUBLISH_ANNOUNCE, int(value))
+
+
+def override_publish_retain(value: int):
+    return _override(_PUBLISH_RETAIN, value)
 
 
 @contextlib.contextmanager

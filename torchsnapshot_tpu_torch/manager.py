@@ -36,9 +36,10 @@ chunk refs (the durable step owns them).  ``repromote()`` re-enqueues
 the promotion of fast-committed steps a crash left without a durable
 marker; it runs once before a manager's first save.  ``repair(sources)``
 heals steps a take committed degraded after a rank's death, from
-continuous mirrors (``Snapshot.repair_degraded``).  Not ported: live-
-weight publication (``publisher=``, ROADMAP queue A item 5.4), raising
-``NotImplementedError``.
+continuous mirrors (``Snapshot.repair_degraded``).  ``publisher=`` (a
+``publish.Publisher``): rank 0 publishes every committed save to a
+live-weight publication root, best-effort (a failure is counted in
+``exceptions.swallowed`` and logged; the save stands).
 """
 
 from __future__ import annotations
@@ -64,12 +65,6 @@ from .tier import TierConfig
 logger = logging.getLogger(__name__)
 
 INDEX_FNAME = "manager_index.json"
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"SnapshotManager {what} is not ported yet (ROADMAP queue A item {item})"
-    )
 
 
 def entry_locations(manifest: Dict[str, Entry]) -> List[str]:
@@ -204,8 +199,6 @@ class SnapshotManager:
     ) -> None:
         if keep_last_n is not None and keep_last_n < 1:
             raise ValueError(f"keep_last_n must be >= 1, got {keep_last_n}")
-        if publisher is not None:
-            raise _not_ported("publisher= (live-weight publication)", "5.4")
         self.root = root.rstrip("/")
         if cas is None:
             cas = knobs.cas_enabled()
@@ -235,6 +228,9 @@ class SnapshotManager:
         self._durable_confirmed: set = set()
         # the crash-recovery sweep runs once, before the first save
         self._repromoted = False
+        # live-weight publication (publish/): rank 0 publishes every
+        # committed save, best-effort (it never gates or fails the commit)
+        self._publisher = publisher
 
     # ------------------------------------------------------------ paths
 
@@ -447,6 +443,7 @@ class SnapshotManager:
                 coordinator=self._coordinator, base=base, **take_kwargs,
             )
             self._after_commit(step)
+            self._publish(step, snap)
             return snap
 
     def restore_latest(
@@ -469,6 +466,23 @@ class SnapshotManager:
             return step
 
     # ------------------------------------------------------- retention
+
+    def _publish(self, step: int, snap: Optional[Snapshot]) -> None:
+        """Publish a committed step to the publication root (rank 0,
+        best-effort: a failure is counted and logged, and subscribers stay
+        at the previous published step)."""
+        if self._publisher is None or self._coord.rank != 0:
+            return
+        try:
+            self._publisher.publish_snapshot(
+                self.path_for_step(step), step, metadata=None if snap is None else snap.metadata
+            )
+        except Exception as e:  # noqa: BLE001 — publication never fails a committed save
+            obs.swallowed_exception("manager.publish", e)
+            logger.warning(
+                "publication of committed step %d failed; serving subscribers stay at the "
+                "previous published step", step,
+            )
 
     def _after_commit(self, step: Optional[int]) -> None:
         # fast-tier retention is rank-local (each host owns its fast
@@ -723,6 +737,7 @@ class _ManagedPendingSnapshot:
     def wait(self) -> Snapshot:
         snap = self._pending.wait()
         self._manager._after_commit(self._step)
+        self._manager._publish(self._step, snap)
         return snap
 
     def done(self) -> bool:

@@ -13,7 +13,11 @@ Counterpart of ``torchsnapshot_tpu/scheduler.py``, same discipline:
 - Copies (``sync_execute_copy_reqs``: the tier promoter) and writes of
   already-staged buffers (``sync_execute_buffer_writes``: the continuous
   loop's replication, optionally through a transport's ``device_move``)
-  are admitted under the same budget with the same progress rule.
+  are admitted under the same budget with the same progress rule, as are
+  the verified chunk reads of delta subscribers
+  (``sync_execute_chunk_reads``: keyed payloads held against their
+  content key, fail closed), whose admission wait has a deadline
+  (``CHUNK_READ_ADMISSION_DEADLINE_S``), where the reference has none.
 - Incremental takes: a request whose staged digest equals its ``dedup``
   digest (the base snapshot's object at the same location) is linked
   from the base (``StoragePlugin.link_from``) instead of written; its
@@ -113,7 +117,7 @@ from .obs import metrics as obs_metrics
 from .obs import tracer as obs_tracer
 from .resilience.failpoints import failpoint
 from .storage import stripe
-from .utils.checksums import combine_piece_digests, crc32_fast, digest
+from .utils.checksums import adler32_fast, combine_piece_digests, crc32_fast, digest
 
 logger = logging.getLogger(__name__)
 
@@ -839,6 +843,110 @@ def sync_execute_buffer_writes(
     finally:
         if own_loop:
             lt.shutdown()
+
+
+# the longest a verified chunk read waits for admission under the
+# budget (reads ahead of it in flight on a stalled storage); past it the
+# read raises a ``TimeoutError`` naming its path
+CHUNK_READ_ADMISSION_DEADLINE_S = 600.0
+
+
+async def _execute_chunk_reads(
+    items: List[Tuple[str, Optional[Tuple[int, int]], Optional[str], int]],
+    storage: StoragePlugin,
+    budget: _Budget,
+    io_concurrency: int,
+    span_label: str,
+) -> List[bytes]:
+    """Read ``(path, byte_range, content_key, nbytes)`` items under the
+    host-memory budget, each admitted by its ``nbytes`` with the copy
+    pipeline's progress rule, and hold every keyed payload against its
+    (crc32, adler32, size) key: a torn or stale copy fails closed.
+    Results come back in submission order."""
+    sem = asyncio.Semaphore(io_concurrency)
+    cond = asyncio.Condition()
+    out: List[Optional[bytes]] = [None] * len(items)
+
+    async def one(i: int) -> None:
+        path, byte_range, key, nbytes = items[i]
+        async with cond:
+            try:
+                await asyncio.wait_for(
+                    cond.wait_for(lambda: budget.used == 0 or budget.fits(nbytes)),
+                    CHUNK_READ_ADMISSION_DEADLINE_S,
+                )
+            except TimeoutError:
+                raise TimeoutError(
+                    f"chunk read of {path!r} ({nbytes} bytes) not admitted under the "
+                    f"{budget.total}-byte budget within {CHUNK_READ_ADMISSION_DEADLINE_S} s"
+                ) from None
+            budget.used += nbytes
+        try:
+            async with sem:
+                with obs_tracer.span(span_label, path=path, bytes=nbytes):
+                    io = ReadIO(path=path, byte_range=byte_range)
+                    await storage.read(io)
+            view = memoryview(io.buf).cast("B")
+            if key is not None and (
+                view.nbytes != cas_store.key_size(key)
+                or cas_store.chunk_key((crc32_fast(view), adler32_fast(view), view.nbytes)) != key
+            ):
+                raise IOError(
+                    f"chunk {key} at {path!r} failed its content check ({view.nbytes} bytes)"
+                )
+            if view.nbytes != nbytes:
+                raise IOError(
+                    f"ranged read of {path!r} returned {view.nbytes} bytes, expected {nbytes}"
+                )
+            out[i] = bytes(view)
+        finally:
+            async with cond:
+                budget.used -= nbytes
+                cond.notify_all()
+
+    results = await asyncio.gather(*(one(i) for i in range(len(items))), return_exceptions=True)
+    errs = [r for r in results if isinstance(r, BaseException)]
+    if errs:
+        raise errs[0]
+    return [b for b in out if b is not None]
+
+
+def sync_execute_chunk_reads(
+    items: List[Tuple[str, Optional[Tuple[int, int]], Optional[str], int]],
+    storage: StoragePlugin,
+    memory_budget_bytes: int,
+    priorities: Optional[List[int]] = None,
+    span_label: str = "scheduler/chunk_read",
+    loop_thread: Optional[_LoopThread] = None,
+) -> List[bytes]:
+    """Verified ranged and content-addressed reads for delta subscribers
+    (``publish/subscriber.py``): fetch ``(path, byte_range, content_key,
+    nbytes)`` items concurrently under the staging memory budget and
+    return the payloads in the caller's order.  ``priorities`` are the
+    restore's priority classes: a stable sort dispatches lower classes
+    first, submission order kept within a class.  ``loop_thread`` lets a
+    long-lived watcher keep one event-loop thread across polls."""
+    if not items:
+        return []
+    order = list(range(len(items)))
+    if priorities is not None and any(priorities):
+        order.sort(key=lambda i: priorities[i])
+    own_loop = loop_thread is None
+    lt = loop_thread or _LoopThread("tsnp-torch-publish-loop")
+    try:
+        fetched = lt.submit(
+            _execute_chunk_reads(
+                [items[i] for i in order], storage, _Budget(memory_budget_bytes),
+                knobs.get_max_per_rank_io_concurrency(), span_label,
+            )
+        ).result()
+    finally:
+        if own_loop:
+            lt.shutdown()
+    out: List[bytes] = [b""] * len(items)
+    for pos, i in enumerate(order):
+        out[i] = fetched[pos]
+    return out
 
 
 class _ReadPipeline:

@@ -1758,10 +1758,12 @@ class Snapshot:
             }
 
     def publish_to(self, publisher: Any, step: int) -> str:
-        raise NotImplementedError(
-            "Snapshot.publish_to (live-weight publication) is not ported yet "
-            "(ROADMAP queue A item 5.4)"
-        )
+        """Publish this committed snapshot to a live-weight publication
+        root (``publish.Publisher``) so serving subscribers can swap to
+        it; returns the record path.  ``step`` orders the publication.
+        The explicit path: it raises on failure, where the manager's and
+        the continuous loop's hooks are best-effort."""
+        return publisher.publish_snapshot(self.path, step, metadata=self.metadata)
 
     def repair_degraded(
         self, sources: Sequence[str], paths: Optional[Sequence[str]] = None
