@@ -27,11 +27,15 @@ is no card or anything below fails.  In order:
    scores are apart by more than the summation order can move them (the
    ``kernels`` line carries each kernel's own outputs' absolute error;
    K3's record adds its normalised pv error), K3-K5 at s = 2048, on
-   ragged and q_offset cases (K4/K5 also s = 2047), with a second call
-   bitwise equal to the first.  K1 packs the take's first device slab
-   and the same members each followed by a 4-byte f32 scalar (the step
-   a fused AdamW keeps on the card), which puts them off 16-byte
-   alignment; K2 unpacks both slabs.  K6 casts 32 MiB bf16 tiles of the
+   ragged and q_offset cases (K4/K5 also s = 2047) and on the three
+   blocks a causal ring of two ranks of 2048 positions computes at a
+   nonzero key offset (``RING_OFFSET_CASES``: wholly masked, where every
+   output must be 0 and every argmax -1; the diagonal at offset 2048;
+   unmasked), each timed against its own bound (``offset_cases`` in the
+   kernel's record), with a second call bitwise equal to the first.  K1
+   packs the take's first device slab and the same members each
+   followed by a 4-byte f32 scalar (the step a fused AdamW keeps on the
+   card), which puts them off 16-byte alignment; K2 unpacks both slabs.  K6 casts 32 MiB bf16 tiles of the
    embedding into an f32 template at offset 0 and as the last, ragged
    tile, bitwise.  Every kernel, its plain version and the library
    yardstick (``torch.cat`` for K1, ``torch._foreach_copy_`` from the
@@ -39,10 +43,12 @@ is no card or anything below fails.  In order:
    for K4 + K5, ``copy_`` into the template's range for K6) are timed 5
    times: median, range, share of the bound, TFLOP/s for K3-K5; K1 both
    as ``pack_slab`` is called and as its launch alone;
-4. sixteen paths, each with the launch counters set to 0 just before it
+4. seventeen paths, each with the launch counters set to 0 just before it
    and read just after (a path that starts processes adds the launches
    they report), all with the fast-I/O engine at its defaults unless
-   the path says otherwise:
+   the path says otherwise.  The processes of n start during l and
+   wait, having reached the card, until their path releases them (each
+   takes 8-10 s to reach it):
    a. serving, at full width: the repo's transformer (TransformerConfig
       defaults, depth cut to 2 layers, bf16, ~0.67 B parameters) takes
       one AdamW step, is snapshotted with ``Snapshot.take``, restored
@@ -241,14 +247,12 @@ is no card or anything below fails.  In order:
       embedding into an f32 template under the 32 MiB budget (K6, no GET
       above the budget), an incremental ``base=`` take after the
       embedding changed (every unchanged object copied server-side with
-      ``copy_object``) restored bitwise, and the state in the original
-      format written to and read back from the store.  ``gs://``: a take
+      ``copy_object``) restored bitwise.  ``gs://``: a take
       with the 100 MB chunk (one ``compose`` per object over the chunk or
       striped, no part blob left) and a restore over ranged GETs (K2,
       bitwise).  Then ``write_torchsnapshot`` of the state from the card
-      into the work directory and ``read_torchsnapshot`` back onto it,
-      bitwise; ``python -m torchsnapshot_tpu_torch convert`` in a process
-      each way, the two started together (``--to-reference`` reads a
+      into the work directory; ``python -m torchsnapshot_tpu_torch
+      convert`` in a process each way, the two started together (``--to-reference`` reads a
       native snapshot of the same tree taken here): the native result
       restored into a zeroed state (K2, bitwise), the ``--to-reference``
       result read back bitwise.  It
@@ -330,6 +334,30 @@ is no card or anything below fails.  In order:
       staging basis's device-to-host copies, the lag from the record's
       ``t`` to the swap, the requests served while swaps were in flight
       and the longest wait for ``pinned()``.
+   n. workloads (after m): two processes on the card
+      (``--workloads-child``; gloo over a TCPStore on localhost, a group
+      timeout of ``WORKLOADS_GROUP_TIMEOUT_S``), started beside l.  (1)
+      DLRM at full width (``DLRMConfig()``, f32, Adagrad): 8 tables of
+      65,536 x 128 ``Shard(0)`` over an "ep" mesh of 2, the MLPs
+      ``Replicate()``; three ``train_step``s on batches of 4096 (ids
+      uniform over each table's rows), a ``Snapshot.take`` of model and
+      optimizer at world 2 (K1); here, a restore at world 1 into a
+      differently seeded model (every table row range and accumulator
+      bitwise the ranks' shards by crc32, the next loss on a fixed batch
+      within rtol 1e-5 of the ranks').  (2) The GPipe pipeline at
+      d_model 4096, two stages one a rank, batch 4096 in 4 microbatches,
+      f32: ``pipeline_forward`` within 1e-4 of the largest output of
+      ``sequential_forward``, one step's gradients within 1e-4 of the
+      largest of sequential autograd's, three ``pipeline_train_step``s
+      lowering the loss, the "pp"-sharded weights taken at world 2 and
+      restored replicated here (each stage and ``sequential_forward``'s
+      output bitwise the ranks').  (3) Ring attention at ring size 2:
+      b 1, 2048 positions a rank, 32 heads, d 128, bf16, causal (K3 at
+      each step, K4/K5 in the gradient): each rank's output within 2e-2
+      of f32 dense attention over the 4096 positions and the gradients
+      of q, k and v within 3e-2 of the largest dense gradient, the dense
+      reference computed once, here.  It prints each part's seconds,
+      bytes taken and restored, and launches.
 
 Every kernel must have launched on these paths, and each path on the
 kernels it runs.  The line before the last is the card; the line before
@@ -585,7 +613,7 @@ def phase_k2(slab, members, mis_slab, mis_members):
           f"misaligned {fmt_t(lib_t['misaligned'])}")
     record = kernel_record(
         "slab_unpack", "torchsnapshot_tpu_torch/csrc/slab_unpack.cu",
-        "torchsnapshot_tpu/ops/device_pack.py:85", 0.0, times["aligned"][0], plain_t[0],
+        "torchsnapshot_tpu/ops/device_pack.py:86", 0.0, times["aligned"][0], plain_t[0],
         bound_ms, "bytes", lib_t["aligned"][0],
     )
     record.update(misaligned_ms=times["misaligned"][0], misaligned_bound_ms=mis_bound_ms,
@@ -661,30 +689,54 @@ def phase_k3():
         mk = lambda n: torch.randn((bh, n, d), device="cuda", generator=g).to(torch.bfloat16)  # noqa: E731
         return mk(sq), mk(sk), mk(sk)
 
-    cases = [("main", SEQ, SEQ, 0, 0), ("ragged", 2000, 1900, 0, 0), ("q_offset", 1024, SEQ, 1024, 0)]
-    for what, sq, sk, qo, ko in cases:
+    lib = kernels.lib("flash_attention_fwd")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch_at(q, k, v, qo, ko):
+        """K3's launch alone (as K4/K5 are timed) at these offsets."""
+        sq, sk = q.shape[1], k.shape[1]
+        outs = [torch.empty((bh, sq, d), device="cuda"), torch.empty((bh, sq), device="cuda"),
+                torch.empty((bh, sq), device="cuda")]
+        return lambda: lib.tsnp_flash_fwd(  # noqa: E731
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), *(t.data_ptr() for t in outs),
+            bh, sq, sk, d, scale, 1, qo, ko, sq, sk, 1, stream)
+
+    offset_cases = {}
+    for what, sq, sk, qo, ko in K3_CASES:
         q, k, v = qkv(sq, sk)
         got = flash_attention.attend_partials(q, k, v, qo, ko, True, scale)
         want = flash_attention.attend_partials_plain(q, k, v, qo, ko, True, scale, sq, sk)
         err, abs_err = compare_partials(got, want, f"K3 {what}")
-        print(f"K3 {what} (sq={sq}, sk={sk}, q_offset={qo}): normalised pv error {err:.3e}, "
+        print(f"K3 {what} (sq={sq}, sk={sk}, q_offset={qo}, k_offset={ko}): normalised pv error {err:.3e}, "
               f"max abs err of pv, m, l {abs_err:.3e}")
-        if what == "main":
+        if what == "k_offset_masked":
+            # the ring's block wholly above the diagonal: no row sees a key
+            pv, m, l = got
+            m_safe = torch.where(torch.isfinite(m), m, 0.0)
+            check(not bool((l > 0).any()) and not bool(pv.any()) and not bool(m_safe.any()),
+                  "K3 k_offset_masked: a row is valid, or pv, l or m_safe is not 0")
+        if what == "main" or what.startswith("k_offset"):
             again = flash_attention.attend_partials(q, k, v, qo, ko, True, scale)
             for name, a, b in zip(("pv", "m", "l"), got, again):
-                check(torch.equal(a, b), f"K3: a second call gives other bits in {name}")
-            print("K3 main: a second call gives the same pv, m and l bitwise")
+                check(torch.equal(a, b), f"K3 {what}: a second call gives other bits in {name}")
+            print(f"K3 {what}: a second call gives the same pv, m and l bitwise")
+        if what == "main":
             main_err, main = (err, abs_err), (q, k, v)
+        elif what.startswith("k_offset"):
+            launch = launch_at(q, k, v, qo, ko)
+            kernels.check(launch(), "flash_fwd")
+            t = time_ms_repeats(launch)
+            flops = 4 * bh * d * causal_pairs(sq, sk, qo - ko)
+            # a block no row sees reads no input: it writes its outputs only
+            io_bytes = (3 * bh * sk * d * 2 if flops else 0) + bh * sq * d * 4 + 2 * bh * sq * 4
+            bound = max(flops / BF16_FLOP_PER_S, io_bytes / HBM_BYTES_PER_S) * 1e3
+            offset_cases[what] = {"normalised_pv_err": err, "max_abs_err": abs_err, "ms": t[0],
+                                  "bound_ms": bound}
+            print(f"K3 {what}: {fmt_t(t)}, {100 * bound / t[0]:.1f}% of its {bound:.4f} ms bound")
         del got, want
     q, k, v = main
     # the launch alone, as K4/K5 are timed, and attend_partials as called
-    lib = kernels.lib("flash_attention_fwd")
-    outs = [torch.empty((bh, SEQ, d), device="cuda"), torch.empty((bh, SEQ), device="cuda"),
-            torch.empty((bh, SEQ), device="cuda")]
-    stream = torch.cuda.current_stream().cuda_stream
-    launch = lambda: lib.tsnp_flash_fwd(  # noqa: E731
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), *(t.data_ptr() for t in outs),
-        bh, SEQ, SEQ, d, scale, 1, 0, 0, SEQ, SEQ, 1, stream)
+    launch = launch_at(q, k, v, 0, 0)
     kernels.check(launch(), "flash_fwd")
     k3_t = time_ms_repeats(launch)
     called_t = time_ms_repeats(lambda: flash_attention.attend_partials(q, k, v, 0, 0, True, scale))
@@ -708,13 +760,23 @@ def phase_k3():
         "torchsnapshot_tpu/ops/flash_attention.py:136", main_err[1], k3_t[0], plain_t[0],
         bound_ms, "operations" if t_ops >= t_bytes else "bytes", sdpa_t[0],
     )
-    record.update(normalised_pv_err=main_err[0], called_ms=called_t[0])
+    record.update(normalised_pv_err=main_err[0], called_ms=called_t[0], offset_cases=offset_cases)
     return record
 
 
-def causal_pairs(sq, sk, q_offset):
-    """(query, key) pairs a causal block sees: row i sees keys ≤ q_offset + i."""
-    return sum(min(sk, max(0, q_offset + i + 1)) for i in range(sq))
+def causal_pairs(sq, sk, offset):
+    """(query, key) pairs a causal block sees: row i sees keys ≤ offset + i
+    (``offset`` = q_offset - k_offset)."""
+    return sum(min(sk, max(0, offset + i + 1)) for i in range(sq))
+
+
+# the blocks a causal ring of two ranks of SEQ positions each computes:
+# rank 0 at step 1 (wholly above the diagonal), rank 1 at step 0 (the
+# diagonal at an offset) and rank 1 at step 1 (no mask at all)
+RING_OFFSET_CASES = [("k_offset_masked", SEQ, SEQ, 0, SEQ), ("k_offset_diag", SEQ, SEQ, SEQ, SEQ),
+                     ("k_offset_unmasked", SEQ, SEQ, SEQ, 0)]
+K3_CASES = [("main", SEQ, SEQ, 0, 0), ("ragged", 2000, 1900, 0, 0), ("q_offset", 1024, SEQ, 1024, 0),
+            *RING_OFFSET_CASES]
 
 
 def time_ms_repeats(fn, repeats=5, iters=10):
@@ -733,25 +795,42 @@ def phase_k4_k5():
     bh, d = 32, 128
     scale = 1.0 / d ** 0.5
     mk = lambda *shape: torch.randn(shape, device="cuda", generator=g)  # noqa: E731
-    cases = [("main", SEQ, SEQ, 0), ("ragged", 2000, 1900, 0), ("q_offset", 1024, SEQ, 1024),
-             ("tile_edge", SEQ - 1, SEQ - 1, 0)]
-    errs = {}
-    for what, sq, sk, qo in cases:
+    cases = [("main", SEQ, SEQ, 0, 0), ("ragged", 2000, 1900, 0, 0), ("q_offset", 1024, SEQ, 1024, 0),
+             ("tile_edge", SEQ - 1, SEQ - 1, 0, 0), *RING_OFFSET_CASES]
+    lib_dq, lib_dkv = kernels.lib("flash_attention_bwd_dq"), kernels.lib("flash_attention_bwd_dkv")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launches_at(q, k, v, m, gpv, gl, qo, ko):
+        """K4's and K5's launches alone, as ``flash_bwd`` makes them."""
+        sq, sk = q.shape[1], k.shape[1]
+        outs = [torch.empty((bh, n, d), device="cuda") for n in (sq, sk, sk)]
+        amax = torch.empty((bh, sq), dtype=torch.int32, device="cuda")
+        ins = [t.data_ptr() for t in (q, k, v, m, gpv, gl)]
+        args = (bh, sq, sk, d, scale, 1, qo, ko, sq, sk, 1, stream)
+        return (lambda: lib_dq.tsnp_flash_bwd_dq(*ins, outs[0].data_ptr(), amax.data_ptr(), *args),
+                lambda: lib_dkv.tsnp_flash_bwd_dkv(*ins, outs[1].data_ptr(), outs[2].data_ptr(), *args),
+                outs, amax)
+
+    errs, offset_cases = {}, {}
+    for what, sq, sk, qo, ko in cases:
         q, k, v = (mk(bh, n, d).to(torch.bfloat16) for n in (sq, sk, sk))
-        _, m, _ = flash_attention.attend_partials(q, k, v, qo, 0, True, scale)
+        _, m, _ = flash_attention.attend_partials(q, k, v, qo, ko, True, scale)
         m = torch.where(torch.isfinite(m), m, 0.0).contiguous()
         # the ring path hands the kernels gpv in bf16 (pv is bf16)
         gpv, gl = mk(bh, sq, d).to(torch.bfloat16), mk(bh, sq)
-        got = flash_attention.flash_bwd(q, k, v, m, gpv, gl, qo, 0, True, scale)
-        want = flash_attention.flash_bwd_plain(q, k, v, m, gpv, gl, qo, 0, True, scale, sq, sk)
+        got = flash_attention.flash_bwd(q, k, v, m, gpv, gl, qo, ko, True, scale)
+        want = flash_attention.flash_bwd_plain(q, k, v, m, gpv, gl, qo, ko, True, scale, sq, sk)
         torch.cuda.synchronize()
-        if what == "main":
-            again = flash_attention.flash_bwd(q, k, v, m, gpv, gl, qo, 0, True, scale)
+        if what == "main" or what.startswith("k_offset"):
+            again = flash_attention.flash_bwd(q, k, v, m, gpv, gl, qo, ko, True, scale)
             torch.cuda.synchronize()
             for name, a, b in zip(("dq", "dk", "dv", "amax"), got, again):
-                check(torch.equal(a, b), f"K4/K5: a second call gives other bits in {name}")
+                check(torch.equal(a, b), f"K4/K5 {what}: a second call gives other bits in {name}")
             del again
-            print("K4/K5 main: a second call gives the same dq, dk, dv and amax bitwise")
+            print(f"K4/K5 {what}: a second call gives the same dq, dk, dv and amax bitwise")
+        if what == "k_offset_masked":
+            check(not any(bool(t.any()) for t in got[:3]) and bool((got[3] == -1).all()),
+                  "K4/K5 k_offset_masked: a gradient is not 0 or a row has an argmax")
         case_errs = {}
         for name, a, b in zip(("dq", "dk", "dv"), got[:3], want[:3]):
             check(bool(torch.isfinite(a).all()), f"K4/K5 {what}: {name} not finite")
@@ -759,31 +838,43 @@ def phase_k4_k5():
             rel = abs_err / max(float(b.abs().max()), 1e-30)
             check(rel <= 2e-2, f"K4/K5 {what}: {name} relative error {rel} beyond 2e-2")
             case_errs[name] = (abs_err, rel)
-        mask = flash_attention._visible(sq, sk, qo, 0, True, sq, sk, q.device)
+        mask = flash_attention._visible(sq, sk, qo, ko, True, sq, sk, q.device)
         top = flash_attention._scores(q, k, scale, mask).topk(2, dim=-1).values
         clear = (top[..., 0] - top[..., 1] > 1e-2 * (1 + top[..., 0].abs())) | ~torch.isfinite(top[..., 1])
         case_errs["amax_moved"] = int((got[3] != want[3]).sum())
         check(torch.equal(got[3][clear], want[3][clear]), f"K4 {what}: argmax differs on clear rows")
-        print(f"K4/K5 {what} (sq={sq}, sk={sk}, q_offset={qo}): max abs err (max error / max |plain|) "
+        print(f"K4/K5 {what} (sq={sq}, sk={sk}, q_offset={qo}, k_offset={ko}): max abs err (max error / max "
+              "|plain|) "
               + ", ".join(f"{n} {case_errs[n][0]:.3e} ({case_errs[n][1]:.3e})" for n in ("dq", "dk", "dv"))
               + f"; argmax: {case_errs['amax_moved']} of {bh * sq} rows differ, all within near-ties "
               f"({int(clear.sum())} clear rows equal)")
         errs[what] = case_errs
         if what == "main":
             main = (q, k, v, m, gpv, gl)
+        elif what.startswith("k_offset"):
+            dq_launch, dkv_launch, _, _ = launches_at(q, k, v, m, gpv, gl, qo, ko)
+            pairs = causal_pairs(sq, sk, qo - ko) * bh
+            # a block no row sees reads no input: it writes its outputs only
+            in_bytes = 3 * nbytes(q) + nbytes(m) + nbytes(gpv) + nbytes(gl) if pairs else 0
+            row = {"max_abs_err": {n: case_errs[n][0] for n in ("dq", "dk", "dv")}}
+            for name, fn, flop_per_pair, out_bytes in (
+                ("dq", dq_launch, 6 * d, bh * sq * d * 4 + bh * sq * 4),
+                ("dkv", dkv_launch, 8 * d, 2 * bh * sk * d * 4),
+            ):
+                kernels.check(fn(), f"flash_bwd_{name}")
+                t = time_ms_repeats(fn)
+                bound = max(flop_per_pair * pairs / BF16_FLOP_PER_S, (in_bytes + out_bytes) / HBM_BYTES_PER_S) * 1e3
+                row[f"{name}_ms"], row[f"{name}_bound_ms"] = t[0], bound
+            offset_cases[what] = row
+            print(f"K4/K5 {what}: K4 {row['dq_ms']:.4f} ms ({100 * row['dq_bound_ms'] / row['dq_ms']:.1f}% of its "
+                  f"{row['dq_bound_ms']:.4f} ms bound), K5 {row['dkv_ms']:.4f} ms "
+                  f"({100 * row['dkv_bound_ms'] / row['dkv_ms']:.1f}% of its {row['dkv_bound_ms']:.4f} ms bound)")
         del q, k, v, got, want, mask, top
     q, k, v, m, gpv, gl = main
-    outs = [torch.empty((bh, SEQ, d), device="cuda") for _ in range(3)]
-    amax = torch.empty((bh, SEQ), dtype=torch.int32, device="cuda")
-    stream = torch.cuda.current_stream().cuda_stream
-    ins = [t.data_ptr() for t in (q, k, v, m, gpv, gl)]
-    args = (bh, SEQ, SEQ, d, scale, 1, 0, 0, SEQ, SEQ, 1, stream)
-    lib_dq, lib_dkv = kernels.lib("flash_attention_bwd_dq"), kernels.lib("flash_attention_bwd_dkv")
+    dq_launch, dkv_launch, outs, amax = launches_at(q, k, v, m, gpv, gl, 0, 0)
     # each kernel alone, as flash_bwd launches it; 5 timings of 10 calls each
-    dq_t = time_ms_repeats(lambda: lib_dq.tsnp_flash_bwd_dq(*ins, outs[0].data_ptr(), amax.data_ptr(), *args))
-    dkv_t = time_ms_repeats(
-        lambda: lib_dkv.tsnp_flash_bwd_dkv(*ins, outs[1].data_ptr(), outs[2].data_ptr(), *args)
-    )
+    dq_t = time_ms_repeats(dq_launch)
+    dkv_t = time_ms_repeats(dkv_launch)
     plain_t = time_ms_repeats(
         lambda: flash_attention.flash_bwd_plain(q, k, v, m, gpv, gl, 0, 0, True, scale, SEQ, SEQ), iters=3
     )
@@ -818,6 +909,13 @@ def phase_k4_k5():
                      f"{bound_ms:.4f} ms bound")
     # K4's other output: argmax rows that a near-tie moved at the main shape
     records[0]["argmax_rows_moved"] = main_errs["amax_moved"]
+    for rec, name in zip(records, ("dq", "dkv")):
+        rec["offset_cases"] = {
+            what: {"ms": row[f"{name}_ms"], "bound_ms": row[f"{name}_bound_ms"],
+                   "max_abs_err": row["max_abs_err"]["dq"] if name == "dq"
+                   else max(row["max_abs_err"]["dk"], row["max_abs_err"]["dv"])}
+            for what, row in offset_cases.items()
+        }
     both = dq_t[0] + dkv_t[0]
     print(f"K4/K5 timings, median of 5 (range): {'; '.join(lines)}; K4 + K5 {both:.4f} ms, "
           f"{14 * d * pairs / both / 1e9:.1f} TFLOP/s; plain backward (both) {plain_t[0]:.3f} ms "
@@ -2040,27 +2138,66 @@ def spawn_ranks(flag, root, world=2, timeout_s=300, expect_rc=None):
     <root>``; returns each child's JSON result (the line starting with
     ``flag``'s word and ``result``), in rank order.  A child whose exit
     code is not 0 (or ``expect_rc[rank]``) fails the path."""
+    return finish_ranks(start_ranks(flag, root, world), timeout_s, expect_rc)
+
+
+def start_ranks(flag, root, world=2, gated=False):
+    """``spawn_ranks``'s start: the children run while this process goes
+    on; ``finish_ranks`` waits for them (``stop_ranks`` kills them).
+    ``gated``: each child reaches the card, then waits for
+    ``finish_ranks`` before it starts its work, so a path can start its
+    children while the path before it runs."""
     port = free_port()
-    tag = f"{flag.strip('-').replace('-child', '').replace('-', '_')} result "
+    os.makedirs(root, exist_ok=True)
+    gate = os.path.join(root, f"{flag.strip('-')}.gate") if gated else None
+    env = {**os.environ, CHILD_GATE_ENV: gate} if gated else None
     # each child writes to a file: a pipe the parent is not reading could
     # fill and stall a child while its peer waits for it
     logs = [open(os.path.join(root, f"{flag.strip('-')}{r}.log"), "w+") for r in range(world)]
     procs = [
         subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), flag, str(r), str(world), str(port), root],
-            stdout=logs[r], stderr=subprocess.STDOUT, text=True,
+            stdout=logs[r], stderr=subprocess.STDOUT, text=True, env=env,
         )
         for r in range(world)
     ]
+    return {"flag": flag, "world": world, "logs": logs, "procs": procs, "gate": gate}
+
+
+CHILD_GATE_ENV = "CHIP_SMOKE_CHILD_GATE"
+CHILD_GATE_DEADLINE_S = 1200
+
+
+def wait_child_gate():
+    """In a child started gated: reach the card, then wait for the gate."""
+    gate = os.environ.get(CHILD_GATE_ENV)
+    if not gate or not torch.cuda.is_available():
+        return
+    torch.zeros(1, device="cuda")
+    deadline = time.monotonic() + CHILD_GATE_DEADLINE_S
+    while not os.path.exists(gate):
+        check(time.monotonic() < deadline, "the parent never released this child")
+        time.sleep(0.01)
+
+
+def stop_ranks(job):
+    for p in job["procs"]:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def finish_ranks(job, timeout_s=300, expect_rc=None):
+    flag, world, logs, procs = job["flag"], job["world"], job["logs"], job["procs"]
+    if job["gate"]:
+        open(job["gate"], "w").close()  # children started gated wait for this
+    tag = f"{flag.strip('-').replace('-child', '').replace('-', '_')} result "
     try:
         deadline = time.monotonic() + timeout_s
         for p in procs:
             p.wait(timeout=max(1.0, deadline - time.monotonic()))
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+        stop_ranks(job)
     results = []
     for r, (p, f) in enumerate(zip(procs, logs)):
         f.seek(0)
@@ -3720,15 +3857,6 @@ def phase_cloud_interop(cfg, work):
               f"{s3.ops['put_object'] - before.get('put_object', 0)} puts and "
               f"{s3.ops['upload_part'] - before.get('upload_part', 0)} parts; restore bitwise {restore_s1:.3f} s "
               f"({nb / restore_s1 / 1e9:.3f} GB/s)")
-        # a reference-format copy held in the store
-        _, ref_w_s = timed(lambda: write_torchsnapshot("s3://bkt/ref", state_tree(model, opt)))
-        got, ref_r_s = timed(lambda: read_torchsnapshot("s3://bkt/ref", device="cuda"))
-        bad = same_tree(state_tree(model, opt), got)
-        check(bad is None and got["model"]["embed.weight"].is_cuda, f"s3 reference-format read: {bad}")
-        print(f"cloud_interop s3 original format ({fake_note}; {card}): write_torchsnapshot {ref_w_s:.3f} s "
-              f"({nb / ref_w_s / 1e9:.3f} GB/s), "
-              f"read_torchsnapshot onto the card {ref_r_s:.3f} s ({nb / ref_r_s / 1e9:.3f} GB/s), bitwise")
-        del got
     finally:
         undo()
         s3.objects.clear()
@@ -3768,11 +3896,9 @@ def phase_cloud_interop(cfg, work):
     # 3. the original format on the work directory, and the CLI's convert
     ref = os.path.join(work, "cloud_ref")
     _, w_s = timed(lambda: write_torchsnapshot(ref, state_tree(model, opt)))
-    got, r_s = timed(lambda: read_torchsnapshot(ref, device="cuda"))
-    bad = same_tree(state_tree(model, opt), got)
-    check(bad is None and got["optim"]["state"][0]["exp_avg"].is_cuda, f"read_torchsnapshot: {bad}")
-    del got
-    gc.collect()
+    # read_torchsnapshot onto the card runs in `convert` below (its result
+    # restored bitwise) and on the exported copy, so this part does not
+    # read it back itself
     native, back = os.path.join(work, "cloud_native"), os.path.join(work, "cloud_back")
     # --to-reference reads a native snapshot of the same tree, taken here
     # as convert would take it, so the two processes start together
@@ -3801,8 +3927,7 @@ def phase_cloud_interop(cfg, work):
     del got
     print(f"cloud_interop original format (the work directory, no object store, no network measured; {card}): "
           f"write_torchsnapshot from the card {w_s:.3f} s "
-          f"({nb / w_s / 1e9:.3f} GB/s), read_torchsnapshot onto the card {r_s:.3f} s ({nb / r_s / 1e9:.3f} GB/s), "
-          f"bitwise; python -m torchsnapshot_tpu_torch convert {cli_s['to_native']:.1f} s ({nb / cli_s['to_native'] / 1e9:.3f} GB/s) "
+          f"({nb / w_s / 1e9:.3f} GB/s); python -m torchsnapshot_tpu_torch convert {cli_s['to_native']:.1f} s ({nb / cli_s['to_native'] / 1e9:.3f} GB/s) "
           f"and convert --to-reference {cli_s['to_reference']:.1f} s ({nb / cli_s['to_reference'] / 1e9:.3f} GB/s; "
           f"processes on the card started together, start-up included); the native result restored bitwise "
           f"{native_s:.3f} s ({nb / native_s / 1e9:.3f} GB/s, K2 launches {launches['slab_unpack'] - k2}), the exported one read back bitwise")
@@ -4067,12 +4192,16 @@ class SwallowedSites:
         return [s for s in self.sites if s.startswith(PUBLISH_SITES)]
 
 
-def state_crcs(model):
-    """crc32 of every state-dict tensor's bytes, by name (host copies)."""
+def tensor_crc(t):
+    """crc32 of a tensor's bytes (a host copy)."""
     from torchsnapshot_tpu_torch.utils.checksums import crc32_fast
 
-    return {n: crc32_fast(t.detach().contiguous().view(torch.uint8).cpu().numpy())
-            for n, t in model.state_dict().items()}
+    return crc32_fast(t.detach().contiguous().view(torch.uint8).cpu().numpy())
+
+
+def state_crcs(model):
+    """crc32 of every state-dict tensor's bytes, by name (host copies)."""
+    return {n: tensor_crc(t) for n, t in model.state_dict().items()}
 
 
 def wait_key(coord, key, child, timeout_s=PUBLISH_KEY_TIMEOUT_S):
@@ -4394,6 +4523,318 @@ def phase_publish(cfg, work, job):
     return {k: v for k, v in res["launches"].items()}
 
 
+WORKLOADS_SEED = 91
+WORKLOADS_BATCH = 4096  # DLRM's and the pipeline's batch
+WORKLOADS_GROUP_TIMEOUT_S = 300  # the children's process group: every exchange's deadline
+PIPELINE_D = 4096  # the transformer's d_model
+PIPELINE_MICRO = 4
+RING_HEADS, RING_HEAD_DIM = 32, 128
+
+
+def dlrm_batch(cfg, seed):
+    """A batch of ``WORKLOADS_BATCH`` on the card, ids uniform over each
+    table's rows (as ``tests/test_dlrm.py`` draws them), from ``seed``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    b = WORKLOADS_BATCH
+    dense = torch.from_numpy(rng.standard_normal((b, cfg.dense_in)).astype(np.float32))
+    ids = torch.from_numpy(rng.integers(0, cfg.table_rows, size=(b, len(cfg.table_rows))).astype(np.int64))
+    labels = torch.from_numpy(rng.integers(0, 2, size=(b,)).astype(np.float32))
+    return dense.cuda(), ids.cuda(), labels.cuda()
+
+
+def pipeline_inputs():
+    g = torch.Generator().manual_seed(WORKLOADS_SEED + 21)
+    x = torch.randn((WORKLOADS_BATCH, PIPELINE_D), generator=g).cuda()
+    return x, torch.zeros_like(x)
+
+
+def ring_inputs(world):
+    """Global q, k, v [1, world * SEQ, heads, head dim] (bf16) and the
+    cotangent (f32), drawn on the card from a fixed seed."""
+    g = torch.Generator(device="cuda").manual_seed(WORKLOADS_SEED + 30)
+    shape = (1, world * SEQ, RING_HEADS, RING_HEAD_DIM)
+    q, k, v = (torch.randn(shape, device="cuda", generator=g).to(torch.bfloat16) for _ in range(3))
+    return q, k, v, torch.randn(shape, device="cuda", generator=g)
+
+
+def workloads_child(rank, world, port, root):
+    """One rank of the workloads path (see ``phase_workloads``); prints
+    one ``workloads result`` JSON line, exits non-zero on a failure."""
+    import datetime
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from torchsnapshot_tpu_torch.models import dlrm
+    from torchsnapshot_tpu_torch.parallel import collectives
+    from torchsnapshot_tpu_torch.parallel import pipeline as pp
+    from torchsnapshot_tpu_torch.preparers.sharded import box_at
+
+    if not torch.cuda.is_available():
+        print("workloads child: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=WORKLOADS_GROUP_TIMEOUT_S))
+    coord = tts.get_default_coordinator()
+    for table in (device_pack.LAUNCHES, flash_attention.LAUNCHES):
+        for k in table:
+            table[k] = 0
+    written = lambda: tts.obs.counters().get(tts.obs.BYTES_WRITTEN, 0)  # noqa: E731
+    out = {"rank": rank, "group_timeout_s": collectives.group_timeout().total_seconds()}
+    check(out["group_timeout_s"] == WORKLOADS_GROUP_TIMEOUT_S,
+          f"rank {rank}: exchanges bounded by {out['group_timeout_s']} s, not the group's {WORKLOADS_GROUP_TIMEOUT_S}")
+
+    # 1. DLRM at full width, tables row-sharded over "ep"
+    t_part = time.perf_counter()
+    cfg = dlrm.DLRMConfig()
+    mesh = DeviceMesh("cuda", list(range(world)), mesh_dim_names=("ep",))
+    model, opt = dlrm.make_train_state(cfg, seed=WORKLOADS_SEED, mesh=mesh, device="cuda")
+    local = {n: p.to_local() for n, p in model.named_parameters()}
+    rank_bytes = sum(nbytes(t) for t in local.values()) + sum(
+        nbytes(opt.state[p]["sum"].to_local()) for p in model.parameters())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [float(dlrm.train_step(model, opt, *dlrm_batch(cfg, WORKLOADS_SEED + 1 + i))) for i in range(3)]
+    torch.cuda.synchronize()
+    steps_s = time.perf_counter() - t0
+    check(all(math.isfinite(x) for x in losses), f"rank {rank}: DLRM losses {losses}")
+    w0 = written()
+    k1 = device_pack.LAUNCHES["slab_pack"]
+    t0 = time.perf_counter()
+    tts.Snapshot.take(os.path.join(root, "dlrm"), {"model": model, "optim": opt}, coordinator=coord)
+    take_s = time.perf_counter() - t0
+    shards = {}
+    for n, p in model.named_parameters():
+        offsets, sizes = box_at(tuple(p.shape), mesh.shape, mesh.get_coordinate(), p.placements)
+        shards[n] = [offsets[0] if offsets else 0, sizes[0] if sizes else 0, tensor_crc(p.to_local()),
+                     tensor_crc(opt.state[p]["sum"].to_local())]
+    with torch.no_grad():
+        next_loss = float(dlrm.loss_fn(model, *dlrm_batch(cfg, WORKLOADS_SEED + 9)))
+    out["dlrm"] = {"losses": losses, "steps_s": steps_s, "take_s": take_s, "take_bytes": written() - w0,
+                   "rank_state_bytes": rank_bytes, "k1": device_pack.LAUNCHES["slab_pack"] - k1,
+                   "shards": shards, "next_loss": next_loss, "s": time.perf_counter() - t_part}
+    del model, opt, local
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2. the pipeline at the transformer's width, one stage a rank
+    t_part = time.perf_counter()
+    mesh = DeviceMesh("cuda", list(range(world)), mesh_dim_names=("pp",))
+    group = mesh.get_group("pp")
+    full = pp.init_pipeline_params(world, PIPELINE_D, seed=WORKLOADS_SEED + 20, device="cuda")
+    params = pp.shard_pipeline_params(full, mesh)
+    x, y = pipeline_inputs()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = pp.pipeline_forward(params, x, mesh, n_microbatches=PIPELINE_MICRO)
+    torch.cuda.synchronize()
+    forward_s = time.perf_counter() - t0
+    want = pp.sequential_forward(full, x)
+    fwd_err = float((got - want).abs().max()) / float(want.abs().max())
+    check(fwd_err <= 1e-4, f"rank {rank}: pipeline_forward vs sequential {fwd_err} beyond 1e-4 of the largest output")
+    p = {k: v.detach().requires_grad_() for k, v in params.items()}
+    loss = torch.mean((pp.pipeline_forward(p, x, mesh, n_microbatches=PIPELINE_MICRO) - y) ** 2)
+    grads = torch.autograd.grad(loss, [p["w"], p["b"]])
+    f = {k: v.detach().requires_grad_() for k, v in full.items()}
+    ref = torch.autograd.grad(torch.mean((pp.sequential_forward(f, x) - y) ** 2), [f["w"], f["b"]])
+    grad_errs = []
+    for name, g, r in zip("wb", grads, ref):
+        e = float((g.to_local()[0] - r[rank]).abs().max()) / float(r.abs().max())
+        check(e <= 1e-4, f"rank {rank}: pipeline d{name} vs sequential autograd {e} beyond 1e-4")
+        grad_errs.append(e)
+    del p, f, grads, ref, loss
+    q, pipe_losses = params, []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        q, step_loss = pp.pipeline_train_step(q, x, y, mesh, n_microbatches=PIPELINE_MICRO)
+        pipe_losses.append(float(step_loss))
+    steps_pp_s = time.perf_counter() - t0
+    check(pipe_losses[-1] < pipe_losses[0], f"rank {rank}: pipeline losses {pipe_losses}")
+    # every rank's copy of the trained stack: the other stage comes round the ring
+    stages = {k: [None] * world for k in ("w", "b")}
+    for k in ("w", "b"):
+        mine = q[k].to_local()
+        stages[k][rank] = mine
+        for shift in range(1, world):
+            stages[k][(rank - shift) % world] = collectives.exchange(mine, group, shift)
+    trained = {k: torch.cat(v) for k, v in stages.items()}
+    w0 = written()
+    t0 = time.perf_counter()
+    tts.Snapshot.take(os.path.join(root, "pipeline"), {"pp": tts.StateDict(w=q["w"], b=q["b"])},
+                      coordinator=coord)
+    pipe_take_s = time.perf_counter() - t0
+    out["pipeline"] = {
+        "forward_s": forward_s, "forward_err": fwd_err, "grad_errs": grad_errs, "losses": pipe_losses,
+        "steps_s": steps_pp_s, "take_s": pipe_take_s, "take_bytes": written() - w0,
+        "stage_bytes": nbytes(q["w"].to_local()) + nbytes(q["b"].to_local()),
+        "stage_crcs": [tensor_crc(q["w"].to_local()), tensor_crc(q["b"].to_local())],
+        "sequential_crc": tensor_crc(pp.sequential_forward(trained, x)), "s": time.perf_counter() - t_part,
+    }
+    del full, params, q, trained, stages, got, want, x, y
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 3. ring attention at ring size 2
+    t_part = time.perf_counter()
+    qg, kg, vg, ct = ring_inputs(world)
+    cut = slice(rank * SEQ, (rank + 1) * SEQ)
+    ql, kl, vl = (t[:, cut].contiguous().requires_grad_() for t in (qg, kg, vg))
+    del qg, kg, vg
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    o = ring_attention(ql, kl, vl, causal=True)
+    torch.cuda.synchronize()
+    ring_fwd_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    grads = torch.autograd.grad((o.float() * ct[:, cut]).sum(), (ql, kl, vl))
+    torch.cuda.synchronize()
+    ring_bwd_s = time.perf_counter() - t0
+    check(all(g is not None and bool(torch.isfinite(g).all()) for g in grads), f"rank {rank}: ring gradient")
+    torch.save({"out": o.detach().cpu(), **{f"d{n}": g.cpu() for n, g in zip("qkv", grads)}},
+               os.path.join(root, f"ring{rank}.pt"))
+    out["ring"] = {"forward_s": ring_fwd_s, "backward_s": ring_bwd_s, "s": time.perf_counter() - t_part}
+    out["launches"] = {**dict(device_pack.LAUNCHES), **dict(flash_attention.LAUNCHES)}
+    print("workloads result " + json.dumps(out), flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def start_workloads_children(work):
+    """The workloads path's two ranks, started gated before the path."""
+    return start_ranks("--workloads-child", os.path.join(work, "workloads"), gated=True)
+
+
+def phase_workloads(work, job):
+    """The workloads path (DLRM, the pipeline and ring attention over two
+    ranks; see the module docstring, path n).  Returns the children's
+    launches."""
+    from torchsnapshot_tpu_torch.models import dlrm
+    from torchsnapshot_tpu_torch.parallel import pipeline as pp
+
+    root = os.path.join(work, "workloads")
+    card = card_line()
+    t0 = time.perf_counter()
+    results = finish_ranks(job, timeout_s=600)
+    children_s = time.perf_counter() - t0
+    print(f"workloads ({card}): two ranks on the card over gloo, {children_s:.1f} s from their release to both "
+          f"exits; "
+          f"group timeout {results[0]['group_timeout_s']} s")
+    read = lambda: tts.obs.counters().get(tts.obs.BYTES_READ, 0)  # noqa: E731
+
+    # 1. DLRM restored at world 1 into a differently seeded model
+    cfg = dlrm.DLRMConfig()
+    d = [r["dlrm"] for r in results]
+    model, opt = dlrm.make_train_state(cfg, seed=WORKLOADS_SEED + 5, device="cuda")
+    before = dict(device_pack.LAUNCHES)
+    r0 = read()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tts.Snapshot(os.path.join(root, "dlrm")).restore({"model": model, "optim": opt})
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    restored_bytes = read() - r0
+    # every box is sharded (Replicate DTensors too, as every multi-device
+    # array is in the JAX package) and lands f32 into f32 by a plain
+    # host-to-device copy: K2 takes dense slab members only, K6 casts
+    restore_launches = {k: device_pack.LAUNCHES[k] - before[k] for k in before}
+    for n, p in model.named_parameters():
+        for r in d:
+            row0, rows, crc_p, crc_s = r["shards"][n]
+            check(tensor_crc(p.detach()[row0:row0 + rows]) == crc_p, f"DLRM {n} rows {row0}+{rows} differ")
+            check(tensor_crc(opt.state[p]["sum"][row0:row0 + rows]) == crc_s, f"DLRM {n}'s sum differs")
+    with torch.no_grad():
+        loss = float(dlrm.loss_fn(model, *dlrm_batch(cfg, WORKLOADS_SEED + 9)))
+    check(abs(loss - d[0]["next_loss"]) <= 1e-5 * abs(d[0]["next_loss"]),
+          f"DLRM next loss {loss} at world 1 against {d[0]['next_loss']} at world 2")
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"workloads dlrm ({card}): DLRMConfig() f32, {n_params} parameters, Adagrad; tables Shard(0) over 'ep' "
+          f"of 2; {[r['rank_state_bytes'] for r in d]} bytes of state a rank; 3 steps of batch {WORKLOADS_BATCH} "
+          f"{[round(r['steps_s'], 3) for r in d]} s, losses {d[0]['losses']}; take at world 2 "
+          f"{[round(r['take_s'], 3) for r in d]} s, {[r['take_bytes'] for r in d]} bytes, K1 launches "
+          f"{[r['k1'] for r in d]}; restore at world 1 {restore_s:.3f} s, {restored_bytes} bytes, launches "
+          f"{json.dumps(restore_launches)}; every table and accumulator bitwise the shards; next loss "
+          f"{loss!r} against {d[0]['next_loss']!r} at world 2; part {[round(r['s'], 1) for r in d]} s a rank")
+    del model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2. the pipeline's stage weights restored replicated
+    pl = [r["pipeline"] for r in results]
+    dest = tts.StateDict(w=torch.zeros((2, PIPELINE_D, PIPELINE_D), device="cuda"),
+                         b=torch.zeros((2, PIPELINE_D), device="cuda"))
+    r0 = read()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tts.Snapshot(os.path.join(root, "pipeline")).restore({"pp": dest})
+    torch.cuda.synchronize()
+    pipe_restore_s = time.perf_counter() - t0
+    pipe_bytes = read() - r0
+    for rank, r in enumerate(pl):
+        check([tensor_crc(dest["w"][rank]), tensor_crc(dest["b"][rank])] == r["stage_crcs"],
+              f"pipeline stage {rank} restored other bits")
+    x, _ = pipeline_inputs()
+    seq_crc = tensor_crc(pp.sequential_forward(dest, x))
+    check(all(seq_crc == r["sequential_crc"] for r in pl), "sequential_forward on the restored weights differs")
+    print(f"workloads pipeline ({card}): d_model {PIPELINE_D}, 2 stages one a rank ({pl[0]['stage_bytes']} bytes "
+          f"a stage), batch {WORKLOADS_BATCH} in {PIPELINE_MICRO} microbatches, f32; forward "
+          f"{[round(r['forward_s'], 4) for r in pl]} s, max error / max |sequential| "
+          f"{max(r['forward_err'] for r in pl):.3e}; gradients vs sequential autograd (w, b) "
+          f"{[[float(f'{e:.3e}') for e in r['grad_errs']] for r in pl]}; 3 train steps "
+          f"{[round(r['steps_s'], 3) for r in pl]} s, losses {pl[0]['losses']}; take {[round(r['take_s'], 3) for r in pl]} "
+          f"s, {[r['take_bytes'] for r in pl]} bytes; restored replicated {pipe_restore_s:.3f} s, {pipe_bytes} bytes, "
+          f"stages bitwise, sequential_forward bitwise the ranks'; part {[round(r['s'], 1) for r in pl]} s a rank")
+    del dest, x
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 3. ring attention at ring size 2 against f32 dense attention, computed once
+    rg = [r["ring"] for r in results]
+    q, k, v, ct = ring_inputs(2)
+    qf, kf, vf = (t.float().requires_grad_() for t in (q, k, v))
+    del q, k, v
+    dense = dense_attention(qf, kf, vf, causal=True)
+    want = torch.autograd.grad((dense * ct).sum(), (qf, kf, vf))
+    dense = dense.detach()
+    del qf, kf, vf, ct
+    errs = []
+    for rank in range(2):
+        shard = torch.load(os.path.join(root, f"ring{rank}.pt"))
+        cut = slice(rank * SEQ, (rank + 1) * SEQ)
+        got = shard["out"].cuda()
+        check(got.shape == (1, SEQ, RING_HEADS, RING_HEAD_DIM) and bool(torch.isfinite(got).all()),
+              f"ring rank {rank}: output malformed")
+        err = float((got.float() - dense[:, cut]).abs().max())
+        check(err <= 2e-2, f"ring rank {rank}: output vs f32 dense {err} beyond 2e-2")
+        rels = []
+        for n, w in zip("qkv", want):
+            g = shard[f"d{n}"].cuda()
+            rel = float((g.float() - w[:, cut]).abs().max()) / float(w.abs().max())
+            check(rel <= 3e-2, f"ring rank {rank}: d{n} error {rel} beyond 3e-2 of the largest gradient")
+            rels.append(rel)
+        errs.append((err, rels))
+    del dense, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"workloads ring ({card}): ring size 2, b 1, {SEQ} positions a rank, {RING_HEADS} heads, d "
+          f"{RING_HEAD_DIM}, bf16, causal; forward {[round(r['forward_s'], 4) for r in rg]} s, backward "
+          f"{[round(r['backward_s'], 4) for r in rg]} s a rank; output max abs err vs f32 dense "
+          f"{[float(f'{e:.3e}') for e, _ in errs]}, gradient error / max |gradient| (q, k, v) "
+          f"{[[float(f'{x:.3e}') for x in rels] for _, rels in errs]}; launches {[r['launches'] for r in results]}")
+    others = {}
+    for r in results:
+        for key, val in r["launches"].items():
+            others[key] = others.get(key, 0) + val
+    for key in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        check(all(r["launches"][key] > 0 for r in results), f"a workloads rank launched no {key}")
+    shutil.rmtree(root, ignore_errors=True)
+    return others
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA GPU",
@@ -4521,14 +4962,26 @@ def main():
         run_path("fleet", ("slab_pack", "slab_unpack", "tile_update"), lambda: phase_fleet(cfg, work))
         gc.collect()
         torch.cuda.empty_cache()
-        publish_job = start_publish_child(work)  # it launches nothing before the publish path
+        # neither the publish child nor the workloads ranks (gated: they
+        # reach the card, 8-10 s each, and wait for their path) launch
+        # anything before their paths
+        publish_job = start_publish_child(work)
+        workloads_job = start_workloads_children(work)
         try:
-            run_path("continuous", (), lambda: phase_continuous(cfg, work))
+            try:
+                run_path("continuous", (), lambda: phase_continuous(cfg, work))
+                gc.collect()
+                torch.cuda.empty_cache()
+                run_path("publish", ("slab_pack", "flash_attention_fwd"),
+                         lambda: phase_publish(cfg, work, publish_job))
+            finally:
+                stop_publish_child(publish_job)
             gc.collect()
             torch.cuda.empty_cache()
-            run_path("publish", ("slab_pack", "flash_attention_fwd"), lambda: phase_publish(cfg, work, publish_job))
+            run_path("workloads", ("slab_pack", "flash_attention_fwd", "flash_attention_bwd_dq",
+                                   "flash_attention_bwd_dkv"), lambda: phase_workloads(work, workloads_job))
         finally:
-            stop_publish_child(publish_job)
+            stop_ranks(workloads_job)
 
     print(json.dumps({"kernels": list(records.values())}))
     print(card)
@@ -4549,6 +5002,9 @@ if __name__ == "__main__":
         sys.exit(fleet_child(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), sys.argv[5]))
     if len(sys.argv) == 4 and sys.argv[1] == "--publish-child":
         sys.exit(publish_child(sys.argv[2], sys.argv[3]))
+    if len(sys.argv) == 6 and sys.argv[1] == "--workloads-child":
+        wait_child_gate()
+        sys.exit(workloads_child(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), sys.argv[5]))
     if len(sys.argv) == 6 and sys.argv[1] == "--sharded-child":
         sys.exit(sharded_child(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), sys.argv[5]))
     sys.exit(main())

@@ -4,8 +4,8 @@ torchsnapshot_tpu``: ``ls``, ``manifest``, ``verify``, ``steps``,
 exit with the same codes on the same snapshot, root and chunk pool,
 written by either package; ``trace --device cpu`` writes a Perfetto file
 with the JAX CLI's read-path span names; ``convert`` in both directions
-writes what the JAX CLI writes and refuses what it refuses.  The
-commands the port lacks exit 1 naming their ROADMAP item.  One run
+writes what the JAX CLI writes and refuses what it refuses; ``lint``
+forwards to the checkout's snaplint as the JAX CLI does.  One run
 through a subprocess checks the module entry point itself.
 """
 
@@ -102,10 +102,20 @@ def test_steps_and_delete_print_what_jax_prints(tmp_path, writer, capsys):
     assert rc == 1
 
 
-def test_unported_commands_name_their_roadmap_item(tmp_path, capsys):
-    for cmd, item in (("lint", "8"),):
-        rc, out, err = _run(port_main, [cmd, str(tmp_path), "--json"], capsys)
-        assert rc == 1 and out == "" and f"queue A item {item}" in err, (cmd, err)
+def test_unported_commands_name_their_roadmap_item(tmp_path, capsys, monkeypatch):
+    """Every command of the JAX CLI is ported: ``lint`` forwards its
+    arguments to the checkout's snaplint, so both CLIs print the same
+    findings with the same code for a tiny root holding one silent
+    swallow, and the same message and code 2 without ``tools/lint``."""
+    bad = tmp_path / "torchsnapshot_tpu" / "bad.py"
+    bad.parent.mkdir()
+    bad.write_text("def f():\n    try:\n        g()\n    except Exception:\n        pass\n")
+    rc, out, err = _both(["lint", str(tmp_path), "--pass", "exception-hygiene", "--json"], capsys)
+    assert rc == 1 and json.loads(out)["unbaselined"][0]["file"] == "torchsnapshot_tpu/bad.py", (out, err)
+    real_isdir = os.path.isdir
+    monkeypatch.setattr(os.path, "isdir", lambda p: False if p.endswith(os.path.join("tools", "lint")) else real_isdir(p))
+    rc, out, err = _both(["lint", str(tmp_path)], capsys)
+    assert rc == 2 and out == "" and "needs a checkout" in err
 
 
 def test_module_entry_point_runs(tmp_path):

@@ -391,6 +391,110 @@ def test_ring_attention_gradient_flows_through_the_kernels(cuda):
         torch.testing.assert_close(g.float(), w, rtol=3e-2, atol=3e-2 * float(w.abs().max()), msg=f"d{name}")
 
 
+# the blocks of a causal ring of two ranks of s positions each: rank 0 at
+# step 1 (wholly above the diagonal), rank 1 at step 0 (the diagonal at
+# offset s), rank 1 at step 1 (no mask)
+_RING_BLOCKS = {"masked": (0, 1), "diag": (1, 1), "unmasked": (1, 0)}
+
+
+@pytest.mark.parametrize("block", sorted(_RING_BLOCKS))
+def test_flash_kernels_at_the_rings_key_offsets(cuda, block):
+    """K3, K4 and K5 on the ring's own blocks at s = 512 (bf16, causal)
+    against their plain versions, a second call bitwise equal; the wholly
+    masked block gives zeros, m = -inf and argmax -1 everywhere."""
+    from torchsnapshot_tpu_torch.ops import flash_attention as fa
+
+    s, d = 512, 128
+    qo, ko = (s * i for i in _RING_BLOCKS[block])
+    q, k, v, m, gpv, gl, scale = _bwd_inputs(4, s, s, d, torch.bfloat16, cuda, qo, ko, True, 100)
+    pv, mm, l = fa.attend_partials(q, k, v, qo, ko, True, scale)
+    wpv, wm, wl = fa.attend_partials_plain(q, k, v, qo, ko, True, scale, s, s)
+    again = fa.attend_partials(q, k, v, qo, ko, True, scale)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip((pv, mm, l), again))
+    finite = torch.isfinite(wm)
+    assert torch.equal(torch.isfinite(mm), finite)
+    torch.testing.assert_close(mm[finite], wm[finite], atol=1e-3, rtol=0)
+    denom = lambda x: torch.where(x == 0, 1.0, x)[..., None]  # noqa: E731
+    torch.testing.assert_close(pv / denom(l), wpv / denom(wl), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(l, wl, atol=2e-2, rtol=2e-2)
+    got = fa.flash_bwd(q, k, v, m, gpv, gl, qo, ko, True, scale)
+    second = fa.flash_bwd(q, k, v, m, gpv, gl, qo, ko, True, scale)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, second))
+    want = fa.flash_bwd_plain(q, k, v, m, gpv, gl, qo, ko, True, scale, s, s)
+    if block == "masked":
+        assert not bool(finite.any()) and not bool(pv.any()) and not bool(l.any())
+        assert not any(bool(t.any()) for t in got[:3]) and bool((got[3] == -1).all())
+    else:
+        _check_bwd(got, want, q, k, scale, qo, ko, True, s, s, torch.bfloat16)
+
+
+def test_ring_attention_over_two_ranks_on_the_card(cuda, tmp_path):
+    """Two processes on the card over gloo (the exchanges staged through
+    pinned host memory), ring size 2, bf16, causal: each rank's output
+    within 2e-2 of f32 dense attention over both shards, the gradients
+    of q, k and v within 3e-2 of the largest dense gradient, and K3, K4
+    and K5 launched on both ranks."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    import textwrap
+
+    from torchsnapshot_tpu_torch.parallel.ring_attention import dense_attention
+
+    b, s, h, d = 1, 256, 4, 128
+    q, k, v, ct = (_rand((b, 2 * s, h, d), dt, cuda, 40 + i) for i, dt in
+                   enumerate((torch.bfloat16, torch.bfloat16, torch.bfloat16, torch.float32)))
+    torch.save({"q": q.cpu(), "k": k.cpu(), "v": v.cpu(), "ct": ct.cpu()}, tmp_path / "in.pt")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = tmp_path / "ring.py"
+    script.write_text(textwrap.dedent(f"""
+        import sys
+        sys.path.insert(0, {repo!r})
+        import torch
+        import torch.distributed as dist
+        from torchsnapshot_tpu_torch.ops import flash_attention as fa
+        from torchsnapshot_tpu_torch.parallel.ring_attention import ring_attention
+        rank = int(sys.argv[1])
+        dist.init_process_group("gloo", init_method="tcp://127.0.0.1:{port}", rank=rank, world_size=2)
+        t = torch.load({str(tmp_path / "in.pt")!r})
+        cut = slice(rank * {s}, (rank + 1) * {s})
+        q, k, v = (t[n][:, cut].cuda().contiguous().requires_grad_() for n in "qkv")
+        out = ring_attention(q, k, v, causal=True)
+        grads = torch.autograd.grad((out.float() * t["ct"][:, cut].cuda()).sum(), (q, k, v))
+        torch.cuda.synchronize()
+        assert all(fa.LAUNCHES[n] > 0 for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")), fa.LAUNCHES
+        torch.save({{"out": out.detach().cpu(), **{{f"d{{n}}": g.cpu() for n, g in zip("qkv", grads)}}}},
+                   {str(tmp_path)!r} + f"/out{{rank}}.pt")
+        dist.destroy_process_group()
+        """))
+    procs = [subprocess.Popen([sys.executable, str(script), str(r)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=300)[0].decode() for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert all(p.returncode == 0 for p in procs), outs
+    qf, kf, vf = (t.detach().float().requires_grad_() for t in (q, k, v))
+    dense = dense_attention(qf, kf, vf, causal=True)
+    want = torch.autograd.grad((dense * ct).sum(), (qf, kf, vf))
+    for r in range(2):
+        got = torch.load(tmp_path / f"out{r}.pt")
+        cut = slice(r * s, (r + 1) * s)
+        torch.testing.assert_close(got["out"].cuda().float(), dense[:, cut].detach(), atol=2e-2, rtol=2e-2)
+        for n, w in zip("qkv", want):
+            torch.testing.assert_close(got[f"d{n}"].cuda().float(), w[:, cut], rtol=3e-2,
+                                       atol=3e-2 * float(w.abs().max()), msg=f"rank {r} d{n}")
+
+
 @pytest.mark.parametrize("budget", ["device", "blocking", "staged"])
 def test_async_take_of_cuda_tensors_mutated_after_return(cuda, tmp_path, monkeypatch, budget):
     """CUDA tensors (slab members and one tensor outside any slab) and a

@@ -51,6 +51,8 @@ def test_import_leaves_jax_unloaded():
         "import torchsnapshot_tpu_torch.ops.flash_attention\n"
         "import torchsnapshot_tpu_torch.parallel.ring_attention\n"
         "import torchsnapshot_tpu_torch.models.transformer\n"
+        "import torchsnapshot_tpu_torch.models.dlrm\n"
+        "import torchsnapshot_tpu_torch.parallel.pipeline\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {_FORBIDDEN!r})\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"

@@ -325,6 +325,46 @@ def test_permanent_failure_leaves_no_metadata_and_no_temp_file(tmp_path, site):
     assert _jax_restored(path, _state(2))
 
 
+def test_abort_of_a_failed_commit_outlives_the_takes_cancel(tmp_path):
+    """A striped write whose commit failed is still aborting when the take
+    cancels it (another object's write failed too).  The take then waits
+    for every other task, as the scheduler does; the abort must be one of
+    them, so no temp file outlives the take."""
+    from torchsnapshot_tpu_torch.storage.fs import FSStoragePlugin
+
+    plugin = FSStoragePlugin(str(tmp_path))
+    aborting = threading.Event()
+
+    async def cancelled_while_aborting():
+        handle = await plugin.begin_striped_write("o", 8)
+        await handle.write_part(0, 0, b"01234567")
+        close_fd = handle._close_fd
+
+        def slow_close():
+            aborting.set()
+            time.sleep(0.5)  # the abort still runs when the cancel lands
+            close_fd()
+
+        handle._close_fd = slow_close
+        task = asyncio.ensure_future(handle.complete())
+        deadline = time.monotonic() + 30
+        while not aborting.is_set():
+            assert time.monotonic() < deadline, "the failed commit never aborted"
+            await asyncio.sleep(0.01)
+        task.cancel()
+        await asyncio.wait(asyncio.all_tasks() - {asyncio.current_task()}, timeout=30)
+        assert task.cancelled()
+
+    try:
+        with tknobs.override_failpoints("storage.fs.write.sync=enospc"):
+            _run(cancelled_while_aborting())
+        assert aborting.is_set()
+        assert not glob.glob(str(tmp_path / "*.tsnp-tmp-*"))
+        assert not os.path.exists(tmp_path / "o")
+    finally:
+        plugin.sync_close()
+
+
 def test_breaker_fails_fast_after_consecutive_failures(tmp_path):
     trips = tobs.counter(tobs.RESILIENCE_BREAKER_TRIPS).value
     with _small_stripes(), tknobs.override_breaker_threshold(2), \

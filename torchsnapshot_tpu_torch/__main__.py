@@ -11,6 +11,7 @@
     python -m torchsnapshot_tpu_torch delete    <snapshot-path> --yes
     python -m torchsnapshot_tpu_torch trace     <snapshot-path> [--out FILE] [--device cpu]
     python -m torchsnapshot_tpu_torch convert   <src> <dest> [--to-reference] [--rank N] [--device cpu]
+    python -m torchsnapshot_tpu_torch lint      [root] [--json] [--pass ID]
 
 Counterpart of ``python -m torchsnapshot_tpu``: these commands print
 what the JAX package's print, field for field, and exit with the same
@@ -19,7 +20,8 @@ and ``convert`` hold the leaves on the card unless ``--device cpu``, as
 the port's entry points do.  ``stats`` of a continuous root (one store,
 or a host root of per-rank stores) prints its residency rollup, and of a
 live-weight publication root its HEAD, last delta and subscribers' lag.
-``lint`` is not ported yet: it exits 1 naming its ROADMAP queue A item.
+``lint`` runs the checkout's snaplint suite (``tools/lint``) with the
+arguments that follow it, as the JAX CLI does.
 """
 
 from __future__ import annotations
@@ -30,10 +32,6 @@ import os
 import re
 import sys
 from typing import Optional
-
-# the JAX CLI's commands this one lacks, with the queue A item that ports them
-_NOT_PORTED = {"lint": "8"}
-
 
 def _human(n: float) -> str:
     if n < 1024:
@@ -1069,20 +1067,36 @@ def _cmd_convert(args) -> int:
     return 0
 
 
-def _not_ported(cmd: str) -> int:
-    print(
-        f"error: `{cmd}` is not ported yet (ROADMAP queue A item {_NOT_PORTED[cmd]}); "
-        "run it with `python -m torchsnapshot_tpu`",
-        file=sys.stderr,
-    )
-    return 1
+def _cmd_lint(args) -> int:
+    """Run the snaplint static-analysis suite (tools/lint) over the repo
+    checkout this package is running from; ``args`` is the raw argv tail
+    forwarded to ``tools.lint.main``.  The suite is repo tooling, not
+    part of the installed package: without a checkout this explains that
+    instead of raising ImportError."""
+    repo_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if not os.path.isdir(os.path.join(repo_root, "tools", "lint")):
+        # no checkout (an installed package); when the directory exists,
+        # import errors propagate with their own traceback
+        print(
+            "error: the lint suite (tools/lint) is repo tooling and "
+            "needs a checkout — run from the repository root, or "
+            "`python -m tools.lint` there",
+            file=sys.stderr,
+        )
+        return 2
+    if repo_root not in sys.path:
+        sys.path.insert(0, repo_root)
+    from tools.lint import main as lint_main
+
+    return lint_main(list(args))
 
 
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
-    if argv and argv[0] in _NOT_PORTED:
-        # before the parser: their arguments are not parsed at all
-        return _not_ported(argv[0])
+    if argv and argv[0] == "lint":
+        # forwarded verbatim, before the parser (argparse.REMAINDER cannot
+        # capture a leading option such as `lint --json`)
+        return _cmd_lint(argv[1:])
     parser = argparse.ArgumentParser(prog="python -m torchsnapshot_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
 
@@ -1169,9 +1183,8 @@ def main(argv=None) -> int:
                    help="where the leaves are held in between (default cuda; cpu for host tensors)")
     p.set_defaults(fn=_cmd_convert)
 
-    for name, item in _NOT_PORTED.items():
-        # listed for --help; main() answers them before parsing
-        sub.add_parser(name, help=f"not ported yet (ROADMAP queue A item {item})")
+    # listed for --help; main() dispatches it before parsing
+    sub.add_parser("lint", help="run the snaplint static-analysis suite (repo checkout only)")
 
     args = parser.parse_args(argv)
     try:

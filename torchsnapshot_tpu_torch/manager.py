@@ -667,7 +667,7 @@ class SnapshotManager:
         self._durable_confirmed.add(step)
         return True
 
-    # ------------------------------------------------ not ported yet
+    # ------------------------------------------------ chunk pool: GC and fsck
 
     def _candidate_paths(self) -> List[str]:
         return [

@@ -17,7 +17,7 @@ dims in mesh-dim order only, so a spec naming them in another order
 from __future__ import annotations
 
 import re
-from typing import Any, List, Optional, Sequence, Tuple
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -114,26 +114,33 @@ def distribute(full: torch.Tensor, mesh: Any, placements: Sequence[Any]) -> Any:
     )
 
 
-def shard_module(module: torch.nn.Module, mesh: Any) -> torch.nn.Module:
+Rules = Callable[[str, Sequence[int]], Tuple[Any, ...]]
+
+
+def shard_module(module: torch.nn.Module, mesh: Any, rules: Rules = param_sharding_rules) -> torch.nn.Module:
     """Replace every parameter of ``module`` by a DTensor parameter laid
-    out by the rules, in place; returns ``module``."""
+    out by ``rules`` (a parameter path and shape → its spec), in place;
+    returns ``module``."""
     for name, p in list(module.named_parameters()):
         owner_name, _, attr = name.rpartition(".")
         owner = module.get_submodule(owner_name) if owner_name else module
-        spec = param_sharding_rules(name, tuple(p.shape))
+        spec = rules(name, tuple(p.shape))
         dt = distribute(p, mesh, placements_from_spec(mesh.mesh_dim_names, mesh.shape, spec))
         setattr(owner, attr, torch.nn.Parameter(dt, requires_grad=p.requires_grad))
     return module
 
 
-def shard_train_state(model: torch.nn.Module, opt: torch.optim.Optimizer, mesh: Any):
-    """``model`` with DTensor parameters (``shard_module``) and an
-    optimizer of ``opt``'s type and groups over them, whose per-parameter
-    state holds ``opt``'s, each moment laid out as its parameter."""
+def shard_train_state(
+    model: torch.nn.Module, opt: torch.optim.Optimizer, mesh: Any, rules: Rules = param_sharding_rules
+):
+    """``model`` with DTensor parameters (``shard_module`` by ``rules``)
+    and an optimizer of ``opt``'s type and groups over them, whose
+    per-parameter state holds ``opt``'s, each moment laid out as its
+    parameter."""
     params = list(model.parameters())
     state = [opt.state.get(p, {}) for p in params]
     index = {id(p): i for i, p in enumerate(params)}
-    shard_module(model, mesh)
+    shard_module(model, mesh, rules)
     new_params = list(model.parameters())
     groups = [
         {**{k: v for k, v in g.items() if k != "params"}, "params": [new_params[index[id(p)]] for p in g["params"]]}

@@ -11,9 +11,16 @@ differentiable in q, k and v end to end, as ``ring_attention_shard``
 is in the JAX package.
 
 The ring size comes from ``torch.distributed`` (1 when no process group
-is initialised).  At size 1 the loop runs one step and needs no
-point-to-point traffic; the rotation for larger rings arrives with the
-multi-rank slice.
+is initialised).  Each rank's k/v shard moves one rank on around the
+ring after every step but the last, k and v in one exchange
+(``collectives.ppermute``, the counterpart of ``lax.ppermute``, which
+stages CUDA tensors through pinned host memory on gloo); the JAX scan's
+last rotation feeds nothing and is skipped.  At step ``t`` rank ``i``
+holds rank ``(i - t) % n``'s block, so its key offset is that rank's; a
+block wholly above the causal diagonal is still computed, as in the JAX
+package, and its partials enter the accumulator with weight zero.
+Gradients take the rotations back (``ppermute``'s backward), in reverse
+step order.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from typing import Any, Optional
 import torch
 
 from ..ops.flash_attention import flash_attention_partials
+from .collectives import ppermute
 
 
 def _ring_position(group: Optional[Any]) -> tuple:
@@ -43,11 +51,6 @@ def ring_attention_shard(
     """Exact attention of this rank's q shard over every rank's k/v
     shard; returns the local output shard in q's dtype."""
     n, my_idx = _ring_position(group)
-    if n != 1:
-        raise NotImplementedError(
-            "ring attention over more than one rank needs the k/v rotation "
-            "of the multi-rank slice, which is not ported yet"
-        )
     s_local = q.shape[1]
     scale = 1.0 / (q.shape[-1] ** 0.5)
     b, _, h, d = q.shape
@@ -79,6 +82,11 @@ def ring_attention_shard(
             + pv.float() * corr_blk.permute(0, 2, 1)[..., None]
         )
         m_run = m_new
+        if step_idx + 1 < n:
+            # one exchange a step carries k and v together: each step's
+            # backward exchange waits for the next step's, so every rank
+            # runs them in the same (reverse) order
+            k_cur, v_cur = ppermute(torch.stack((k_cur, v_cur)), group).unbind(0)
     denom = torch.where(l_run == 0.0, 1.0, l_run)
     out = acc / denom.permute(0, 2, 1)[..., None]
     return out.to(q.dtype)

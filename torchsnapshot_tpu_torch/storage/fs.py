@@ -430,7 +430,10 @@ class _FSStripedWriteHandle(StripedWriteHandle):
         try:
             await self._plugin._retry(commit, f"commit {self._path}", breaker=get_breaker("fs"))
         except BaseException:
-            await self.abort()
+            # shielded: a take that cancels this write while it aborts
+            # (another object failed too) waits for the abort's task, so
+            # the temp file is gone before the take raises
+            await asyncio.shield(self.abort())
             raise
 
     def _close_fd(self) -> None:
