@@ -1,0 +1,7 @@
+"""Host seconds in host-to-device copies (``consume.h2d_s``) per restore, ms."""
+
+from portbench.readers import phase_ms_per_op
+
+
+def value(ctx):
+    return phase_ms_per_op(ctx, "consume.h2d_s")

@@ -3,7 +3,8 @@ torchsnapshot_tpu``: ``ls``, ``manifest``, ``verify``, ``steps``,
 ``delete``, ``stats``, ``doctor`` and ``cas`` print the same lines and
 exit with the same codes on the same snapshot, root and chunk pool,
 written by either package; ``trace --device cpu`` writes a Perfetto file
-with the JAX CLI's read-path span names; ``convert`` in both directions
+with the JAX CLI's read-path span names, merged into the torch
+profiler's trace with no device events; ``convert`` in both directions
 writes what the JAX CLI writes and refuses what it refuses; ``lint``
 forwards to the checkout's snaplint as the JAX CLI does.  One run
 through a subprocess checks the module entry point itself.
@@ -236,6 +237,26 @@ def test_trace_writes_perfetto_with_the_jax_read_path_spans(tmp_path, capsys):
             e["name"] for e in events if e.get("ph") == "X" and e["name"] in _READ_PATH
         )
     assert names[0] == names[1] and "storage/mmap_read" in names[0]
+
+
+def test_trace_merges_spans_into_the_profilers_trace_with_no_device_events(tmp_path, capsys):
+    from torchsnapshot_tpu_torch.obs.perfetto import DEVICE_CATEGORIES
+
+    path, out_file = str(tmp_path / "s"), str(tmp_path / "t.json")
+    tts.Snapshot.take(path, _state("port", 5))
+    rc, out, _ = _run(port_main, ["trace", path, "--out", out_file, "--device", "cpu"], capsys)
+    doc = json.load(open(out_file))
+    events = doc["traceEvents"]
+    spans = [e for e in events if e.get("ph") == "X" and e["name"] in _READ_PATH]
+    assert rc == 0 and out == f"wrote {out.split()[1]} spans to {out_file}\n" and spans
+    # the spans sit beside the profiler's host events, on its clock
+    assert "baseTimeNanoseconds" in doc
+    host = [e for e in events if e.get("ph") == "X" and e.get("cat") == "cpu_op"]
+    assert host and len({e["pid"] for e in spans}) == 1 and spans[0]["pid"] not in {e["pid"] for e in host}
+    lo, hi = min(e["ts"] for e in host), max(e["ts"] + e["dur"] for e in host)
+    materialize = next(e for e in spans if e["name"] == "materialize")
+    assert materialize["ts"] <= lo + 1e3 and materialize["ts"] + materialize["dur"] >= hi - 1e3
+    assert not [e for e in events if e.get("cat") in DEVICE_CATEGORIES]
 
 
 def _reference_snapshot(tmp_path, world_size):

@@ -17,7 +17,9 @@ Counterpart of ``python -m torchsnapshot_tpu``: these commands print
 what the JAX package's print, field for field, and exit with the same
 codes (non-zero when a verify fails or a delete is refused).  ``trace``
 and ``convert`` hold the leaves on the card unless ``--device cpu``, as
-the port's entry points do.  ``stats`` of a continuous root (one store,
+the port's entry points do; ``trace`` writes the torch profiler's
+events beside the spans and, on the card, prints the device's idle
+seconds by span after its line.  ``stats`` of a continuous root (one store,
 or a host root of per-rank stores) prints its residency rollup, and of a
 live-weight publication root its HEAD, last delta and subscribers' lag.
 ``lint`` runs the checkout's snaplint suite (``tools/lint``) with the
@@ -839,17 +841,34 @@ def _cmd_doctor(args) -> int:
 
 
 def _cmd_trace(args) -> int:
-    """Materialize every entry with span tracing on and write the
-    Perfetto trace_event JSON (open it at ui.perfetto.dev)."""
+    """Materialize every entry with span tracing on, under the torch
+    profiler (with CUDA activity when the leaves land on the card), and
+    write one Chrome trace_event JSON with the spans on the profiler's
+    clock beside its events (open it at ui.perfetto.dev).  On the card,
+    print the device's idle seconds by innermost span."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
     from . import knobs, obs
     from .snapshot import Snapshot
 
     out = args.out or "trace.json"
+    on_card = torch.device(args.device).type == "cuda"
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card else [])
     with knobs.override_trace(1):
         obs.get_tracer().reset()
-        Snapshot(args.path).materialize(rank=args.rank, device=args.device)
-        n = obs.write_trace(out)
-    print(f"wrote {n} spans to {out}")
+        with profile(activities=activities) as prof:
+            Snapshot(args.path).materialize(rank=args.rank, device=args.device)
+            if on_card:
+                torch.cuda.synchronize()
+        prof.export_chrome_trace(out)
+        spans = obs.get_tracer().spans()
+        idle = obs.merge_into(out, spans)
+    print(f"wrote {sum(1 for s in spans if s.end_ns)} spans to {out}")
+    if on_card:
+        print("device idle seconds by span:")
+        for name, seconds in idle.items():
+            print(f"  {seconds:12.6f}  {name}")
     return 0
 
 
@@ -1118,7 +1137,7 @@ def main(argv=None) -> int:
                    help="compare against OTHER snapshot's record (step-over-step)")
     p.set_defaults(fn=_cmd_doctor)
 
-    p = sub.add_parser("trace", help="read the whole snapshot traced; write Perfetto JSON")
+    p = sub.add_parser("trace", help="read the whole snapshot traced and profiled; write Perfetto JSON")
     p.add_argument("path")
     p.add_argument("--out", default=None, help="output file (default ./trace.json)")
     p.add_argument("--rank", type=int, default=0)

@@ -111,7 +111,7 @@ class BatchedBufferStager(BufferStager):
         producer = self.stagers[0][0].producer_stream
         if executor is not None:
             slab = await asyncio.get_running_loop().run_in_executor(
-                executor, pack_tensors_to_host, tensors, producer
+                executor, obs.stage_queued(pack_tensors_to_host, tensors, producer)
             )
         else:
             slab = pack_tensors_to_host(tensors, producer)
@@ -145,7 +145,9 @@ class BatchedBufferStager(BufferStager):
             else:
                 if executor is not None and cost >= _PACK_OFFLOAD_MIN_BYTES:
                     # a big copy leaves the loop thread free for other I/O
-                    d = await loop.run_in_executor(executor, copy_digest, dst, member)
+                    d = await loop.run_in_executor(
+                        executor, obs.stage_queued(copy_digest, dst, member)
+                    )
                 else:
                     d = copy_digest(dst, member)
                 pieces[(offset, offset + cost)] = (*d, cost)

@@ -50,6 +50,7 @@ host — so here every source is copied before ``async_take`` returns:
 from __future__ import annotations
 
 import threading
+import time
 import weakref
 from typing import Any, Dict, List, Optional
 
@@ -116,6 +117,7 @@ def eager_offload_write_reqs(write_reqs: List[WriteReq]) -> int:
     """Copy every source of ``write_reqs`` that the caller may mutate
     after ``async_take`` returns (see the module docstring).  Returns the
     bytes copied."""
+    t0 = time.perf_counter()
     with obs.span("offload/eager", reqs=len(write_reqs)) as sp:
         stats = {"device_copy_bytes": 0, "blocking_host_bytes": 0, "host_copy_bytes": 0}
         budgets: Dict[torch.device, int] = {}
@@ -147,6 +149,7 @@ def eager_offload_write_reqs(write_reqs: List[WriteReq]) -> int:
         moved = sum(stats.values())
         if sp is not None:
             sp.attrs["bytes"] = moved
+    obs.histogram(obs.TAKE_OFFLOAD_S).observe(time.perf_counter() - t0)
     obs.counter(obs.BYTES_OFFLOADED).inc(moved)
     LAST_OFFLOAD_STATS.clear()
     LAST_OFFLOAD_STATS.update(stats)

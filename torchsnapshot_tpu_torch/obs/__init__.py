@@ -9,10 +9,12 @@ span names, metric names and flight-record format.  Three layers:
   ``tracer.py``.
 - **Metrics** (``counter``/``gauge``/``histogram``,
   ``metrics_snapshot``) — always on; the hot path records bytes
-  staged/written/read, budget high-water, queue depths, phase seconds
+  staged/written/read, budget high-water, queue depths, phase seconds,
+  the sub-phase clocks that split them (``clocked``, ``stage_queued``)
   and per-backend storage latency.  See ``metrics.py``.
-- **Export** (``write_trace``; ``export_openmetrics``) — recorded spans
-  as Chrome ``trace_event`` JSON for ui.perfetto.dev, and the registry
+- **Export** (``write_trace``, ``merge_into``; ``export_openmetrics``) —
+  recorded spans as Chrome ``trace_event`` JSON for ui.perfetto.dev, or
+  merged into a ``torch.profiler`` trace on its clock, and the registry
   as an OpenMetrics textfile.  See ``perfetto.py`` and ``export.py``.
 
 The cross-rank flight record (``aggregate``) and the goodput tracker
@@ -25,10 +27,11 @@ and its kernel are enqueued).
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import logging
 import time
-from typing import Any, Dict
+from typing import Any, Callable, Dict, Iterator
 
 from .metrics import (  # noqa: F401
     CODEC_BYTES_IN,
@@ -89,6 +92,15 @@ from .metrics import (  # noqa: F401
     COORDINATOR_LOCAL,
     COORDINATOR_STORE,
     TILES_READ,
+    TAKE_PLAN_S,
+    TAKE_OFFLOAD_S,
+    STAGE_QUEUE_S,
+    STAGE_PIN_ALLOC_S,
+    STAGE_D2H_WAIT_S,
+    WRITE_ALLOC_S,
+    WRITE_COPY_S,
+    CONSUME_H2D_S,
+    READ_PIN_ALLOC_S,
     FASTIO_BUFFERED_PARTS,
     FASTIO_BYTES_READ,
     FASTIO_BYTES_WRITTEN,
@@ -174,7 +186,7 @@ from .export import (  # noqa: F401
     maybe_write_metrics_textfile,
     write_metrics_textfile,
 )
-from .perfetto import to_trace_events, write_trace  # noqa: F401
+from .perfetto import merge_into, to_trace_events, write_trace  # noqa: F401
 from .tracer import (  # noqa: F401
     Span,
     Tracer,
@@ -207,6 +219,9 @@ __all__ = [
     "instrument_storage",
     "to_trace_events",
     "write_trace",
+    "merge_into",
+    "clocked",
+    "stage_queued",
     "REGISTRY",
     "MetricsRegistry",
     "aggregate",
@@ -299,6 +314,37 @@ def instrument_storage(backend: str):
         return cls
 
     return deco
+
+
+@contextlib.contextmanager
+def clocked(hist: str, span_name: str) -> Iterator[None]:
+    """Time the block into the histogram ``hist``, always, and record it
+    as the span ``span_name`` under the TRACE knob.  Nothing inside a
+    clocked block opens a span, so the span is a leaf."""
+    with span(span_name):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            histogram(hist).observe(time.perf_counter() - t0)
+
+
+def stage_queued(fn: Callable[..., Any], *args: Any) -> Callable[[], Any]:
+    """``fn(*args)`` as a callable to submit to a staging executor: when
+    a worker thread starts it, the seconds since this call (the wait for
+    a thread) go into ``stage.queue_s``, and under the TRACE knob into
+    the span ``stage/queue``."""
+    t0 = time.perf_counter()
+    tracer = get_tracer()
+    s = tracer.begin("stage/queue") if tracing_enabled() else None
+
+    def run() -> Any:
+        histogram(STAGE_QUEUE_S).observe(time.perf_counter() - t0)
+        if s is not None:
+            tracer.end(s)
+        return fn(*args)
+
+    return run
 
 
 def counters() -> Dict[str, int]:

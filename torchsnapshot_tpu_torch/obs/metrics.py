@@ -314,6 +314,31 @@ EVENT_HANDLER_ERRORS = "events.handler_errors"
 TILES_READ = "tiles.read"
 COORDINATOR_STORE = "coordination.default.store"
 COORDINATOR_LOCAL = "coordination.default.local"
+# Sub-phase clocks (this package's own): one observe per call of the
+# step they time, always on.  A ``phase.*`` clock sums its tasks'
+# seconds, queueing included; these time the call itself and split
+# them.  None starts with ``phase.``: the flight record's phases stay
+# the JAX package's.
+# - the hold of a take: planning (the body of ``take/plan``) and the
+#   eager offload (device clones, K1 enqueue, blocking host copies);
+TAKE_PLAN_S = "take.plan_s"
+TAKE_OFFLOAD_S = "take.offload_s"
+# - ``phase.stage_s``: a staging function's wait for a staging thread
+#   (submit to start), the pinned allocation of a device-to-host copy
+#   and the host's wait on its event;
+STAGE_QUEUE_S = "stage.queue_s"
+STAGE_PIN_ALLOC_S = "stage.pin_alloc_s"
+STAGE_D2H_WAIT_S = "stage.d2h_wait_s"
+# - ``phase.write_s`` in the memory plugin: the allocation of an
+#   object's destination (or of a striped object's buffer), and the copy
+#   of an object or a part (with its digest when fused);
+WRITE_ALLOC_S = "write.alloc_s"
+WRITE_COPY_S = "write.copy_s"
+# - ``phase.consume_s`` and budgeted reads: host seconds in
+#   host-to-device copies (a pageable source copies synchronously), and
+#   the pinned allocation of a device tile's read buffer.
+CONSUME_H2D_S = "consume.h2d_s"
+READ_PIN_ALLOC_S = "read.pin_alloc_s"
 
 
 class Counter:

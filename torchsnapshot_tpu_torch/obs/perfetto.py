@@ -20,22 +20,34 @@ single-track cases are well-formed.
 Each "X" (complete) event carries ``span_id``/``parent_id`` in ``args``
 so the span TREE survives the export — tests (and humans) can check
 nesting without re-deriving it from timestamps.
+
+``merge_into`` writes the same events into a torch profiler Chrome
+trace, on that trace's clock, beside the device's kernels and copies.
+The profiler records ``record_function`` marks only on the thread that
+started the profiler, while staging, consuming and ``async_take``'s background
+loop run on worker threads: the spans are written after the run.
 """
 
 from __future__ import annotations
 
 import json
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
-from .tracer import Span, Tracer, get_tracer
+import numpy as np
+
+from .tracer import Span, Tracer, clock_on, clock_pair, get_tracer
 
 # Span-name prefixes that get one track per NAME (the pipeline stages);
 # anything else is tracked by its recording thread.  ``stripe/`` is
 # here so per-PART slices (stripe/stage_part, stripe/write_part) land
 # on stage tracks with interval partitioning — on thread tracks the
 # concurrent parts of one object would violate complete-event nesting
-# and striped pipelining would be invisible.
-_STAGE_PREFIXES = ("pipeline/", "storage/", "offload/", "stripe/")
+# and striped pipelining would be invisible.  The sub-phase clocks'
+# leaf spans (``stage/``, ``write/``, ``consume/``, ``read/``) overlap
+# the same way: ``stage/queue`` opens on the loop thread per submit.
+_STAGE_PREFIXES = (
+    "pipeline/", "storage/", "offload/", "stripe/", "stage/", "write/", "consume/", "read/",
+)
 
 
 def _track_key(s: Span) -> str:
@@ -157,3 +169,97 @@ def write_trace(path: str, tracer: Optional[Tracer] = None) -> int:
     with open(path, "w") as f:
         json.dump(doc, f)
     return sum(1 for s in spans if s.end_ns)
+
+
+# what a torch profiler trace counts as device work
+DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+NO_SPAN = "(no span)"
+
+
+def _wall_clock_rate(first: Optional[Tuple[int, int]], now: Tuple[int, int]) -> float:
+    """Wall-clock ns per monotonic ns between the clock pairs ``first``
+    and ``now``: 1 without an earlier pair."""
+    if first is None or now[0] <= first[0]:
+        return 1.0
+    return (now[1] - first[1]) / (now[0] - first[0])
+
+
+def _idle_by_span(
+    device: List[Tuple[float, float]], marks: List[Tuple[str, float, float]],
+    lo: float, hi: float,
+) -> Dict[str, float]:
+    """Seconds of [lo, hi] (µs) that no ``device`` interval covers, each
+    idle stretch named by the shortest of ``marks`` around its midpoint."""
+    stretches = []
+    t = lo
+    for a, b in sorted(device):
+        if a > t:
+            stretches.append((t, min(a, hi)))
+        t = max(t, b)
+        if t >= hi:
+            break
+    if t < hi:
+        stretches.append((t, hi))
+    marks = sorted(marks, key=lambda m: m[2] - m[1])  # innermost first
+    starts = np.array([m[1] for m in marks])
+    ends = np.array([m[2] for m in marks])
+    idle: Dict[str, float] = {}
+    for a, b in stretches:
+        mid = (a + b) / 2
+        inside = (starts <= mid) & (ends >= mid)
+        i = int(inside.argmax())
+        label = marks[i][0] if inside[i] else NO_SPAN
+        idle[label] = idle.get(label, 0.0) + (b - a) / 1e6
+    return dict(sorted(idle.items(), key=lambda kv: -kv[1]))
+
+
+def merge_into(chrome_trace_path: str, spans: Optional[List[Span]] = None) -> Dict[str, float]:
+    """Write ``spans`` (default: the tracer's) into the torch profiler
+    Chrome trace at ``chrome_trace_path``, on its clock, under a process
+    of their own and on the tracks ``to_trace_events`` lays out; returns
+    the device's idle seconds by innermost span, largest first.
+
+    The trace stamps ``ts`` in µs of the wall clock less its
+    ``baseTimeNanoseconds``.  A span's ``monotonic_ns`` stamps map onto
+    the wall clock by interpolating between the clock pair read when
+    tracing turned on and one read now.  Idle time is the part of the
+    window (where the spans and the trace's events both lie) that no
+    device event (``DEVICE_CATEGORIES``) covers; each idle stretch is
+    named by the shortest closed span around its midpoint, or
+    ``NO_SPAN``."""
+    if spans is None:
+        spans = get_tracer().spans()
+    with open(chrome_trace_path) as f:
+        doc = json.load(f)
+    if isinstance(doc, list):
+        doc = {"traceEvents": doc}
+    events: List[Dict[str, Any]] = doc.setdefault("traceEvents", [])
+    base_ns = int(doc.get("baseTimeNanoseconds", 0))
+    mono_now, wall_now = clock_pair()
+    rate = _wall_clock_rate(clock_on(), (mono_now, wall_now))
+    pid = 1 + max((e["pid"] for e in events if isinstance(e.get("pid"), int)), default=0)
+    xs = [e for e in events if e.get("ph") == "X" and "dur" in e]
+    device = [(e["ts"], e["ts"] + e["dur"]) for e in xs if e.get("cat") in DEVICE_CATEGORIES]
+    ours = to_trace_events(spans, pid)["traceEvents"]
+    marks = []
+    for e in ours:
+        if "ts" in e:
+            # to_trace_events stamps µs of the monotonic clock
+            e["ts"] = (wall_now - base_ns + (e["ts"] * 1e3 - mono_now) * rate) / 1e3
+        if e["ph"] == "X":
+            e["dur"] *= rate
+            marks.append((e["name"], e["ts"], e["ts"] + e["dur"]))
+    events.append(
+        {"ph": "M", "name": "process_name", "pid": pid, "args": {"name": "torchsnapshot_tpu_torch"}}
+    )
+    events.extend(ours)
+    with open(chrome_trace_path, "w") as f:
+        json.dump(doc, f)
+    if not marks:
+        return {}
+    lo = min(m[1] for m in marks)
+    hi = max(m[2] for m in marks)
+    if xs:
+        lo = max(lo, min(e["ts"] for e in xs))
+        hi = min(hi, max(e["ts"] + e["dur"] for e in xs))
+    return _idle_by_span(device, marks, lo, hi) if hi > lo else {}

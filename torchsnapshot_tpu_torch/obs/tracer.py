@@ -37,7 +37,7 @@ import itertools
 import threading
 import time
 from contextvars import ContextVar
-from typing import Any, Dict, Iterator, List, Optional
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 from .. import knobs
 
@@ -52,6 +52,11 @@ ENABLED = False
 _ids = itertools.count(1)
 _flow_ids = itertools.count(1)
 _current: ContextVar[Optional["Span"]] = ContextVar("tsnp_span", default=None)
+
+# The (monotonic_ns, time_ns) pair read when tracing last turned on:
+# with a second pair read at export, it maps span stamps onto the wall
+# clock, which the torch profiler's traces use (``perfetto.merge_into``).
+_CLOCK_ON: Optional[Tuple[int, int]] = None
 
 # Bound the recorded-span list: a runaway traced loop must degrade to
 # dropped spans, never to unbounded host memory.
@@ -208,8 +213,24 @@ def tracing_enabled() -> bool:
     return ENABLED
 
 
+def clock_pair() -> Tuple[int, int]:
+    """(``time.monotonic_ns()``, ``time.time_ns()``) read together: the
+    monotonic stamp is the midpoint of two reads around the wall one."""
+    m0 = time.monotonic_ns()
+    wall = time.time_ns()
+    m1 = time.monotonic_ns()
+    return (m0 + m1) // 2, wall
+
+
+def clock_on() -> Optional[Tuple[int, int]]:
+    """The clock pair read when tracing last turned on, None if never."""
+    return _CLOCK_ON
+
+
 def set_tracing(on: bool) -> None:
-    global ENABLED
+    global ENABLED, _CLOCK_ON
+    if on and not ENABLED:
+        _CLOCK_ON = clock_pair()
     ENABLED = bool(on)
 
 

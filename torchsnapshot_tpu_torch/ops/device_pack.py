@@ -28,6 +28,7 @@ from typing import Any, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import obs
 from ..serialization import serialized_size_bytes, string_to_dtype
 from . import kernels
 
@@ -171,11 +172,13 @@ def pack_tensors_to_host(
     stream.wait_stream(producer_stream)
     with torch.cuda.stream(stream):
         slab = pack_slab(tensors)
-        host = torch.empty(slab.numel(), dtype=torch.uint8, pin_memory=True)
+        with obs.clocked(obs.STAGE_PIN_ALLOC_S, "stage/pin_alloc"):
+            host = torch.empty(slab.numel(), dtype=torch.uint8, pin_memory=True)
         host.copy_(slab, non_blocking=True)
         done = torch.cuda.Event()
         done.record(stream)
-    done.synchronize()
+    with obs.clocked(obs.STAGE_D2H_WAIT_S, "stage/d2h_wait"):
+        done.synchronize()
     return host.numpy()
 
 
@@ -292,7 +295,8 @@ def unpack_slab_to_device(
         torch.empty(0, dtype=torch.uint8)
     )
     slab = torch.empty(view.nbytes, dtype=torch.uint8, device=device)
-    slab.copy_(host)
+    with obs.clocked(obs.CONSUME_H2D_S, "consume/h2d"):
+        slab.copy_(host)
     unpack_slab_into(slab, members, outs)
     torch.cuda.current_stream(device).synchronize()
 

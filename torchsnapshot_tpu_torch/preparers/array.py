@@ -53,6 +53,7 @@ import torch
 
 from .. import knobs, obs
 from ..codec import filter_for_dtype
+from ..obs.tracer import NULL_CM
 from ..io_types import BufferConsumer, BufferStager, Future, ReadReq, WriteReq, is_mmap_backed
 from ..manifest import ArrayEntry, ChunkedArrayEntry, Shard
 from ..serialization import (
@@ -96,7 +97,8 @@ def copy_to_host(t: torch.Tensor, after: Any) -> np.ndarray:
     side stream that first waits on ``after`` (a stream or an event), so
     it reads ``t`` as the work before that point left it.  Blocks until
     the copy is done, so ``t`` may be freed when this returns."""
-    host = torch.empty(array_nbytes(t), dtype=torch.uint8, pin_memory=True)
+    with obs.clocked(obs.STAGE_PIN_ALLOC_S, "stage/pin_alloc"):
+        host = torch.empty(array_nbytes(t), dtype=torch.uint8, pin_memory=True)
     stream = torch.cuda.Stream(device=t.device)
     if isinstance(after, torch.cuda.Event):
         stream.wait_event(after)
@@ -107,7 +109,8 @@ def copy_to_host(t: torch.Tensor, after: Any) -> np.ndarray:
         host.copy_(src, non_blocking=True)
         done = torch.cuda.Event()
         done.record(stream)
-    done.synchronize()
+    with obs.clocked(obs.STAGE_D2H_WAIT_S, "stage/d2h_wait"):
+        done.synchronize()
     return host.numpy()
 
 
@@ -166,7 +169,7 @@ class CudaTensorBufferStager(BufferStager):
             arr, self.host = self.host, None
         elif executor is not None:
             arr = await asyncio.get_running_loop().run_in_executor(
-                executor, copy_to_host, self.tensor, self.ready
+                executor, obs.stage_queued(copy_to_host, self.tensor, self.ready)
             )
         else:
             arr = copy_to_host(self.tensor, self.ready)
@@ -259,7 +262,8 @@ def materialize_into_template(src: torch.Tensor, obj_out: Any) -> Any:
     - no template, or a non-array one: the host tensor itself.
     """
     if isinstance(obj_out, torch.Tensor):
-        with torch.no_grad():
+        h2d = obj_out.device.type == "cuda"
+        with torch.no_grad(), obs.clocked(obs.CONSUME_H2D_S, "consume/h2d") if h2d else NULL_CM:
             obj_out.copy_(src.reshape(obj_out.shape))
         return obj_out
     if isinstance(obj_out, np.ndarray):
@@ -421,7 +425,8 @@ class _DeviceTileTarget:
         self.pinned_bytes = 0
 
     def read_buffer(self, nbytes: int) -> Tuple[np.ndarray, torch.Tensor]:
-        pinned = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+        with obs.clocked(obs.READ_PIN_ALLOC_S, "read/pin_alloc"):
+            pinned = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
         with _TILE_LOCK:
             self.pinned_bytes += nbytes
             PINNED_TILES["high_water_bytes"] = max(
@@ -445,10 +450,12 @@ class _DeviceTileTarget:
         )
         with torch.no_grad(), torch.cuda.stream(self.stream):
             if self.stored == self.dst.dtype:
-                self.flat[start:end].copy_(host, non_blocking=True)
+                with obs.clocked(obs.CONSUME_H2D_S, "consume/h2d"):
+                    self.flat[start:end].copy_(host, non_blocking=True)
             else:
                 tile = torch.empty(end - start, dtype=self.stored, device=self.dst.device)
-                tile.copy_(host, non_blocking=True)
+                with obs.clocked(obs.CONSUME_H2D_S, "consume/h2d"):
+                    tile.copy_(host, non_blocking=True)
                 tile_update(self.dst, start, tile)
             done = torch.cuda.Event()
             done.record(self.stream)

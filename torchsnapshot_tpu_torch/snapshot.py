@@ -1159,6 +1159,7 @@ class Snapshot:
         chunk_parent: Dict[str, str] = {}
         local_bytes = 0
         chunk_size_bytes = knobs.get_max_chunk_size_bytes()
+        t_plan = time.perf_counter()
         with obs.span("take/plan", leaves=len(flattened), rank=rank):
             for lpath in sorted(flattened):
                 repl = lpath in verified
@@ -1185,6 +1186,7 @@ class Snapshot:
                         lpath,
                         sum(r.buffer_stager.get_staging_cost_bytes() for r in reqs),
                     ))
+        obs.histogram(obs.TAKE_PLAN_S).observe(time.perf_counter() - t_plan)
         # takeover: the replicated entry objects as planned, before
         # non-writers drop theirs and batching re-points the writer's
         repl_entries = {lp: entries[lp] for lp in set(repl_reqs) | set(chunk_parent.values())}

@@ -57,11 +57,14 @@ class MemoryStoragePlugin(StoragePlugin):
         await _injected(self, "storage.memory.write", f"write {write_io.path}", path=write_io.path)
         src = memoryview(write_io.buf).cast("B")
         if write_io.want_digest and self.supports_fused_digest:
-            dst = bytearray(src.nbytes)
-            write_io.digests = copy_digest(dst, src)
+            with obs.clocked(obs.WRITE_ALLOC_S, "write/alloc"):
+                dst = bytearray(src.nbytes)
+            with obs.clocked(obs.WRITE_COPY_S, "write/copy"):
+                write_io.digests = copy_digest(dst, src)
             self._store[write_io.path] = dst
             return
-        self._store[write_io.path] = bytes(src)
+        with obs.clocked(obs.WRITE_COPY_S, "write/copy"):
+            self._store[write_io.path] = bytes(src)
 
     async def read(self, read_io: ReadIO) -> None:
         await _injected(self, "storage.memory.read", f"read {read_io.path}", path=read_io.path)
@@ -132,7 +135,8 @@ class _MemoryStripedWriteHandle(StripedWriteHandle):
     def __init__(self, plugin: MemoryStoragePlugin, path: str, total: int) -> None:
         self._plugin = plugin
         self._path = path
-        self._buf = np.empty(total, dtype=np.uint8)
+        with obs.clocked(obs.WRITE_ALLOC_S, "write/alloc"):
+            self._buf = np.empty(total, dtype=np.uint8)
         # ``total`` bounds encoded parts from above; complete() publishes
         # up to the highest byte written
         self._hwm = 0
@@ -148,17 +152,19 @@ class _MemoryStripedWriteHandle(StripedWriteHandle):
         self._hwm = max(self._hwm, offset + src.nbytes)
 
         def copy():
-            if want_digest and self.supports_fused_digest:
-                return copy_digest(dst, src)
-            np.copyto(dst, src)
-            return None
+            with obs.clocked(obs.WRITE_COPY_S, "write/copy"):
+                if want_digest and self.supports_fused_digest:
+                    return copy_digest(dst, src)
+                np.copyto(dst, src)
+                return None
 
         return await asyncio.get_running_loop().run_in_executor(None, copy)
 
     async def complete(self) -> None:
         buf = self._buf
         if self._hwm < buf.nbytes:
-            buf = buf[: self._hwm].copy()
+            with obs.clocked(obs.WRITE_COPY_S, "write/copy"):
+                buf = buf[: self._hwm].copy()
         buf.setflags(write=False)
         self._plugin._store[self._path] = buf
         self._buf = None
