@@ -1,6 +1,7 @@
 """The port's device sub-phase clocks on the card: the pinned allocation
 and D2H wait of a CUDA take, the H2D copy of a restore into a CUDA
-template and the pinned tile buffers of a budgeted read.
+template and the pinned tile buffers of a budgeted read; and a take
+loop whose third take draws the memory store's buffers from the pool.
 
 Marked ``cuda``: each test skips, with the reason, where
 ``torch.cuda.is_available()`` is false.  On a machine with the card:
@@ -14,6 +15,7 @@ import torch
 
 import torchsnapshot_tpu_torch as tts
 from torchsnapshot_tpu_torch import obs
+from torchsnapshot_tpu_torch.storage import memory
 from torchsnapshot_tpu_torch.storage.memory import reset_namespace
 
 pytestmark = pytest.mark.cuda
@@ -62,3 +64,32 @@ def test_cuda_take_restore_and_read_count_device_subphases(cuda, namespace):
     after_read = _counts()
     assert _grew(after_restore, after_read, obs.READ_PIN_ALLOC_S)
     assert _grew(after_restore, after_read, obs.CONSUME_H2D_S)
+
+
+def test_cuda_take_loop_draws_the_third_take_from_the_pool(cuda):
+    spaces = [f"pool-{uuid.uuid4().hex}" for _ in range(2)]
+    g = torch.Generator().manual_seed(5)
+    state = {"m": tts.StateDict(**{
+        f"w{i}": torch.randn(n, generator=g).to(cuda) for i, n in enumerate((1 << 26, 3 << 24, 1 << 22, 4097))
+    })}
+    memory.release_pool()
+    alloc = []
+    try:
+        for i in range(3):
+            for t in state["m"].values():
+                t.add_(1)
+            before = obs.metrics_snapshot()["histograms"].get(obs.WRITE_ALLOC_S, {"sum": 0.0})["sum"]
+            tts.Snapshot.async_take(f"memory://{spaces[i % 2]}", state).wait()
+            alloc.append(obs.metrics_snapshot()["histograms"][obs.WRITE_ALLOC_S]["sum"] - before)
+            if i == 1:
+                reset_namespace(spaces[0])
+        assert alloc[2] < alloc[0] / 10, alloc
+        into = {"m": tts.StateDict(**{k: torch.zeros_like(v) for k, v in state["m"].items()})}
+        tts.Snapshot(f"memory://{spaces[0]}").restore(into)
+        torch.cuda.synchronize()
+        for k, v in state["m"].items():
+            assert torch.equal(into["m"][k], v), k
+    finally:
+        for ns in spaces:
+            reset_namespace(ns)
+        memory.release_pool()

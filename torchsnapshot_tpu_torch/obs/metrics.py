@@ -129,6 +129,11 @@ FASTIO_DONTNEED_READS = "storage.fastio.dontneed_reads"
 # mapped (pages fault in lazily — mapped ≠ resident).
 MMAP_READS = "storage.mmap.reads"
 MMAP_BYTES_MAPPED = "storage.mmap.bytes_mapped"
+# The memory plugin's recycled destination buffers (storage/memory.py):
+# bytes of each write drawn from a released buffer of its size, and
+# bytes allocated anew.
+MEMORY_POOL_HIT_BYTES = "storage.memory.pool_hit_bytes"
+MEMORY_POOL_MISS_BYTES = "storage.memory.pool_miss_bytes"
 # Phase timing (cross-rank straggler attribution, obs/aggregate.py):
 # always-on histograms of where a take/restore spent its wall time on
 # THIS rank.  One observe per pipeline task / coordination wait — cheap
