@@ -1437,3 +1437,119 @@ def test_subscriber_on_the_card_swaps_bitwise_under_pinned_readers(cuda, tmp_pat
     for p, q in zip(model.parameters(), src.parameters()):
         assert p.is_cuda and p.dtype == torch.bfloat16 and torch.equal(p.cpu(), q)
     assert sub.live.basis_copies == 3 * len(params) and sub.live.basis_bytes > 0
+
+
+def _pinned_state(device):
+    """Leaves of each read path under ``_pinned_knobs``: a striped whole
+    object, a whole one below the stripe threshold, a chunked one (a
+    striped chunk and a whole one), a whole one, a chunked one and a slab
+    member restored into f32 templates (cast on the card), and small
+    members sharing a device slab; with each leaf's template dtype."""
+    g = torch.Generator(device="cpu").manual_seed(31)
+    leaves = {
+        "striped": torch.randn(512, 300, generator=g).to(torch.bfloat16),
+        "whole": torch.randn(20000, generator=g),
+        "cast": torch.randn(300, 200, generator=g).to(torch.bfloat16),
+        "chunked": torch.randn(300, 400, generator=g),
+        "chunked_cast": torch.randn(300, 800, generator=g).to(torch.bfloat16),
+        # sorts into the first slab; s5 is left a slab of its own (one
+        # ranged read, not merged)
+        "s0cast": torch.randn(333, generator=g).to(torch.bfloat16),
+        **{f"s{i}": torch.randn(257 + i, generator=g).to(torch.bfloat16) for i in range(6)},
+    }
+    templates = {k: torch.float32 if "cast" in k else v.dtype for k, v in leaves.items()}
+    return {k: v.to(device) for k, v in leaves.items()}, templates
+
+
+def _pinned_knobs():
+    """``_stripe_knobs`` with arrays above 400,000 bytes chunked."""
+    from torchsnapshot_tpu_torch import knobs
+
+    stack = _stripe_knobs("raw")
+    stack.enter_context(knobs.override_max_chunk_size_bytes(400_000))
+    return stack
+
+
+def _restore_pinned(url, templates, shapes, device, after=None):
+    import torchsnapshot_tpu_torch as tts
+
+    dest = tts.StateDict({k: torch.zeros(shapes[k], dtype=d, device=device) for k, d in templates.items()})
+    dest["step"] = 0
+    if after is not None:
+        after(dest)
+    tts.Snapshot(url).restore({"app": dest})
+    torch.cuda.synchronize()
+    return dest
+
+
+@pytest.mark.parametrize("budget", [None, 100_000], ids=["default_budget", "budget_below_state"])
+def test_restore_into_cuda_templates_lands_through_pinned_read_buffers(cuda, monkeypatch, budget):
+    """Striped leaves, whole leaves, chunked leaves, device slabs and bf16
+    → f32 cast templates restore bitwise equal to a plain host restore,
+    every byte copied to the card from a pinned read buffer
+    (``read.pinned_bytes`` is the CUDA templates' stored bytes, all the
+    bytes read), and the pinned high-water mark within the budget plus
+    one leaf."""
+    import uuid
+
+    import torchsnapshot_tpu_torch as tts
+    from torchsnapshot_tpu_torch.ops import device_pack as dp
+    from torchsnapshot_tpu_torch.preparers import array as pa
+    from torchsnapshot_tpu_torch.storage.memory import reset_namespace
+
+    if budget is not None:
+        monkeypatch.setenv("TORCHSNAPSHOT_TPU_TORCH_PER_RANK_MEMORY_BUDGET_BYTES", str(budget))
+    leaves, templates = _pinned_state(cuda)
+    shapes = {k: v.shape for k, v in leaves.items()}
+    sizes = {k: v.numel() * v.element_size() for k, v in leaves.items()}
+    url = f"memory://pinned-{uuid.uuid4().hex}"
+    try:
+        with _pinned_knobs():
+            tts.Snapshot.take(url, {"app": tts.StateDict({**leaves, "step": 5})})
+            host = _restore_pinned(url, templates, shapes, "cpu")
+            c0 = dict(tts.obs.counters())
+            k2 = dp.LAUNCHES["slab_unpack"]
+            pa.PINNED_TILES["high_water_bytes"] = 0
+            got = _restore_pinned(url, templates, shapes, cuda)
+            hw = pa.PINNED_TILES["high_water_bytes"]
+        c1 = tts.obs.counters()
+    finally:
+        reset_namespace(url.split("://")[1])
+    assert got["step"] == 5 and dp.LAUNCHES["slab_unpack"] > k2
+    for k in leaves:
+        assert got[k].is_cuda and got[k].dtype == templates[k], k
+        assert torch.equal(got[k].cpu(), host[k]), k
+    pinned = c1[tts.obs.READ_PINNED_BYTES] - c0.get(tts.obs.READ_PINNED_BYTES, 0)
+    read = c1[tts.obs.BYTES_READ] - c0.get(tts.obs.BYTES_READ, 0)
+    assert pinned == read == sum(sizes.values())
+    assert 0 < hw <= (budget or sum(sizes.values())) + max(sizes.values())
+
+
+@pytest.mark.parametrize("side", [False, True], ids=["current_stream", "side_stream"])
+def test_pinned_restore_lands_after_work_queued_on_the_template(cuda, side):
+    """A restore planned right behind slow work queued on the templates
+    (a sleep, then a fill) lands after it: whole, chunk and slab copies go
+    on the stream current when the restore was called."""
+    import uuid
+
+    import torchsnapshot_tpu_torch as tts
+    from torchsnapshot_tpu_torch.storage.memory import reset_namespace
+
+    leaves, templates = _pinned_state(cuda)
+    url = f"memory://pinned-order-{uuid.uuid4().hex}"
+
+    def queue_fill(dest):
+        torch.cuda._sleep(200_000_000)
+        for k in leaves:
+            dest[k].fill_(7)
+
+    stream = torch.cuda.Stream() if side else torch.cuda.current_stream()
+    try:
+        with _pinned_knobs():
+            tts.Snapshot.take(url, {"app": tts.StateDict({**leaves, "step": 5})})
+            with torch.cuda.stream(stream):
+                got = _restore_pinned(url, templates, {k: v.shape for k, v in leaves.items()}, cuda, queue_fill)
+    finally:
+        reset_namespace(url.split("://")[1])
+    for k, v in leaves.items():
+        assert torch.equal(got[k], v.to(templates[k])), k

@@ -6,8 +6,9 @@ maps nothing for a zero-length read and keeps the ``storage.mmap.*``
 counters.  A default restore on fs serves its raw reads that have no
 buffer of their own as private maps, and the consumers build tensors
 over the mapped pages with no host copy; its ``storage.mmap.reads`` is
-the JAX package's for the same restore.  Frames, chunks and reads into
-a consumer's own buffer never map; ``MMAP=0`` copies; a written
+the JAX package's for the same restore.  Frames, chunks and ranged
+reads that must land in a consumer's own buffer never map; a buffer a
+consumer merely offers leaves a mapped read mapped; ``MMAP=0`` copies; a written
 ``materialize(device="cpu")`` leaf leaves the file unchanged; a plugin
 that declines the map is debited its cost.
 """
@@ -255,3 +256,39 @@ def test_a_declined_map_is_debited_its_cost(tmp_path, monkeypatch):
         for k, v in state.items():
             assert dest[k].numpy().tobytes() == v.tobytes()
     assert max(seen) >= state["big"].nbytes
+
+
+class _Offers(_OwnBuffer):
+    """Offers a buffer of its own without asking never to be mapped, as a
+    consumer bound for the card does."""
+
+    def provides_read_buffer(self):
+        return False
+
+
+@pytest.mark.parametrize("consumer,ranged", [(_OwnBuffer, False), (_Offers, False), (_Offers, True)],
+                         ids=["whole_own", "whole_offered", "ranged_offered"])
+def test_an_offered_buffer_leaves_mapped_reads_mapped(tmp_path, consumer, ranged):
+    """With MMAP on, a whole-object fs read whose consumer offers a buffer
+    of its own, and a ranged one whose consumer only offers, are served
+    mapped as before: the offer is never asked for."""
+    state = _state(6)
+    _take(str(tmp_path / "p"), state)
+    loc = tts.Snapshot(str(tmp_path / "p")).metadata.manifest["0/app/big"].location
+    byte_range = [40, 1040] if ranged else None
+    want = state["big"].view(np.uint8)
+    want = want[40:1040] if ranged else want
+    c = consumer(want.nbytes)
+    asked = []
+    c.read_buffer = lambda n: asked.append(n) or c.into
+    storage = tfs.FSStoragePlugin(str(tmp_path / "p"))
+    c0 = _mmap_reads()
+    try:
+        tscheduler.sync_execute_read_reqs(
+            [ReadReq(path=loc, buffer_consumer=c, byte_range=byte_range)], storage, 1 << 20, 0
+        )
+    finally:
+        storage.sync_close()
+    assert _mmap_reads() == c0 + 1 and not asked
+    assert c.got is not c.into and is_mmap_backed(c.got)
+    assert bytes(memoryview(c.got).cast("B")) == want.tobytes()

@@ -2,7 +2,8 @@
 package's: the part plan (hypothesis over sizes and part sizes), striped,
 part-streamed and whole-staged striped writes on fs and ``memory://``
 laying down the bytes the JAX package lays down (and the same bytes as a
-one-stream write), striped reads honouring ``into``, abort and
+one-stream write), striped reads honouring ``into``, whole, striped and
+slab reads landing in a consumer's own buffer, abort and
 cancellation leaving nothing behind, and a streamed object's admission
 held to a window of 4 parts.  Byte comparisons are exact.
 """
@@ -27,7 +28,9 @@ from torchsnapshot_tpu_torch import knobs as tknobs
 from torchsnapshot_tpu_torch import obs as tobs
 from torchsnapshot_tpu_torch import resilience as tres
 from torchsnapshot_tpu_torch import scheduler as tsched
-from torchsnapshot_tpu_torch.io_types import ReadIO, StoragePlugin, StripedWriteHandle
+from torchsnapshot_tpu_torch.io_types import (
+    BufferConsumer, ReadIO, ReadReq, StoragePlugin, StripedWriteHandle, WriteIO,
+)
 from torchsnapshot_tpu_torch.storage import memory as tmemory
 from torchsnapshot_tpu_torch.storage import stripe as tstripe
 from torchsnapshot_tpu_torch.storage.fs import FSStoragePlugin
@@ -333,3 +336,65 @@ def test_defensive_copy_and_device_stagers_stage_whole():
     assert st.part_plan(PART) == tstripe.plan_parts(arr.nbytes, PART)
     assert HostArrayBufferStager(np.zeros((64, 64), np.float32).T, False).part_plan(PART) is None
     assert BatchedBufferStager([(HostArrayBufferStager(arr), 0)], arr.nbytes).part_plan(PART) is None
+
+
+class _Offering(BufferConsumer):
+    """Offers the storage a buffer of its own, or none, and keeps what it
+    is handed."""
+
+    def __init__(self, nbytes, offers):
+        self.nbytes = nbytes
+        self.into = np.empty(nbytes, np.uint8) if offers else None
+        self.asked = []
+        self.got = None
+
+    def read_buffer(self, nbytes):
+        self.asked.append(nbytes)
+        return self.into
+
+    async def consume_buffer(self, buf, executor=None):
+        self.got = buf
+
+    def get_consuming_cost_bytes(self):
+        return self.nbytes
+
+
+@pytest.mark.parametrize("offers", [True, False], ids=["offers", "offers_none"])
+@pytest.mark.parametrize("case", ["striped", "whole", "slab"])
+def test_reads_land_in_the_consumers_own_buffer(case, offers):
+    """A whole object above the stripe threshold, one below it and a
+    ranged read spanning a slab's members each land in the buffer the
+    consumer offers (that same object, bitwise the stored bytes); a
+    consumer that offers none gets the storage's own buffer."""
+    ns = f"offer_{case}_{offers}"
+    plugin = MemoryStoragePlugin(ns)
+    data = np.random.default_rng(7).integers(0, 256, 3 * PART + 11, dtype=np.uint8)
+    try:
+        with _stripes(batching=True):
+            if case == "slab":
+                small = {f"s{i}": np.full(300 + i, i, np.float32) for i in range(4)}
+                tts.Snapshot.take(f"memory://{ns}", _port_app(small))
+                manifest = tts.Snapshot(f"memory://{ns}").metadata.manifest
+                ranges = [manifest[f"0/app/{k}"].byte_range for k in small]
+                path = manifest["0/app/s0"].location
+                byte_range = [min(r[0] for r in ranges), max(r[1] for r in ranges)]
+                assert "batched" in path and len({manifest[f"0/app/{k}"].location for k in small}) == 1
+            else:
+                path, byte_range = "obj", None
+                if case == "whole":
+                    data = data[: PART + 5]
+                _run(plugin.write(WriteIO(path=path, buf=memoryview(data))))
+            stored = bytes(memoryview(tmemory._NAMESPACES[ns][path]).cast("B"))
+            if byte_range is not None:
+                stored = stored[byte_range[0] : byte_range[1]]
+            consumer = _Offering(len(stored), offers)
+            c0 = _counts()
+            tsched.sync_execute_read_reqs(
+                [ReadReq(path=path, buffer_consumer=consumer, byte_range=byte_range)], plugin, 1 << 30, 0
+            )
+            assert _delta(c0, "storage.stripe.reads") == [int(case == "striped")]
+        assert consumer.asked == [len(stored)]
+        assert (consumer.got is consumer.into) == offers
+        assert bytes(memoryview(consumer.got).cast("B")) == stored
+    finally:
+        tmemory.reset_namespace(ns)

@@ -11,7 +11,9 @@ lowest ``priority`` of its members.
 CUDA members slab apart from host members.  A slab whose members are all
 CUDA tensors packs on the device with kernel K1 and reaches the host in
 one copy; on restore, members whose templates are CUDA tensors unpack
-on the device with kernel K2 from one host-to-device copy.  Neither path
+on the device with kernel K2 from one host-to-device copy; when every
+member of a merged read does, the span is read into a pinned buffer of
+the consumer's own, so that copy is one asynchronous DMA.  Neither path
 falls back: a kernel failure fails the take or restore.  What routes a
 member to the host path instead is a decision made BEFORE any launch —
 a host template, a cast pair K2 does not take, a template whose shape or
@@ -38,6 +40,8 @@ from .preparers.array import (
     ArrayBufferConsumer,
     CudaTensorBufferStager,
     HostArrayBufferStager,
+    pin_read_buffer,
+    unpin_read_buffer,
 )
 from .serialization import BUFFER_PROTOCOL, string_to_dtype
 from .utils.checksums import copy_digest
@@ -298,9 +302,34 @@ class _MergedRangeConsumer(BufferConsumer):
     def __init__(self, base: int, subs: List[Tuple[ReadReq, int, int]]):
         self.base = base
         self.subs = subs
+        self._outs: Optional[List[Optional[torch.Tensor]]] = None
+        self._into: Any = None  # (buffer, pinned tensor) from ``read_buffer``
+
+    def _device_outs(self) -> List[Optional[torch.Tensor]]:
+        """Each member's CUDA template for K2, or None for the host path,
+        decided once."""
+        if self._outs is None:
+            self._outs = [_device_unpack_target(req) for req, _, _ in self.subs]
+        return self._outs
+
+    def read_buffer(self, nbytes: int) -> Optional[np.ndarray]:
+        if nbytes == 0 or any(out is None for out in self._device_outs()):
+            return None
+        self._into = pin_read_buffer(nbytes)
+        return self._into[0]
 
     async def consume_buffer(
         self, buf: Any, executor: Optional[Executor] = None
+    ) -> None:
+        into, self._into = self._into, None
+        try:
+            await self._consume(buf, into[1] if into is not None and buf is into[0] else None, executor)
+        finally:
+            if into is not None:
+                unpin_read_buffer(into)
+
+    async def _consume(
+        self, buf: Any, pinned: Optional[torch.Tensor], executor: Optional[Executor]
     ) -> None:
         view = memoryview(buf).cast("B")
         if knobs.verify_on_restore():
@@ -319,8 +348,7 @@ class _MergedRangeConsumer(BufferConsumer):
                     check_read_crc(req, piece)
         device_subs: Dict[torch.device, list] = {}
         host_subs = []
-        for req, start, end in self.subs:
-            out = _device_unpack_target(req)
+        for (req, start, end), out in zip(self.subs, self._device_outs()):
             if out is None:
                 host_subs.append((req, start, end))
             else:
@@ -328,17 +356,19 @@ class _MergedRangeConsumer(BufferConsumer):
         for subs in device_subs.values():
             if executor is not None:
                 await asyncio.get_running_loop().run_in_executor(
-                    executor, self._device_unpack, view, subs
+                    executor, self._device_unpack, view, pinned, subs
                 )
             else:
-                self._device_unpack(view, subs)
+                self._device_unpack(view, pinned, subs)
         for req, start, end in host_subs:
             piece = view[start - self.base:end - self.base]
             await req.buffer_consumer.consume_buffer(piece, executor)
 
-    def _device_unpack(self, view: memoryview, subs: list) -> None:
-        """ONE host-to-device copy of the span these members cover and ONE
-        K2 launch writing each into its CUDA template in place."""
+    def _device_unpack(self, view: memoryview, pinned: Optional[torch.Tensor], subs: list) -> None:
+        """ONE host-to-device copy of the span these members cover (from
+        ``pinned``, the read's pinned buffer, when it has one) and ONE K2
+        launch writing each into its CUDA template in place, on the stream
+        current when the read was planned."""
         from .ops.device_pack import unpack_slab_to_device
 
         lo = min(start for _, start, _ in subs)
@@ -350,10 +380,12 @@ class _MergedRangeConsumer(BufferConsumer):
              tuple(req.buffer_consumer.entry.shape))
             for req, start, _ in subs
         )
-        unpack_slab_to_device(
-            view[lo - self.base:hi - self.base], members,
-            [out for _, _, out in subs],
-        )
+        src = view if pinned is None else pinned
+        with torch.cuda.stream(subs[0][0].buffer_consumer.stream):
+            unpack_slab_to_device(
+                src[lo - self.base:hi - self.base], members,
+                [out for _, _, out in subs],
+            )
         for req, _, out in subs:
             req.buffer_consumer.fut.set(out)
 

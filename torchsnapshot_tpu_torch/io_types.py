@@ -106,13 +106,16 @@ class BufferConsumer(abc.ABC):
         """A writable host buffer of ``nbytes`` the storage may read this
         request's bytes into (it then hands that same object to
         ``consume_buffer``), or None for a buffer of the storage's own.
-        Asked for when the read starts, so only reads in flight hold
-        one."""
+        Asked for when a read that is not mapped starts, whole or ranged,
+        so only reads in flight hold one; a consumer tests honour by
+        identity."""
         return None
 
     def provides_read_buffer(self) -> bool:
-        """Whether ``read_buffer`` hands out a buffer of its own (pinned
-        tiles): such a read lands there and is never served mapped."""
+        """Whether a ranged read must land in ``read_buffer``'s buffer
+        (pinned tiles): such a read is never served mapped.  A consumer
+        that only offers a buffer leaves the scheduler's mapping as it
+        is."""
         return False
 
 

@@ -103,6 +103,7 @@ from .metrics import (  # noqa: F401
     WRITE_COPY_S,
     CONSUME_H2D_S,
     READ_PIN_ALLOC_S,
+    READ_PINNED_BYTES,
     FASTIO_BUFFERED_PARTS,
     FASTIO_BYTES_READ,
     FASTIO_BYTES_WRITTEN,

@@ -340,10 +340,14 @@ STAGE_D2H_WAIT_S = "stage.d2h_wait_s"
 WRITE_ALLOC_S = "write.alloc_s"
 WRITE_COPY_S = "write.copy_s"
 # - ``phase.consume_s`` and budgeted reads: host seconds in
-#   host-to-device copies (a pageable source copies synchronously), and
-#   the pinned allocation of a device tile's read buffer.
+#   host-to-device copies (a pageable source copies synchronously, a
+#   pinned read buffer's copy is enqueued), and the pinned allocation of
+#   a read buffer for the card (a device tile, a whole array, a slab).
 CONSUME_H2D_S = "consume.h2d_s"
 READ_PIN_ALLOC_S = "read.pin_alloc_s"
+# bytes copied to the card from a consumer's pinned read buffer; beside
+# ``bytes_read`` it is the share of a restore that landed pinned
+READ_PINNED_BYTES = "read.pinned_bytes"
 
 
 class Counter:

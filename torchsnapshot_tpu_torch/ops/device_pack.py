@@ -282,23 +282,32 @@ def unpack_slab_to_device(
     buf: Any, members: Sequence[Member], outs: Sequence[torch.Tensor]
 ) -> None:
     """ONE host-to-device copy of the slab in ``buf`` and ONE K2 launch
-    decoding every member into its CUDA template in place.  Waits for
-    the launch, so a fault surfaces in the restore that caused it.  A
-    mapped slab (private, writable) is copied to the card straight from
-    its pages; only a read-only buffer is copied on the host first."""
-    view = memoryview(buf).cast("B")
-    check_members_in_bounds(view.nbytes, members)
-    if view.readonly:
-        view = memoryview(bytearray(view))
+    decoding every member into its CUDA template in place, on the current
+    stream.  Waits for the launch, so a fault surfaces in the restore that
+    caused it.  A pinned uint8 tensor (a read buffer of the consumer's
+    own) is copied by one asynchronous DMA.  A mapped slab (private,
+    writable) is copied to the card straight from its pages; only a
+    read-only buffer is copied on the host first."""
+    pinned = isinstance(buf, torch.Tensor)
+    if pinned:
+        check_members_in_bounds(buf.numel(), members)
+        host = buf
+    else:
+        view = memoryview(buf).cast("B")
+        check_members_in_bounds(view.nbytes, members)
+        if view.readonly:
+            view = memoryview(bytearray(view))
+        host = torch.frombuffer(view, dtype=torch.uint8) if view.nbytes else (
+            torch.empty(0, dtype=torch.uint8)
+        )
     device = outs[0].device
-    host = torch.frombuffer(view, dtype=torch.uint8) if view.nbytes else (
-        torch.empty(0, dtype=torch.uint8)
-    )
-    slab = torch.empty(view.nbytes, dtype=torch.uint8, device=device)
+    slab = torch.empty(host.numel(), dtype=torch.uint8, device=device)
     with obs.clocked(obs.CONSUME_H2D_S, "consume/h2d"):
-        slab.copy_(host)
+        slab.copy_(host, non_blocking=pinned)
     unpack_slab_into(slab, members, outs)
     torch.cuda.current_stream(device).synchronize()
+    if pinned:
+        obs.counter(obs.READ_PINNED_BYTES).inc(host.numel())
 
 
 # ------------------------------------------------------------------ K6

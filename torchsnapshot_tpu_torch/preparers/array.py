@@ -19,6 +19,15 @@ Counterpart of ``torchsnapshot_tpu/preparers/array.py``:
   donates the template), which is why there is no donation here.  Under
   VERIFY_ON_RESTORE a whole-payload read is checked before it is copied
   anywhere, so a template stays untouched on a mismatch.
+- A CUDA template hands the storage a pinned read buffer
+  (``pin_read_buffer``) for the whole array, or for each chunk of a
+  chunked one (its rows of the template of the entry's shape, except
+  under VERIFY_ON_RESTORE), and lands it with one asynchronous
+  host-to-device copy, ordered after the work queued on the template
+  when the read was planned and waited for before the buffer goes back
+  to torch's caching host allocator.  Bytes the storage returns in a
+  buffer of its own (a mapped read, a plugin that ignores the offer)
+  copy as from any host buffer.
 - Budgeted reads (``read_object(..., memory_budget_bytes=B)``): an array
   or chunk larger than ``B`` is read in byte-range tiles of at most ``B``
   bytes, each written into its range of the target as it lands, so host
@@ -70,10 +79,33 @@ from ..serialization import (
 # budgeted reads read whole, decided at plan time: a template whose shape
 # or layout the tiles cannot land in, or a cast pair K6 does not take
 TILE_MISSES = {"cast": 0, "layout": 0}
-# the most pinned tile memory one budgeted read into a CUDA tensor held
-# at once (set back to 0 by whoever reads it)
+# the most pinned read-buffer memory held at once: a budgeted read's
+# tiles, and the arrays, chunks and slabs a read lands on the card whole
+# (set back to 0 by whoever reads it)
 PINNED_TILES = {"high_water_bytes": 0}
 _TILE_LOCK = threading.Lock()
+_pinned_in_use = 0  # bytes of pinned read buffers handed out, under _TILE_LOCK
+
+
+def pin_read_buffer(nbytes: int) -> Tuple[np.ndarray, torch.Tensor]:
+    """A pinned host buffer of ``nbytes`` from torch's caching host
+    allocator for a read bound for the card: the numpy view the storage
+    fills, and the tensor a non-blocking copy reads.  In use, and counted
+    in ``PINNED_TILES``, until ``unpin_read_buffer``."""
+    global _pinned_in_use
+    with obs.clocked(obs.READ_PIN_ALLOC_S, "read/pin_alloc"):
+        pinned = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    with _TILE_LOCK:
+        _pinned_in_use += nbytes
+        PINNED_TILES["high_water_bytes"] = max(PINNED_TILES["high_water_bytes"], _pinned_in_use)
+    return pinned.numpy(), pinned
+
+
+def unpin_read_buffer(into: Tuple[np.ndarray, torch.Tensor]) -> None:
+    """Count a ``pin_read_buffer`` buffer out of use (its copies done)."""
+    global _pinned_in_use
+    with _TILE_LOCK:
+        _pinned_in_use -= into[1].numel()
 
 
 def is_array_like(obj: Any) -> bool:
@@ -274,13 +306,61 @@ def materialize_into_template(src: torch.Tensor, obj_out: Any) -> Any:
     return src
 
 
-class ArrayBufferConsumer(BufferConsumer):
+class _CudaLanding(BufferConsumer):
+    """A consumer whose bytes may land in a CUDA tensor.  ``plan_landing``
+    (at plan time) keeps the stream then current for a CUDA destination;
+    such a consumer offers the storage a pinned read buffer of exactly its
+    cost, and ``land_pinned`` copies that buffer to the card in one
+    asynchronous copy on that stream (after the work already queued on
+    the template), waited for on its event before the buffer is
+    released."""
+
+    stream: Optional[torch.cuda.Stream] = None
+    _into: Any = None  # (buffer, pinned tensor) from ``read_buffer``
+
+    def plan_landing(self, dst: Any) -> None:
+        if is_cuda_tensor(dst):
+            self.stream = torch.cuda.current_stream(dst.device)
+
+    def read_buffer(self, nbytes: int) -> Optional[np.ndarray]:
+        if self.stream is None or nbytes == 0 or nbytes != self.get_consuming_cost_bytes():
+            return None
+        self._into = pin_read_buffer(nbytes)
+        return self._into[0]
+
+    def land_pinned(self, buf: Any, dst: torch.Tensor, dtype: str) -> bool:
+        """Copy ``buf``, ``dtype`` elements, into ``dst`` (cast on the
+        card) when it is this consumer's pinned read buffer; False when the
+        storage handed over a buffer of its own."""
+        into, self._into = self._into, None
+        if into is None:
+            return False
+        try:
+            if buf is not into[0]:
+                return False
+            src = into[1].view(string_to_dtype(dtype)).reshape(dst.shape)
+            with torch.no_grad(), torch.cuda.stream(self.stream):
+                with obs.clocked(obs.CONSUME_H2D_S, "consume/h2d"):
+                    dst.copy_(src, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record()
+            done.synchronize()
+            obs.counter(obs.READ_PINNED_BYTES).inc(into[1].numel())
+            return True
+        finally:
+            unpin_read_buffer(into)
+
+
+class ArrayBufferConsumer(_CudaLanding):
     def __init__(self, entry: ArrayEntry, obj_out: Any, fut: Future) -> None:
         self.entry = entry
         self.obj_out = obj_out
         self.fut = fut
+        self.plan_landing(obj_out)
 
     def _consume(self, buf: Any) -> Any:
+        if self.land_pinned(buf, self.obj_out, self.entry.dtype):
+            return self.obj_out
         src = tensor_from_buffer(buf, self.entry.dtype, tuple(self.entry.shape))
         if self.obj_out is None and not is_mmap_backed(buf):
             # the tensor may share ``buf``'s memory (a reused or slab
@@ -422,21 +502,12 @@ class _DeviceTileTarget:
         self.stored = stored
         self.stream = torch.cuda.Stream(device=dst.device)
         self.stream.wait_stream(torch.cuda.current_stream(dst.device))
-        self.pinned_bytes = 0
 
     def read_buffer(self, nbytes: int) -> Tuple[np.ndarray, torch.Tensor]:
-        with obs.clocked(obs.READ_PIN_ALLOC_S, "read/pin_alloc"):
-            pinned = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
-        with _TILE_LOCK:
-            self.pinned_bytes += nbytes
-            PINNED_TILES["high_water_bytes"] = max(
-                PINNED_TILES["high_water_bytes"], self.pinned_bytes
-            )
-        return pinned.numpy(), pinned
+        return pin_read_buffer(nbytes)
 
     def release(self, into: Tuple[np.ndarray, torch.Tensor]) -> None:
-        with _TILE_LOCK:
-            self.pinned_bytes -= into[1].numel()
+        unpin_read_buffer(into)
 
     def write(self, start: int, end: int, buf: Any, dtype: str, pinned: Any) -> None:
         from ..ops.device_pack import tile_update
@@ -460,6 +531,8 @@ class _DeviceTileTarget:
             done = torch.cuda.Event()
             done.record(self.stream)
         done.synchronize()
+        if pinned is not None:
+            obs.counter(obs.READ_PINNED_BYTES).inc(host.numel() * host.element_size())
 
 
 def _tile_target(dtype: str, shape: List[int], obj_out: Any) -> Any:
@@ -695,27 +768,30 @@ class ChunkedArrayIOPreparer:
                 )
         fut: Future = Future()
         dtype = string_to_dtype(entry.dtype)
-        # host assembly buffer: the template itself when it is a host
-        # tensor of the stored dtype, else a fresh one copied over last
+        # where the chunks land, row range by row range: the template
+        # itself when it is a CUDA tensor of the entry's shape (each chunk
+        # from a pinned read buffer, cast on the card) or a host tensor of
+        # the stored dtype; else a fresh host buffer copied over last
         # (always a fresh one under VERIFY_ON_RESTORE, so a later chunk's
         # mismatch leaves the template untouched)
         if (
             isinstance(obj_out, torch.Tensor)
-            and obj_out.device.type == "cpu"
-            and obj_out.dtype == dtype
-            and obj_out.is_contiguous()
             and list(obj_out.shape) == list(entry.shape)
             and not knobs.verify_on_restore()
+            and (
+                obj_out.device.type == "cuda"
+                or (obj_out.device.type == "cpu" and obj_out.dtype == dtype and obj_out.is_contiguous())
+            )
         ):
-            host_buf = obj_out
+            dest = obj_out
         else:
-            host_buf = torch.empty(tuple(entry.shape), dtype=dtype)
+            dest = torch.empty(tuple(entry.shape), dtype=dtype)
 
         def on_done() -> None:
-            if host_buf is obj_out:
+            if dest is obj_out:
                 fut.set(obj_out)
             else:
-                fut.set(materialize_into_template(host_buf, obj_out))
+                fut.set(materialize_into_template(dest, obj_out))
 
         countdown = _Countdown(len(entry.chunks), on_done)
         read_reqs = [
@@ -723,7 +799,7 @@ class ChunkedArrayIOPreparer:
                 path=chunk.location,
                 byte_range=list(chunk.byte_range) if chunk.byte_range else None,
                 buffer_consumer=_ChunkConsumer(
-                    host_buf, chunk, entry.dtype, countdown
+                    dest, chunk, entry.dtype, countdown
                 ),
                 expected_crc32=chunk.crc32,
             )
@@ -790,18 +866,24 @@ class _Countdown:
             self.on_zero()
 
 
-class _ChunkConsumer(BufferConsumer):
-    def __init__(self, host_buf: torch.Tensor, chunk: Shard, dtype: str, countdown: _Countdown):
-        self.host_buf = host_buf
+class _ChunkConsumer(_CudaLanding):
+    """Copy one chunk into its rows of ``dest``: a host buffer or
+    template, or a CUDA template (from a pinned read buffer when the
+    storage took it)."""
+
+    def __init__(self, dest: torch.Tensor, chunk: Shard, dtype: str, countdown: _Countdown):
+        self.dest = dest
         self.chunk = chunk
         self.dtype = dtype
         self.countdown = countdown
+        self.plan_landing(dest)
 
     def _copy(self, buf: Any) -> None:
         r0 = self.chunk.offsets[0]
-        r1 = r0 + self.chunk.sizes[0]
-        src = tensor_from_buffer(buf, self.dtype, tuple(self.chunk.sizes))
-        self.host_buf[r0:r1].copy_(src)
+        rows = self.dest[r0:r0 + self.chunk.sizes[0]]
+        if self.land_pinned(buf, rows, self.dtype):
+            return
+        materialize_into_template(tensor_from_buffer(buf, self.dtype, tuple(self.chunk.sizes)), rows)
 
     async def consume_buffer(
         self, buf: Any, executor: Optional[Executor] = None

@@ -28,8 +28,10 @@ Counterpart of ``torchsnapshot_tpu/scheduler.py``, same discipline:
   consuming-cost budget, and each completed read chains into a consume
   task; under VERIFY_ON_RESTORE a read that covers one payload is
   checked against its recorded crc32 before it is consumed.  A consumer
-  may hand the storage a buffer of its own to read into (pinned tile
-  memory, ``BufferConsumer.read_buffer``).
+  may hand the storage a buffer of its own to read into
+  (``BufferConsumer.read_buffer``: pinned memory for a CUDA template, a
+  slab bound for the card or a budgeted tile), for every read it does
+  not map.
 - WRITE_CHECKSUMS off: no digests are computed at staging.
 - Digests: a whole-buffer write to a plugin that fuses digests
   (``supports_fused_digest``, the fs plugin's fast-I/O engine) gets its
@@ -1056,10 +1058,14 @@ async def _execute_read_pipelines(
             )
         if rr.byte_range is not None:
             offset, length = rr.byte_range[0], rr.byte_range[1] - rr.byte_range[0]
-        elif cheap_stat and stripe.read_eligible(p.consuming_cost):
-            offset, length = 0, await storage.stat(rr.path)
         else:
-            offset, length = 0, 0
+            if cheap_stat and stripe.read_eligible(p.consuming_cost):
+                offset, length = 0, await storage.stat(rr.path)
+            else:
+                offset, length = 0, 0
+            # a whole object lands in the consumer's buffer too (a pinned
+            # one for the card), sized by the stat, else by its cost
+            into = rr.buffer_consumer.read_buffer(length or p.consuming_cost)
         if stripe.read_eligible(length):
             if sp is not None:
                 sp.attrs["striped"] = True

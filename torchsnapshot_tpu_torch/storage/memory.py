@@ -4,11 +4,14 @@ Counterpart of ``torchsnapshot_tpu/storage/memory.py``: a process-wide
 dict of namespaces, each a dict of objects.  Writes, reads and part
 writes evaluate the failpoints ``storage.memory.write``,
 ``storage.memory.read`` and ``storage.memory.part.write`` under the
-shared retry policy (only when the registry is armed).  A write with
-``want_digest`` copies and digests in one native pass; the striped
-handle writes parts into one preallocated buffer and publishes it on
-``complete``, which fails when the parts left a hole.  Every stored
-object the plugin writes is a ``uint8`` array, published read-only.
+shared retry policy (only when the registry is armed).  A read given an
+``into`` buffer of its length, whole or ranged, is copied there off the
+event loop; a whole read without one is a read-only view of the
+object.  A write with ``want_digest`` copies and digests in one native
+pass; the striped handle writes parts into one preallocated buffer and
+publishes it on ``complete``, which fails when the parts left a hole.
+Every stored object the plugin writes is a ``uint8`` array, published
+read-only.
 
 Destination buffers are recycled.  An object that leaves the store
 (``delete``, ``reset_namespace``, an overwrite, an aborted or failed
@@ -173,11 +176,7 @@ class MemoryStoragePlugin(StoragePlugin):
         except KeyError:
             raise FileNotFoundError(f"memory://{self.namespace}/{read_io.path}") from None
         view = memoryview(data).cast("B")
-        if read_io.byte_range is None:
-            # read-only: a consumer must not change the stored object
-            read_io.buf = view.toreadonly()
-            return
-        start, end = read_io.byte_range
+        start, end = read_io.byte_range or (0, view.nbytes)
         into = read_io.into
         if into is not None:
             try:
@@ -193,6 +192,10 @@ class MemoryStoragePlugin(StoragePlugin):
                 )
                 read_io.buf = into
                 return
+        if read_io.byte_range is None:
+            # read-only: a consumer must not change the stored object
+            read_io.buf = view.toreadonly()
+            return
         read_io.buf = bytes(view[start:end])
 
     async def link_from(self, base_url: str, path: str) -> None:
