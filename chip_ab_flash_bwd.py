@@ -100,7 +100,7 @@ def pack_launch(lib, members, slab):
 
 def unpack_launch(lib, slab, members, outs):
     """K2 of ``lib`` into ``outs``: identity members, but a bf16 member
-    whose template is f32 is cast (codes of ``device_pack._CODES``)."""
+    whose template is f32 is cast (codes of ``device_pack.ELEMENT_CODES``)."""
     stream = torch.cuda.current_stream().cuda_stream
     chunk, chunk_elems = lib.tsnp_slab_unpack_chunk_bytes(), lib.tsnp_slab_unpack_chunk_elems()
     rows, off, chunk_begin = [], 0, 0
@@ -109,8 +109,8 @@ def unpack_launch(lib, slab, members, outs):
             rows.append((off, o.data_ptr(), nbytes(t), 0, 0, chunk_begin))
             chunk_begin += -(-nbytes(t) // chunk)
         else:
-            rows.append((off, o.data_ptr(), t.numel(), device_pack._CODES[t.dtype],
-                         device_pack._CODES[o.dtype], chunk_begin))
+            rows.append((off, o.data_ptr(), t.numel(), device_pack.ELEMENT_CODES[t.dtype],
+                         device_pack.ELEMENT_CODES[o.dtype], chunk_begin))
             chunk_begin += -(-t.numel() // chunk_elems)
         off += nbytes(t)
     table = device_pack._upload_table(rows, slab.device)

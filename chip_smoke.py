@@ -161,7 +161,7 @@ is no card or anything below fails.  In order:
       bytes) and a restore at world 2 into the transposed layout; then,
       in this process, the restore at world 1 of that snapshot onto the
       (1, 1) mesh and into plain tensors, bitwise.  No box may miss the
-      device path (``TILE_MISSES``);
+      device path (``read.tile_misses.*``);
    g. lifecycle (after f): the full-width model as a fine-tune (the
       embedding and LM head frozen, outside AdamW; the layers train)
       under ``SnapshotManager(keep_last_n=2)``: ``save(step=0)``, a
@@ -379,7 +379,6 @@ import time
 import torch
 
 import torchsnapshot_tpu_torch as tts
-from torchsnapshot_tpu_torch import batcher
 from torchsnapshot_tpu_torch.batcher import BatchedBufferStager, batch_write_requests
 from torchsnapshot_tpu_torch.flatten import flatten
 from torchsnapshot_tpu_torch import host_offload
@@ -391,7 +390,6 @@ from torchsnapshot_tpu_torch.models.transformer import (
 )
 from torchsnapshot_tpu_torch.ops import device_pack, flash_attention, kernels
 from torchsnapshot_tpu_torch.parallel.ring_attention import dense_attention, ring_attention
-from torchsnapshot_tpu_torch.preparers import array as array_preparer
 from torchsnapshot_tpu_torch.preparers import prepare_write
 from torchsnapshot_tpu_torch.serialization import dtype_to_string, string_to_dtype
 from torchsnapshot_tpu_torch.storage.fs import FSStoragePlugin
@@ -410,6 +408,19 @@ READ_BUDGET = 32 << 20  # the budgeted reads' memory_budget_bytes
 def check(cond, msg):
     if not cond:
         raise RuntimeError(f"check failed: {msg}")
+
+
+def misses(family):
+    """The registry's counts of one miss family (``tts.obs.READ_TILE_MISSES``
+    or ``READ_UNPACK_MISSES``), by reason."""
+    prefix = family + "."
+    return {k[len(prefix):]: v for k, v in tts.obs.counters().items() if k.startswith(prefix)}
+
+
+def pinned_gauge():
+    """The gauge of pinned read buffers in use; its ``max`` is the
+    high-water mark since its last ``reset_max()``."""
+    return tts.obs.gauge(tts.obs.READ_PINNED_IN_USE)
 
 
 def card_line():
@@ -985,7 +996,7 @@ def phase_main_path(cfg, model, opt, root):
     print(f"main path: state {nb} bytes; take {take_s:.3f} s ({nb / take_s / 1e9:.3f} GB/s), "
           f"restore {restore_s:.3f} s ({nb / restore_s / 1e9:.3f} GB/s)")
     print("restore members routed to the host path before launch: "
-          f"{json.dumps(batcher.DEVICE_UNPACK_MISSES)}; K1 members made contiguous "
+          f"{json.dumps(misses(tts.obs.READ_UNPACK_MISSES))}; K1 members made contiguous "
           f"first: {device_pack.COUNTS['made_contiguous']}; counters: "
           f"{json.dumps(tts.obs.counters())}")
     return model2
@@ -1925,7 +1936,7 @@ def budgeted_read(snap, path, template, want, label):
     mark and the rise in allocated device memory."""
     tiles0 = tts.obs.counters().get(tts.obs.TILES_READ, 0)
     k6_0 = device_pack.LAUNCHES["tile_update"]
-    array_preparer.PINNED_TILES["high_water_bytes"] = 0
+    pinned_gauge().reset_max()
     torch.cuda.synchronize()
     alloc0 = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -1936,7 +1947,7 @@ def budgeted_read(snap, path, template, want, label):
     rise = torch.cuda.max_memory_allocated() - alloc0
     tiles = tts.obs.counters().get(tts.obs.TILES_READ, 0) - tiles0
     k6 = device_pack.LAUNCHES["tile_update"] - k6_0
-    hw = array_preparer.PINNED_TILES["high_water_bytes"]
+    hw = pinned_gauge().max
     check(template is None or out is template, f"{label}: the template was not filled in place")
     check(out.dtype == want.dtype and out.device == want.device and torch.equal(out, want),
           f"{label}: the result differs from the source")
@@ -1999,7 +2010,7 @@ def phase_budgeted_reads(model, work, snap_dir):
             raise RuntimeError("check failed: a corrupted payload read back under VERIFY_ON_RESTORE=1")
         budgeted_read(chunked, "0/emb/embed", f32, src.float(),
                       "chunked embedding -> the same f32 template after the failed read")
-    print(f"budgeted reads: TILE_MISSES {json.dumps(array_preparer.TILE_MISSES)}")
+    print(f"budgeted reads: tile misses {json.dumps(misses(tts.obs.READ_TILE_MISSES))}")
     shutil.rmtree(chunked_dir)
     shutil.rmtree(corrupt_dir)
 
@@ -2616,7 +2627,7 @@ def sharded_child(rank, world, port, root):
     model, opt = shard_train_state(*deterministic_state(cfg, seed=0), mesh)
     for k in device_pack.LAUNCHES:
         device_pack.LAUNCHES[k] = 0
-    misses = dict(array_preparer.TILE_MISSES)
+    tile_misses = misses(tts.obs.READ_TILE_MISSES)
     written = tts.obs.counters().get(tts.obs.BYTES_WRITTEN, 0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2638,7 +2649,7 @@ def sharded_child(rank, world, port, root):
     torch.cuda.synchronize()
     out["restore_s"] = time.perf_counter() - t0
     check_restored(ref, model_t, optim_t["state"], f"rank {rank} restore into the transposed layout")
-    check(dict(array_preparer.TILE_MISSES) == misses, f"rank {rank}: a box missed the device path")
+    check(misses(tts.obs.READ_TILE_MISSES) == tile_misses, f"rank {rank}: a box missed the device path")
     out["launches"] = dict(device_pack.LAUNCHES)
     check(out["launches"]["slab_pack"] > 0, f"rank {rank}: the take at world 2 launched no K1")
     print("sharded result " + json.dumps(out), flush=True)
@@ -2672,7 +2683,7 @@ def phase_sharded(cfg, work):
         ref = full_state(*deterministic_state(cfg, seed=0))
         model, opt = shard_train_state(*deterministic_state(cfg, seed=0), mesh)
         nb = sharded_bytes(ref)
-        misses = dict(array_preparer.TILE_MISSES)
+        tile_misses = misses(tts.obs.READ_TILE_MISSES)
         sync_dir, async_dir = os.path.join(root, "sync"), os.path.join(root, "async")
         with tts.knobs.override_max_shard_size_bytes(SHARD_BOX_BYTES):
             torch.cuda.synchronize()
@@ -2722,14 +2733,14 @@ def phase_sharded(cfg, work):
                        "restore into plain CUDA tensors")
         del plain_m, plain_o
         tiles0 = tts.obs.counters().get(tts.obs.TILES_READ, 0)
-        array_preparer.PINNED_TILES["high_water_bytes"] = 0
+        pinned_gauge().reset_max()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         emb = snap.read_object("0/model/embed.weight", memory_budget_bytes=READ_BUDGET)
         torch.cuda.synchronize()
         read_s = time.perf_counter() - t0
         tiles = tts.obs.counters().get(tts.obs.TILES_READ, 0) - tiles0
-        hw = array_preparer.PINNED_TILES["high_water_bytes"]
+        hw = pinned_gauge().max
         check(emb.is_cuda and torch.equal(emb, ref["model/embed.weight"]), "budgeted read of the embedding differs")
         # its boxes split by rows, so its tiles land in place
         check(0 < hw <= 2 * READ_BUDGET, f"the sharded budgeted read held {hw} bytes of pinned tiles")
@@ -2738,7 +2749,8 @@ def phase_sharded(cfg, work):
               f"the embedding ({nbytes(emb)} bytes, budget {READ_BUDGET}): {tiles} row tiles, {read_s:.4f} s, "
               f"pinned tile high water {hw} bytes (row tiles landed in place)")
         del emb
-        check(dict(array_preparer.TILE_MISSES) == misses, f"a box missed the device path: {array_preparer.TILE_MISSES}")
+        check(misses(tts.obs.READ_TILE_MISSES) == tile_misses,
+              f"a box missed the device path: {misses(tts.obs.READ_TILE_MISSES)}")
         gc.collect()
         torch.cuda.empty_cache()
 

@@ -26,6 +26,21 @@ def cuda():
     return torch.device("cuda")
 
 
+def _misses(family):
+    """The registry's counts of one miss family, by reason."""
+    import torchsnapshot_tpu_torch as tts
+
+    prefix = family + "."
+    return {k[len(prefix):]: v for k, v in tts.obs.counters().items() if k.startswith(prefix)}
+
+
+def _pinned_gauge():
+    """Pinned read buffers in use; ``max`` is the high-water mark."""
+    import torchsnapshot_tpu_torch as tts
+
+    return tts.obs.gauge(tts.obs.READ_PINNED_IN_USE)
+
+
 def _rand(shape, dtype, device, seed):
     g = torch.Generator(device="cpu").manual_seed(seed)
     return torch.randn(shape, generator=g).to(dtype).to(device)
@@ -669,7 +684,6 @@ def test_budgeted_read_into_cuda_template(cuda, tmp_path, stored, template, chun
     import torchsnapshot_tpu_torch as tts
     from torchsnapshot_tpu_torch import knobs
     from torchsnapshot_tpu_torch.ops import device_pack as dp
-    from torchsnapshot_tpu_torch.preparers import array as pa
 
     src = _tile_of(stored, 3 * (1 << 18) + 77, "cpu", 64).reshape(-1, 1)
     chunk = knobs.override_max_chunk_size_bytes(1 << 20) if chunked else knobs.override_max_chunk_size_bytes(1 << 30)
@@ -678,34 +692,34 @@ def test_budgeted_read_into_cuda_template(cuda, tmp_path, stored, template, chun
     budget = 1 << 18
     out = None if template is None else torch.full(src.shape, 7, dtype=template, device=cuda)
     before = dp.LAUNCHES["tile_update"]
-    pa.PINNED_TILES["high_water_bytes"] = 0
+    _pinned_gauge().reset_max()
     with knobs.override_verify_on_restore(True):
         got = tts.Snapshot(str(tmp_path)).read_object("0/app/w", obj_out=out, memory_budget_bytes=budget)
     launched = dp.LAUNCHES["tile_update"] - before
     assert got.is_cuda and (template is None or got is out)
     assert torch.equal(got.cpu(), src.to(template or stored))
     assert (launched > 0) == (template not in (None, stored)), launched
-    assert 0 < pa.PINNED_TILES["high_water_bytes"] <= budget
+    assert 0 < _pinned_gauge().max <= budget
 
 
 def test_budgeted_read_misses_are_decided_before_any_read(cuda, tmp_path):
     """A cast pair K6 does not take and a non-contiguous CUDA template
-    are read whole, counted in TILE_MISSES, and come out right."""
+    are read whole, counted in ``read.tile_misses``, and come out right."""
     import torchsnapshot_tpu_torch as tts
-    from torchsnapshot_tpu_torch.preparers import array as pa
 
     src = torch.arange(1 << 16, dtype=torch.float32).reshape(256, 256)
     tts.Snapshot.take(str(tmp_path), {"app": tts.StateDict(w=src)})
     snap = tts.Snapshot(str(tmp_path))
-    before = dict(pa.TILE_MISSES)
+    before = _misses(tts.obs.READ_TILE_MISSES)
     out = torch.zeros((256, 256), dtype=torch.int32, device=cuda)
     snap.read_object("0/app/w", obj_out=out, memory_budget_bytes=1 << 12)
     assert torch.equal(out.cpu(), src.to(torch.int32))
     t = torch.zeros((256, 256), device=cuda).t()
     snap.read_object("0/app/w", obj_out=t, memory_budget_bytes=1 << 12)
     assert torch.equal(t.cpu(), src)
-    assert pa.TILE_MISSES["cast"] == before["cast"] + 1
-    assert pa.TILE_MISSES["layout"] == before["layout"] + 1
+    after = _misses(tts.obs.READ_TILE_MISSES)
+    assert after["cast"] == before.get("cast", 0) + 1
+    assert after["layout"] == before.get("layout", 0) + 1
 
 
 def test_budgeted_read_failure_leaves_the_cuda_template_usable(cuda, tmp_path):
@@ -768,14 +782,13 @@ def test_sharded_take_and_restore_on_a_cuda_mesh(cuda_mesh, tmp_path):
     from torchsnapshot_tpu_torch import knobs
     from torchsnapshot_tpu_torch.ops import device_pack as dp
     from torchsnapshot_tpu_torch.parallel.mesh import distribute
-    from torchsnapshot_tpu_torch.preparers import array as tarray
 
     full = {"w": _rand((96, 40), torch.bfloat16, "cuda", 30), "n": _rand((40,), torch.bfloat16, "cuda", 31),
             "m": _rand((33, 7), torch.bfloat16, "cuda", 32), "c": _rand((8, 300), torch.bfloat16, "cuda", 34)}
     layout = {"w": (Replicate(), Shard(1)), "n": (Replicate(), Replicate()), "m": (Shard(0), Replicate()),
               "c": (Replicate(), Replicate())}
     state = tts.StateDict({k: distribute(v, cuda_mesh, layout[k]) for k, v in full.items()})
-    k1, k6, misses = dp.LAUNCHES["slab_pack"], dp.LAUNCHES["tile_update"], dict(tarray.TILE_MISSES)
+    k1, k6, misses = dp.LAUNCHES["slab_pack"], dp.LAUNCHES["tile_update"], _misses(tts.obs.READ_TILE_MISSES)
     with knobs.override_max_shard_size_bytes(2048):
         snap = tts.Snapshot.take(str(tmp_path / "s"), {"app": state})
     assert dp.LAUNCHES["slab_pack"] > k1
@@ -794,29 +807,28 @@ def test_sharded_take_and_restore_on_a_cuda_mesh(cuda_mesh, tmp_path):
         assert torch.equal(bf16[k].to_local(), v) and torch.equal(plain[k], v), k
         want = dp.tile_update_plain(torch.zeros(v.numel()), 0, v.cpu().reshape(-1)).reshape(v.shape)
         assert torch.equal(f32[k].to_local().cpu(), want), k
-    assert dict(tarray.TILE_MISSES) == misses
-    tarray.PINNED_TILES["high_water_bytes"] = 0
+    assert _misses(tts.obs.READ_TILE_MISSES) == misses
+    _pinned_gauge().reset_max()
     got = tts.Snapshot(str(tmp_path / "s")).read_object("0/app/w", memory_budget_bytes=1024)
     assert got.device.type == "cuda" and torch.equal(got, full["w"])
-    assert 0 < tarray.PINNED_TILES["high_water_bytes"] <= 2 * 1024
+    assert 0 < _pinned_gauge().max <= 2 * 1024
 
 
 def test_sharded_restore_into_a_non_contiguous_local_tensor(cuda_mesh, tmp_path):
     """A DTensor whose local tensor is a transposed view cannot take the
-    pinned copy or K6: it counts a layout miss in ``TILE_MISSES`` and is
+    pinned copy or K6: it counts in ``read.tile_misses.layout`` and is
     copied plainly, still bitwise."""
     import torchsnapshot_tpu_torch as tts
     from torch.distributed.tensor import DTensor, Replicate
     from torchsnapshot_tpu_torch.parallel.mesh import distribute
-    from torchsnapshot_tpu_torch.preparers import array as tarray
 
     src = _rand((48, 64), torch.float32, "cuda", 33)
     tts.Snapshot.take(str(tmp_path / "s"), {"app": tts.StateDict(w=distribute(src, cuda_mesh, (Replicate(), Replicate())))})
     local = torch.zeros(64, 48, device="cuda").t()
     dest = tts.StateDict(w=DTensor.from_local(local, cuda_mesh, [Replicate(), Replicate()], run_check=False))
-    before = tarray.TILE_MISSES["layout"]
+    before = _misses(tts.obs.READ_TILE_MISSES).get("layout", 0)
     tts.Snapshot(str(tmp_path / "s")).restore({"app": dest})
-    assert tarray.TILE_MISSES["layout"] == before + 1
+    assert _misses(tts.obs.READ_TILE_MISSES)["layout"] == before + 1
     assert torch.equal(local, src)
 
 
@@ -1494,7 +1506,6 @@ def test_restore_into_cuda_templates_lands_through_pinned_read_buffers(cuda, mon
 
     import torchsnapshot_tpu_torch as tts
     from torchsnapshot_tpu_torch.ops import device_pack as dp
-    from torchsnapshot_tpu_torch.preparers import array as pa
     from torchsnapshot_tpu_torch.storage.memory import reset_namespace
 
     if budget is not None:
@@ -1509,9 +1520,9 @@ def test_restore_into_cuda_templates_lands_through_pinned_read_buffers(cuda, mon
             host = _restore_pinned(url, templates, shapes, "cpu")
             c0 = dict(tts.obs.counters())
             k2 = dp.LAUNCHES["slab_unpack"]
-            pa.PINNED_TILES["high_water_bytes"] = 0
+            _pinned_gauge().reset_max()
             got = _restore_pinned(url, templates, shapes, cuda)
-            hw = pa.PINNED_TILES["high_water_bytes"]
+            hw = _pinned_gauge().max
         c1 = tts.obs.counters()
     finally:
         reset_namespace(url.split("://")[1])
@@ -1553,3 +1564,46 @@ def test_pinned_restore_lands_after_work_queued_on_the_template(cuda, side):
         reset_namespace(url.split("://")[1])
     for k, v in leaves.items():
         assert torch.equal(got[k], v.to(templates[k])), k
+
+
+def test_a_failed_landing_gives_its_pinned_buffer_back(cuda, monkeypatch):
+    """A landing whose copy raises gives its pinned read buffer back: the
+    restore fails and ``read.pinned_in_use_bytes`` reads what it read
+    before.  A buffer the storage owns (a plugin that leaves the offered
+    buffer unfilled) lands bitwise by a plain copy, without adding to
+    ``read.pinned_bytes``."""
+    import uuid
+
+    import torchsnapshot_tpu_torch as tts
+    from torchsnapshot_tpu_torch.ops import transfer
+    from torchsnapshot_tpu_torch.storage.memory import MemoryStoragePlugin, reset_namespace
+
+    src = _rand((512, 256), torch.float32, cuda, 40)
+    url = f"memory://pinned-lease-{uuid.uuid4().hex}"
+    real_copy, real_read = transfer.to_device, MemoryStoragePlugin.read
+
+    def failing_copy(*args, **kwargs):
+        raise RuntimeError("injected landing failure")
+
+    async def ignore_offer(self, read_io):
+        read_io.into = None
+        await real_read(self, read_io)
+
+    try:
+        tts.Snapshot.take(url, {"app": tts.StateDict(w=src)})
+        in_use = _pinned_gauge().value
+        dest = tts.StateDict(w=torch.zeros_like(src))
+        monkeypatch.setattr(transfer, "to_device", failing_copy)
+        with pytest.raises(RuntimeError, match="injected landing failure"):
+            tts.Snapshot(url).restore({"app": dest})
+        assert _pinned_gauge().value == in_use
+        monkeypatch.setattr(transfer, "to_device", real_copy)
+        monkeypatch.setattr(MemoryStoragePlugin, "read", ignore_offer)
+        pinned = tts.obs.counters().get(tts.obs.READ_PINNED_BYTES, 0)
+        tts.Snapshot(url).restore({"app": dest})
+        torch.cuda.synchronize()
+    finally:
+        reset_namespace(url.split("://")[1])
+    assert torch.equal(dest["w"], src)
+    assert tts.obs.counters().get(tts.obs.READ_PINNED_BYTES, 0) == pinned
+    assert _pinned_gauge().value == in_use

@@ -24,7 +24,6 @@ from torchsnapshot_tpu import knobs as jknobs
 from torchsnapshot_tpu.storage.fs import FSStoragePlugin as JaxFS
 from torchsnapshot_tpu_torch import knobs as tknobs
 from torchsnapshot_tpu_torch import obs as tobs
-from torchsnapshot_tpu_torch.preparers import array as tarray
 from torchsnapshot_tpu_torch.serialization import tensor_from_buffer
 from torchsnapshot_tpu_torch.storage.fs import FSStoragePlugin as TorchFS
 
@@ -223,14 +222,15 @@ def test_tiled_read_of_a_slab_member(tmp_path, monkeypatch):
 
 def test_budget_misses_are_counted_and_read_whole(tmp_path):
     """A template the tiles cannot land in (non-contiguous) is decided at
-    plan time: read whole, counted in TILE_MISSES."""
+    plan time: read whole, counted in ``read.tile_misses.layout``."""
     src = _np(np.random.default_rng(6), np.float32, 64 * 64)
     _take("port", str(tmp_path / "s"), {"w": src.reshape(64, 64)})
-    before = dict(tarray.TILE_MISSES)
+    layout = f"{tobs.READ_TILE_MISSES}.layout"
+    before = tobs.counters().get(layout, 0)
     tmpl = torch.zeros(64, 64).t()
     out = tts.Snapshot(str(tmp_path / "s")).read_object("0/app/w", obj_out=tmpl, memory_budget_bytes=1024)
     assert out is tmpl and _bytes(tmpl.contiguous()) == src.tobytes()
-    assert tarray.TILE_MISSES["layout"] == before["layout"] + 1
+    assert tobs.counters()[layout] == before + 1
 
 
 def test_write_checksums_off_restores_in_both_packages(tmp_path):

@@ -264,8 +264,8 @@ def test_row_split_boxes_land_in_place_and_strided_ones_assemble(monkeypatch, tm
     host = tsharded._BoxTarget.host
     monkeypatch.setattr(tsharded._BoxTarget, "host", lambda self: assembled.append(self.box) or host(self))
     landed = []
-    write = tsharded._HostTileTarget.write
-    monkeypatch.setattr(tsharded._HostTileTarget, "write",
+    write = tsharded.HostTileTarget.write
+    monkeypatch.setattr(tsharded.HostTileTarget, "write",
                         lambda self, s, e, buf, *a: landed.append(memoryview(buf).nbytes) or write(self, s, e, buf, *a))
     value = np.random.default_rng(12).standard_normal((16, 8)).astype(np.float32)
     for spec_def, strided in ((((8,), ("x",), ("x", None)), False), (((8,), ("x",), (None, "x")), True)):

@@ -17,7 +17,6 @@ import torch
 import torchsnapshot_tpu as jts
 import torchsnapshot_tpu_torch as tts
 from torchsnapshot_tpu import knobs as jknobs
-from torchsnapshot_tpu_torch import batcher as tbatcher
 from torchsnapshot_tpu_torch import knobs as tknobs
 from torchsnapshot_tpu_torch.serialization import tensor_from_buffer
 
@@ -122,14 +121,15 @@ def test_restore_casts_into_template_dtype(tmp_path):
     b = rng.standard_normal((2, 3)).astype(ml_dtypes.bfloat16)
     with tknobs.override_slab_size_threshold_bytes(1 << 20):
         tts.Snapshot.take(str(tmp_path), {"m": tts.StateDict(a=_to_torch(a), b=_to_torch(b))})
-        misses = dict(tbatcher.DEVICE_UNPACK_MISSES)
+        host_misses = f"{tts.obs.READ_UNPACK_MISSES}.host_template"
+        before = tts.obs.counters().get(host_misses, 0)
         into = tts.StateDict(a=torch.zeros(5, 6), b=torch.zeros(2, 3, dtype=torch.bfloat16))
         tts.Snapshot(str(tmp_path)).restore({"m": into})
     np.testing.assert_array_equal(into["a"].numpy(), a.astype(np.float32))
     assert _bytes(into["b"]) == _bytes(b)
     # both members were in one slab; their CPU templates routed them to
     # the host path, counted before any launch
-    assert tbatcher.DEVICE_UNPACK_MISSES["host_template"] == misses["host_template"] + 2
+    assert tts.obs.counters()[host_misses] == before + 2
 
 
 def test_module_and_optimizer_round_trip(tmp_path):

@@ -11,22 +11,23 @@ lowest ``priority`` of its members.
 CUDA members slab apart from host members.  A slab whose members are all
 CUDA tensors packs on the device with kernel K1 and reaches the host in
 one copy; on restore, members whose templates are CUDA tensors unpack
-on the device with kernel K2 from one host-to-device copy; when every
-member of a merged read does, the span is read into a pinned buffer of
-the consumer's own, so that copy is one asynchronous DMA.  Neither path
-falls back: a kernel failure fails the take or restore.  What routes a
-member to the host path instead is a decision made BEFORE any launch —
-a host template, a cast pair K2 does not take, a template whose shape or
-layout differs — and each such decision is counted in
-``DEVICE_UNPACK_MISSES``.  Under VERIFY_ON_RESTORE every member of a
-merged read checks its own slice against its recorded crc32 before any
-member is written.
+on the device with kernel K2 from one host-to-device copy, on the
+stream current when the read was planned; when every member of a merged
+read does, the span is read into a pinned buffer the consumer leases
+(``ops/transfer.py``), so that copy is one asynchronous DMA.  Neither
+path falls back: a kernel failure fails the take or restore.  What
+routes a member to the host path instead is a decision made at plan
+time, BEFORE any launch — a host template, a cast pair K2 does not take,
+a template whose layout differs (``transfer.card_miss``) — and each such
+decision is counted in ``read.unpack_misses.<reason>``.  Under
+VERIFY_ON_RESTORE every member of a merged read checks its own slice
+against its recorded crc32 before any member is written.
 """
 
 from __future__ import annotations
 
 import asyncio
-import threading
+import math
 from concurrent.futures import Executor
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -34,22 +35,15 @@ import numpy as np
 import torch
 
 from . import knobs, obs
-from .io_types import BufferConsumer, BufferStager, ReadReq, WriteReq, check_read_crc
+from .io_types import BufferConsumer, BufferStager, ReadReq, WriteReq, check_read_crc, run_on
 from .manifest import ArrayEntry, ChunkedArrayEntry, Entry, ObjectEntry, ShardedArrayEntry
-from .preparers.array import (
-    ArrayBufferConsumer,
-    CudaTensorBufferStager,
-    HostArrayBufferStager,
-    pin_read_buffer,
-    unpin_read_buffer,
-)
+from .ops import transfer
+from .preparers.array import ArrayBufferConsumer, CudaTensorBufferStager, HostArrayBufferStager
 from .serialization import BUFFER_PROTOCOL, string_to_dtype
 from .utils.checksums import copy_digest
 
-DEVICE_UNPACK_MISSES = {"host_template": 0, "cast": 0, "layout": 0}
 # host members this large are packed on the staging pool, off the loop
 _PACK_OFFLOAD_MIN_BYTES = 256 * 1024
-_MISS_LOCK = threading.Lock()
 
 
 class BatchedBufferStager(BufferStager):
@@ -113,12 +107,7 @@ class BatchedBufferStager(BufferStager):
             return await packed.stage_buffer(executor)
         tensors = [s.tensor for s, _ in self.stagers]
         producer = self.stagers[0][0].producer_stream
-        if executor is not None:
-            slab = await asyncio.get_running_loop().run_in_executor(
-                executor, obs.stage_queued(pack_tensors_to_host, tensors, producer)
-            )
-        else:
-            slab = pack_tensors_to_host(tensors, producer)
+        slab = await run_on(executor, obs.stage_queued(pack_tensors_to_host, tensors, producer))
         if slab.nbytes != self.total:
             raise ValueError(f"packed {slab.nbytes} != expected {self.total}")
         self.stagers = []
@@ -268,11 +257,6 @@ def batch_write_requests(
     return entries, new_reqs
 
 
-def _miss(reason: str) -> None:
-    with _MISS_LOCK:
-        DEVICE_UNPACK_MISSES[reason] += 1
-
-
 def _device_unpack_target(req: ReadReq) -> Optional[torch.Tensor]:
     """The CUDA template K2 should write ``req``'s member into, or None
     for the host path (counting why, when it is a tensor read)."""
@@ -283,50 +267,43 @@ def _device_unpack_target(req: ReadReq) -> Optional[torch.Tensor]:
     if not isinstance(out, torch.Tensor):
         return None
     if out.device.type != "cuda":
-        _miss("host_template")
-        return None
-    from .ops.device_pack import cast_supported
-
-    if not cast_supported(string_to_dtype(c.entry.dtype), out.dtype):
-        _miss("cast")
-        return None
-    if list(out.shape) != list(c.entry.shape) or not out.is_contiguous():
-        _miss("layout")
+        miss: Optional[str] = "host_template"
+    else:
+        numel = math.prod(int(d) for d in c.entry.shape)
+        miss = transfer.card_miss(out, string_to_dtype(c.entry.dtype), numel)
+    if miss is not None:
+        obs.counter(f"{obs.READ_UNPACK_MISSES}.{miss}").inc()
         return None
     return out
 
 
 class _MergedRangeConsumer(BufferConsumer):
-    """Feed one spanning read into the original ranged consumers."""
+    """Feed one spanning read into the original ranged consumers.  Made
+    at plan time: each member's CUDA template for K2 (None: the host
+    path) and the stream then current on each template's device are
+    decided here."""
 
     def __init__(self, base: int, subs: List[Tuple[ReadReq, int, int]]):
         self.base = base
         self.subs = subs
-        self._outs: Optional[List[Optional[torch.Tensor]]] = None
-        self._into: Any = None  # (buffer, pinned tensor) from ``read_buffer``
-
-    def _device_outs(self) -> List[Optional[torch.Tensor]]:
-        """Each member's CUDA template for K2, or None for the host path,
-        decided once."""
-        if self._outs is None:
-            self._outs = [_device_unpack_target(req) for req, _, _ in self.subs]
-        return self._outs
+        self._outs = [_device_unpack_target(req) for req, _, _ in subs]
+        self._streams = {
+            out.device: torch.cuda.current_stream(out.device) for out in self._outs if out is not None
+        }
+        self._lease = transfer.PinnedLease()
 
     def read_buffer(self, nbytes: int) -> Optional[np.ndarray]:
-        if nbytes == 0 or any(out is None for out in self._device_outs()):
+        if nbytes == 0 or any(out is None for out in self._outs):
             return None
-        self._into = pin_read_buffer(nbytes)
-        return self._into[0]
+        return self._lease.offer(nbytes)
 
     async def consume_buffer(
         self, buf: Any, executor: Optional[Executor] = None
     ) -> None:
-        into, self._into = self._into, None
         try:
-            await self._consume(buf, into[1] if into is not None and buf is into[0] else None, executor)
+            await self._consume(buf, self._lease.claim(buf), executor)
         finally:
-            if into is not None:
-                unpin_read_buffer(into)
+            self._lease.release()
 
     async def _consume(
         self, buf: Any, pinned: Optional[torch.Tensor], executor: Optional[Executor]
@@ -340,26 +317,16 @@ class _MergedRangeConsumer(BufferConsumer):
                 if req.expected_crc32 is None:
                     continue
                 piece = view[start - self.base:end - self.base]
-                if executor is not None:
-                    await asyncio.get_running_loop().run_in_executor(
-                        executor, check_read_crc, req, piece
-                    )
-                else:
-                    check_read_crc(req, piece)
+                await run_on(executor, check_read_crc, req, piece)
         device_subs: Dict[torch.device, list] = {}
         host_subs = []
-        for (req, start, end), out in zip(self.subs, self._device_outs()):
+        for (req, start, end), out in zip(self.subs, self._outs):
             if out is None:
                 host_subs.append((req, start, end))
             else:
                 device_subs.setdefault(out.device, []).append((req, start, out))
         for subs in device_subs.values():
-            if executor is not None:
-                await asyncio.get_running_loop().run_in_executor(
-                    executor, self._device_unpack, view, pinned, subs
-                )
-            else:
-                self._device_unpack(view, pinned, subs)
+            await run_on(executor, self._device_unpack, view, pinned, subs)
         for req, start, end in host_subs:
             piece = view[start - self.base:end - self.base]
             await req.buffer_consumer.consume_buffer(piece, executor)
@@ -381,11 +348,10 @@ class _MergedRangeConsumer(BufferConsumer):
             for req, start, _ in subs
         )
         src = view if pinned is None else pinned
-        with torch.cuda.stream(subs[0][0].buffer_consumer.stream):
-            unpack_slab_to_device(
-                src[lo - self.base:hi - self.base], members,
-                [out for _, _, out in subs],
-            )
+        outs = [out for _, _, out in subs]
+        unpack_slab_to_device(
+            src[lo - self.base:hi - self.base], members, outs, self._streams[outs[0].device]
+        )
         for req, _, out in subs:
             req.buffer_consumer.fut.set(out)
 

@@ -44,7 +44,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 
 from . import _csrc, knobs, obs
-from .io_types import ReadIO, StoragePlugin, resolve_read_destination
+from .io_types import ReadIO, StoragePlugin, resolve_read_destination, run_on
 from .resilience import classify_generic, retry_call
 from .resilience.failpoints import failpoint
 from .resilience.retry import SharedProgress
@@ -544,7 +544,6 @@ async def framed_read(
     frames = [s for s in _frame_spans(table) if s[0] < hi and s[1] > lo]
     # frames of one object in flight: the stripe engine's part concurrency
     sem = asyncio.Semaphore(part_concurrency())
-    loop = asyncio.get_running_loop()
 
     with obs.span(
         "codec/framed_read", path=path, bytes=length, frames=len(frames), codec=table.get("codec")
@@ -571,10 +570,7 @@ async def framed_read(
                     s, e = max(raw_lo, lo), min(raw_hi, hi)
                     out_view[s - lo : e - lo] = memoryview(raw).cast("B")[s - raw_lo : e - raw_lo]
 
-                if executor is not None:
-                    await loop.run_in_executor(executor, decode_and_place)
-                else:
-                    decode_and_place()
+                await run_on(executor, decode_and_place)
 
         await asyncio.gather(*(one(*f) for f in frames))
     return out

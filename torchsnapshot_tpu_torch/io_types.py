@@ -280,6 +280,14 @@ def resolve_read_destination(into: Any, length: int) -> Any:
     return np.empty(length, dtype=np.uint8)
 
 
+async def run_on(executor: Optional[Executor], fn: Callable[..., T], *args: Any) -> T:
+    """``fn(*args)`` on a thread of ``executor``, awaited; inline on the
+    calling (loop) thread when there is no executor."""
+    if executor is None:
+        return fn(*args)
+    return await asyncio.get_running_loop().run_in_executor(executor, fn, *args)
+
+
 def run_in_fresh_loop(coro: Coroutine) -> Any:
     """Run ``coro`` to completion from sync code, also when the calling
     thread already runs an event loop (then on a private loop in a

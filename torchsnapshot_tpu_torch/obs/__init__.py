@@ -104,6 +104,9 @@ from .metrics import (  # noqa: F401
     CONSUME_H2D_S,
     READ_PIN_ALLOC_S,
     READ_PINNED_BYTES,
+    READ_PINNED_IN_USE,
+    READ_TILE_MISSES,
+    READ_UNPACK_MISSES,
     FASTIO_BUFFERED_PARTS,
     FASTIO_BYTES_READ,
     FASTIO_BYTES_WRITTEN,

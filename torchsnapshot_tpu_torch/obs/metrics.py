@@ -348,6 +348,15 @@ READ_PIN_ALLOC_S = "read.pin_alloc_s"
 # bytes copied to the card from a consumer's pinned read buffer; beside
 # ``bytes_read`` it is the share of a restore that landed pinned
 READ_PINNED_BYTES = "read.pinned_bytes"
+# gauge: bytes of pinned read buffers handed out and not yet given back
+# (``ops/transfer.py``); its ``max`` is the pinned high-water mark
+READ_PINNED_IN_USE = "read.pinned_in_use_bytes"
+# reads routed off the card path before any launch, one counter per
+# reason, named ``<family>.<reason>``: a budgeted read or a sharded box
+# read whole or copied plainly (``.cast``, ``.layout``), a slab member
+# unpacked on the host (``.host_template``, ``.cast``, ``.layout``)
+READ_TILE_MISSES = "read.tile_misses"
+READ_UNPACK_MISSES = "read.unpack_misses"
 
 
 class Counter:
@@ -397,6 +406,19 @@ class Gauge:
         with self._lock:
             if v > self._max:
                 self._max = v
+
+    def add(self, n: float) -> None:
+        """Move the value by ``n`` (a running total of something in use),
+        raising the high-water mark with it."""
+        with self._lock:
+            self._value += n
+            if self._value > self._max:
+                self._max = self._value
+
+    def reset_max(self) -> None:
+        """Start a new high-water mark from the current value."""
+        with self._lock:
+            self._max = self._value
 
     @property
     def value(self) -> float:

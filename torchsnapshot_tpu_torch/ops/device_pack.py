@@ -7,10 +7,11 @@ programs become hand-written CUDA kernels (``csrc/slab_pack.cu``,
 
 - ``pack_slab`` gathers the bytes of many CUDA tensors into one uint8
   slab in one launch; ``pack_tensors_to_host`` follows it with one
-  device-to-host copy into pinned memory.
+  device-to-host copy into pinned memory (``transfer.to_host``).
 - ``unpack_slab_into`` decodes every member of a device slab into its
   restore template in place (cast to the template dtype) in one launch;
-  ``unpack_slab_to_device`` precedes it with one host-to-device copy.
+  ``unpack_slab_to_device`` precedes it with one host-to-device copy
+  (``transfer.to_device``).
 - ``tile_update`` writes one device tile of the stored dtype into a
   range of a contiguous template in place, cast to its dtype (a budgeted
   ``read_object`` into a CUDA template, ``preparers/array.py``).
@@ -28,9 +29,9 @@ from typing import Any, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .. import obs
 from ..serialization import serialized_size_bytes, string_to_dtype
-from . import kernels
+from . import kernels, transfer
+from .transfer import ELEMENT_CODES, cast_supported
 
 LAUNCHES = {"slab_pack": 0, "slab_unpack": 0, "tile_update": 0}
 # pre-launch decisions: members copied to a contiguous buffer first
@@ -39,29 +40,10 @@ _COUNT_LOCK = threading.Lock()
 
 Member = Tuple[int, str, Tuple[int, ...]]  # (byte offset, dtype, shape)
 
-# element codes of csrc/element_cast.cuh (0 = raw bytes, identity)
-_CODES = {
-    torch.float16: 1, torch.bfloat16: 2, torch.float32: 3, torch.float64: 4,
-    torch.int8: 5, torch.int16: 6, torch.int32: 7, torch.int64: 8,
-    torch.uint8: 9, torch.uint16: 10, torch.uint32: 11, torch.uint64: 12,
-}
-_FLOAT_CODES = (1, 2, 3, 4)
-
 
 def _bump(table: dict, key: str) -> None:
     with _COUNT_LOCK:
         table[key] += 1
-
-
-def cast_supported(src: torch.dtype, dst: torch.dtype) -> bool:
-    """Whether K2 and K6 take the stored → template dtype pair: identity
-    for every dtype, float↔float among f16/bf16/f32/f64, int↔int."""
-    if src == dst:
-        return True
-    a, b = _CODES.get(src), _CODES.get(dst)
-    if a is None or b is None:
-        return False
-    return (a in _FLOAT_CODES) == (b in _FLOAT_CODES)
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -73,12 +55,9 @@ def _stream_ptr(device: torch.device) -> int:
 
 
 def _upload_table(rows: List[tuple], device: torch.device) -> torch.Tensor:
-    """The descriptor table as an int64 device tensor, copied from pinned
-    memory on the current stream without blocking the host (the pinned
-    block is not reused before the copy has run)."""
-    return torch.tensor(rows, dtype=torch.int64).pin_memory().to(
-        device, non_blocking=True
-    )
+    """The descriptor table as an int64 device tensor, uploaded on the
+    current stream without blocking the host."""
+    return transfer.upload(torch.tensor(rows, dtype=torch.int64), device)
 
 
 # ------------------------------------------------------------------ K1
@@ -165,21 +144,7 @@ def pack_tensors_to_host(
     """K1 + one device-to-host copy into pinned memory, on a side copy
     stream ordered after ``producer_stream`` (default: the current one);
     returns the slab as a numpy view of the pinned buffer."""
-    device = tensors[0].device
-    if producer_stream is None:
-        producer_stream = torch.cuda.current_stream(device)
-    stream = torch.cuda.Stream(device=device)
-    stream.wait_stream(producer_stream)
-    with torch.cuda.stream(stream):
-        slab = pack_slab(tensors)
-        with obs.clocked(obs.STAGE_PIN_ALLOC_S, "stage/pin_alloc"):
-            host = torch.empty(slab.numel(), dtype=torch.uint8, pin_memory=True)
-        host.copy_(slab, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record(stream)
-    with obs.clocked(obs.STAGE_D2H_WAIT_S, "stage/d2h_wait"):
-        done.synchronize()
-    return host.numpy()
+    return transfer.to_host(tensors[0].device, producer_stream, lambda: pack_slab(tensors))
 
 
 # ------------------------------------------------------------------ K2
@@ -263,7 +228,7 @@ def unpack_slab_into(
             chunk_begin += -(-n // chunk_bytes)
         else:
             rows.append(
-                (off, o.data_ptr(), numel, _CODES[src_dt], _CODES[o.dtype],
+                (off, o.data_ptr(), numel, ELEMENT_CODES[src_dt], ELEMENT_CODES[o.dtype],
                  chunk_begin)
             )
             chunk_begin += -(-numel // chunk_elems)
@@ -279,15 +244,16 @@ def unpack_slab_into(
 
 
 def unpack_slab_to_device(
-    buf: Any, members: Sequence[Member], outs: Sequence[torch.Tensor]
+    buf: Any, members: Sequence[Member], outs: Sequence[torch.Tensor],
+    stream: Optional[Any] = None,
 ) -> None:
     """ONE host-to-device copy of the slab in ``buf`` and ONE K2 launch
-    decoding every member into its CUDA template in place, on the current
-    stream.  Waits for the launch, so a fault surfaces in the restore that
-    caused it.  A pinned uint8 tensor (a read buffer of the consumer's
-    own) is copied by one asynchronous DMA.  A mapped slab (private,
-    writable) is copied to the card straight from its pages; only a
-    read-only buffer is copied on the host first."""
+    decoding every member into its CUDA template in place, on ``stream``
+    (default: the current one).  Waits for the launch, so a fault
+    surfaces in the restore that caused it.  A pinned uint8 tensor (a
+    claimed read buffer of the consumer's) is copied by one asynchronous
+    DMA.  A mapped slab (private, writable) is copied to the card straight
+    from its pages; only a read-only buffer is copied on the host first."""
     pinned = isinstance(buf, torch.Tensor)
     if pinned:
         check_members_in_bounds(buf.numel(), members)
@@ -301,13 +267,13 @@ def unpack_slab_to_device(
             torch.empty(0, dtype=torch.uint8)
         )
     device = outs[0].device
-    slab = torch.empty(host.numel(), dtype=torch.uint8, device=device)
-    with obs.clocked(obs.CONSUME_H2D_S, "consume/h2d"):
-        slab.copy_(host, non_blocking=pinned)
-    unpack_slab_into(slab, members, outs)
-    torch.cuda.current_stream(device).synchronize()
-    if pinned:
-        obs.counter(obs.READ_PINNED_BYTES).inc(host.numel())
+    if stream is None:
+        stream = torch.cuda.current_stream(device)
+    with torch.cuda.stream(stream):
+        slab = torch.empty(host.numel(), dtype=torch.uint8, device=device)
+    transfer.to_device(
+        slab, host, stream, then=lambda: unpack_slab_into(slab, members, outs), pinned=pinned
+    )
 
 
 # ------------------------------------------------------------------ K6
@@ -349,7 +315,7 @@ def tile_update(dst: torch.Tensor, off: int, tile: torch.Tensor) -> torch.Tensor
         size = tile.element_size()
         args = (off * size, n * size, 0, 0)
     else:
-        args = (off, n, _CODES[tile.dtype], _CODES[dst.dtype])
+        args = (off, n, ELEMENT_CODES[tile.dtype], ELEMENT_CODES[dst.dtype])
     rc = lib.tsnp_tile_update(
         tile.data_ptr(), dst.data_ptr(), *args, _stream_ptr(dst.device)
     )

@@ -19,21 +19,21 @@ Counterpart of ``torchsnapshot_tpu/preparers/array.py``:
   donates the template), which is why there is no donation here.  Under
   VERIFY_ON_RESTORE a whole-payload read is checked before it is copied
   anywhere, so a template stays untouched on a mismatch.
-- A CUDA template hands the storage a pinned read buffer
-  (``pin_read_buffer``) for the whole array, or for each chunk of a
+- A CUDA template hands the storage a pinned read buffer (a
+  ``transfer.PinnedLease``) for the whole array, or for each chunk of a
   chunked one (its rows of the template of the entry's shape, except
   under VERIFY_ON_RESTORE), and lands it with one asynchronous
-  host-to-device copy, ordered after the work queued on the template
-  when the read was planned and waited for before the buffer goes back
-  to torch's caching host allocator.  Bytes the storage returns in a
-  buffer of its own (a mapped read, a plugin that ignores the offer)
-  copy as from any host buffer.
+  host-to-device copy (``transfer.to_device``), ordered after the work
+  queued on the template when the read was planned and waited for before
+  the buffer goes back to torch's caching host allocator.  Bytes the
+  storage returns in a buffer of its own (a mapped read, a plugin that
+  ignores the offer) copy as from any host buffer.
 - Budgeted reads (``read_object(..., memory_budget_bytes=B)``): an array
   or chunk larger than ``B`` is read in byte-range tiles of at most ``B``
   bytes, each written into its range of the target as it lands, so host
   memory stays O(B).  Targets: a contiguous CPU tensor or numpy template
-  (or, with no template, a fresh CPU tensor) — ``_HostTileTarget``; a
-  contiguous CUDA template — ``_DeviceTileTarget``: tiles are read into
+  (or, with no template, a fresh CPU tensor) — ``HostTileTarget``; a
+  contiguous CUDA template — ``DeviceTileTarget``: tiles are read into
   pinned buffers, a tile of the template's dtype lands with one
   host-to-device copy, a cast tile with one copy and one K6 launch
   (``ops.device_pack.tile_update``).  Three differences from the JAX
@@ -46,14 +46,13 @@ Counterpart of ``torchsnapshot_tpu/preparers/array.py``:
   template onto the card goes tile by tile into a fresh CUDA tensor
   (``Snapshot.read_object`` makes it), never through a whole host copy.
   What cannot tile — a template of another shape or layout, or a cast
-  pair K6 does not take — is decided at plan time, read whole, and
-  counted in ``TILE_MISSES``.  Tiles are verified by ``_TileCrcFold``.
+  pair K6 does not take (``transfer.card_miss``) — is decided at plan
+  time, read whole, and counted in ``read.tile_misses.<reason>``.  Tiles
+  are verified by ``_TileCrcFold``.
 """
 
 from __future__ import annotations
 
-import asyncio
-import threading
 from concurrent.futures import Executor
 from typing import Any, Callable, List, Optional, Tuple
 
@@ -62,9 +61,9 @@ import torch
 
 from .. import knobs, obs
 from ..codec import filter_for_dtype
-from ..obs.tracer import NULL_CM
-from ..io_types import BufferConsumer, BufferStager, Future, ReadReq, WriteReq, is_mmap_backed
+from ..io_types import BufferConsumer, BufferStager, Future, ReadReq, WriteReq, is_mmap_backed, run_on
 from ..manifest import ArrayEntry, ChunkedArrayEntry, Shard
+from ..ops import transfer
 from ..serialization import (
     BUFFER_PROTOCOL,
     array_as_memoryview,
@@ -74,38 +73,6 @@ from ..serialization import (
     string_to_dtype,
     tensor_from_buffer,
 )
-
-
-# budgeted reads read whole, decided at plan time: a template whose shape
-# or layout the tiles cannot land in, or a cast pair K6 does not take
-TILE_MISSES = {"cast": 0, "layout": 0}
-# the most pinned read-buffer memory held at once: a budgeted read's
-# tiles, and the arrays, chunks and slabs a read lands on the card whole
-# (set back to 0 by whoever reads it)
-PINNED_TILES = {"high_water_bytes": 0}
-_TILE_LOCK = threading.Lock()
-_pinned_in_use = 0  # bytes of pinned read buffers handed out, under _TILE_LOCK
-
-
-def pin_read_buffer(nbytes: int) -> Tuple[np.ndarray, torch.Tensor]:
-    """A pinned host buffer of ``nbytes`` from torch's caching host
-    allocator for a read bound for the card: the numpy view the storage
-    fills, and the tensor a non-blocking copy reads.  In use, and counted
-    in ``PINNED_TILES``, until ``unpin_read_buffer``."""
-    global _pinned_in_use
-    with obs.clocked(obs.READ_PIN_ALLOC_S, "read/pin_alloc"):
-        pinned = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
-    with _TILE_LOCK:
-        _pinned_in_use += nbytes
-        PINNED_TILES["high_water_bytes"] = max(PINNED_TILES["high_water_bytes"], _pinned_in_use)
-    return pinned.numpy(), pinned
-
-
-def unpin_read_buffer(into: Tuple[np.ndarray, torch.Tensor]) -> None:
-    """Count a ``pin_read_buffer`` buffer out of use (its copies done)."""
-    global _pinned_in_use
-    with _TILE_LOCK:
-        _pinned_in_use -= into[1].numel()
 
 
 def is_array_like(obj: Any) -> bool:
@@ -125,25 +92,9 @@ def array_dtype_str(obj: Any) -> str:
 
 
 def copy_to_host(t: torch.Tensor, after: Any) -> np.ndarray:
-    """The bytes of CUDA tensor ``t`` in pinned host memory: one copy on a
-    side stream that first waits on ``after`` (a stream or an event), so
-    it reads ``t`` as the work before that point left it.  Blocks until
-    the copy is done, so ``t`` may be freed when this returns."""
-    with obs.clocked(obs.STAGE_PIN_ALLOC_S, "stage/pin_alloc"):
-        host = torch.empty(array_nbytes(t), dtype=torch.uint8, pin_memory=True)
-    stream = torch.cuda.Stream(device=t.device)
-    if isinstance(after, torch.cuda.Event):
-        stream.wait_event(after)
-    else:
-        stream.wait_stream(after)
-    with torch.cuda.stream(stream):
-        src = t.detach().contiguous().reshape(-1).view(torch.uint8)
-        host.copy_(src, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record(stream)
-    with obs.clocked(obs.STAGE_D2H_WAIT_S, "stage/d2h_wait"):
-        done.synchronize()
-    return host.numpy()
+    """The bytes of CUDA tensor ``t`` in pinned host memory, read after
+    ``after`` (a stream or an event; ``transfer.to_host``)."""
+    return transfer.to_host(t.device, after, lambda: t.detach().contiguous().reshape(-1).view(torch.uint8))
 
 
 class CudaTensorBufferStager(BufferStager):
@@ -199,12 +150,8 @@ class CudaTensorBufferStager(BufferStager):
     async def stage_buffer(self, executor: Optional[Executor] = None) -> memoryview:
         if self.host is not None:
             arr, self.host = self.host, None
-        elif executor is not None:
-            arr = await asyncio.get_running_loop().run_in_executor(
-                executor, obs.stage_queued(copy_to_host, self.tensor, self.ready)
-            )
         else:
-            arr = copy_to_host(self.tensor, self.ready)
+            arr = await run_on(executor, obs.stage_queued(copy_to_host, self.tensor, self.ready))
         self.tensor = None  # drop the reference as early as possible
         return memoryview(arr)
 
@@ -294,9 +241,11 @@ def materialize_into_template(src: torch.Tensor, obj_out: Any) -> Any:
     - no template, or a non-array one: the host tensor itself.
     """
     if isinstance(obj_out, torch.Tensor):
-        h2d = obj_out.device.type == "cuda"
-        with torch.no_grad(), obs.clocked(obs.CONSUME_H2D_S, "consume/h2d") if h2d else NULL_CM:
-            obj_out.copy_(src.reshape(obj_out.shape))
+        if obj_out.device.type == "cuda":
+            transfer.to_device(obj_out, src.reshape(obj_out.shape), torch.cuda.current_stream(obj_out.device))
+        else:
+            with torch.no_grad():
+                obj_out.copy_(src.reshape(obj_out.shape))
         return obj_out
     if isinstance(obj_out, np.ndarray):
         np.copyto(
@@ -312,43 +261,30 @@ class _CudaLanding(BufferConsumer):
     such a consumer offers the storage a pinned read buffer of exactly its
     cost, and ``land_pinned`` copies that buffer to the card in one
     asynchronous copy on that stream (after the work already queued on
-    the template), waited for on its event before the buffer is
-    released."""
-
-    stream: Optional[torch.cuda.Stream] = None
-    _into: Any = None  # (buffer, pinned tensor) from ``read_buffer``
+    the template), waited for before the buffer is released."""
 
     def plan_landing(self, dst: Any) -> None:
-        if is_cuda_tensor(dst):
-            self.stream = torch.cuda.current_stream(dst.device)
+        self._stream = torch.cuda.current_stream(dst.device) if is_cuda_tensor(dst) else None
+        self._lease = transfer.PinnedLease()
 
     def read_buffer(self, nbytes: int) -> Optional[np.ndarray]:
-        if self.stream is None or nbytes == 0 or nbytes != self.get_consuming_cost_bytes():
+        if self._stream is None or nbytes == 0 or nbytes != self.get_consuming_cost_bytes():
             return None
-        self._into = pin_read_buffer(nbytes)
-        return self._into[0]
+        return self._lease.offer(nbytes)
 
     def land_pinned(self, buf: Any, dst: torch.Tensor, dtype: str) -> bool:
         """Copy ``buf``, ``dtype`` elements, into ``dst`` (cast on the
         card) when it is this consumer's pinned read buffer; False when the
         storage handed over a buffer of its own."""
-        into, self._into = self._into, None
-        if into is None:
-            return False
         try:
-            if buf is not into[0]:
+            pinned = self._lease.claim(buf)
+            if pinned is None:
                 return False
-            src = into[1].view(string_to_dtype(dtype)).reshape(dst.shape)
-            with torch.no_grad(), torch.cuda.stream(self.stream):
-                with obs.clocked(obs.CONSUME_H2D_S, "consume/h2d"):
-                    dst.copy_(src, non_blocking=True)
-                done = torch.cuda.Event()
-                done.record()
-            done.synchronize()
-            obs.counter(obs.READ_PINNED_BYTES).inc(into[1].numel())
+            src = pinned.view(string_to_dtype(dtype)).reshape(dst.shape)
+            transfer.to_device(dst, src, self._stream, pinned=True)
             return True
         finally:
-            unpin_read_buffer(into)
+            self._lease.release()
 
 
 class ArrayBufferConsumer(_CudaLanding):
@@ -373,13 +309,7 @@ class ArrayBufferConsumer(_CudaLanding):
     async def consume_buffer(
         self, buf: Any, executor: Optional[Executor] = None
     ) -> None:
-        if executor is not None:
-            result = await asyncio.get_running_loop().run_in_executor(
-                executor, self._consume, buf
-            )
-        else:
-            result = self._consume(buf)
-        self.fut.set(result)
+        self.fut.set(await run_on(executor, self._consume, buf))
 
     def get_consuming_cost_bytes(self) -> int:
         return serialized_size_bytes(self.entry.shape, self.entry.dtype)
@@ -460,7 +390,7 @@ class _TileCrcFold:
         self.then()
 
 
-class _HostTileTarget:
+class HostTileTarget:
     """Tiles land in a flat host tensor (a contiguous CPU tensor, or a
     numpy array's memory seen through ``torch.from_numpy``), cast to its
     dtype by ``copy_``."""
@@ -470,28 +400,22 @@ class _HostTileTarget:
     def __init__(self, flat: torch.Tensor) -> None:
         self.flat = flat
 
-    def read_buffer(self, nbytes: int) -> None:
-        return None
-
     def write(self, start: int, end: int, buf: Any, dtype: str, pinned: Any) -> None:
         with torch.no_grad():
             self.flat[start:end].copy_(tensor_from_buffer(buf, dtype, (end - start,)))
 
-    def release(self, into: Any) -> None:
-        pass
 
-
-class _DeviceTileTarget:
+class DeviceTileTarget:
     """Tiles land in a contiguous CUDA tensor, in place.  Each tile is
-    read into a pinned buffer of its own (``read_buffer``, asked for when
-    its read starts, so the pinned memory in use is that of the reads in
-    flight, which the scheduler keeps within the budget); a tile of the
-    template's dtype then takes one host-to-device copy straight into its
-    range, a cast tile one copy into a device tile and one K6 launch.
-    Everything runs on one side stream that waits, at plan time, on the
-    caller's current stream (work queued on the template before the read
-    comes first); each tile waits for its own copies before its buffers
-    are released, so the read is complete on the device when it
+    read into a pinned buffer its consumer leases when the read starts
+    (``provides_buffer``), so the pinned memory in use is that of the
+    reads in flight, which the scheduler keeps within the budget; a tile
+    of the template's dtype then takes one host-to-device copy straight
+    into its range, a cast tile one copy into a device tile and one K6
+    launch.  Everything runs on one side stream that waits, at plan time,
+    on the caller's current stream (work queued on the template before
+    the read comes first); each tile waits for its own copies before its
+    buffer is released, so the read is complete on the device when it
     returns."""
 
     provides_buffer = True
@@ -500,17 +424,10 @@ class _DeviceTileTarget:
         self.dst = dst.detach()  # the template's storage, outside autograd
         self.flat = self.dst.view(-1)
         self.stored = stored
-        self.stream = torch.cuda.Stream(device=dst.device)
-        self.stream.wait_stream(torch.cuda.current_stream(dst.device))
-
-    def read_buffer(self, nbytes: int) -> Tuple[np.ndarray, torch.Tensor]:
-        return pin_read_buffer(nbytes)
-
-    def release(self, into: Tuple[np.ndarray, torch.Tensor]) -> None:
-        unpin_read_buffer(into)
+        self.stream = transfer.side_stream(dst.device)
 
     def write(self, start: int, end: int, buf: Any, dtype: str, pinned: Any) -> None:
-        from ..ops.device_pack import tile_update
+        from ..ops import device_pack
 
         if end == start:
             return
@@ -519,59 +436,50 @@ class _DeviceTileTarget:
             pinned.view(self.stored) if pinned is not None
             else tensor_from_buffer(buf, dtype, (end - start,))
         )
-        with torch.no_grad(), torch.cuda.stream(self.stream):
-            if self.stored == self.dst.dtype:
-                with obs.clocked(obs.CONSUME_H2D_S, "consume/h2d"):
-                    self.flat[start:end].copy_(host, non_blocking=True)
-            else:
-                tile = torch.empty(end - start, dtype=self.stored, device=self.dst.device)
-                with obs.clocked(obs.CONSUME_H2D_S, "consume/h2d"):
-                    tile.copy_(host, non_blocking=True)
-                tile_update(self.dst, start, tile)
-            done = torch.cuda.Event()
-            done.record(self.stream)
-        done.synchronize()
-        if pinned is not None:
-            obs.counter(obs.READ_PINNED_BYTES).inc(host.numel() * host.element_size())
+        if self.stored == self.dst.dtype:
+            transfer.to_device(self.flat[start:end], host, self.stream, pinned=pinned is not None)
+            return
+        with torch.cuda.stream(self.stream):
+            tile = torch.empty(end - start, dtype=self.stored, device=self.dst.device)
+        transfer.to_device(
+            tile, host, self.stream, then=lambda: device_pack.tile_update(self.dst, start, tile),
+            pinned=pinned is not None,
+        )
 
 
-def _tile_target(dtype: str, shape: List[int], obj_out: Any) -> Any:
+def tile_target(dtype: str, shape: List[int], obj_out: Any) -> Any:
     """Where a budgeted read of a ``dtype``/``shape`` payload tiles into,
     decided before any read: a host or device target, or None (read whole;
     a tensor or numpy template that cannot take tiles is counted in
-    ``TILE_MISSES``).  No template: a fresh CPU tensor of the stored
-    dtype."""
+    ``read.tile_misses.<reason>``).  No template: a fresh CPU tensor of
+    the stored dtype."""
     stored = string_to_dtype(dtype)
     numel = _numel(shape)
     if obj_out is None:
-        return _HostTileTarget(torch.empty(numel, dtype=stored))
+        return HostTileTarget(torch.empty(numel, dtype=stored))
+    if not isinstance(obj_out, (np.ndarray, torch.Tensor)):
+        return None
+    target, miss = _template_tiles(obj_out, stored, numel)
+    if miss is not None:
+        obs.counter(f"{obs.READ_TILE_MISSES}.{miss}").inc()
+    return target
+
+
+def _template_tiles(obj_out: Any, stored: torch.dtype, numel: int) -> Tuple[Any, Optional[str]]:
+    """The tile target of a tensor or numpy template, or why it has none."""
     if isinstance(obj_out, np.ndarray):
         if not obj_out.flags["C_CONTIGUOUS"] or obj_out.size != numel:
-            return _tile_miss("layout")
+            return None, "layout"
         try:
-            flat = torch.from_numpy(obj_out.reshape(-1))
+            return HostTileTarget(torch.from_numpy(obj_out.reshape(-1))), None
         except TypeError:
-            return _tile_miss("cast")  # a dtype torch cannot view
-        return _HostTileTarget(flat)
-    if not isinstance(obj_out, torch.Tensor):
-        return None
-    if not obj_out.is_contiguous() or obj_out.numel() != numel:
-        return _tile_miss("layout")
-    if obj_out.device.type == "cpu":
-        return _HostTileTarget(obj_out.detach().view(-1))
-    if obj_out.device.type != "cuda":
-        return _tile_miss("layout")
-    from ..ops.device_pack import cast_supported
-
-    if not cast_supported(stored, obj_out.dtype):
-        return _tile_miss("cast")
-    return _DeviceTileTarget(obj_out, stored)
-
-
-def _tile_miss(reason: str) -> None:
-    with _TILE_LOCK:
-        TILE_MISSES[reason] += 1
-    return None
+            return None, "cast"  # a dtype torch cannot view
+    if obj_out.device.type == "cuda":
+        miss = transfer.card_miss(obj_out, stored, numel)
+        return (None, miss) if miss else (DeviceTileTarget(obj_out, stored), None)
+    if obj_out.device.type != "cpu" or not obj_out.is_contiguous() or obj_out.numel() != numel:
+        return None, "layout"
+    return HostTileTarget(obj_out.detach().view(-1)), None
 
 
 def _tile_result(target: Any, obj_out: Any, shape: List[int]) -> Any:
@@ -601,11 +509,10 @@ class _TiledConsumer(BufferConsumer):
         self.tile_bytes = tile_bytes
         self.dtype = dtype
         self.crc_fold = crc_fold
-        self._into: Any = None  # (buffer, pinned tensor) from the target
+        self._lease = transfer.PinnedLease()
 
-    def read_buffer(self, nbytes: int) -> Any:
-        self._into = self.target.read_buffer(nbytes)
-        return None if self._into is None else self._into[0]
+    def read_buffer(self, nbytes: int) -> Optional[np.ndarray]:
+        return self._lease.offer(nbytes) if self.target.provides_buffer else None
 
     def provides_read_buffer(self) -> bool:
         return self.target.provides_buffer
@@ -614,22 +521,16 @@ class _TiledConsumer(BufferConsumer):
         start, end = self.elem_range
         if self.crc_fold is not None:
             self.crc_fold.record(start, buf)
-        into, self._into = self._into, None
         try:
-            pinned = into[1] if into is not None and buf is into[0] else None
-            self.target.write(start, end, buf, self.dtype, pinned)
+            self.target.write(start, end, buf, self.dtype, self._lease.claim(buf))
         finally:
-            if into is not None:
-                self.target.release(into)
+            self._lease.release()
         obs.counter(obs.TILES_READ).inc()
 
     async def consume_buffer(
         self, buf: Any, executor: Optional[Executor] = None
     ) -> None:
-        if executor is not None:
-            await asyncio.get_running_loop().run_in_executor(executor, self._land, buf)
-        else:
-            self._land(buf)
+        await run_on(executor, self._land, buf)
         self.countdown.step()
 
     def get_consuming_cost_bytes(self) -> int:
@@ -669,7 +570,7 @@ class ArrayIOPreparer:
             buffer_size_limit_bytes is not None
             and serialized_size_bytes(entry.shape, entry.dtype) > buffer_size_limit_bytes
         ):
-            target = _tile_target(entry.dtype, entry.shape, obj_out)
+            target = tile_target(entry.dtype, entry.shape, obj_out)
             if target is not None:
                 result = _tile_result(target, obj_out, entry.shape)
                 tiles = _plan_flat_tiles(
@@ -760,7 +661,7 @@ class ChunkedArrayIOPreparer:
         buffer_size_limit_bytes: Optional[int] = None,
     ) -> Tuple[List[ReadReq], Future]:
         if buffer_size_limit_bytes is not None:
-            target = _tile_target(entry.dtype, entry.shape, obj_out)
+            target = tile_target(entry.dtype, entry.shape, obj_out)
             if target is not None:
                 return _read_chunks_into(
                     entry, target, _tile_result(target, obj_out, entry.shape),
@@ -888,12 +789,7 @@ class _ChunkConsumer(_CudaLanding):
     async def consume_buffer(
         self, buf: Any, executor: Optional[Executor] = None
     ) -> None:
-        if executor is not None:
-            await asyncio.get_running_loop().run_in_executor(
-                executor, self._copy, buf
-            )
-        else:
-            self._copy(buf)
+        await run_on(executor, self._copy, buf)
         self.countdown.step()
 
     def get_consuming_cost_bytes(self) -> int:

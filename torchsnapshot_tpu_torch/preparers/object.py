@@ -7,11 +7,10 @@ ALLOW_PICKLE_OBJECTS knob (see serialization.py).
 
 from __future__ import annotations
 
-import asyncio
 from concurrent.futures import Executor
 from typing import Any, List, Optional, Tuple
 
-from ..io_types import BufferConsumer, BufferStager, Future, ReadReq, WriteReq
+from ..io_types import BufferConsumer, BufferStager, Future, ReadReq, WriteReq, run_on
 from ..manifest import ObjectEntry
 from ..serialization import deserialize_object, serialize_object
 
@@ -38,13 +37,7 @@ class ObjectBufferConsumer(BufferConsumer):
     async def consume_buffer(
         self, buf: Any, executor: Optional[Executor] = None
     ) -> None:
-        if executor is not None:
-            obj = await asyncio.get_running_loop().run_in_executor(
-                executor, deserialize_object, buf, self.entry.serializer
-            )
-        else:
-            obj = deserialize_object(buf, self.entry.serializer)
-        self.fut.set(obj)
+        self.fut.set(await run_on(executor, deserialize_object, buf, self.entry.serializer))
 
     def get_consuming_cost_bytes(self) -> int:
         return 1  # size unknown before the read; treat as negligible

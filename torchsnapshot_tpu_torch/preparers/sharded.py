@@ -33,17 +33,17 @@ read's own pinned buffer by one host-to-device copy, or through kernel
 K6 (``tile_update``) when the dtypes differ, as a dense budgeted read's
 tiles do.  Otherwise (strided overlaps) the box is assembled on the
 host in the saved dtype, in a buffer allocated at the first scatter
-(pinned for the card, and counted in ``PINNED_TILES``), and lands once
-over its whole flat range; this buffer is the size of the local box,
-whatever the budget.  A CUDA tensor that cannot take either (not
-contiguous, or a cast pair K6 does not take) counts a ``TILE_MISSES``
-and is copied plainly.  Resharding across world sizes and layouts is
-this same path with another template.
+(pinned for the card: a ``transfer.PinnedLease``), and lands once over
+its whole flat range; this buffer is the size of the local box,
+whatever the budget.  A CUDA tensor that cannot take either
+(``transfer.card_miss``: not contiguous, or a cast pair K6 does not
+take) counts in ``read.tile_misses.<reason>`` and is copied plainly.
+Resharding across world sizes and layouts is this same path with
+another template.
 """
 
 from __future__ import annotations
 
-import asyncio
 import threading
 from concurrent.futures import Executor
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -52,16 +52,16 @@ import numpy as np
 import torch
 
 from .. import knobs, obs
-from ..io_types import BufferConsumer, Future, ReadReq, WriteReq
+from ..io_types import BufferConsumer, Future, ReadReq, WriteReq, run_on
 from ..manifest import Shard, ShardedArrayEntry
+from ..ops import transfer
 from ..serialization import dtype_to_string, string_to_dtype, tensor_from_buffer
 from .array import (
+    DeviceTileTarget,
+    HostTileTarget,
     _Countdown,
-    _DeviceTileTarget,
-    _HostTileTarget,
     _plan_flat_tiles,
     _stager_for,
-    _tile_miss,
     _TileCrcFold,
 )
 from .overlap import (
@@ -377,7 +377,7 @@ class _BoxTarget:
     ``direct`` (every overlap a dim-0 slab of both the box and its saved
     shard, so each read's rows are one contiguous flat range of the box):
     rows land as they arrive, tile by tile, in a tile target of
-    ``array.py`` -- a contiguous CUDA template (``_DeviceTileTarget``:
+    ``array.py`` -- a contiguous CUDA template (``DeviceTileTarget``:
     the read's own pinned buffer, one host-to-device copy, a cast through
     K6), a contiguous CPU tensor, or a fresh CPU tensor when there is no
     template -- so host memory is that of the reads in flight.
@@ -385,46 +385,43 @@ class _BoxTarget:
     Otherwise (strided overlaps, a numpy template, a CUDA template the
     tiles cannot take) the box is assembled in a host buffer of the saved
     dtype, allocated at the first scatter, and landed whole by ``land``:
-    for the card, a pinned buffer taken from the device target (so it
-    counts in ``PINNED_TILES``) and one copy over the box's flat range."""
+    for the card, a pinned buffer of its own lease and one copy over the
+    box's flat range."""
 
     def __init__(self, box: Box, dst: Any, stored: torch.dtype, direct: bool) -> None:
         self.box = box
         self.dst = dst
         self.stored = stored
-        self.device: Optional[_DeviceTileTarget] = None
+        self.device: Optional[DeviceTileTarget] = None
         self.tiles: Any = None
         self._host: Optional[torch.Tensor] = None
-        self._into: Any = None  # the pinned box buffer, from ``device``
+        self._lease = transfer.PinnedLease()  # the pinned box buffer
         self._lock = threading.Lock()
         numel = box_nelems(box)
         if isinstance(dst, (torch.Tensor, np.ndarray)) and np.prod(dst.shape, dtype=np.int64) != numel:
             raise ValueError(f"a template of shape {list(dst.shape)} cannot take box {box}")
         if isinstance(dst, torch.Tensor) and dst.device.type == "cuda":
-            from ..ops.device_pack import cast_supported
-
-            if not dst.is_contiguous():
-                _tile_miss("layout")
-            elif not cast_supported(stored, dst.dtype):
-                _tile_miss("cast")
+            miss = transfer.card_miss(dst, stored, numel)
+            if miss is not None:
+                obs.counter(f"{obs.READ_TILE_MISSES}.{miss}").inc()
             else:
-                self.device = _DeviceTileTarget(dst, stored)
+                self.device = DeviceTileTarget(dst, stored)
         if not direct:
             return
         if self.device is not None:
             self.tiles = self.device
         elif dst is None:
-            self.tiles = _HostTileTarget(torch.empty(numel, dtype=stored))
+            self.tiles = HostTileTarget(torch.empty(numel, dtype=stored))
         elif isinstance(dst, torch.Tensor) and dst.device.type == "cpu" and dst.is_contiguous():
-            self.tiles = _HostTileTarget(dst.detach().view(-1))
+            self.tiles = HostTileTarget(dst.detach().view(-1))
 
     def host(self) -> torch.Tensor:
         """The box's assembly buffer, allocated by the first caller."""
         with self._lock:
             if self._host is None:
                 if self.device is not None:
-                    self._into = self.device.read_buffer(box_nelems(self.box) * self.stored.itemsize)
-                    self._host = self._into[1].view(self.stored).view(self.box[1])
+                    view = self._lease.offer(box_nelems(self.box) * self.stored.itemsize)
+                    self._host = self._lease.claim(view).view(self.stored).view(self.box[1])
                 else:
                     self._host = torch.empty(self.box[1], dtype=self.stored)
             return self._host
@@ -436,7 +433,7 @@ class _BoxTarget:
         host = self.host()
         try:
             if self.device is not None:
-                self.device.write(0, dst.numel(), None, "", self._into[1])
+                self.device.write(0, dst.numel(), None, "", host.view(-1))
             elif isinstance(dst, torch.Tensor):
                 with torch.no_grad():
                     dst.copy_(host.reshape(dst.shape))
@@ -450,9 +447,8 @@ class _BoxTarget:
                 return host
             return dst
         finally:
-            if self._into is not None:
-                self.device.release(self._into)
-            self._host = self._into = None
+            self._lease.release()
+            self._host = None
 
 
 def _emit_shard_reads(
@@ -530,13 +526,10 @@ class _ShardConsumer(BufferConsumer):
         self.countdown = countdown
         self.crc_fold = crc_fold
         self.crc_key = crc_key
-        self._into: Any = None  # (buffer, pinned tensor) from the tile target
+        self._lease = transfer.PinnedLease()
 
     def read_buffer(self, nbytes: int) -> Any:
-        if self.target.tiles is None:
-            return None
-        self._into = self.target.tiles.read_buffer(nbytes)
-        return None if self._into is None else self._into[0]
+        return self._lease.offer(nbytes) if self.provides_read_buffer() else None
 
     def provides_read_buffer(self) -> bool:
         return self.target.tiles is not None and self.target.tiles.provides_buffer
@@ -545,18 +538,16 @@ class _ShardConsumer(BufferConsumer):
         if self.crc_fold is not None:  # one row tile of a budgeted fetch
             self.crc_fold.record(self.crc_key, buf)
             obs.counter(obs.TILES_READ).inc()
-        into, self._into = self._into, None
         try:
             if self.target.tiles is not None:
-                self._write_rows(buf, into[1] if into is not None and buf is into[0] else None)
+                self._write_rows(buf, self._lease.claim(buf))
                 return
             src = tensor_from_buffer(buf, self.dtype, self.read_box[1])
             host, lbox = self.target.host(), self.target.box
             for inter in self.overlaps:
                 host[relative_slices(inter, lbox)].copy_(src[relative_slices(inter, self.read_box)])
         finally:
-            if into is not None:
-                self.target.tiles.release(into)
+            self._lease.release()
 
     def _write_rows(self, buf: Any, pinned: Optional[torch.Tensor]) -> None:
         """Each overlap's rows are one byte range of ``buf`` and one flat
@@ -575,10 +566,7 @@ class _ShardConsumer(BufferConsumer):
             )
 
     async def consume_buffer(self, buf: Any, executor: Optional[Executor] = None) -> None:
-        if executor is not None:
-            await asyncio.get_running_loop().run_in_executor(executor, self._land, buf)
-        else:
-            self._land(buf)
+        await run_on(executor, self._land, buf)
         self.countdown.step()
 
     def get_consuming_cost_bytes(self) -> int:

@@ -33,7 +33,7 @@ from concurrent.futures import Executor
 from typing import Any, Awaitable, Callable, List, Optional, Tuple
 
 from .. import knobs, obs
-from ..io_types import ReadIO, StoragePlugin, resolve_read_destination
+from ..io_types import ReadIO, StoragePlugin, resolve_read_destination, run_on
 from ..resilience.failpoints import failpoint
 from ..utils.checksums import combine_piece_digests, digest
 
@@ -273,9 +273,7 @@ async def streamed_part_write(
         ub_total = total
 
     async def digest_of(piece: Any) -> Tuple[int, int, int]:
-        if executor is not None:
-            return await loop.run_in_executor(executor, _part_digest, piece)
-        return _part_digest(piece)
+        return await run_on(executor, _part_digest, piece)
 
     with obs.span(
         "stripe/stream_write", backend=backend, path=path, bytes=total, parts=len(spans),
