@@ -1607,3 +1607,62 @@ def test_a_failed_landing_gives_its_pinned_buffer_back(cuda, monkeypatch):
     assert torch.equal(dest["w"], src)
     assert tts.obs.counters().get(tts.obs.READ_PINNED_BYTES, 0) == pinned
     assert _pinned_gauge().value == in_use
+
+
+@pytest.mark.parametrize("budget", ["device_copies", "no_device_budget"])
+def test_async_take_into_memory_adopts_the_pinned_staging_buffers(cuda, monkeypatch, budget):
+    """An async take of CUDA leaves (a slab K1 packs, a leaf over the
+    stripe threshold, one below it) into ``memory://`` keeps each pinned
+    staging buffer as the stored object: every data object lies in pinned
+    memory, the adopted bytes are the staged bytes, nothing is striped
+    or streamed, and the snapshot restores bitwise and deep-verifies
+    although every leaf changed right after the return.  With no
+    device-copy budget the leaves reach pinned memory before the return
+    and are adopted whole all the same."""
+    import uuid
+    import warnings
+
+    import torchsnapshot_tpu_torch as tts
+    from torchsnapshot_tpu_torch import host_offload
+    from torchsnapshot_tpu_torch.ops import device_pack as dp
+    from torchsnapshot_tpu_torch.storage import memory
+
+    if budget == "no_device_budget":
+        monkeypatch.setattr(host_offload, "device_copy_budget_bytes", lambda device: 0)
+    ns = f"adopt-{uuid.uuid4().hex}"
+    url = f"memory://{ns}"
+    want = dict(_cuda_state(cuda, 2))
+    want["big"] = _rand((300, 257), torch.float32, cuda, 14)  # 308 KB: 5 parts
+    want["mid"] = _rand((100, 50), torch.bfloat16, cuda, 15)
+    live = {k: v.clone() for k, v in want.items()}
+    tts.obs.reset_metrics()
+    try:
+        with _stripe_knobs("raw"):
+            before = dp.LAUNCHES["slab_pack"]
+            pending = tts.Snapshot.async_take(url, {"app": tts.StateDict(live)})
+            for v in live.values():
+                v.add_(1)  # the next step, on the same stream
+            pending.wait()
+            assert dp.LAUNCHES["slab_pack"] > before
+            counts = tts.obs.counters()
+            staged = counts[tts.obs.BYTES_STAGED]
+            assert staged >= sum(v.numel() * v.element_size() for v in want.values())
+            assert counts[tts.obs.MEMORY_ADOPTED_BYTES] == staged == counts[tts.obs.BYTES_WRITTEN]
+            assert counts.get(tts.obs.STRIPE_WRITES, 0) == 0
+            assert host_offload.LAST_OFFLOAD_STATS["blocking_host_bytes"] == (
+                staged if budget == "no_device_budget" else 0
+            )
+            data = {p: b for p, b in memory._NAMESPACES[ns].items() if not p.startswith(".snapshot")}
+            assert sum(b.nbytes for b in data.values()) == staged
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")  # torch.from_numpy of a read-only array
+                for path, buf in data.items():
+                    assert not buf.flags.writeable, path
+                    assert torch.from_numpy(buf).is_pinned(), path
+            dest = tts.StateDict({k: torch.zeros_like(v) for k, v in want.items()})
+            tts.Snapshot(url).restore({"app": dest})
+        for k, v in want.items():
+            assert torch.equal(dest[k], v), k
+        assert tts.verify_snapshot(url, deep=True).ok
+    finally:
+        memory.reset_namespace(ns)

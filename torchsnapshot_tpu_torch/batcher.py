@@ -57,6 +57,8 @@ class BatchedBufferStager(BufferStager):
         self.on_device = all(
             isinstance(s, CudaTensorBufferStager) for s, _ in stagers
         )
+        # K1's slab reaches the host in a pinned buffer of its own
+        self.stages_private_buffer = self.on_device
         # the slab packed by ``offload()``, staged in place of the members
         self.packed: Optional[CudaTensorBufferStager] = None
         # (start, end) → (crc32, adler32, size) of each member packed on

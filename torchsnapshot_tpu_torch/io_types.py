@@ -18,6 +18,13 @@ Counterpart of ``torchsnapshot_tpu/io_types.py``:
 - A stager that can produce its bytes part by part (``part_plan``,
   ``stage_part``, ``release_source``) lets the scheduler overlap a large
   object's staging and writes within the object.
+- Buffer ownership: a stager whose ``stage_buffer`` returns a buffer of
+  its own making, which nothing else refers to or will write, sets
+  ``stages_private_buffer`` (a CUDA tensor's pinned copy, a slab K1
+  packed).  The scheduler carries that to the write as
+  ``WriteIO.owned``, and a plugin with ``adopts_private_buffers``
+  (``memory://``) keeps such a buffer as the stored object instead of
+  copying it.  A view of a caller's array is never private.
 - ``ReadIO.want_mmap`` asks a plugin with ``supports_mmap_read`` for a
   zero-copy read: a buffer over a private file-backed mapping, which
   ``is_mmap_backed`` recognises (through numpy views, memoryviews and
@@ -62,6 +69,9 @@ class BufferStager(abc.ABC):
     # byte-shuffle stride the codec applies before compressing this
     # stager's bytes (``codec.filter_for_dtype``; 0: no filter)
     codec_filter_stride: int = 0
+    # ``stage_buffer`` returns a buffer this stager made, that nothing
+    # else refers to or will write: its write is ``WriteIO.owned``
+    stages_private_buffer: bool = False
 
     @abc.abstractmethod
     async def stage_buffer(self, executor: Optional[Executor] = None) -> Any:
@@ -198,6 +208,11 @@ class WriteIO:
     # leaves it None has the scheduler compute them after the write
     want_digest: bool = False
     digests: Optional[Tuple[int, int]] = None
+    # ``buf`` is the take's private staged copy (its stager's
+    # ``stages_private_buffer``) and nothing reads or writes it once this
+    # write returns: a plugin with ``adopts_private_buffers`` may keep
+    # it as the stored object; any other plugin ignores the flag
+    owned: bool = False
 
 
 @dataclass
@@ -344,6 +359,10 @@ class StoragePlugin(abc.ABC):
     supports_fused_part_digest = False
     # whether ``read`` honours ``ReadIO.want_mmap``
     supports_mmap_read = False
+    # whether ``write`` keeps an ``owned`` buffer as the stored object
+    # (no copy; ``want_digest`` digests it where it lies): the scheduler
+    # writes such a buffer whole, never striped or part-streamed
+    adopts_private_buffers = False
     # stricter: every read this plugin serves stays off the heap (a local
     # file map that never declines); the read scheduler admits mapped
     # reads outside the budget, and never stripes them, on this flag only

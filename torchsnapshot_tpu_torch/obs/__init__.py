@@ -63,6 +63,7 @@ from .metrics import (  # noqa: F401
     CACHE_HITS,
     CACHE_MISSES,
     CACHE_SINGLEFLIGHT_WAITS,
+    MEMORY_ADOPTED_BYTES,
     MEMORY_POOL_HIT_BYTES,
     MEMORY_POOL_MISS_BYTES,
     MMAP_BYTES_MAPPED,

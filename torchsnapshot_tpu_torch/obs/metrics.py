@@ -134,6 +134,9 @@ MMAP_BYTES_MAPPED = "storage.mmap.bytes_mapped"
 # bytes allocated anew.
 MEMORY_POOL_HIT_BYTES = "storage.memory.pool_hit_bytes"
 MEMORY_POOL_MISS_BYTES = "storage.memory.pool_miss_bytes"
+# bytes of the take's private staged buffers the memory plugin kept as
+# stored objects with no copy (WriteIO.owned)
+MEMORY_ADOPTED_BYTES = "storage.memory.adopted_bytes"
 # Phase timing (cross-rank straggler attribution, obs/aggregate.py):
 # always-on histograms of where a take/restore spent its wall time on
 # THIS rank.  One observe per pipeline task / coordination wait — cheap

@@ -105,7 +105,10 @@ class CudaTensorBufferStager(BufferStager):
     was planned, so the bytes staged are the tensor's value at ``take``
     — work the caller queued before it, none queued after it returns.
     After ``offload()`` it stages from the device-side copy instead,
-    waiting only on the event recorded after that copy."""
+    waiting only on the event recorded after that copy.  The pinned
+    buffer is the stager's own (``stages_private_buffer``)."""
+
+    stages_private_buffer = True
 
     def __init__(self, tensor: torch.Tensor) -> None:
         self.tensor = tensor

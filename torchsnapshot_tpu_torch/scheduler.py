@@ -54,6 +54,13 @@ Counterpart of ``torchsnapshot_tpu/scheduler.py``, same discipline:
   and each part is staged, digested and written while later parts
   stage.  Reads of at least the threshold fan out as parallel ranged
   part reads (the size of a whole-object read from a cheap ``stat``).
+- Buffer adoption: a staged buffer that is its stager's private copy
+  (``stages_private_buffer``: a CUDA tensor's pinned D2H copy, a slab
+  K1 packed) is written with ``WriteIO.owned``.  A plugin that
+  ``adopts_private_buffers`` (``memory://``) keeps it as the stored
+  object with no copy, so such an object is written whole, never
+  striped or part-streamed, and the plugin digests it by stripe parts
+  itself.
 - Codec (``codec.py``), resolved once per run: a request with a
   ``codec_sink`` is encoded after its raw digests, part by part on the
   staging executor (frames of the stripe part size), and its frame
@@ -196,6 +203,15 @@ def apply_checksum_sinks(
         wr.digest_sink([*digest(view), view.nbytes])
 
 
+def _stripes(p: "_WritePipeline", storage: StoragePlugin) -> bool:
+    """Whether the staged buffer of ``p`` is written as striped parts: an
+    object at the stripe threshold, unless the plugin keeps the take's
+    private buffer as the stored object (it digests it by parts itself)."""
+    if p.owned and storage.adopts_private_buffers:
+        return False
+    return stripe.write_eligible(p.buf_size, storage)
+
+
 def _defers_digest(
     wr: WriteReq, nbytes: int, storage: StoragePlugin, precomputed: Any, will_encode: bool
 ) -> bool:
@@ -311,7 +327,7 @@ class _Budget:
 class _WritePipeline:
     __slots__ = (
         "write_req", "staging_cost", "admission_cost", "stream_spans", "buf", "buf_size",
-        "defer_digest", "deduped", "cas_written", "cas_shared",
+        "defer_digest", "deduped", "cas_written", "cas_shared", "owned",
     )
 
     def __init__(self, write_req: WriteReq) -> None:
@@ -326,6 +342,8 @@ class _WritePipeline:
         self.buf_size = 0
         self.defer_digest = False
         self.deduped = False
+        # the staged buffer is the stager's private copy (WriteIO.owned)
+        self.owned = False
         # a chunked object's bytes written to the pool and found there
         self.cas_written = 0
         self.cas_shared = 0
@@ -336,9 +354,12 @@ def _plan_streams(pipelines: List[_WritePipeline], storage: StoragePlugin) -> No
     plugin with striped handles, an object over the stripe threshold,
     only whole-object checksum sinks (slab members want the assembled
     buffer) and no dedup decision pending (link or write needs the
-    object's digest before any byte moves).  A chunked object streams in
-    chunk-size parts at the same threshold, with no plugin capability
-    needed (each chunk is a whole-object write)."""
+    object's digest before any byte moves).  A stager with a private
+    buffer never streams to a plugin that adopts it: the plugin keeps
+    the whole object either way, so parts would only add their copies.
+    A chunked object streams in chunk-size parts at the same threshold,
+    with no plugin capability needed (each chunk is a whole-object
+    write)."""
     part_size = knobs.get_stripe_part_size_bytes()
     stream_floor = knobs.get_stripe_min_object_size_bytes()
     for p in pipelines:
@@ -356,8 +377,10 @@ def _plan_streams(pipelines: List[_WritePipeline], storage: StoragePlugin) -> No
                         p.staging_cost, _STREAM_WINDOW_PARTS * wr.cas.chunk_size
                     )
             continue
+        adopted = storage.adopts_private_buffers and wr.buffer_stager.stages_private_buffer
         if (
             wr.dedup is None
+            and not adopted
             and stripe.write_eligible(p.staging_cost, storage)
             and all(rng is None for _, rng in wr.checksum_sinks or ())
         ):
@@ -425,6 +448,8 @@ async def _execute_write_pipelines(
             failpoint("scheduler.stage", path=wr.path)
             p.buf = await wr.buffer_stager.stage_buffer(executor)
             p.buf_size = _buf_nbytes(p.buf)
+            # an encode below replaces the buffer by frames no one else holds
+            p.owned = wr.buffer_stager.stages_private_buffer
             # chunk keys are raw digests: a chunked object is never encoded
             will_encode = codec_spec is not None and wr.codec_sink is not None and wr.cas is None
             if (wr.checksum_sinks or wr.digest_sink) and checksums:
@@ -452,11 +477,11 @@ async def _execute_write_pipelines(
 
     async def write_buf(p: _WritePipeline) -> None:
         wr = p.write_req
-        if stripe.write_eligible(p.buf_size, storage):
+        if _stripes(p, storage):
             d = await stripe.striped_write(storage, wr.path, p.buf, want_digests=p.defer_digest)
             fused = None if d is None else (d[0], d[1])
         else:
-            wio = WriteIO(path=wr.path, buf=p.buf, want_digest=p.defer_digest)
+            wio = WriteIO(path=wr.path, buf=p.buf, want_digest=p.defer_digest, owned=p.owned)
             await storage.write(wio)
             fused = wio.digests
         if p.defer_digest:

@@ -13,6 +13,20 @@ publishes it on ``complete``, which fails when the parts left a hole.
 Every stored object the plugin writes is a ``uint8`` array, published
 read-only.
 
+A write marked ``owned`` (``WriteIO.owned``: the take's private staged
+copy, which nothing else refers to or will write; a CUDA tensor's
+pinned D2H copy or a slab K1 packed) is adopted: the staged buffer
+itself becomes the stored object, with no draw and no copy, and with
+``want_digest`` its (crc32, adler32) come from a digest-only pass over
+the bytes where they lie, by stripe parts on the default pool for an
+object at the stripe threshold.  The scheduler writes such an object
+whole, never through the striped handle or part by part.  An adopted
+object holds its pinned block of torch's caching host allocator (a
+power of two at or above its size) until it leaves the store and its
+last reader lets go; the block then goes back to torch's cache, never
+to this module's free list.  ``storage.memory.adopted_bytes`` counts
+the bytes adopted.
+
 Destination buffers are recycled.  An object that leaves the store
 (``delete``, ``reset_namespace``, an overwrite, an aborted or failed
 striped write) goes to a free list keyed by its exact size when the
@@ -42,7 +56,8 @@ from ..io_types import ReadIO, StoragePlugin, StripedWriteHandle, WriteIO
 from ..resilience import classify_generic, lazy_shared_progress, retry_call
 from ..resilience.failpoints import active as _failpoints_active
 from ..resilience.failpoints import failpoint
-from ..utils.checksums import copy_digest
+from ..utils.checksums import combine_piece_digests, copy_digest, digest
+from . import stripe
 
 _NAMESPACES: Dict[str, Dict[str, object]] = {}
 _LOCK = threading.Lock()
@@ -142,6 +157,8 @@ async def _injected(plugin: "MemoryStoragePlugin", site: str, op_name: str, **at
 
 @obs.instrument_storage("memory")
 class MemoryStoragePlugin(StoragePlugin):
+    adopts_private_buffers = True
+
     def __init__(self, namespace: str) -> None:
         self.namespace = namespace
         with _LOCK:
@@ -160,6 +177,9 @@ class MemoryStoragePlugin(StoragePlugin):
     async def write(self, write_io: WriteIO) -> None:
         await _injected(self, "storage.memory.write", f"write {write_io.path}", path=write_io.path)
         src = memoryview(write_io.buf).cast("B")
+        if write_io.owned:
+            await self._adopt(write_io, src)
+            return
         with obs.clocked(obs.WRITE_ALLOC_S, "write/alloc"):
             dst = _draw(src.nbytes)
         with obs.clocked(obs.WRITE_COPY_S, "write/copy"):
@@ -168,6 +188,29 @@ class MemoryStoragePlugin(StoragePlugin):
             else:
                 np.copyto(dst, np.frombuffer(src, dtype=np.uint8))
         self._publish(write_io.path, dst)
+
+    async def _adopt(self, write_io: WriteIO, src: memoryview) -> None:
+        """Publish the private buffer ``src`` itself; with
+        ``want_digest``, digest it in place, by stripe parts concurrently
+        on the default pool for an object at the stripe threshold."""
+        with obs.clocked(obs.WRITE_ALLOC_S, "write/alloc"):
+            buf = np.frombuffer(src, dtype=np.uint8)
+        if write_io.want_digest:
+            n = buf.nbytes
+            spans = stripe.plan_parts(n) if stripe.write_eligible(n, self) else [(0, n)]
+
+            def part_digest(lo: int, hi: int) -> Tuple[int, int, int]:
+                with obs.clocked(obs.WRITE_COPY_S, "write/copy"):
+                    return (*digest(buf[lo:hi]), hi - lo)
+
+            loop = asyncio.get_running_loop()
+            parts = await asyncio.gather(
+                *(loop.run_in_executor(None, part_digest, lo, hi) for lo, hi in spans)
+            )
+            crc, adler, _ = combine_piece_digests(parts)
+            write_io.digests = (crc, adler)
+        obs.counter(obs.MEMORY_ADOPTED_BYTES).inc(buf.nbytes)
+        self._publish(write_io.path, buf)
 
     async def read(self, read_io: ReadIO) -> None:
         await _injected(self, "storage.memory.read", f"read {read_io.path}", path=read_io.path)
